@@ -1,0 +1,567 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Drives the port's main path — ``repro_torch.compile_model(params,
+PAPER_MODELS[m], backend="reram-fused", schedule="pointer")`` then
+``batched_forward`` on 8 clouds of 1024 points and ``forward`` on one — at
+the full width of model1 and of model0, with random weights from a seed.
+Phases, each printing one JSON line:
+
+1. device: the card's name and power limit; TF32 off for float32 matmuls
+   and convolutions;
+2. build: every CUDA kernel of the path built from ``src/repro_torch/csrc``
+   (one ``nvcc`` per source, all started together);
+3. kernel vs plain: each kernel against its plain torch version on the
+   same inputs at model1's shapes — bit for bit;
+4. end to end: model1 and model0, 'reram-fused' and 'float', both with
+   the 'pointer' schedule; launch counters reset just before each run and
+   read just after; the card's logits and geometry held against the port's
+   own CPU run on the first 2 clouds;
+5. times: each kernel, its plain version and a library yardstick, timed
+   with CUDA events after warm-up at the main path's shapes, beside the
+   least time the card could take (bytes over 3.35 TB/s or operations over
+   the peak rate, whichever is larger); ``batched_forward`` and
+   ``forward`` end to end, on the host clock;
+6. profile: one model1 ``batched_forward`` split on the host clock into
+   geometry, host planning and the rest, and its device time by kernel
+   from ``torch.profiler``.
+
+Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
+raises, so the exit code is not 0 and the last line is never printed. It
+needs a CUDA card and the repository's ``src/`` beside it.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+#: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+FP32_OPS_PER_S = 67e12
+
+BATCH = 8
+SEED = 0
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of ``fn()`` over ``iters`` calls, CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops: float, peak_ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / peak_ops
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def make_clouds(n_points: int, batch: int, seed: int) -> np.ndarray:
+    """Deformed-ellipsoid surface clouds (the JAX package's
+    ``PointNetWorkload.random`` recipe), float32."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(batch):
+        c = rng.normal(size=(n_points, 3))
+        c /= np.maximum(np.linalg.norm(c, axis=1, keepdims=True), 1e-9)
+        c *= rng.uniform(np.array([[0.4, 0.3, 0.2]]),
+                         np.array([[1.0, 0.8, 0.6]]))
+        c += 0.1 * np.sin(5.0 * c[:, [1, 2, 0]])
+        out.append(c)
+    return np.stack(out).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device(smi: str) -> dict:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info = {"phase": "device", "nvidia_smi": smi,
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    emit(info)
+    return info
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import KERNEL_SOURCES, _build
+    t0 = time.perf_counter()
+    built = _build.build(KERNEL_SOURCES)
+    seconds = time.perf_counter() - t0
+    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name in KERNEL_SOURCES}
+    emit({"phase": "build", "seconds": seconds, "built": built,
+          "ptxas": ptxas})
+
+
+def _program_inputs(prog, m: int, seed: int):
+    """Random float rows at an MLP's input width, quantized and padded as
+    the path does it."""
+    from repro_torch.kernels import fused_mlp
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((BATCH, m, prog.widths[0]), generator=g).cuda()
+    return fused_mlp.prepare_input(x, prog)
+
+
+def _ragged_program():
+    from repro_torch.kernels import build_program
+    rng = np.random.default_rng(SEED + 1)
+    layers = [{"w": rng.normal(size=(k, n)).astype(np.float32),
+               "b": rng.normal(size=(n,)).astype(np.float32)}
+              for k, n in ((130, 200), (200, 70))]
+    return build_program(layers).cuda()
+
+
+def _gather_inputs(model, clouds: torch.Tensor):
+    """The plan-ordered gather indices of the main path (real geometry and
+    real host plans), with features of each layer's width."""
+    from repro_torch.models import pointnet2 as pn
+    cfg = model.config
+    pts, ctr, nbr = pn.geometry_pass(cfg, clouds)
+    dplan = model._device_plan_for(pts, ctr, nbr)
+    out = []
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    for k, spec in enumerate(cfg.layers, start=1):
+        order = dplan.order_of(k).long()
+        nbr_o = torch.take_along_dim(nbr[k], order[:, :, None], dim=1)
+        ctr_o = torch.take_along_dim(ctr[k], order, dim=1)
+        n_in = clouds.shape[1] if k == 1 else cfg.layers[k - 2].n_centers
+        feats = torch.randn((clouds.shape[0], n_in, spec.in_features),
+                            generator=g).cuda()
+        out.append((feats, nbr_o.to(torch.int32).contiguous(),
+                    ctr_o.to(torch.int32).contiguous()))
+    return out
+
+
+def phase_kernel_vs_plain(model1, clouds) -> dict:
+    """Each kernel against its plain version at model1's shapes."""
+    from repro_torch.kernels import aggregate, fused_mlp
+    progs = model1.backend.program
+    mlp_cases = {
+        "sa1": (progs["sa"][0], 512 * 16),
+        "sa2": (progs["sa"][1], 128 * 16),
+        "head": (progs["head"], 1),
+        "ragged": (_ragged_program(), 257),
+    }
+    k1 = {}
+    for i, (name, (prog, m)) in enumerate(mlp_cases.items()):
+        x_p, sx = _program_inputs(prog, m, SEED + 10 + i)
+        relu = name != "head"
+        got = fused_mlp.fused_mlp_cuda(x_p, sx, prog, m_real=m,
+                                       final_relu=relu)
+        want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=m,
+                                         final_relu=relu)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(torch.isfinite(got).all().item(), f"K1 {name} finite")
+        check(torch.equal(got, want), f"K1 {name} bitwise (max err {err})")
+        k1[name] = {"shape": [BATCH, m, list(prog.widths)],
+                    "max_abs_err": err, "x_p": x_p, "sx": sx, "prog": prog,
+                    "m": m, "relu": relu}
+    gathers = _gather_inputs(model1, clouds)
+    k4, k5 = {}, {}
+    for layer, (feats, nbr_o, ctr_o) in enumerate(gathers, start=1):
+        got = aggregate.aggregate_diff_cuda(feats, nbr_o, ctr_o)
+        want = aggregate.aggregate_diff_batched_plain(feats, nbr_o, ctr_o)
+        one = aggregate.aggregate_diff_cuda(feats[:1], nbr_o[:1], ctr_o[:1],
+                                            counter="aggregate_diff")
+        want_one = aggregate.aggregate_diff_plain(feats[0], nbr_o[0],
+                                                  ctr_o[0])
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K4 layer {layer} bitwise")
+        check(torch.equal(one[0], want_one), f"K5 layer {layer} bitwise")
+        k4[layer] = {"inputs": (feats, nbr_o, ctr_o), "max_abs_err":
+                     float((got - want).abs().max())}
+        k5[layer] = {"inputs": (feats[:1].contiguous(), nbr_o[:1].contiguous(),
+                                ctr_o[:1].contiguous()),
+                     "max_abs_err": float((one[0] - want_one).abs().max())}
+    emit({"phase": "kernel_vs_plain", "tolerance": "bitwise",
+          "K1": {n: {"shape": v["shape"], "max_abs_err": v["max_abs_err"]}
+                 for n, v in k1.items()},
+          "K4": {l: {"shape": list(v["inputs"][0].shape)
+                     + list(v["inputs"][1].shape[1:]),
+                     "max_abs_err": v["max_abs_err"]} for l, v in k4.items()},
+          "K5": {l: {"max_abs_err": v["max_abs_err"]}
+                 for l, v in k5.items()}})
+    return {"K1": k1, "K4": k4, "K5": k5}
+
+
+def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
+    """One ``batched_forward`` and one ``forward``, launch counters reset
+    just before and read just after."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    reset_launch_counts()
+    logits = model.batched_forward(clouds)
+    single = model.forward(clouds[0])
+    torch.cuda.synchronize()
+    return launch_counts(), logits, single
+
+
+def phase_end_to_end(params, cfgs, clouds_np) -> dict:
+    import repro_torch
+    from repro_torch.models import pointnet2 as pn
+    clouds = torch.from_numpy(clouds_np).cuda()
+    results, counts_main = {}, None
+    for name, cfg in cfgs.items():
+        L = cfg.n_layers
+        ref_geom = pn.geometry_pass(cfg, torch.from_numpy(clouds_np[:2]))
+        geom = pn.geometry_pass(cfg, clouds[:2])
+        for k in range(1, L + 1):
+            for part in (1, 2):
+                check(torch.equal(geom[part][k].cpu(), ref_geom[part][k]),
+                      f"{name} geometry layer {k} bitwise card vs CPU")
+        for backend in ("reram-fused", "float"):
+            model = repro_torch.compile_model(params[name], cfg,
+                                              backend=backend,
+                                              schedule="pointer")
+            counts, logits, single = run_main_path(model, clouds)
+            fused = backend == "reram-fused"
+            want = {"aggregate_diff_batched": L, "aggregate_diff": L,
+                    "fused_mlp": 2 * (L + 1) if fused else 0}
+            for key, n in want.items():
+                check(counts[key] == n,
+                      f"{name}/{backend}: {key} launched {counts[key]} "
+                      f"times, expected {n}")
+            if fused and name == "model1":
+                counts_main = counts
+            cpu = repro_torch.compile_model(params[name], cfg,
+                                            backend=backend,
+                                            schedule="pointer", device="cpu")
+            ref = cpu.batched_forward(clouds_np[:2])
+            got = logits[:2].cpu()
+            # card vs CPU: lift_features' sin/cos may differ by an ulp,
+            # which can move one requantized value by one step ('reram-
+            # fused'); the float matmuls sum in another order ('float')
+            rel = 1e-2 if fused else 1e-3
+            tol = rel * float(ref.abs().max())
+            err = float((got - ref).abs().max())
+            check(bool(torch.isfinite(logits).all()), f"{name} finite")
+            check(tuple(logits.shape) == (BATCH, 40), f"{name} shape")
+            check(err <= tol, f"{name}/{backend} card vs CPU err {err} > "
+                              f"{tol}")
+            check(torch.equal(got.argmax(1), ref.argmax(1)),
+                  f"{name}/{backend} argmax card vs CPU")
+            single_err = float((single.cpu() - logits[0].cpu()).abs().max())
+            if fused:
+                check(single_err == 0.0,
+                      f"{name}: forward != batched_forward row 0")
+            results[f"{name}/{backend}"] = {
+                "launches": counts, "cpu_max_abs_err": err,
+                "tolerance": tol, "forward_vs_batched_err": single_err,
+                "argmax": logits.argmax(1).tolist()}
+    emit({"phase": "end_to_end", "batch": BATCH, "results": results})
+    return counts_main
+
+
+def _k1_library_ms(prog, m: int) -> float:
+    """torch._int_mm over the MLP's integer products (signed int8 weights,
+    rows padded up to 32 for its minimum): the library yardstick for K1's
+    integer product alone, no quantize/dequant."""
+    rows = max(32, -(-BATCH * m // 32) * 32)
+    ws = [w.to(torch.int8) for w in prog.int_weights()]
+    ws = [torch.nn.functional.pad(w, (0, -w.shape[1] % 8, 0, -w.shape[0] % 8))
+          .contiguous() for w in ws]
+    xs = [torch.randint(-127, 128, (rows, w.shape[0]), dtype=torch.int8,
+                        device="cuda") for w in ws]
+
+    def run():
+        for x, w in zip(xs, ws):
+            torch._int_mm(x, w)
+    return cuda_ms(run)
+
+
+def _k1_bound(prog, m: int):
+    """Bytes and int8 operations of one batched MLP call at its real
+    widths: the int8 input rows, one int8 weight per real weight (the four
+    2-bit planes hold 8 bits), the real-width bias and column mask, the
+    weight and input scales, and the float32 output. Padding is no part of
+    the function, so none of it is counted."""
+    w = prog.widths
+    n_weights = sum(a * b for a, b in zip(w[:-1], w[1:]))
+    nbytes = (BATCH * m * w[0]                     # int8 input rows
+              + n_weights                          # int8 weights
+              + 4 * (2 * sum(w[1:])                # bias, column mask
+                     + prog.n_layers + BATCH)      # w_scale, input scales
+              + 4 * BATCH * m * w[-1])             # float32 output
+    return nbytes, 2 * BATCH * m * n_weights
+
+
+def _gather_bound(feats, nbr, ctr):
+    """Bytes and float32 subtractions of one gather: the feature rows the
+    indices refer to (each read once), the indices, and the output."""
+    b, m, k = nbr.shape
+    c = feats.shape[2]
+    rows = sum(int(torch.unique(torch.cat((nbr[i].reshape(-1),
+                                           ctr[i]))).numel())
+               for i in range(b))
+    nbytes = 4 * (rows * c + nbr.numel() + ctr.numel() + b * m * k * c)
+    return nbytes, b * m * k * c
+
+
+def _gather_library(feats, nbr, ctr):
+    """index_select twice + one subtraction over flattened rows."""
+    b, n, c = feats.shape
+    flat = feats.reshape(b * n, c)
+    base = (torch.arange(b, device=feats.device) * n)
+    nbr_g = (nbr.long() + base[:, None, None]).reshape(-1)
+    ctr_g = (ctr.long() + base[:, None]).reshape(-1)
+    shape = tuple(nbr.shape) + (c,)
+
+    def run():
+        return (torch.index_select(flat, 0, nbr_g).view(shape)
+                - torch.index_select(flat, 0, ctr_g).view(*shape[:2], 1, c))
+    return run
+
+
+def phase_times(cases, counts_main, models, clouds_np, smi) -> list:
+    from repro_torch.kernels import aggregate, fused_mlp
+    kernels = []
+    # K1: the three MLPs of one model1 batched_forward
+    k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+          "ops": 0}
+    per_mlp = {}
+    for name in ("sa1", "sa2", "head"):
+        c = cases["K1"][name]
+        x_p, sx, prog, m, relu = c["x_p"], c["sx"], c["prog"], c["m"], c["relu"]
+        row = {
+            "ms": cuda_ms(lambda: fused_mlp.fused_mlp_cuda(
+                x_p, sx, prog, m_real=m, final_relu=relu)),
+            "plain_ms": cuda_ms(lambda: fused_mlp.fused_mlp_plain(
+                x_p, sx, prog, m_real=m, final_relu=relu), iters=5),
+            "library_ms": _k1_library_ms(prog, m),
+        }
+        nbytes, ops = _k1_bound(prog, m)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, INT8_OPS_PER_S)
+        per_mlp[name] = row
+        for key in ("ms", "plain_ms", "library_ms"):
+            k1[key] += row[key]
+        k1["bytes"] += nbytes
+        k1["ops"] += ops
+    bms, bby = bound(k1["bytes"], k1["ops"], INT8_OPS_PER_S)
+    kernels.append({
+        "name": "K1 fused_mlp", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_mlp.cu",
+        "replaces": "src/repro/kernels/fused_mlp.py:391",
+        "launches": counts_main["fused_mlp"],
+        "layer_launches": counts_main["fused_mlp_layer"],
+        "max_abs_err": max(cases["K1"][n]["max_abs_err"]
+                           for n in cases["K1"]),
+        "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms,
+        "bound_by": bby, "library_ms": k1["library_ms"],
+        "library_call": "torch._int_mm per layer (integer product only)",
+        "work": "model1 SA-1 + SA-2 + head MLPs, batch 8",
+        "per_mlp": per_mlp})
+    # K4 / K5: the two plan-ordered gathers of one batched_forward / forward
+    for kname, key, wrapper, plain, count_key in (
+            ("K4 aggregate_diff_batched", "K4", "src/repro/kernels/"
+             "aggregate.py:100", aggregate.aggregate_diff_batched_plain,
+             "aggregate_diff_batched"),
+            ("K5 aggregate_diff", "K5", "src/repro/kernels/aggregate.py:51",
+             aggregate.aggregate_diff_batched_plain, "aggregate_diff")):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+               "ops": 0}
+        per_layer = {}
+        for layer, c in cases[key].items():
+            feats, nbr, ctr = c["inputs"]
+            row = {
+                "ms": cuda_ms(lambda: aggregate.aggregate_diff_cuda(
+                    feats, nbr, ctr, counter=count_key)),
+                "plain_ms": cuda_ms(lambda: plain(feats, nbr, ctr)),
+                "library_ms": cuda_ms(_gather_library(feats, nbr, ctr)),
+            }
+            nbytes, ops = _gather_bound(feats, nbr, ctr)
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops,
+                                                     FP32_OPS_PER_S)
+            per_layer[layer] = row
+            for k in ("ms", "plain_ms", "library_ms"):
+                tot[k] += row[k]
+            tot["bytes"] += nbytes
+            tot["ops"] += ops
+        bms, bby = bound(tot["bytes"], tot["ops"], FP32_OPS_PER_S)
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/aggregate.cu",
+            "replaces": wrapper, "launches": counts_main[count_key],
+            "max_abs_err": max(c["max_abs_err"] for c in cases[key].values()),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
+            "bound_by": bby, "library_ms": tot["library_ms"],
+            "library_call": "index_select x2 + sub (two-call gather "
+                            "expression; no one-call library op)",
+            "work": ("model1 SA-1 + SA-2 gathers, batch "
+                     + ("8" if key == "K4" else "1")),
+            "per_layer": per_layer})
+    # end to end
+    e2e = {}
+    clouds = torch.from_numpy(clouds_np).cuda()
+    for name, model in models.items():
+        model.batched_forward(clouds)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model.batched_forward(clouds)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+        single = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            model.forward(clouds[0])
+            torch.cuda.synchronize()
+            single.append(1e3 * (time.perf_counter() - t0))
+        e2e[name] = {"batched_forward_ms_median": statistics.median(walls),
+                     "batched_forward_ms": walls,
+                     "clouds_per_s": BATCH / (statistics.median(walls) / 1e3),
+                     "forward_ms_median": statistics.median(single)}
+    emit({"phase": "times", "nvidia_smi": smi, "batch": BATCH,
+          "kernels": {k["name"]: {x: k[x] for x in
+                                  ("ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")}
+                      for k in kernels},
+          "end_to_end": e2e})
+    return kernels
+
+
+def phase_profile(model, clouds_np, smi) -> None:
+    """Where one model1 ``batched_forward`` spends its time: a host-clock
+    split into geometry (FPS + kNN on the card), host planning (geometry
+    pulled with ``.cpu()``, NumPy Algorithm 1, plan lowered to the card)
+    and the rest (lift, gathers, MLPs, scatters, head); then
+    ``torch.profiler`` over one call for device time by kernel name and
+    the device's busy share of the unprofiled wall time, and over one
+    ``forward`` for the port's kernels on the single-cloud path."""
+    from repro_torch.models import pointnet2 as pn
+    clouds = torch.from_numpy(clouds_np).cuda()
+    cfg = model.config
+    model.batched_forward(clouds)
+    torch.cuda.synchronize()
+    split = {"geometry_ms": [], "host_plan_ms": [], "total_ms": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        geom = pn.geometry_pass(cfg, clouds)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model._device_plan_for(*geom)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        model.batched_forward(clouds)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        split["geometry_ms"].append(1e3 * (t1 - t0))
+        split["host_plan_ms"].append(1e3 * (t2 - t1))
+        split["total_ms"].append(1e3 * (t3 - t2))
+    med = {k: statistics.median(v) for k, v in split.items()}
+    med["rest_ms"] = med["total_ms"] - med["geometry_ms"] - med["host_plan_ms"]
+    rows = _device_rows(lambda: model.batched_forward(clouds))
+    single = _device_rows(lambda: model.forward(clouds[0]))
+    busy = sum(r["device_ms"] for r in rows)
+    emit({"phase": "profile", "nvidia_smi": smi, "model": cfg.name,
+          "batch": BATCH, "host_clock_split_ms": med,
+          "device_busy_ms": busy,
+          "device_busy_share": busy / med["total_ms"] if rows else None,
+          "device_kernels": len(rows),
+          "kernel_launches": sum(r["count"] for r in rows),
+          "port_kernels": _port_rows(rows),
+          "forward_port_kernels": _port_rows(single),
+          "top_kernels": rows[:12]})
+
+
+def _device_rows(fn) -> list:
+    """Device time by kernel name for one call of ``fn``, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0.0)
+        if e.device_type == torch.autograd.DeviceType.CUDA and t > 0:
+            rows.append({"kernel": e.key[:80], "count": e.count,
+                         "device_ms": t / 1e3})
+    return sorted(rows, key=lambda r: -r["device_ms"])
+
+
+def _port_rows(rows) -> list:
+    return [r for r in rows if "fused_mlp_layer" in r["kernel"]
+            or "aggregate_diff" in r["kernel"]]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.models.pointnet2 import init_params
+
+    smi = smi_line()
+    info = phase_device(smi)
+    phase_build()
+    cfgs = {m: repro_torch.PAPER_MODELS[m] for m in ("model1", "model0")}
+    params = {m: init_params(cfg, seed=SEED) for m, cfg in cfgs.items()}
+    clouds_np = make_clouds(1024, BATCH, SEED)
+    models = {m: repro_torch.compile_model(params[m], cfg,
+                                           backend="reram-fused",
+                                           schedule="pointer")
+              for m, cfg in cfgs.items()}
+    cases = phase_kernel_vs_plain(models["model1"],
+                                  torch.from_numpy(clouds_np).cuda())
+    counts_main = phase_end_to_end(params, cfgs, clouds_np)
+    kernels = phase_times(cases, counts_main, models, clouds_np, smi)
+    phase_profile(models["model1"], clouds_np, smi)
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} never launched on the path")
+    emit({"kernels": kernels})
+    print(smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],
+                                 "count": info["count"]}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

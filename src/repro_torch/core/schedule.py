@@ -1,0 +1,317 @@
+"""Scheduling Order Generation (paper Algorithm 1), host half.
+
+The port's copy of the NumPy planner in ``repro.core.schedule``: the
+``ExecutionPlan`` an Algorithm-1 walk produces, its three intra-layer
+orders ('index', 'greedy', 'morton'), inter-layer coordination, and the
+``MODE_PRESETS`` design points. Planning runs on the host: the forward
+pass pulls its geometry with ``.cpu()``, builds the plan here and lowers
+it with :meth:`DevicePlan.lower` into int32 torch tensors on the card.
+
+Contract: on the same coordinates every function returns the permutation
+the JAX package's planner returns, bit for bit (tested).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Literal, Sequence
+
+import numpy as np
+import torch
+
+from .workload import PointNetWorkload
+
+__all__ = [
+    "ExecutionPlan",
+    "DevicePlan",
+    "GREEDY_DENSE_LIMIT",
+    "greedy_nn_order",
+    "morton_order",
+    "coordinate_layers",
+    "build_plan",
+    "complete_order",
+    "inverse_permutation",
+    "MODE_PRESETS",
+]
+
+IntraMode = Literal["index", "greedy", "morton"]
+
+
+@dataclass(frozen=True)
+class ExecutionPlan:
+    """orders[k-1]: execution order (point indices) of layer k (k=1..L).
+    trace: the interleaved execution sequence [(layer, point_idx), ...] —
+    Eq. (1)/(2) of the paper. Each point appears exactly once."""
+
+    orders: list[np.ndarray]
+    trace: list[tuple[int, int]]
+    intra: str
+    coordinated: bool
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.orders)
+
+    def order_of(self, layer: int) -> np.ndarray:
+        """Execution order of layer ``layer`` (1-based, like the paper)."""
+        _check_layer(layer, self.n_layers)
+        return self.orders[layer - 1]
+
+
+def _check_layer(layer: int, n_layers: int) -> None:
+    if not 1 <= layer <= n_layers:
+        raise ValueError(
+            f"layer must be in 1..{n_layers} (1-based SA layer index); "
+            f"got {layer}")
+
+
+def inverse_permutation(order: np.ndarray) -> np.ndarray:
+    """Inverse of a permutation: ``inv[order] = arange(n)`` — the scatter
+    that puts plan-ordered results back into index order."""
+    inv = np.empty_like(order)
+    inv[order] = np.arange(order.shape[0], dtype=order.dtype)
+    return inv
+
+
+def complete_order(order: np.ndarray, n: int, layer: int = 0) -> np.ndarray:
+    """Complete a (possibly partial) layer order into a full permutation of
+    ``range(n)``: points outside every last-layer receptive field are
+    appended at the tail in ascending order. Duplicate or out-of-range
+    indices raise ``ValueError``."""
+    order = np.asarray(order)
+    if order.ndim != 1:
+        raise ValueError(f"layer-{layer} order must be 1-D; got shape "
+                         f"{order.shape}")
+    if order.shape[0] > n or (order.size
+                              and (order.min() < 0 or order.max() >= n)):
+        raise ValueError(
+            f"ExecutionPlan layer-{layer} order has {order.shape[0]} "
+            f"indices; expected at most {n} distinct values in [0, {n})")
+    if np.unique(order).shape[0] != order.shape[0]:
+        raise ValueError(
+            f"ExecutionPlan layer-{layer} order contains duplicate "
+            f"indices; each point must be scheduled exactly once")
+    if order.shape[0] == n:
+        return order
+    missing = np.setdiff1d(np.arange(n, dtype=order.dtype), order)
+    return np.concatenate([order, missing])
+
+
+class DevicePlan:
+    """An ``ExecutionPlan`` lowered to int32 torch tensors on a device.
+
+    orders[k-1]   : (n_k,) — or (B, n_k) when batched — int32 permutation
+                    executing layer k (completed to the layer size)
+    inverses[k-1] : matching inverse permutations (the scatter back to
+                    index order that keeps logits order-invariant)
+    """
+
+    def __init__(self, orders, inverses, layer_sizes, intra="custom",
+                 coordinated=False):
+        self.orders = tuple(orders)
+        self.inverses = tuple(inverses)
+        self.layer_sizes = tuple(int(s) for s in layer_sizes)
+        self.intra = intra
+        self.coordinated = coordinated
+
+    @classmethod
+    def lower(cls, plans, layer_sizes: Sequence[int], *,
+              device="cpu") -> "DevicePlan":
+        """Lower one ``ExecutionPlan`` (-> unbatched) or a sequence of
+        same-shape plans (-> batched, leading batch axis) into int32
+        tensors on ``device``. ``layer_sizes[k-1]`` is layer k's point
+        count — partial coordinated orders are completed to it."""
+        single = isinstance(plans, ExecutionPlan)
+        plan_list = [plans] if single else list(plans)
+        if not plan_list:
+            raise ValueError("DevicePlan.lower needs at least one plan")
+        layer_sizes = tuple(int(s) for s in layer_sizes)
+        if any(p.n_layers != len(layer_sizes) for p in plan_list):
+            raise ValueError(
+                f"plan layer count does not match layer_sizes "
+                f"{layer_sizes}")
+        orders, inverses = [], []
+        for k, n in enumerate(layer_sizes, start=1):
+            per = np.stack([complete_order(np.asarray(p.order_of(k)), n, k)
+                            for p in plan_list])
+            inv = np.stack([inverse_permutation(o) for o in per])
+            if single:
+                per, inv = per[0], inv[0]
+            orders.append(torch.as_tensor(per.astype(np.int32),
+                                          device=device))
+            inverses.append(torch.as_tensor(inv.astype(np.int32),
+                                            device=device))
+        p0 = plan_list[0]
+        return cls(orders, inverses, layer_sizes,
+                   intra=p0.intra, coordinated=p0.coordinated)
+
+    @classmethod
+    def stack(cls, plans: Sequence["DevicePlan"]) -> "DevicePlan":
+        """Stack single-cloud plans along a new leading batch axis. All
+        must share ``layer_sizes`` and be unbatched."""
+        plan_list = list(plans)
+        if not plan_list:
+            raise ValueError("DevicePlan.stack needs at least one plan")
+        p0 = plan_list[0]
+        for p in plan_list:
+            if p.batched:
+                raise ValueError("DevicePlan.stack takes single-cloud "
+                                 "plans; got a batched one")
+            if p.layer_sizes != p0.layer_sizes:
+                raise ValueError(
+                    f"cannot stack plans with layer sizes {p.layer_sizes} "
+                    f"and {p0.layer_sizes}")
+        orders = [torch.stack([p.orders[k] for p in plan_list])
+                  for k in range(p0.n_layers)]
+        inverses = [torch.stack([p.inverses[k] for p in plan_list])
+                    for k in range(p0.n_layers)]
+        return cls(orders, inverses, p0.layer_sizes,
+                   intra=p0.intra, coordinated=p0.coordinated)
+
+    def to(self, device) -> "DevicePlan":
+        return DevicePlan([o.to(device) for o in self.orders],
+                          [i.to(device) for i in self.inverses],
+                          self.layer_sizes, self.intra, self.coordinated)
+
+    @property
+    def n_layers(self) -> int:
+        return len(self.orders)
+
+    @property
+    def batched(self) -> bool:
+        return self.orders[0].ndim == 2
+
+    @property
+    def batch_size(self) -> int | None:
+        return int(self.orders[0].shape[0]) if self.batched else None
+
+    def order_of(self, layer: int) -> torch.Tensor:
+        _check_layer(layer, self.n_layers)
+        return self.orders[layer - 1]
+
+    def inverse_of(self, layer: int) -> torch.Tensor:
+        _check_layer(layer, self.n_layers)
+        return self.inverses[layer - 1]
+
+
+#: Above this many points ``greedy_nn_order`` recomputes distances per step
+#: instead of materializing the O(n^2) pairwise matrix (n=2048 -> 32 MB).
+GREEDY_DENSE_LIMIT = 2048
+
+
+def greedy_nn_order(points: np.ndarray, start: int = 0) -> np.ndarray:
+    """Paper Algorithm 1, lines 1-8: repeatedly append the unscheduled point
+    nearest to the last scheduled one. For n <= GREEDY_DENSE_LIMIT the
+    pairwise distance matrix is precomputed once (coordinate-wise, which
+    reproduces ``np.sum(..., axis=1)`` rounding exactly)."""
+    n = points.shape[0]
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    dense = n <= GREEDY_DENSE_LIMIT
+    if dense:
+        d2 = (points[:, 0, None] - points[None, :, 0]) ** 2
+        for c in range(1, points.shape[1]):
+            d2 += (points[:, c, None] - points[None, :, c]) ** 2
+    remaining = np.ones(n, dtype=bool)
+    order = np.empty(n, dtype=np.int64)
+    cur = int(start)
+    for i in range(n):
+        order[i] = cur
+        remaining[cur] = False
+        if i == n - 1:
+            break
+        if dense:
+            d = np.where(remaining, d2[cur], np.inf)
+        else:
+            d = np.sum((points - points[cur]) ** 2, axis=1)
+            d[~remaining] = np.inf
+        cur = int(np.argmin(d))
+    return order
+
+
+def _interleave_bits(v: np.ndarray, nbits: int) -> np.ndarray:
+    out = np.zeros(v.shape[0], dtype=np.uint64)
+    for b in range(nbits):
+        out |= ((v[:, 0].astype(np.uint64) >> b) & 1) << np.uint64(3 * b + 2)
+        out |= ((v[:, 1].astype(np.uint64) >> b) & 1) << np.uint64(3 * b + 1)
+        out |= ((v[:, 2].astype(np.uint64) >> b) & 1) << np.uint64(3 * b)
+    return out
+
+
+def morton_order(points: np.ndarray, nbits: int = 10) -> np.ndarray:
+    """Beyond-paper: order points along a Morton (Z-order) curve.
+    Degenerate axes (``hi == lo``) are clamped to bucket 0."""
+    lo = points.min(axis=0, keepdims=True)
+    hi = points.max(axis=0, keepdims=True)
+    extent = hi - lo
+    safe = np.where(extent > 0, extent, np.ones_like(extent))
+    q = ((points - lo) / safe * (2**nbits - 1)).astype(np.uint64)
+    return np.argsort(_interleave_bits(q, nbits), kind="stable")
+
+
+def coordinate_layers(workload: PointNetWorkload, last_order: np.ndarray,
+                      *, intra: str = "custom") -> ExecutionPlan:
+    """Paper Algorithm 1, lines 9-13: walk the last layer in
+    ``last_order``; recursively schedule each point's receptive-field
+    members in lower layers immediately before it, skipping members
+    already executed."""
+    L = workload.n_layers
+    done = [np.zeros(workload.points[k].shape[0], dtype=bool)
+            for k in range(L + 1)]
+    orders: list[list[int]] = [[] for _ in range(L + 1)]
+    trace: list[tuple[int, int]] = []
+
+    def execute(layer: int, i: int) -> None:
+        if done[layer][i]:
+            return
+        if layer > 1:
+            for m in workload.neighbors[layer][i]:
+                execute(layer - 1, int(m))
+        done[layer][i] = True
+        orders[layer].append(i)
+        trace.append((layer, i))
+
+    for j in last_order:
+        execute(L, int(j))
+    return ExecutionPlan(
+        orders=[np.asarray(orders[k], dtype=np.int64) for k in range(1, L + 1)],
+        trace=trace, intra=intra, coordinated=True)
+
+
+def _layer_by_layer(workload: PointNetWorkload, last_order: np.ndarray,
+                    *, intra: str = "custom") -> ExecutionPlan:
+    """No coordination: each SA layer completes before the next begins.
+    Lower layers run in index order; the last layer runs in
+    ``last_order``."""
+    L = workload.n_layers
+    orders = [np.arange(workload.points[k].shape[0], dtype=np.int64)
+              for k in range(1, L + 1)]
+    orders[L - 1] = np.asarray(last_order, dtype=np.int64)
+    trace = [(k, int(i)) for k in range(1, L + 1) for i in orders[k - 1]]
+    return ExecutionPlan(orders=orders, trace=trace, intra=intra,
+                         coordinated=False)
+
+
+def build_plan(workload: PointNetWorkload, *, intra: IntraMode = "index",
+               coordinated: bool = False, start: int = 0) -> ExecutionPlan:
+    last_pts = workload.points[workload.n_layers]
+    if intra == "index":
+        last_order = np.arange(last_pts.shape[0], dtype=np.int64)
+    elif intra == "greedy":
+        last_order = greedy_nn_order(last_pts, start=start)
+    elif intra == "morton":
+        last_order = morton_order(last_pts)
+    else:
+        raise ValueError(f"unknown intra mode {intra!r}")
+    return (coordinate_layers(workload, last_order, intra=intra) if coordinated
+            else _layer_by_layer(workload, last_order, intra=intra))
+
+
+#: Paper design points: ``(intra, coordinated)``.
+MODE_PRESETS: dict[str, dict] = {
+    "baseline":   dict(intra="index", coordinated=False),
+    "pointer-1":  dict(intra="index", coordinated=False),
+    "pointer-12": dict(intra="index", coordinated=True),
+    "pointer":    dict(intra="greedy", coordinated=True),
+    # beyond-paper
+    "pointer-morton": dict(intra="morton", coordinated=True),
+}

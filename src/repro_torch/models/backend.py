@@ -1,0 +1,443 @@
+"""Unified backend/compile API: ``compile_model`` + the backend registry.
+
+The counterpart of the JAX package's ``repro.models.backend``, in torch.
+Lifecycle — the same three phases as the accelerator:
+
+  program : ``compile_model(params, config, backend=...)`` resolves the
+            backend by name and lets it do its one-time work (the
+            'reram-fused' backend quantizes + plane-encodes every MLP into
+            a :class:`~repro_torch.kernels.CrossbarProgram` here, exactly
+            once), then moves the model to its device.
+  plan    : ``schedule=`` pins the execution order (paper Algorithm 1):
+            ``"baseline"`` is plain layer-by-layer index order; any other
+            preset / ``{"intra": ..., "coordinated": ...}`` spec routes
+            execution through a per-cloud plan built on the host from the
+            forward's own geometry; a prebuilt ``ExecutionPlan`` is lowered
+            here, once, into a :class:`DevicePlan` (also accepted
+            directly, possibly batched).
+  execute : ``CompiledModel.forward``/``batched_forward``. Under a plan,
+            each SA layer runs its centers in plan order through the gather
+            kernels (``aggregate_diff`` for one cloud, one
+            ``aggregate_diff_batched`` launch per layer for a batch), the
+            MLP runs through the fused kernel, and the per-center max is
+            scattered back to index order — so logits are bitwise invariant
+            to the order.
+
+Devices: a compiled model runs on ``cuda`` unless ``compile_model`` is given
+``device="cpu"``, and raises when asked for a card that is not there. On
+the card every kernel wrapper launches its CUDA kernel; on the CPU it runs
+its plain torch version. Nothing falls back from one to the other.
+
+Planning runs on the host in this port: the geometry is pulled with
+``.cpu()``, the NumPy planner builds the plan and ``DevicePlan.lower``
+moves it to the device (the JAX package's ``device_planning=False`` path).
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.core.schedule import (DevicePlan, ExecutionPlan,
+                                       MODE_PRESETS, build_plan)
+from repro_torch.core.workload import PointNetConfig, PointNetWorkload
+from repro_torch.kernels import (aggregate_diff, aggregate_diff_batched,
+                                 reram_mlp_fused, reram_mlp_fused_batched)
+from repro_torch.models import pointnet2 as _pn
+
+__all__ = [
+    "Backend",
+    "CompiledModel",
+    "FloatBackend",
+    "ReramFusedBackend",
+    "available_backends",
+    "compile_model",
+    "register_backend",
+    "resolve_device",
+]
+
+Params = Any
+
+# ---------------------------------------------------------------------------
+# registry
+# ---------------------------------------------------------------------------
+
+_REGISTRY: dict[str, type["Backend"]] = {}
+
+
+def register_backend(name: str) -> Callable[[type], type]:
+    """Class decorator: make ``compile_model(..., backend=name)`` resolve to
+    the decorated :class:`Backend` subclass (latest registration wins)."""
+    def deco(cls: type) -> type:
+        if getattr(cls, "name", "?") == "?":
+            cls.name = name
+        _REGISTRY[name] = cls
+        return cls
+    return deco
+
+
+def available_backends() -> list[str]:
+    """Registered backend names, sorted."""
+    return sorted(_REGISTRY)
+
+
+# ---------------------------------------------------------------------------
+# backends: how one MLP is applied
+# ---------------------------------------------------------------------------
+
+class Backend(nn.Module):
+    """One way of running the model's MLPs. ``key`` addresses an MLP:
+    ``("sa", i)`` for SA layer i's MLP, ``"head"`` for the classification
+    head. ``apply_mlp`` accepts any leading dims on ``x``;
+    ``apply_mlp_batched`` treats axis 0 as a batch of independent clouds."""
+
+    name = "?"
+
+    def __init__(self, params: Params, config: PointNetConfig):
+        super().__init__()
+        self.config = config
+
+    def apply_mlp(self, key, x, *, final_relu: bool = True):
+        raise NotImplementedError
+
+    def apply_mlp_batched(self, key, x, *, final_relu: bool = True):
+        return self.apply_mlp(key, x, final_relu=final_relu)
+
+
+class _FloatMLP(nn.Module):
+    """One float MLP's weights and biases, as buffers."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.n = len(layers)
+        for i, lyr in enumerate(layers):
+            self.register_buffer(f"w{i}", torch.as_tensor(
+                lyr["w"], dtype=torch.float32).clone())
+            self.register_buffer(f"b{i}", torch.as_tensor(
+                lyr["b"], dtype=torch.float32).clone())
+
+    def layers(self) -> list[dict]:
+        return [{"w": getattr(self, f"w{i}"), "b": getattr(self, f"b{i}")}
+                for i in range(self.n)]
+
+
+@register_backend("float")
+class FloatBackend(Backend):
+    """Plain float32 ``x @ w + b`` (``torch.matmul``; the JAX package's
+    float backend has no Pallas kernel either)."""
+
+    def __init__(self, params, config):
+        super().__init__(params, config)
+        self.sa = nn.ModuleList(_FloatMLP(m) for m in params["sa"])
+        self.head = _FloatMLP(params["head"])
+
+    def _mlp(self, key) -> _FloatMLP:
+        return self.head if key == "head" else self.sa[key[1]]
+
+    def apply_mlp(self, key, x, *, final_relu=True):
+        return _pn._apply_mlp(self._mlp(key).layers(), x,
+                              final_relu=final_relu)
+
+
+@register_backend("reram-fused")
+class ReramFusedBackend(Backend):
+    """Weight-stationary path: every MLP programmed into crossbar planes
+    exactly once at compile time, then each MLP runs through the fused
+    kernel K1."""
+
+    def __init__(self, params, config):
+        super().__init__(params, config)
+        program = _pn.build_model_program(params)
+        self.sa = nn.ModuleList(program["sa"])
+        self.head = program["head"]
+
+    def _prog(self, key):
+        return self.head if key == "head" else self.sa[key[1]]
+
+    @property
+    def program(self) -> dict:
+        return {"sa": list(self.sa), "head": self.head}
+
+    def apply_mlp(self, key, x, *, final_relu=True):
+        return reram_mlp_fused(x, self._prog(key), final_relu=final_relu)
+
+    def apply_mlp_batched(self, key, x, *, final_relu=True):
+        return reram_mlp_fused_batched(x, self._prog(key),
+                                       final_relu=final_relu)
+
+
+# ---------------------------------------------------------------------------
+# schedule canonicalization
+# ---------------------------------------------------------------------------
+
+def _canonical_schedule(schedule, config: PointNetConfig):
+    """-> (spec_dict, device_plan_or_None, planned).
+    ``planned`` is False only for the plain layer-by-layer index-order path
+    (the 'baseline' preset). A prebuilt ``ExecutionPlan`` is lowered to a
+    (CPU) :class:`DevicePlan` here, once; a prebuilt ``DevicePlan`` passes
+    through."""
+    sizes = tuple(s.n_centers for s in config.layers)
+    if schedule is None:
+        schedule = "baseline"
+    if isinstance(schedule, DevicePlan):
+        if schedule.layer_sizes != sizes:
+            raise ValueError(
+                f"DevicePlan layer sizes {schedule.layer_sizes} do not "
+                f"match config layers {sizes}")
+        return ({"intra": schedule.intra,
+                 "coordinated": schedule.coordinated}, schedule, True)
+    if isinstance(schedule, ExecutionPlan):
+        return ({"intra": schedule.intra,
+                 "coordinated": schedule.coordinated},
+                DevicePlan.lower(schedule, sizes), True)
+    if isinstance(schedule, Mapping):
+        spec = dict(schedule)
+        unknown = set(spec) - {"intra", "coordinated"}
+        if unknown:
+            raise ValueError(f"unknown schedule keys {sorted(unknown)}; "
+                             f"expected 'intra' and 'coordinated'")
+        spec.setdefault("intra", "index")
+        spec.setdefault("coordinated", False)
+        if spec["intra"] not in ("index", "greedy", "morton"):
+            raise ValueError(f"unknown intra mode {spec['intra']!r}; "
+                             f"expected 'index', 'greedy' or 'morton'")
+        return spec, None, True
+    if isinstance(schedule, str):
+        if schedule not in MODE_PRESETS:
+            raise ValueError(
+                f"unknown schedule {schedule!r}; expected one of "
+                f"{sorted(MODE_PRESETS)}, a {{'intra', 'coordinated'}} "
+                f"mapping, an ExecutionPlan, or a DevicePlan")
+        return dict(MODE_PRESETS[schedule]), None, schedule != "baseline"
+    raise TypeError(f"schedule must be a preset name, a mapping, an "
+                    f"ExecutionPlan, or a DevicePlan; got "
+                    f"{type(schedule).__name__}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; None means ``cuda``. Asking for a
+    card that is not there raises — the port never runs on the CPU unless
+    told to."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the port's plain versions on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on 'cuda' or 'cpu'; got {dev}")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# the compiled model
+# ---------------------------------------------------------------------------
+
+class CompiledModel(nn.Module):
+    """The executable returned by :func:`compile_model`: a programmed
+    backend plus a compiled schedule, on one device."""
+
+    def __init__(self, backend: Backend, config: PointNetConfig,
+                 schedule_spec: dict, planned: bool,
+                 device_plan: DevicePlan | None = None):
+        super().__init__()
+        self.backend = backend
+        self.config = config
+        self._spec = schedule_spec
+        self._dplan = device_plan
+        self._planned = planned
+
+    @property
+    def planned(self) -> bool:
+        """True when execution routes through a gather order (any schedule
+        but 'baseline')."""
+        return self._planned
+
+    @property
+    def device_plan(self) -> DevicePlan | None:
+        """The compile-time-lowered :class:`DevicePlan` (None when plans
+        are built per cloud)."""
+        return self._dplan
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.backend.buffers()).device
+
+    def _input(self, clouds) -> torch.Tensor:
+        return torch.as_tensor(clouds, dtype=torch.float32,
+                               device=self.device).contiguous()
+
+    # -- execution ----------------------------------------------------------
+
+    @torch.no_grad()
+    def forward(self, cloud, *, n_valid=None) -> torch.Tensor:
+        """Single cloud ``(N, 3)`` -> logits ``(n_classes,)``. ``n_valid``
+        marks the real row count of a cloud padded with trailing rows."""
+        cloud = self._input(cloud)
+        if self._planned:
+            return self._forward_planned(cloud, n_valid)
+        return self._forward_base(cloud, n_valid)
+
+    @torch.no_grad()
+    def batched_forward(self, clouds, *, n_valid=None) -> torch.Tensor:
+        """Batch ``(B, N, 3)`` -> logits ``(B, n_classes)``: one fused-MLP
+        call per MLP for the whole batch and, under a plan, one batched
+        gather launch per SA layer. ``n_valid`` is a ``(B,)`` vector of
+        real row counts."""
+        clouds = self._input(clouds)
+        if self._planned:
+            return self._batched_forward_planned(clouds, n_valid)
+        return self._batched_in_grid(clouds, n_valid)
+
+    # -- execution internals ------------------------------------------------
+
+    def _forward_base(self, cloud, n_valid=None):
+        """Layer-by-layer index-order execution (no plan, no gather
+        kernel)."""
+        cfg = self.config
+        feats = _pn.lift_features(cloud, cfg.layers[0].in_features)
+        pts = cloud
+        for i, spec in enumerate(cfg.layers):
+            pts, diff = _pn._sa_geometry(spec, pts, feats,
+                                         n_valid if i == 0 else None)
+            h = self.backend.apply_mlp(("sa", i), diff)
+            feats = h.amax(dim=1)                        # reduction over K
+        g = feats.amax(dim=0)                            # global max pool
+        return self.backend.apply_mlp("head", g, final_relu=False)
+
+    def _batched_in_grid(self, clouds, n_valid=None):
+        """Baseline order for a batch: batched geometry, one batched MLP
+        call per MLP."""
+        cfg = self.config
+        feats = _pn.lift_features(clouds, cfg.layers[0].in_features)
+        pts = clouds
+        for i, spec in enumerate(cfg.layers):
+            pts, diff = _pn._sa_geometry(spec, pts, feats,
+                                         n_valid if i == 0 else None)
+            h = self.backend.apply_mlp_batched(("sa", i), diff)
+            feats = h.amax(dim=2)                        # reduction over K
+        g = feats.amax(dim=1)                            # global max pool
+        return self.backend.apply_mlp_batched("head", g, final_relu=False)
+
+    def _forward_planned(self, cloud, n_valid=None):
+        """Plan-driven execution of one cloud: each SA layer gathers its
+        neighbor differences in plan order through ``aggregate_diff``, runs
+        the MLP, and scatters the per-center max back to index order."""
+        cfg = self.config
+        feats = _pn.lift_features(cloud, cfg.layers[0].in_features)
+        pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, cloud,
+                                                         n_valid=n_valid)
+        dplan = (self._dplan if self._dplan is not None
+                 else self._device_plan_for(pts_list, ctr_list, nbr_list))
+        if dplan.batched:
+            raise ValueError("this DevicePlan is batched; use "
+                             "batched_forward for it")
+        dplan = dplan.to(cloud.device)
+        for k in range(1, cfg.n_layers + 1):
+            order = dplan.order_of(k).long()
+            inv = dplan.inverse_of(k).long()
+            nbr_o = nbr_list[k][order].to(torch.int32)
+            ctr_o = ctr_list[k][order].to(torch.int32)
+            diff = aggregate_diff(feats, nbr_o, ctr_o)   # plan-ordered gather
+            h = self.backend.apply_mlp(("sa", k - 1), diff)
+            out = h.amax(dim=1)                          # reduction over K
+            feats = out[inv]                             # back to index order
+        g = feats.amax(dim=0)
+        return self.backend.apply_mlp("head", g, final_relu=False)
+
+    def _batched_forward_planned(self, clouds, n_valid=None):
+        """Plan-driven execution of a batch: batched geometry, per-cloud
+        host plans stacked into one batched :class:`DevicePlan`, then one
+        ``aggregate_diff_batched`` launch and one batched MLP call per SA
+        layer. Logits equal the per-cloud ``forward`` row for row."""
+        cfg = self.config
+        batch = clouds.shape[0]
+        feats = _pn.lift_features(clouds, cfg.layers[0].in_features)
+        pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, clouds,
+                                                         n_valid=n_valid)
+        dplan = (self._dplan if self._dplan is not None
+                 else self._device_plan_for(pts_list, ctr_list, nbr_list))
+        if dplan.batched and dplan.batch_size != batch:
+            raise ValueError(f"batched DevicePlan is for batch "
+                             f"{dplan.batch_size}, got {batch} clouds")
+        dplan = dplan.to(clouds.device)
+        for k in range(1, cfg.n_layers + 1):
+            order = dplan.order_of(k).long()
+            inv = dplan.inverse_of(k).long()
+            if not dplan.batched:                 # one plan shared batch-wide
+                order = order.expand(batch, -1)
+                inv = inv.expand(batch, -1)
+            nbr_o = torch.take_along_dim(nbr_list[k], order[:, :, None],
+                                         dim=1).to(torch.int32)
+            ctr_o = torch.take_along_dim(ctr_list[k], order,
+                                         dim=1).to(torch.int32)
+            diff = aggregate_diff_batched(feats, nbr_o, ctr_o)  # one launch
+            h = self.backend.apply_mlp_batched(("sa", k - 1), diff)
+            out = h.amax(dim=2)                          # reduction over K
+            feats = torch.take_along_dim(out, inv[:, :, None], dim=1)
+        g = feats.amax(dim=1)                            # global max pool
+        return self.backend.apply_mlp_batched("head", g, final_relu=False)
+
+    def _host_plan_for(self, pts, ctrs, nbrs) -> ExecutionPlan:
+        """The host ``ExecutionPlan`` for one cloud's geometry: NumPy points
+        of layers 0..L, centers and neighbors of layers 1..L."""
+        wl = PointNetWorkload(
+            config=self.config,
+            points=[np.asarray(p, np.float64) for p in pts],
+            centers=[None] + list(ctrs), neighbors=[None] + list(nbrs))
+        return build_plan(wl, **self._spec)
+
+    def _device_plan_for(self, pts_list, ctr_list, nbr_list) -> DevicePlan:
+        """Pull the geometry (one cloud or a batch) to the host once, build
+        each cloud's plan there and lower the plans onto the device."""
+        pts = [p.cpu().numpy() for p in pts_list]
+        ctrs = [c.cpu().numpy() for c in ctr_list[1:]]
+        nbrs = [nb.cpu().numpy() for nb in nbr_list[1:]]
+        sizes = tuple(s.n_centers for s in self.config.layers)
+        if pts[0].ndim == 2:
+            plans = self._host_plan_for(pts, ctrs, nbrs)
+        else:
+            plans = [self._host_plan_for([p[b] for p in pts],
+                                         [c[b] for c in ctrs],
+                                         [nb[b] for nb in nbrs])
+                     for b in range(pts[0].shape[0])]
+        return DevicePlan.lower(plans, sizes, device=pts_list[0].device)
+
+
+# ---------------------------------------------------------------------------
+# the entry point
+# ---------------------------------------------------------------------------
+
+def compile_model(params: Params, config: PointNetConfig, *,
+                  backend: str = "float", schedule=None,
+                  device=None) -> CompiledModel:
+    """Compile PointNet++ ``params`` for execution on ``device``.
+
+    params   : ``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of tensors —
+               :func:`~repro_torch.models.pointnet2.init_params`, or the
+               JAX package's weights through
+               :func:`repro_torch.convert.params_from_numpy`.
+    backend  : registry name — 'float' or 'reram-fused' (or anything added
+               with :func:`register_backend`).
+    schedule : None/'baseline', a ``MODE_PRESETS`` name ('pointer-1',
+               'pointer-12', 'pointer', 'pointer-morton'), an
+               ``{'intra', 'coordinated'}`` mapping, a prebuilt
+               :class:`ExecutionPlan`, or a prebuilt (possibly batched)
+               :class:`DevicePlan`.
+    device   : where the model runs; default ``cuda``, which raises when no
+               card is present. ``device="cpu"`` runs the plain versions.
+    """
+    dev = resolve_device(device)
+    if not isinstance(backend, str):
+        raise TypeError(f"backend must be a registry name string; got "
+                        f"{type(backend).__name__}")
+    try:
+        cls = _REGISTRY[backend]
+    except KeyError:
+        raise ValueError(f"unknown backend {backend!r}; registered backends: "
+                         f"{available_backends()}") from None
+    spec, dplan, planned = _canonical_schedule(schedule, config)
+    model = CompiledModel(cls(params, config), config, spec,
+                          planned,
+                          device_plan=None if dplan is None else dplan.to(dev))
+    return model.to(dev)

@@ -1,0 +1,182 @@
+"""PointNet++ in torch — the geometry, parameters and float MLP of the port.
+
+The counterpart of the JAX package's ``repro.models.pointnet2``: farthest
+point sampling and kNN (the "point mapping" stage), the layer-0 feature
+lift, the per-layer geometry pass that planned execution builds its plans
+from, parameter init, and crossbar programming of every MLP.
+
+Every geometry function takes one cloud ``(N, 3)`` or a batch
+``(B, N, 3)``; a batch gives, row for row, what the single-cloud call
+gives. Indices equal the JAX package's bit for bit on the same float32
+coordinates: FPS takes the first maximum (``torch.argmax`` documents it)
+and sums the three squared coordinate differences left to right, as XLA
+reduces them; kNN sorts distances with a stable ascending sort, so ties go
+to the lower index as ``lax.top_k`` breaks them (``torch.topk`` documents
+no tie order).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.workload import PointNetConfig, SALayerSpec
+from repro_torch.kernels import build_program
+
+Params = Any
+
+
+# ---------------------------------------------------------------------------
+# geometry: the "point mapping" stage
+# ---------------------------------------------------------------------------
+
+def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``sum((a - b) ** 2, -1)`` over 3 coordinates, summed left to right."""
+    diff = a - b
+    sq = diff * diff
+    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+
+
+def _valid_rows(n: int, n_valid, device) -> torch.Tensor:
+    """Bool ``(…, n)``: row index < ``n_valid`` (an int or a ``(B,)``
+    vector, broadcast over a leading batch axis)."""
+    nv = torch.as_tensor(n_valid, device=device).reshape(-1, 1)
+    return torch.arange(n, device=device) < nv
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` per batch row: x ``(…, N, C)``, idx ``(…, *S)``
+    -> ``(…, *S, C)``."""
+    lead = x.shape[:-2]
+    flat = idx.reshape(*lead, -1).long()
+    out = torch.take_along_dim(x, flat[..., None], dim=-2)
+    return out.reshape(*idx.shape, x.shape[-1])
+
+
+def farthest_point_sample(points: torch.Tensor, n_samples: int,
+                          start: int = 0, *, n_valid=None) -> torch.Tensor:
+    """FPS over ``points`` ``(…, N, 3)`` -> int64 ``(…, n_samples)``.
+
+    ``n_valid`` masks trailing pad rows: they start at ``-inf`` distance,
+    so the running argmax never selects them and the result equals FPS on
+    ``points[:n_valid]``."""
+    single = points.ndim == 2
+    pts = points[None] if single else points
+    batch, n, _ = pts.shape
+    dev = pts.device
+    dist = torch.full((batch, n), float("inf"), dtype=pts.dtype, device=dev)
+    if n_valid is not None:
+        dist = torch.where(_valid_rows(n, n_valid, dev), dist,
+                           float("-inf"))
+    idx = torch.empty((batch, n_samples), dtype=torch.int64, device=dev)
+    cur = torch.full((batch,), int(start), dtype=torch.int64, device=dev)
+    rows = torch.arange(batch, device=dev)
+    for i in range(n_samples):
+        idx[:, i] = cur
+        dist = torch.minimum(dist, _sq_dist(pts, pts[rows, cur][:, None, :]))
+        cur = torch.argmax(dist, dim=1)
+    return idx[0] if single else idx
+
+
+def knn(queries: torch.Tensor, points: torch.Tensor, k: int, *,
+        n_valid=None) -> torch.Tensor:
+    """int64 ``(…, Q, k)`` indices of the k nearest ``points`` per query
+    (self included when the query is a member of ``points``). ``n_valid``
+    forces pad-row distances to ``+inf``."""
+    d = _sq_dist(queries[..., :, None, :], points[..., None, :, :])
+    if n_valid is not None:
+        valid = _valid_rows(points.shape[-2], n_valid, points.device)
+        if points.ndim == 2:
+            valid = valid[0]
+        d = torch.where(valid[..., None, :], d, float("inf"))
+    return torch.sort(d, dim=-1, stable=True).indices[..., :k]
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _init_mlp(rng: np.random.Generator, widths: tuple[int, ...]):
+    params = []
+    for n, m in zip(widths[:-1], widths[1:]):
+        w = rng.standard_normal((n, m)) * np.sqrt(2.0 / n)
+        params.append({"w": torch.from_numpy(w.astype(np.float32)),
+                       "b": torch.zeros((m,), dtype=torch.float32)})
+    return params
+
+
+def init_params(config: PointNetConfig, seed: int = 0,
+                n_classes: int = 40) -> Params:
+    """Random He-scaled weights and zero biases from
+    ``np.random.default_rng(seed)``, as CPU float32 tensors in the layout
+    ``{"sa": [[{"w", "b"}, …], …], "head": […]}``."""
+    rng = np.random.default_rng(seed)
+    sa = [_init_mlp(rng, spec.mlp) for spec in config.layers]
+    d_last = config.layers[-1].out_features
+    head = _init_mlp(rng, (d_last, 256, n_classes))
+    return {"sa": sa, "head": head}
+
+
+def build_model_program(params: Params) -> dict:
+    """Program every MLP of the model into crossbars: one
+    :class:`~repro_torch.kernels.CrossbarProgram` per SA layer plus one for
+    the head, quantized and plane-encoded here, exactly once."""
+    return {"sa": [build_program(mlp) for mlp in params["sa"]],
+            "head": build_program(params["head"])}
+
+
+# ---------------------------------------------------------------------------
+# feature processing
+# ---------------------------------------------------------------------------
+
+def _apply_mlp(mlp_params, x, *, final_relu=True):
+    for i, lyr in enumerate(mlp_params):
+        x = torch.matmul(x, lyr["w"]) + lyr["b"]
+        if final_relu or i < len(mlp_params) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def lift_features(points: torch.Tensor, n_features: int) -> torch.Tensor:
+    """Deterministic layer-0 features of width ``n_features`` from raw
+    coordinates (xyz, bias, and sin/cos liftings)."""
+    ones = torch.ones(points.shape[:-1] + (1,), dtype=points.dtype,
+                      device=points.device)
+    feats = [points, ones,
+             torch.sin(3.0 * points), torch.cos(3.0 * points),
+             torch.sin(7.0 * points), torch.cos(7.0 * points)]
+    return torch.cat(feats, dim=-1)[..., :n_features].contiguous()
+
+
+def geometry_pass(config: PointNetConfig, cloud: torch.Tensor, *,
+                  n_valid=None):
+    """The FPS/kNN geometry of every SA layer: per layer k = 1..L the
+    FPS-selected coordinates ``pts[k]`` ``(…, n_k, 3)``, center indices
+    ``ctr[k]`` ``(…, n_k)`` into layer k-1, and receptive fields
+    ``nbr[k]`` ``(…, n_k, K)`` into layer k-1 (index 0 holds the input
+    cloud / None / None). ``n_valid`` masks the first layer's pad rows."""
+    pts_list, ctr_list, nbr_list = [cloud], [None], [None]
+    pts = cloud
+    for li, spec in enumerate(config.layers):
+        nv = n_valid if li == 0 else None
+        centers = farthest_point_sample(pts, spec.n_centers, n_valid=nv)
+        c_pts = gather_rows(pts, centers)
+        nbr = knn(c_pts, pts, spec.n_neighbors, n_valid=nv)
+        pts_list.append(c_pts)
+        ctr_list.append(centers)
+        nbr_list.append(nbr)
+        pts = c_pts
+    return pts_list, ctr_list, nbr_list
+
+
+def _sa_geometry(spec: SALayerSpec, points, features, n_valid=None):
+    """The point-mapping + aggregation half of one SA layer: FPS centers,
+    kNN gather, neighbor-minus-center differences. points ``(…, N, 3)``,
+    features ``(…, N, C)`` -> ``(…, M, 3)``, ``(…, M, K, C)``."""
+    centers = farthest_point_sample(points, spec.n_centers, n_valid=n_valid)
+    c_pts = gather_rows(points, centers)
+    nbr = knn(c_pts, points, spec.n_neighbors, n_valid=n_valid)
+    f_nbr = gather_rows(features, nbr)
+    f_ctr = gather_rows(features, centers)[..., None, :]
+    return c_pts, f_nbr - f_ctr

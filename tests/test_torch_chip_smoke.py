@@ -1,0 +1,73 @@
+"""``chip_smoke.py``'s arithmetic and its refusal to run without a card.
+
+The script's device phases need a CUDA card; what can be held on the CPU
+is the least-time bound it reports beside each kernel time, the byte and
+operation counts behind it, and that it exits non-zero, printing no
+result, where no card exists."""
+import importlib.util
+import pathlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build_program                     # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_bound_is_the_larger_of_bytes_and_operations(smoke):
+    ms, by = smoke.bound(3.35e9, 1.0, smoke.INT8_OPS_PER_S)
+    assert by == "bytes" and ms == pytest.approx(1.0)
+    ms, by = smoke.bound(1.0, 1.979e12, smoke.INT8_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(1.0)
+
+
+def test_k1_and_gather_counts(smoke):
+    rng = np.random.default_rng(0)
+    layers = [{"w": rng.normal(size=(k, n)).astype(np.float32),
+               "b": np.zeros(n, np.float32)} for k, n in ((8, 16), (16, 4))]
+    prog = build_program(layers)
+    nbytes, ops = smoke._k1_bound(prog, 10)
+    b = smoke.BATCH
+    n_weights = 8 * 16 + 16 * 4
+    assert ops == 2 * b * 10 * n_weights
+    # real widths only: the padded planes (here 4 x 128 x 128 per layer)
+    # are no part of the function
+    assert nbytes == (b * 10 * 8 + n_weights + 4 * (2 * (16 + 4) + 2 + b)
+                      + 4 * b * 10 * 4)
+    assert nbytes < prog.planes.numel()
+    # feature rows count once each, and only those an index refers to:
+    # batch 0 refers to rows 0..6, batch 1 to rows 0 and 9
+    feats = torch.zeros((2, 30, 8))
+    nbr = torch.stack([torch.arange(15, dtype=torch.int32).reshape(5, 3) % 7,
+                       torch.zeros((5, 3), dtype=torch.int32)])
+    ctr = torch.stack([torch.arange(5, dtype=torch.int32),
+                       torch.full((5,), 9, dtype=torch.int32)])
+    nbytes, ops = smoke._gather_bound(feats, nbr, ctr)
+    assert ops == 2 * 5 * 3 * 8
+    assert nbytes == 4 * ((7 + 2) * 8 + 2 * 5 * 3 + 2 * 5 + 2 * 5 * 3 * 8)
+
+
+def test_clouds_are_seeded_float32_surfaces(smoke):
+    a, b = smoke.make_clouds(64, 3, 0), smoke.make_clouds(64, 3, 0)
+    assert a.dtype == np.float32 and a.shape == (3, 64, 3)
+    assert np.array_equal(a, b)
+    assert np.abs(a).max() < 1.2
+
+
+def test_exits_nonzero_without_a_card(smoke, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the script runs for real there")
+    assert smoke.main() != 0
+    assert '"ok"' not in capsys.readouterr().out
