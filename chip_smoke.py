@@ -4,29 +4,34 @@
     python3 chip_smoke.py
 
 Drives the port's main path — ``repro_torch.compile_model(params,
-PAPER_MODELS[m], backend="reram-fused", schedule="pointer")`` then
+PAPER_MODELS[m], backend=..., schedule="pointer")`` then
 ``batched_forward`` on 8 clouds of 1024 points and ``forward`` on one — at
-the full width of model1 and of model0, with random weights from a seed.
-Phases, each printing one JSON line:
+the full width and depth of model2 ('reram-fused' and the per-layer
+'reram'), model1 and model0 ('reram-fused' and 'float'), with random
+weights from a seed. Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; TF32 off for float32 matmuls
    and convolutions;
-2. build: every CUDA kernel of the path built from ``src/repro_torch/csrc``
-   (one ``nvcc`` per source, all started together);
+2. build: every CUDA kernel of the paths built from
+   ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
+   together);
 3. kernel vs plain: each kernel against its plain torch version on the
-   same inputs at model1's shapes — bit for bit;
-4. end to end: model1 and model0, 'reram-fused' and 'float', both with
-   the 'pointer' schedule; launch counters reset just before each run and
-   read just after; the card's logits and geometry held against the port's
-   own CPU run on the first 2 clouds;
+   same inputs, bit for bit — K1, K4, K5 at model1's shapes; K1, K2 and K3
+   at each of model2's three MLPs and a ragged one, each also against the
+   others (one function, three dataflows); K6 at every layer shape of the
+   model2 'reram' path;
+4. end to end: each model and backend with the 'pointer' schedule; launch
+   counters reset just before each run and read just after, and held to
+   the counts the path must launch; the card's logits and geometry held
+   against the port's own CPU run on the first 2 clouds;
 5. times: each kernel, its plain version and a library yardstick, timed
    with CUDA events after warm-up at the main path's shapes, beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate, whichever is larger); ``batched_forward`` and
-   ``forward`` end to end, on the host clock;
-6. profile: one model1 ``batched_forward`` split on the host clock into
-   geometry, host planning and the rest, and its device time by kernel
-   from ``torch.profiler``.
+   the peak rate, whichever is larger); K1, K2 and K3 at each model2 MLP;
+   ``batched_forward`` and ``forward`` end to end, on the host clock;
+6. profile: one model1 and one model2 ``batched_forward`` split on the
+   host clock into geometry, host planning and the rest, and their device
+   time by kernel from ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -231,6 +236,73 @@ def phase_kernel_vs_plain(model1, clouds) -> dict:
     return {"K1": k1, "K4": k4, "K5": k5}
 
 
+def reram_layer_shapes(params, cfg, batch: int) -> list:
+    """``(rows, k, n)`` of every K6 matmul of one 'reram' call on
+    ``batch`` clouds: each MLP layer over all its rows."""
+    rows = [s.n_centers * s.n_neighbors for s in cfg.layers] + [1]
+    return [(batch * r, *lyr["w"].shape)
+            for mlp, r in zip(params["sa"] + [params["head"]], rows)
+            for lyr in mlp]
+
+
+def phase_model2_kernels(model2, params2) -> dict:
+    """K1, K2 and K3 at each model2 MLP (batch 8) and the ragged MLP, each
+    bit for bit against the plain version and against each other; K6 at
+    every layer shape of the model2 'reram' path (one ``batched_forward``
+    and one ``forward``) against its plain version."""
+    from repro_torch.kernels import (encode_planes, fused_mlp,
+                                     quantize_tensor, ref_reram_matmul_int,
+                                     reram_mlp)
+    progs = model2.backend.program
+    mlps = {}
+    for i, (name, (prog, m)) in enumerate({
+            "sa1": (progs["sa"][0], 512 * 16),
+            "sa2": (progs["sa"][1], 128 * 16),
+            "head": (progs["head"], 1),
+            "ragged": (_ragged_program(), 257)}.items()):
+        x_p, sx = _program_inputs(prog, m, SEED + 20 + i)
+        relu = name != "head"
+        want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=m,
+                                         final_relu=relu)
+        row = {"shape": [BATCH, m, list(prog.widths)], "x_p": x_p, "sx": sx,
+               "prog": prog, "m": m, "relu": relu}
+        for mode in ("whole", "mtiled", "wstat"):
+            got = fused_mlp.KERNEL_OF_MODE[mode](x_p, sx, prog, m_real=m,
+                                                 final_relu=relu)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            check(bool(torch.isfinite(got).all()), f"{mode} {name} finite")
+            check(torch.equal(got, want),
+                  f"{mode} {name} bitwise vs plain (max err {err})")
+            row[f"{mode}_max_abs_err"] = err
+        mlps[name] = row
+    k6 = []
+    g = torch.Generator(device="cpu").manual_seed(SEED + 30)
+    layers = [lyr for mlp in params2["sa"] + [params2["head"]] for lyr in mlp]
+    shapes = reram_layer_shapes(params2, model2.config, BATCH)
+    for i, (m, k, n) in enumerate(shapes + reram_layer_shapes(
+            params2, model2.config, 1)):
+        planes = encode_planes(quantize_tensor(
+            layers[i % len(layers)]["w"])[0]).cuda()
+        x = torch.randint(-127, 128, (m, k), generator=g,
+                          dtype=torch.int8).cuda()
+        got = reram_mlp.reram_matmul_int_cuda(x, planes)
+        want = ref_reram_matmul_int(x, planes)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K6 {m}x{k}x{n} bitwise vs plain")
+        k6.append({"shape": [m, k, n], "x": x, "planes": planes,
+                   "batched": i < len(shapes),
+                   "max_abs_err": float((got - want).abs().max())})
+    emit({"phase": "kernel_vs_plain_model2", "tolerance": "bitwise",
+          "fused_mlp": {n: {"shape": v["shape"],
+                            **{f"{md}_max_abs_err": v[f"{md}_max_abs_err"]
+                               for md in ("whole", "mtiled", "wstat")}}
+                        for n, v in mlps.items()},
+          "K6": [{"shape": c["shape"], "max_abs_err": c["max_abs_err"]}
+                 for c in k6]})
+    return {"mlps": mlps, "K6": k6}
+
+
 def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
     """One ``batched_forward`` and one ``forward``, launch counters reset
     just before and read just after."""
@@ -242,11 +314,28 @@ def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
     return launch_counts(), logits, single
 
 
+#: Backends driven end to end, per model, and the MLP launches each path
+#: must count in one ``batched_forward`` plus one ``forward`` (beside one
+#: gather launch per SA layer and pass): model2's SA-1 runs through K2
+#: ('mtiled'), its SA-2 through K3 ('wstat') and its head through K1; the
+#: per-layer 'reram' backend launches K6 once per layer, 8 layers.
+PATHS = {
+    "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_mtiled": 2,
+                               "fused_mlp_wstat": 2},
+               "reram": {"reram_matmul_int": 16}},
+    "model1": {"reram-fused": {"fused_mlp": 6}, "float": {}},
+    "model0": {"reram-fused": {"fused_mlp": 6}, "float": {}},
+}
+MLP_COUNTERS = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
+                "reram_matmul_int")
+
+
 def phase_end_to_end(params, cfgs, clouds_np) -> dict:
+    """Every path of :data:`PATHS`; returns the launch counts of each."""
     import repro_torch
     from repro_torch.models import pointnet2 as pn
     clouds = torch.from_numpy(clouds_np).cuda()
-    results, counts_main = {}, None
+    results, counts_of = {}, {}
     for name, cfg in cfgs.items():
         L = cfg.n_layers
         ref_geom = pn.geometry_pass(cfg, torch.from_numpy(clouds_np[:2]))
@@ -255,29 +344,29 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
             for part in (1, 2):
                 check(torch.equal(geom[part][k].cpu(), ref_geom[part][k]),
                       f"{name} geometry layer {k} bitwise card vs CPU")
-        for backend in ("reram-fused", "float"):
+        for backend, mlp_counts in PATHS[name].items():
             model = repro_torch.compile_model(params[name], cfg,
                                               backend=backend,
                                               schedule="pointer")
             counts, logits, single = run_main_path(model, clouds)
-            fused = backend == "reram-fused"
+            quantized = backend != "float"
             want = {"aggregate_diff_batched": L, "aggregate_diff": L,
-                    "fused_mlp": 2 * (L + 1) if fused else 0}
+                    **{c: mlp_counts.get(c, 0) for c in MLP_COUNTERS}}
             for key, n in want.items():
                 check(counts[key] == n,
                       f"{name}/{backend}: {key} launched {counts[key]} "
                       f"times, expected {n}")
-            if fused and name == "model1":
-                counts_main = counts
+            counts_of[f"{name}/{backend}"] = counts
             cpu = repro_torch.compile_model(params[name], cfg,
                                             backend=backend,
                                             schedule="pointer", device="cpu")
             ref = cpu.batched_forward(clouds_np[:2])
             got = logits[:2].cpu()
             # card vs CPU: lift_features' sin/cos may differ by an ulp,
-            # which can move one requantized value by one step ('reram-
-            # fused'); the float matmuls sum in another order ('float')
-            rel = 1e-2 if fused else 1e-3
+            # which can move one requantized value by one step (the
+            # crossbar backends); the float matmuls sum in another order
+            # ('float')
+            rel = 1e-2 if quantized else 1e-3
             tol = rel * float(ref.abs().max())
             err = float((got - ref).abs().max())
             check(bool(torch.isfinite(logits).all()), f"{name} finite")
@@ -287,32 +376,42 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
             check(torch.equal(got.argmax(1), ref.argmax(1)),
                   f"{name}/{backend} argmax card vs CPU")
             single_err = float((single.cpu() - logits[0].cpu()).abs().max())
-            if fused:
-                check(single_err == 0.0,
-                      f"{name}: forward != batched_forward row 0")
+            if quantized:
+                check(single_err == 0.0, f"{name}/{backend}: forward != "
+                                         f"batched_forward row 0")
             results[f"{name}/{backend}"] = {
                 "launches": counts, "cpu_max_abs_err": err,
                 "tolerance": tol, "forward_vs_batched_err": single_err,
                 "argmax": logits.argmax(1).tolist()}
     emit({"phase": "end_to_end", "batch": BATCH, "results": results})
-    return counts_main
+    return counts_of
+
+
+def _int_mm_ms(pairs) -> float:
+    """torch._int_mm over int8 ``(x, w)`` pairs, one call each, rows
+    padded up to its minimum of 32 and widths up to multiples of 8."""
+    mats = []
+    for x, w in pairs:
+        x = torch.nn.functional.pad(x, (0, -x.shape[1] % 8,
+                                        0, max(0, 32 - x.shape[0])))
+        w = torch.nn.functional.pad(w, (0, -w.shape[1] % 8,
+                                        0, -w.shape[0] % 8))
+        mats.append((x.contiguous(), w.contiguous()))
+
+    def run():
+        for x, w in mats:
+            torch._int_mm(x, w)
+    return cuda_ms(run)
 
 
 def _k1_library_ms(prog, m: int) -> float:
-    """torch._int_mm over the MLP's integer products (signed int8 weights,
-    rows padded up to 32 for its minimum): the library yardstick for K1's
-    integer product alone, no quantize/dequant."""
-    rows = max(32, -(-BATCH * m // 32) * 32)
+    """torch._int_mm over the MLP's integer products (signed int8
+    weights): the library yardstick for the fused MLP's integer product
+    alone, no quantize/dequant."""
     ws = [w.to(torch.int8) for w in prog.int_weights()]
-    ws = [torch.nn.functional.pad(w, (0, -w.shape[1] % 8, 0, -w.shape[0] % 8))
-          .contiguous() for w in ws]
-    xs = [torch.randint(-127, 128, (rows, w.shape[0]), dtype=torch.int8,
-                        device="cuda") for w in ws]
-
-    def run():
-        for x, w in zip(xs, ws):
-            torch._int_mm(x, w)
-    return cuda_ms(run)
+    return _int_mm_ms([(torch.randint(-127, 128, (BATCH * m, w.shape[0]),
+                                      dtype=torch.int8, device="cuda"), w)
+                       for w in ws])
 
 
 def _k1_bound(prog, m: int):
@@ -358,8 +457,103 @@ def _gather_library(feats, nbr, ctr):
     return run
 
 
-def phase_times(cases, counts_main, models, clouds_np, smi) -> list:
+def _model2_fused_rows(cases2, counts_of) -> list:
+    """K2 and K3 at the model2 MLPs the main path runs them on (SA-1 and
+    SA-2), and K1, K2 and K3 side by side at each model2 MLP: whether the
+    dataflow the JAX package's VMEM budget picks is also Hopper's fastest."""
+    from repro_torch.kernels import fused_mlp, plan_fused_mlp
+    per_mlp = {}
+    for name in ("sa1", "sa2", "head"):
+        c = cases2["mlps"][name]
+        x_p, sx, prog, m, relu = c["x_p"], c["sx"], c["prog"], c["m"], c["relu"]
+        row = {"chosen": plan_fused_mlp(prog, m).mode}
+        for mode in ("whole", "mtiled", "wstat"):
+            kernel = fused_mlp.KERNEL_OF_MODE[mode]
+            row[f"{mode}_ms"] = cuda_ms(lambda: kernel(
+                x_p, sx, prog, m_real=m, final_relu=relu))
+        row["plain_ms"] = cuda_ms(lambda: fused_mlp.fused_mlp_plain(
+            x_p, sx, prog, m_real=m, final_relu=relu), iters=5)
+        row["library_ms"] = _k1_library_ms(prog, m)
+        row["bound_ms"], row["bound_by"] = bound(*_k1_bound(prog, m),
+                                                 INT8_OPS_PER_S)
+        per_mlp[name] = row
+    counts = counts_of["model2/reram-fused"]
+    rows = []
+    for kname, mode, mlp, source, line in (
+            ("K2 fused_mlp_mtiled", "mtiled", "sa1", "fused_mlp_mtiled.cu",
+             360),
+            ("K3 fused_mlp_wstat", "wstat", "sa2", "fused_mlp_wstat.cu",
+             330)):
+        r = per_mlp[mlp]
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": f"src/repro/kernels/fused_mlp.py:{line}",
+            "launches": counts[f"fused_mlp_{mode}"],
+            "layer_launches": counts[f"fused_mlp_{mode}_layer"],
+            "max_abs_err": max(v[f"{mode}_max_abs_err"]
+                               for v in cases2["mlps"].values()),
+            "ms": r[f"{mode}_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+            "library_call": "torch._int_mm per layer (integer product only)",
+            "work": f"model2 {mlp.upper().replace('SA', 'SA-')} MLP, "
+                    f"batch 8",
+            "model2_mlps": per_mlp})
+    return rows
+
+
+def _k6_bound(m: int, k: int, n: int):
+    """Bytes and int8 operations of one K6 product: the int8 rows, one
+    int8 weight per real weight (the four 2-bit planes hold 8 bits) and
+    the int32 output."""
+    return m * k + k * n + 4 * m * n, 2 * m * k * n
+
+
+def _k6_row(cases2, counts_of) -> dict:
+    """K6 over the 8 layer products of one model2 'reram'
+    ``batched_forward``."""
+    from repro_torch.kernels import combine_planes, ref_reram_matmul_int
+    from repro_torch.kernels import reram_mlp
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "ops": 0}
+    per_layer = []
+    for c in cases2["K6"]:
+        if not c["batched"]:
+            continue
+        x, planes = c["x"], c["planes"]
+        m, k, n = c["shape"]
+        w = combine_planes(planes).to(torch.int8).contiguous()
+        row = {"shape": [m, k, n],
+               "ms": cuda_ms(lambda: reram_mlp.reram_matmul_int_cuda(
+                   x, planes)),
+               "plain_ms": cuda_ms(lambda: ref_reram_matmul_int(x, planes)),
+               "library_ms": _int_mm_ms([(x, w)])}
+        nbytes, ops = _k6_bound(m, k, n)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, INT8_OPS_PER_S)
+        per_layer.append(row)
+        for key in ("ms", "plain_ms", "library_ms"):
+            tot[key] += row[key]
+        tot["bytes"] += nbytes
+        tot["ops"] += ops
+    bms, bby = bound(tot["bytes"], tot["ops"], INT8_OPS_PER_S)
+    return {
+        "name": "K6 reram_matmul_int", "route": "cuda",
+        "source": "src/repro_torch/csrc/reram_mlp.cu",
+        "replaces": "src/repro/kernels/reram_mlp.py:83",
+        "launches": counts_of["model2/reram"]["reram_matmul_int"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases2["K6"]),
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
+        "bound_by": bby, "library_ms": tot["library_ms"],
+        "library_call": "torch._int_mm per layer (same int8 product)",
+        "work": "the 8 layer products of one model2 'reram' "
+                "batched_forward, batch 8",
+        "per_layer": per_layer}
+
+
+def phase_times(cases, cases2, counts_of, models, clouds_np, smi) -> list:
     from repro_torch.kernels import aggregate, fused_mlp
+    counts_main = counts_of["model1/reram-fused"]
     kernels = []
     # K1: the three MLPs of one model1 batched_forward
     k1 = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
@@ -396,6 +590,7 @@ def phase_times(cases, counts_main, models, clouds_np, smi) -> list:
         "library_call": "torch._int_mm per layer (integer product only)",
         "work": "model1 SA-1 + SA-2 + head MLPs, batch 8",
         "per_mlp": per_mlp})
+    kernels.extend(_model2_fused_rows(cases2, counts_of))
     # K4 / K5: the two plan-ordered gathers of one batched_forward / forward
     for kname, key, wrapper, plain, count_key in (
             ("K4 aggregate_diff_batched", "K4", "src/repro/kernels/"
@@ -435,6 +630,7 @@ def phase_times(cases, counts_main, models, clouds_np, smi) -> list:
             "work": ("model1 SA-1 + SA-2 gathers, batch "
                      + ("8" if key == "K4" else "1")),
             "per_layer": per_layer})
+    kernels.append(_k6_row(cases2, counts_of))
     # end to end
     e2e = {}
     clouds = torch.from_numpy(clouds_np).cuda()
@@ -462,12 +658,13 @@ def phase_times(cases, counts_main, models, clouds_np, smi) -> list:
                                   ("ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")}
                       for k in kernels},
+          "model2_mlps": kernels[1]["model2_mlps"],
           "end_to_end": e2e})
     return kernels
 
 
 def phase_profile(model, clouds_np, smi) -> None:
-    """Where one model1 ``batched_forward`` spends its time: a host-clock
+    """Where one ``batched_forward`` spends its time: a host-clock
     split into geometry (FPS + kNN on the card), host planning (geometry
     pulled with ``.cpu()``, NumPy Algorithm 1, plan lowered to the card)
     and the rest (lift, gathers, MLPs, scatters, head); then
@@ -528,8 +725,9 @@ def _device_rows(fn) -> list:
 
 
 def _port_rows(rows) -> list:
-    return [r for r in rows if "fused_mlp_layer" in r["kernel"]
-            or "aggregate_diff" in r["kernel"]]
+    return [r for r in rows if any(
+        name in r["kernel"] for name in ("fused_mlp_", "wstat_",
+                                         "aggregate_diff", "reram_matmul"))]
 
 
 def main() -> int:
@@ -542,18 +740,23 @@ def main() -> int:
     smi = smi_line()
     info = phase_device(smi)
     phase_build()
-    cfgs = {m: repro_torch.PAPER_MODELS[m] for m in ("model1", "model0")}
+    cfgs = {m: repro_torch.PAPER_MODELS[m] for m in PATHS}
     params = {m: init_params(cfg, seed=SEED) for m, cfg in cfgs.items()}
     clouds_np = make_clouds(1024, BATCH, SEED)
     models = {m: repro_torch.compile_model(params[m], cfg,
                                            backend="reram-fused",
                                            schedule="pointer")
               for m, cfg in cfgs.items()}
+    models["model2/reram"] = repro_torch.compile_model(
+        params["model2"], cfgs["model2"], backend="reram",
+        schedule="pointer")
     cases = phase_kernel_vs_plain(models["model1"],
                                   torch.from_numpy(clouds_np).cuda())
-    counts_main = phase_end_to_end(params, cfgs, clouds_np)
-    kernels = phase_times(cases, counts_main, models, clouds_np, smi)
-    phase_profile(models["model1"], clouds_np, smi)
+    cases2 = phase_model2_kernels(models["model2"], params["model2"])
+    counts_of = phase_end_to_end(params, cfgs, clouds_np)
+    kernels = phase_times(cases, cases2, counts_of, models, clouds_np, smi)
+    for name in ("model1", "model2"):
+        phase_profile(models[name], clouds_np, smi)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit({"kernels": kernels})

@@ -1,9 +1,15 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 - ``program``   : CrossbarProgram — weights quantized + plane-encoded once
-                  at program time; the fused kernel's launch geometry
-- ``fused_mlp`` : K1, the whole crossbar MLP, one launch per layer
-                  (``csrc/fused_mlp.cu``)
+                  at program time; the dataflow choice (``plan_fused_mlp``)
+                  and the kernels' launch geometry
+- ``fused_mlp`` : the whole crossbar MLP, one launch per layer, in three
+                  dataflows: K1 'whole'/'tiled' (``csrc/fused_mlp.cu``),
+                  K2 'mtiled' (``csrc/fused_mlp_mtiled.cu``), K3 'wstat'
+                  (``csrc/fused_mlp_wstat.cu``)
+- ``reram_mlp`` : K6, one bit-sliced INT8 crossbar matmul
+                  (``csrc/reram_mlp.cu``); ``ops.reram_linear`` is the
+                  float layer over it
 - ``aggregate`` : K4/K5, the plan-ordered neighbor gather + difference
                   (``csrc/aggregate.cu``)
 - ``_build``    : nvcc build at first use + ctypes binding
@@ -12,34 +18,48 @@ Every wrapper runs its plain torch version on CPU tensors and launches its
 kernel on CUDA tensors; :func:`launch_counts` reads the kernel launch
 counters, :func:`reset_launch_counts` zeroes them.
 """
-from . import aggregate, fused_mlp
+from . import aggregate, fused_mlp, reram_mlp
 from .aggregate import aggregate_diff, aggregate_diff_batched
 from .fused_mlp import reram_mlp_fused, reram_mlp_fused_batched
-from .program import (CrossbarProgram, LaunchGeometry, build_program,
-                      encode_planes, plan_launch, quantize_tensor)
-from .ref import combine_planes
+from .ops import reram_linear
+from .program import (FUSED_MODES, CrossbarProgram, FusedPlan,
+                      LaunchGeometry, build_program, encode_planes,
+                      fused_vmem_bytes, plan_fused_mlp, plan_launch,
+                      quantize_tensor)
+from .ref import combine_planes, ref_reram_matmul_int
+from .reram_mlp import reram_matmul_int
 
 __all__ = [
-    "CrossbarProgram", "LaunchGeometry", "aggregate_diff",
-    "aggregate_diff_batched", "build_program", "combine_planes",
-    "encode_planes", "launch_counts", "plan_launch", "quantize_tensor",
+    "FUSED_MODES", "CrossbarProgram", "FusedPlan", "LaunchGeometry",
+    "aggregate_diff", "aggregate_diff_batched", "build_program",
+    "combine_planes", "encode_planes", "fused_vmem_bytes", "launch_counts",
+    "plan_fused_mlp", "plan_launch", "quantize_tensor",
+    "ref_reram_matmul_int", "reram_linear", "reram_matmul_int",
     "reram_mlp_fused", "reram_mlp_fused_batched", "reset_launch_counts",
 ]
 
 #: The CUDA sources of the kernels (``csrc/<name>.cu``).
-KERNEL_SOURCES = ("fused_mlp", "aggregate")
+KERNEL_SOURCES = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
+                  "reram_mlp", "aggregate")
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches since the last reset, by counter."""
-    return {"fused_mlp": fused_mlp.LAUNCHES["mlp"],
-            "fused_mlp_layer": fused_mlp.LAUNCHES["layer"],
+    """Kernel launches since the last reset, by counter: per fused-MLP
+    kernel its MLP calls and its layers, the gathers' launches, and K6's."""
+    f = fused_mlp.LAUNCHES
+    return {"fused_mlp": f["mlp"], "fused_mlp_layer": f["layer"],
+            "fused_mlp_mtiled": f["mtiled"],
+            "fused_mlp_mtiled_layer": f["mtiled_layer"],
+            "fused_mlp_wstat": f["wstat"],
+            "fused_mlp_wstat_layer": f["wstat_layer"],
             "aggregate_diff": aggregate.LAUNCHES["aggregate_diff"],
             "aggregate_diff_batched":
-                aggregate.LAUNCHES["aggregate_diff_batched"]}
+                aggregate.LAUNCHES["aggregate_diff_batched"],
+            "reram_matmul_int": reram_mlp.LAUNCHES["reram_matmul_int"]}
 
 
 def reset_launch_counts() -> None:
-    for counts in (fused_mlp.LAUNCHES, aggregate.LAUNCHES):
+    for counts in (fused_mlp.LAUNCHES, aggregate.LAUNCHES,
+                   reram_mlp.LAUNCHES):
         for key in counts:
             counts[key] = 0

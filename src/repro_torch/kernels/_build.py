@@ -23,8 +23,8 @@ import subprocess
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "build", "build_log",
-           "library", "nvcc_path", "runs_plain", "stream_of"]
+__all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "bind", "build", "build_log",
+           "int_fn", "library", "nvcc_path", "runs_plain", "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -134,3 +134,22 @@ def library(name: str) -> ctypes.CDLL:
     build([name])
     so, _ = _paths(name)
     return ctypes.CDLL(str(so))
+
+
+def bind(lib: ctypes.CDLL, fn: str, n_ptrs: int, n_ints: int):
+    """Type ``lib.fn`` as a launch: ``int fn(void* x n_ptrs, int x n_ints,
+    void* stream)``, returning the ``cudaError_t``. Pointers and the stream
+    must be ``c_void_p``, or ctypes passes them as 32-bit ints."""
+    f = getattr(lib, fn)
+    f.restype = ctypes.c_int
+    f.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
+                  + [ctypes.c_void_p])
+    return f
+
+
+def int_fn(lib: ctypes.CDLL, fn: str):
+    """``lib.fn`` typed as ``int fn(int)``."""
+    f = getattr(lib, fn)
+    f.restype = ctypes.c_int
+    f.argtypes = [ctypes.c_int]
+    return f

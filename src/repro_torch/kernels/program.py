@@ -8,17 +8,26 @@ uniform ``d_pad`` edge (a multiple of 128), and the stacked tensors live as
 buffers of a :class:`CrossbarProgram` module, so ``.to(device)`` moves the
 programmed crossbars to the card.
 
-Launch geometry (replaces the JAX package's 16 MB VMEM planner). The TPU
-kernel kept the whole ``(M, d_pad)`` activation panel in VMEM and picked
-one of four dataflows to fit it. On Hopper a block has at most 227 KB of
-shared memory, so no panel fits on chip; the kernel
-(``csrc/fused_mlp.cu``) instead runs one launch per layer over
-``BLOCK_M x BLOCK_N`` output tiles, stepping K in ``BLOCK_K``-byte slabs
-staged in shared memory, with the activation panel in device memory (and
-mostly in the 50 MB L2). The only choice left per layer is how far K and N
-need to run: ``k_lim``/``n_lim`` stop at the real widths rounded up to the
-tile edges, because every column beyond a layer's real width is zero on
-input and masked on output — skipping it drops only zero terms.
+Dataflow choice. The JAX package picks one of four dataflows per MLP and
+row count (:data:`FUSED_MODES`) by a 16 MB VMEM budget;
+:func:`plan_fused_mlp` here is a copy of that arithmetic
+(``repro/kernels/program.py:283-459``, without ``policy=``), so the same
+MLP runs the same dataflow in both packages. The modes map to kernels:
+'whole' and 'tiled' to K1 (``csrc/fused_mlp.cu``), 'mtiled' to K2
+(``csrc/fused_mlp_mtiled.cu``), 'wstat' to K3 (``csrc/fused_mlp_wstat.cu``).
+The TPU's tile edges (``block_n``/``block_k``) only steer that choice; they
+are not taken as arguments and do not shape the Hopper launches.
+
+Launch geometry. On Hopper a block has at most 227 KB of shared memory, so
+no panel fits on chip; each kernel runs one launch per layer over
+``BLOCK_M x BLOCK_N`` output tiles, stepping K in ``BLOCK_K``-byte slabs,
+with the activation panel in device memory (and mostly in the 50 MB L2).
+Per layer, K and N run only as far as they need to: ``k_lim``/``n_lim`` stop
+at the real widths rounded up to the tile edges, because every column
+beyond a layer's real width is zero on input and masked on output —
+skipping it drops only zero terms. K2 and K3 keep a whole stripe or a whole
+weight tile of ``k_lim`` bytes per row in dynamic shared memory
+(:class:`LaunchGeometry`'s ``smem_bytes``).
 """
 from __future__ import annotations
 
@@ -32,16 +41,29 @@ from .ref import combine_planes
 
 __all__ = [
     "BLOCK_K", "BLOCK_M", "BLOCK_N", "CROSSBAR", "CrossbarProgram",
-    "LaunchGeometry", "build_program", "encode_planes", "plan_launch",
-    "quantize_tensor",
+    "FUSED_MODES", "FusedPlan", "LaunchGeometry", "VMEM_BUDGET_BYTES",
+    "build_program", "encode_planes", "fused_vmem_bytes", "plan_fused_mlp",
+    "plan_launch", "quantize_tensor", "wstat_row_groups",
 ]
 
 #: Crossbar edge — every program dimension is padded to this (the JAX
 #: package's layout, kept so programs are bitwise comparable).
 CROSSBAR = 128
 
-#: Output tile of one block of the fused-MLP kernel, and its K slab (bytes).
+#: Output tile of one block of the crossbar kernels, and their K slab
+#: (bytes); ``csrc/crossbar.cuh`` holds the same numbers.
 BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
+
+#: The TPU's per-core VMEM budget that the JAX package's dataflow choice is
+#: made against; kept so that both packages choose alike.
+VMEM_BUDGET_BYTES = 16 * 2 ** 20
+
+#: The four fused-MLP dataflows of the JAX package, in its order. Kernels:
+#: 'whole'/'tiled' -> K1, 'mtiled' -> K2, 'wstat' -> K3.
+FUSED_MODES = ("whole", "tiled", "mtiled", "wstat")
+
+#: The TPU's activation stripe height, which the VMEM accounting assumes.
+_TPU_BLOCK_M = CROSSBAR
 
 
 def _scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
@@ -185,23 +207,155 @@ def build_program(layers: Sequence, *, weight_bits: int = 8,
 
 @dataclass(frozen=True)
 class LaunchGeometry:
-    """Per-layer extent of the fused-MLP launches for ``m_real`` rows:
-    ``m_pad`` rows (a multiple of ``BLOCK_M``), and for layer l the K
-    extent ``k_lims[l]`` (real input width rounded up to ``BLOCK_K``) and
-    N extent ``n_lims[l]`` (real output width rounded up to ``BLOCK_N``).
-    Layer l's grid is ``(n_lims[l] / BLOCK_N, m_pad / BLOCK_M, B)``."""
+    """Per-layer extent of the fused-MLP launches for ``m_real`` rows under
+    dataflow ``mode``: ``m_pad`` rows (a multiple of ``BLOCK_M``, the same
+    in every mode), and for layer l the K extent ``k_lims[l]`` (real input
+    width rounded up to ``BLOCK_K``), the N extent ``n_lims[l]`` (real
+    output width rounded up to ``BLOCK_N``) and the dynamic shared memory
+    of one block, ``smem_bytes[l]``. Layer l's grid is
+    ``(n_lims[l] / BLOCK_N, m_pad / BLOCK_M, B)`` for K1,
+    ``(m_pad / BLOCK_M, B)`` for K2 (a block walks every N-tile) and
+    ``(n_lims[l] / BLOCK_N, row_groups)`` for K3."""
 
     m_pad: int
     k_lims: tuple[int, ...]
     n_lims: tuple[int, ...]
+    mode: str = "whole"
+    smem_bytes: tuple[int, ...] = ()
 
 
-def plan_launch(program: CrossbarProgram, m_rows: int) -> LaunchGeometry:
-    """The fused kernel's launch geometry for ``m_rows`` activation rows."""
+def _smem_bytes(mode: str, k_lim: int) -> int:
+    """Dynamic shared memory of one block: none for K1; K2 keeps a
+    ``BLOCK_M``-row int8 stripe, K3 a ``BLOCK_N``-column u8 weight tile,
+    ``k_lim`` bytes each plus one pad word (``csrc/*_smem``)."""
+    if mode == "mtiled":
+        return 4 * BLOCK_M * (k_lim // 4 + 1)
+    if mode == "wstat":
+        return 4 * BLOCK_N * (k_lim // 4 + 1)
+    return 0
+
+
+def plan_launch(program: CrossbarProgram, m_rows: int,
+                mode: str = "whole") -> LaunchGeometry:
+    """The launch geometry of dataflow ``mode`` for ``m_rows`` rows."""
+    if mode not in FUSED_MODES:
+        raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
     w = program.widths
+    k_lims = tuple(min(_ceil_to(k, BLOCK_K), program.d_pad) for k in w[:-1])
     return LaunchGeometry(
         m_pad=_ceil_to(max(int(m_rows), 1), BLOCK_M),
-        k_lims=tuple(min(_ceil_to(k, BLOCK_K), program.d_pad)
-                     for k in w[:-1]),
+        k_lims=k_lims,
         n_lims=tuple(min(_ceil_to(n, BLOCK_N), program.d_pad)
-                     for n in w[1:]))
+                     for n in w[1:]),
+        mode=mode,
+        smem_bytes=tuple(_smem_bytes(mode, k) for k in k_lims))
+
+
+#: Blocks of K3 per SM that its grid aims at: 4 x 256 threads, and up to
+#: 3 blocks' 66 KB weight tiles at d_pad 1024 in the SM's shared memory.
+WSTAT_BLOCKS_PER_SM = 4
+
+
+def wstat_row_groups(n_tiles: int, row_tiles: int, sms: int) -> int:
+    """K3's second grid dimension: enough row groups that the
+    ``n_tiles x row_groups`` blocks fill :data:`WSTAT_BLOCKS_PER_SM` blocks
+    on each of ``sms`` SMs, and no more groups than row tiles. Each block
+    combines its weight tile once and streams ``row_tiles / row_groups``
+    row tiles."""
+    want = -(-WSTAT_BLOCKS_PER_SM * sms // max(n_tiles, 1))
+    return max(1, min(row_tiles, want))
+
+
+# ---------------------------------------------------------------------------
+# the dataflow choice: a copy of the JAX package's VMEM accounting
+# ---------------------------------------------------------------------------
+
+def fused_vmem_bytes(d_pad: int, n_planes: int, m_pad: int, block_m: int,
+                     block_n: int, mode: str = "tiled") -> int:
+    """Per-grid-step VMEM residency of the TPU kernel at tile edge
+    ``block_n`` under dataflow ``mode``: double-buffered operand blocks
+    plus persistent scratch (the JAX package's formula, unchanged)."""
+    if mode not in FUSED_MODES:
+        raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
+    if mode == "mtiled":
+        blocks = (n_planes * d_pad * block_n     # int8 plane tile
+                  + block_m * d_pad              # int8 input stripe
+                  + 2 * 4 * block_n)             # f32 bias + col-mask tiles
+        scratch = (4 * block_m * d_pad           # f32 staged stripe
+                   + 4 * block_m * d_pad         # int32 stripe snapshot
+                   + 4 * block_m)                # int32 stripe row sums
+        return 2 * blocks + scratch
+    blocks = (n_planes * d_pad * block_n         # int8 plane tile
+              + block_m * d_pad                  # int8 input stripe
+              + 4 * block_m * block_n            # f32 output tile
+              + 2 * 4 * block_n)                 # f32 bias + col-mask tiles
+    if mode == "wstat":
+        scratch = (4 * m_pad * d_pad             # f32 activation panel
+                   + m_pad * d_pad               # int8 snapshot panel
+                   + 4 * m_pad)                  # int32 panel row sums
+    else:                                        # whole / tiled
+        scratch = (4 * m_pad * d_pad             # f32 activation panel
+                   + 4 * block_m * d_pad         # int32 stripe snapshot
+                   + 4 * block_m)                # int32 stripe row sums
+    return 2 * blocks + scratch
+
+
+def _edge_candidates(mode: str, d: int) -> range:
+    """TPU tile edges a mode may take, largest first."""
+    if mode == "whole":
+        return range(d, d + 1)
+    if mode == "mtiled":
+        return range(d, 0, -CROSSBAR)
+    return range(d - CROSSBAR, 0, -CROSSBAR)
+
+
+@dataclass(frozen=True)
+class FusedPlan:
+    """The dataflow chosen for one MLP at one row count: ``mode`` (one of
+    :data:`FUSED_MODES`), and the TPU tile edge and VMEM residency the
+    choice rests on (``tpu_block_n``, ``vmem_bytes``, against ``budget``).
+    ``fits_budget`` is False only when nothing fits and 'mtiled' is the
+    fallback."""
+
+    mode: str
+    tpu_block_n: int
+    vmem_bytes: int
+    budget: int
+
+    @property
+    def fits_budget(self) -> bool:
+        return self.vmem_bytes <= self.budget
+
+
+def plan_fused_mlp(program: CrossbarProgram, m_rows: int, *,
+                   mode: str | None = None) -> FusedPlan:
+    """Choose the dataflow for ``m_rows`` activation rows as the JAX
+    package's ``plan_fused_mlp`` does with its defaults: the first of
+    whole -> wstat -> tiled -> mtiled that fits the VMEM budget at some tile
+    edge, or 'mtiled' with ``fits_budget`` False when none does. ``mode``
+    pins the dataflow instead."""
+    d, p = program.d_pad, program.n_planes
+    if mode is not None and mode not in FUSED_MODES:
+        raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
+    m_pad = _ceil_to(max(int(m_rows), 1), _TPU_BLOCK_M)
+
+    def bytes_at(md: str, bn: int) -> int:
+        return fused_vmem_bytes(d, p, m_pad, _TPU_BLOCK_M, bn, mode=md)
+
+    def largest_fitting_edge(md: str) -> int | None:
+        for cand in _edge_candidates(md, d):
+            if d % cand == 0 and bytes_at(md, cand) <= VMEM_BUDGET_BYTES:
+                return cand
+        return None
+
+    if mode is not None:
+        bn = d if mode == "whole" else largest_fitting_edge(mode) or CROSSBAR
+    else:
+        mode, bn = "mtiled", CROSSBAR
+        for cand in ("whole", "wstat", "tiled", "mtiled"):
+            found = largest_fitting_edge(cand)
+            if found is not None:
+                mode, bn = cand, found
+                break
+    return FusedPlan(mode=mode, tpu_block_n=bn, vmem_bytes=bytes_at(mode, bn),
+                     budget=VMEM_BUDGET_BYTES)

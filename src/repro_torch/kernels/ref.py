@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["combine_planes"]
+__all__ = ["combine_planes", "ref_reram_matmul_int"]
 
 
 def combine_planes(planes: torch.Tensor, cell_bits: int = 2,
@@ -15,3 +15,14 @@ def combine_planes(planes: torch.Tensor, cell_bits: int = 2,
     for p in range(planes.shape[0]):
         u += planes[p].to(torch.int32) << (cell_bits * p)
     return u - (1 << (weight_bits - 1))
+
+
+def ref_reram_matmul_int(x_int: torch.Tensor, planes: torch.Tensor,
+                         cell_bits: int = 2,
+                         weight_bits: int = 8) -> torch.Tensor:
+    """``x_int @ combine_planes(planes)`` as int32: ``(…, K)`` integer
+    activations times ``(P, K, N)`` planes -> ``(…, N)``. The product runs
+    in float64, which is exact while every partial sum stays below 2^53 —
+    for int8 activations and 8-bit weights, any K below 2^38."""
+    w = combine_planes(planes, cell_bits, weight_bits).to(torch.float64)
+    return torch.matmul(x_int.to(torch.float64), w).to(torch.int32)

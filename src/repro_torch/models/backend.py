@@ -19,7 +19,7 @@ Lifecycle — the same three phases as the accelerator:
             each SA layer runs its centers in plan order through the gather
             kernels (``aggregate_diff`` for one cloud, one
             ``aggregate_diff_batched`` launch per layer for a batch), the
-            MLP runs through the fused kernel, and the per-center max is
+            MLP runs through the backend's kernels, and the per-center max is
             scattered back to index order — so logits are bitwise invariant
             to the order.
 
@@ -34,6 +34,7 @@ moves it to the device (the JAX package's ``device_planning=False`` path).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Mapping
 
 import numpy as np
@@ -43,8 +44,10 @@ from torch import nn
 from repro_torch.core.schedule import (DevicePlan, ExecutionPlan,
                                        MODE_PRESETS, build_plan)
 from repro_torch.core.workload import PointNetConfig, PointNetWorkload
-from repro_torch.kernels import (aggregate_diff, aggregate_diff_batched,
-                                 reram_mlp_fused, reram_mlp_fused_batched)
+from repro_torch.kernels import (FUSED_MODES, aggregate_diff,
+                                 aggregate_diff_batched, plan_fused_mlp,
+                                 reram_linear, reram_mlp_fused,
+                                 reram_mlp_fused_batched)
 from repro_torch.models import pointnet2 as _pn
 
 __all__ = [
@@ -52,6 +55,9 @@ __all__ = [
     "CompiledModel",
     "FloatBackend",
     "ReramFusedBackend",
+    "ReramFusedMTiledBackend",
+    "ReramFusedWStatBackend",
+    "ReramPerLayerBackend",
     "available_backends",
     "compile_model",
     "register_backend",
@@ -71,7 +77,7 @@ def register_backend(name: str) -> Callable[[type], type]:
     """Class decorator: make ``compile_model(..., backend=name)`` resolve to
     the decorated :class:`Backend` subclass (latest registration wins)."""
     def deco(cls: type) -> type:
-        if getattr(cls, "name", "?") == "?":
+        if "name" not in vars(cls):
             cls.name = name
         _REGISTRY[name] = cls
         return cls
@@ -141,17 +147,45 @@ class FloatBackend(Backend):
                               final_relu=final_relu)
 
 
+@register_backend("reram")
+class ReramPerLayerBackend(FloatBackend):
+    """Per-layer bit-sliced INT8 crossbar matmuls (``reram_linear`` over
+    K6): the same arithmetic as the fused path, but every weight is
+    quantized and plane-encoded anew on every call, one kernel launch per
+    layer. The reference the fused kernels are tested against. A batch
+    quantizes each cloud under its own scale, as a per-cloud loop does, and
+    runs each layer as one launch over all clouds' rows."""
+
+    def apply_mlp(self, key, x, *, final_relu=True):
+        return _pn._apply_mlp(self._mlp(key).layers(), x,
+                              final_relu=final_relu, matmul=reram_linear)
+
+    def apply_mlp_batched(self, key, x, *, final_relu=True):
+        return _pn._apply_mlp(
+            self._mlp(key).layers(), x, final_relu=final_relu,
+            matmul=lambda a, w: reram_linear(a, w, batched=True))
+
+
 @register_backend("reram-fused")
 class ReramFusedBackend(Backend):
     """Weight-stationary path: every MLP programmed into crossbar planes
-    exactly once at compile time, then each MLP runs through the fused
-    kernel K1."""
+    exactly once at compile time, then each MLP runs through one fused
+    kernel. ``mode`` pins the dataflow ('whole'/'tiled' -> K1, 'mtiled' ->
+    K2, 'wstat' -> K3); by default :func:`plan_fused_mlp` chooses it per
+    MLP and row count as the JAX package does, once per shape."""
 
-    def __init__(self, params, config):
+    #: the dataflow this registry entry pins (None: chosen per shape)
+    mode: str | None = None
+
+    def __init__(self, params, config, *, mode: str | None = None):
         super().__init__(params, config)
+        if mode is not None and mode not in FUSED_MODES:
+            raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
         program = _pn.build_model_program(params)
         self.sa = nn.ModuleList(program["sa"])
         self.head = program["head"]
+        self.mode = mode if mode is not None else type(self).mode
+        self._plan_cache: dict = {}
 
     def _prog(self, key):
         return self.head if key == "head" else self.sa[key[1]]
@@ -160,12 +194,42 @@ class ReramFusedBackend(Backend):
     def program(self) -> dict:
         return {"sa": list(self.sa), "head": self.head}
 
+    def fused_plan(self, key, m_rows: int):
+        """The dataflow choice for MLP ``key`` at ``m_rows`` rows per
+        cloud, made once per (MLP, rows) and cached."""
+        ck = (key, int(m_rows))
+        if ck not in self._plan_cache:
+            self._plan_cache[ck] = plan_fused_mlp(self._prog(key), m_rows,
+                                                  mode=self.mode)
+        return self._plan_cache[ck]
+
     def apply_mlp(self, key, x, *, final_relu=True):
-        return reram_mlp_fused(x, self._prog(key), final_relu=final_relu)
+        plan = self.fused_plan(key, math.prod(x.shape[:-1]))
+        return reram_mlp_fused(x, self._prog(key), final_relu=final_relu,
+                               mode=plan.mode)
 
     def apply_mlp_batched(self, key, x, *, final_relu=True):
+        plan = self.fused_plan(key, math.prod(x.shape[1:-1]))
         return reram_mlp_fused_batched(x, self._prog(key),
-                                       final_relu=final_relu)
+                                       final_relu=final_relu, mode=plan.mode)
+
+
+@register_backend("reram-fused-mtiled")
+class ReramFusedMTiledBackend(ReramFusedBackend):
+    """'reram-fused' with the 'mtiled' dataflow pinned: every MLP through
+    K2, each block keeping its stripe of rows in shared memory and writing
+    its outputs in place."""
+
+    mode = "mtiled"
+
+
+@register_backend("reram-fused-wstat")
+class ReramFusedWStatBackend(ReramFusedBackend):
+    """'reram-fused' with the 'wstat' dataflow pinned: every MLP through
+    K3, each block keeping one N-tile of combined weights in shared memory
+    while its share of the rows streams through."""
+
+    mode = "wstat"
 
 
 # ---------------------------------------------------------------------------
@@ -410,15 +474,16 @@ class CompiledModel(nn.Module):
 
 def compile_model(params: Params, config: PointNetConfig, *,
                   backend: str = "float", schedule=None,
-                  device=None) -> CompiledModel:
+                  device=None, **backend_opts) -> CompiledModel:
     """Compile PointNet++ ``params`` for execution on ``device``.
 
     params   : ``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of tensors —
                :func:`~repro_torch.models.pointnet2.init_params`, or the
                JAX package's weights through
                :func:`repro_torch.convert.params_from_numpy`.
-    backend  : registry name — 'float' or 'reram-fused' (or anything added
-               with :func:`register_backend`).
+    backend  : registry name — 'float', 'reram', 'reram-fused',
+               'reram-fused-mtiled' or 'reram-fused-wstat' (or anything
+               added with :func:`register_backend`).
     schedule : None/'baseline', a ``MODE_PRESETS`` name ('pointer-1',
                'pointer-12', 'pointer', 'pointer-morton'), an
                ``{'intra', 'coordinated'}`` mapping, a prebuilt
@@ -426,6 +491,9 @@ def compile_model(params: Params, config: PointNetConfig, *,
                :class:`DevicePlan`.
     device   : where the model runs; default ``cuda``, which raises when no
                card is present. ``device="cpu"`` runs the plain versions.
+    backend_opts : go to the backend's constructor — ``mode=`` ('whole',
+               'tiled', 'mtiled', 'wstat') pins the fused dataflow of
+               'reram-fused'.
     """
     dev = resolve_device(device)
     if not isinstance(backend, str):
@@ -437,7 +505,7 @@ def compile_model(params: Params, config: PointNetConfig, *,
         raise ValueError(f"unknown backend {backend!r}; registered backends: "
                          f"{available_backends()}") from None
     spec, dplan, planned = _canonical_schedule(schedule, config)
-    model = CompiledModel(cls(params, config), config, spec,
+    model = CompiledModel(cls(params, config, **backend_opts), config, spec,
                           planned,
                           device_plan=None if dplan is None else dplan.to(dev))
     return model.to(dev)

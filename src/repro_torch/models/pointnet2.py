@@ -130,9 +130,9 @@ def build_model_program(params: Params) -> dict:
 # feature processing
 # ---------------------------------------------------------------------------
 
-def _apply_mlp(mlp_params, x, *, final_relu=True):
+def _apply_mlp(mlp_params, x, *, final_relu=True, matmul=torch.matmul):
     for i, lyr in enumerate(mlp_params):
-        x = torch.matmul(x, lyr["w"]) + lyr["b"]
+        x = matmul(x, lyr["w"]) + lyr["b"]
         if final_relu or i < len(mlp_params) - 1:
             x = torch.relu(x)
     return x

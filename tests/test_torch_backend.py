@@ -153,6 +153,60 @@ def test_padded_cloud_matches_unpadded(setup):
                        model.forward(clouds[0]))
 
 
+#: Backends this file compares under the 'pointer' schedule only.
+POINTER_BACKENDS = ["reram", "reram-fused-mtiled", "reram-fused-wstat"]
+
+
+@pytest.mark.parametrize("backend", POINTER_BACKENDS)
+def test_more_backends_match_jax(setup, jax_logits, backend):
+    ref_one, ref = jax_logits(backend, "pointer")
+    model = _port(setup, backend, "pointer")
+    got = model.batched_forward(setup[4]).numpy()
+    assert got.shape == ref.shape == (2, 10)
+    _close(got, ref, backend)
+    _close(model.forward(setup[4][0]).numpy(), ref_one, backend)
+
+
+@pytest.mark.parametrize("backend", POINTER_BACKENDS)
+def test_per_layer_and_pinned_modes_equal_fused_bitwise(setup, backend):
+    # zero biases: one function, so one result, batched and single
+    clouds = setup[4]
+    fused = _port(setup, "reram-fused", "pointer")
+    model = _port(setup, backend, "pointer")
+    assert torch.equal(model.batched_forward(clouds),
+                       fused.batched_forward(clouds))
+    assert torch.equal(model.forward(clouds[0]), fused.forward(clouds[0]))
+
+
+def test_backend_names_equal_jax():
+    assert repro_torch.available_backends() == repro.available_backends()
+    for name in repro_torch.available_backends():
+        cls = repro_torch.models.backend._REGISTRY[name]
+        assert cls.name == name
+
+
+def test_mode_option_pins_the_dataflow(setup):
+    _, cfg_t, _, tparams, clouds = setup
+    auto = _port(setup, "reram-fused", "pointer")
+    assert auto.backend.mode is None
+    wstat = repro_torch.compile_model(tparams, cfg_t, backend="reram-fused",
+                                      schedule="pointer", device="cpu",
+                                      mode="wstat")
+    assert wstat.backend.mode == "wstat"
+    assert torch.equal(wstat.batched_forward(clouds),
+                       auto.batched_forward(clouds))
+    assert {p.mode for p in wstat.backend._plan_cache.values()} == {"wstat"}
+    assert {p.mode for p in auto.backend._plan_cache.values()} == {"whole"}
+    assert _port(setup, "reram-fused-mtiled", "baseline").backend.mode \
+        == "mtiled"
+    with pytest.raises(ValueError, match="mode"):
+        repro_torch.compile_model(tparams, cfg_t, backend="reram-fused",
+                                  device="cpu", mode="diagonal")
+    with pytest.raises(TypeError):
+        repro_torch.compile_model(tparams, cfg_t, backend="float",
+                                  device="cpu", mode="wstat")
+
+
 def test_registry_and_schedule_errors(setup):
     assert {"float", "reram-fused"} <= set(repro_torch.available_backends())
     with pytest.raises(ValueError, match="reram-fused"):

@@ -59,6 +59,23 @@ def test_k1_and_gather_counts(smoke):
     assert nbytes == 4 * ((7 + 2) * 8 + 2 * 5 * 3 + 2 * 5 + 2 * 5 * 3 * 8)
 
 
+def test_k6_counts_and_reram_layer_shapes(smoke):
+    assert smoke._k6_bound(10, 16, 8) == (10 * 16 + 16 * 8 + 4 * 10 * 8,
+                                          2 * 10 * 16 * 8)
+    from repro_torch import PAPER_MODELS
+    from repro_torch.models.pointnet2 import init_params
+    cfg = PAPER_MODELS["model2"]
+    shapes = smoke.reram_layer_shapes(init_params(cfg, seed=0), cfg, 8)
+    # 8 layer products: SA-1 and SA-2 over all their rows, the head over
+    # one row per cloud
+    assert shapes == [(65536, 16, 256), (65536, 256, 256),
+                      (65536, 256, 512), (16384, 512, 512),
+                      (16384, 512, 512), (16384, 512, 1024),
+                      (8, 1024, 256), (8, 256, 40)]
+    assert sum(n for n in smoke.PATHS["model2"]["reram"].values()) \
+        == 2 * len(shapes)
+
+
 def test_clouds_are_seeded_float32_surfaces(smoke):
     a, b = smoke.make_clouds(64, 3, 0), smoke.make_clouds(64, 3, 0)
     assert a.dtype == np.float32 and a.shape == (3, 64, 3)
