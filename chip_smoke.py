@@ -19,15 +19,21 @@ weights from a seed. Phases, each printing one JSON line:
    same inputs, bit for bit — K1, K4, K5 at model1's shapes; K1, K2 and K3
    at each of model2's three MLPs and a ragged one, each also against the
    others (one function, three dataflows); K6 at every layer shape of the
-   model2 'reram' path;
+   model2 'reram' path; K7's loop at both SA layers' FPS (8 x 1024 -> 512,
+   8 x 512 -> 128, the real SA-2 input), a ragged cloud with pad rows, grid
+   and duplicated clouds (exact ties) and N = 16384, and its single step
+   at the same widths;
 4. end to end: each model and backend with the 'pointer' schedule; launch
    counters reset just before each run and read just after, and held to
-   the counts the path must launch; the card's logits and geometry held
-   against the port's own CPU run on the first 2 clouds;
+   the counts the path must launch (FPS: one launch per SA layer and
+   call); the card's logits and geometry (FPS and kNN) held against the
+   port's own CPU run on the first 2 clouds;
 5. times: each kernel, its plain version and a library yardstick, timed
    with CUDA events after warm-up at the main path's shapes, beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
    the peak rate, whichever is larger); K1, K2 and K3 at each model2 MLP;
+   K7 at the two FPS calls of one ``batched_forward``, with its time per
+   sampling step (no PyTorch call computes FPS: no library time);
    ``batched_forward`` and ``forward`` end to end, on the host clock;
 6. profile: one model1 and one model2 ``batched_forward`` split on the
    host clock into geometry, host planning and the rest, and their device
@@ -303,6 +309,73 @@ def phase_model2_kernels(model2, params2) -> dict:
     return {"mlps": mlps, "K6": k6}
 
 
+def _fps_cases(clouds_np) -> dict:
+    """K7's inputs: the two FPS calls of the main path (SA-1 over the
+    clouds, SA-2 over the 512 points SA-1 selected), a ragged cloud with
+    pad rows, clouds with exact ties, and the largest cloud the kernel
+    takes."""
+    from repro_torch.kernels.fps_update import MAX_POINTS, fps_batched_plain
+    from repro_torch.models.pointnet2 import gather_rows
+    sa1 = torch.from_numpy(clouds_np).cuda()
+    sa2 = gather_rows(sa1, fps_batched_plain(sa1, 512)).contiguous()
+    rng = np.random.default_rng(SEED + 40)
+    grid = np.stack(np.meshgrid(*[np.arange(11.0)] * 3),
+                    -1).reshape(-1, 3)[:1000]
+    dup = rng.normal(size=(2, 1024, 3))
+    dup[:, 512:] = dup[:, :512]
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
+    return {
+        "sa1": (sa1, 512, 0, None), "sa2": (sa2, 128, 0, None),
+        "ragged": (card(rng.normal(size=(3, 1000, 3))), 300, 3,
+                   torch.tensor([1000, 993, 611], device="cuda")),
+        "grid": (card(np.stack([grid, grid + 1.0])), 400, 0, None),
+        "duplicated": (card(dup), 600, 5,
+                       torch.tensor([1024, 900], device="cuda")),
+        "max_points": (card(rng.normal(size=(2, MAX_POINTS, 3))), 1024, 0,
+                       None)}
+
+
+def phase_fps_vs_plain(clouds_np) -> dict:
+    """K7 against its plain versions, bit for bit: the loop kernel at every
+    case of :func:`_fps_cases`, and the step kernel over the first 8 steps
+    of FPS on the first cloud of each."""
+    from repro_torch.kernels.fps_update import (
+        fps_batched_cuda, fps_batched_plain, fps_update_cuda,
+        fps_update_plain, max_points_of_kernel, MAX_POINTS)
+    check(max_points_of_kernel() == MAX_POINTS, "K7 limit as built")
+    cases = _fps_cases(clouds_np)
+    out = {}
+    for name, (pts, n_samples, start, nv) in cases.items():
+        got = fps_batched_cuda(pts, n_samples, start, nv)
+        want = fps_batched_plain(pts, n_samples, start, nv)
+        torch.cuda.synchronize()
+        err = int((got - want).abs().max())
+        check(torch.equal(got, want), f"K7 fps {name} bitwise (max err "
+                                      f"{err})")
+        if nv is not None:
+            check(bool((got < nv[:, None]).all()), f"K7 {name} pads")
+        p_t = pts[0].T.contiguous()
+        dist = torch.full((1, pts.shape[1]), float("inf"), device="cuda")
+        step_err = 0.0
+        for i in range(8):
+            c = p_t[:, int(want[0, i]):int(want[0, i]) + 1].contiguous()
+            d_got = fps_update_cuda(p_t, c, dist)
+            dist = fps_update_plain(p_t, c, dist)
+            torch.cuda.synchronize()
+            check(torch.equal(d_got, dist), f"K7 fps_update {name} step {i} "
+                                            f"bitwise")
+            step_err = max(step_err, float((d_got - dist).abs().max()))
+        out[name] = {"shape": list(pts.shape), "n_samples": n_samples,
+                     "start": start, "n_valid": None if nv is None
+                     else nv.tolist(), "max_abs_err": err,
+                     "step_max_abs_err": step_err}
+    emit({"phase": "kernel_vs_plain_fps", "tolerance": "bitwise",
+          "K7": out})
+    return {"cases": cases, "errors": out}
+
+
 def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
     """One ``batched_forward`` and one ``forward``, launch counters reset
     just before and read just after."""
@@ -316,9 +389,10 @@ def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
 
 #: Backends driven end to end, per model, and the MLP launches each path
 #: must count in one ``batched_forward`` plus one ``forward`` (beside one
-#: gather launch per SA layer and pass): model2's SA-1 runs through K2
-#: ('mtiled'), its SA-2 through K3 ('wstat') and its head through K1; the
-#: per-layer 'reram' backend launches K6 once per layer, 8 layers.
+#: gather and one FPS launch per SA layer and pass): model2's SA-1 runs
+#: through K2 ('mtiled'), its SA-2 through K3 ('wstat') and its head
+#: through K1; the per-layer 'reram' backend launches K6 once per layer,
+#: 8 layers.
 PATHS = {
     "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_mtiled": 2,
                                "fused_mlp_wstat": 2},
@@ -351,6 +425,7 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
             counts, logits, single = run_main_path(model, clouds)
             quantized = backend != "float"
             want = {"aggregate_diff_batched": L, "aggregate_diff": L,
+                    "fps": 2 * L, "fps_update": 0,
                     **{c: mlp_counts.get(c, 0) for c in MLP_COUNTERS}}
             for key, n in want.items():
                 check(counts[key] == n,
@@ -551,7 +626,68 @@ def _k6_row(cases2, counts_of) -> dict:
         "per_layer": per_layer}
 
 
-def phase_times(cases, cases2, counts_of, models, clouds_np, smi) -> list:
+def _fps_bound(batch: int, n: int, n_samples: int):
+    """Bytes and float32 operations of one FPS call: the float32 points
+    read once and the int64 indices written once; per step and point 3
+    subtractions, 3 multiplications, 2 additions and the minimum (the
+    argmax's comparisons are not counted)."""
+    return batch * n * 12 + batch * n_samples * 8, 9 * batch * n * n_samples
+
+
+def _k7_row(fps_cases, counts_of) -> dict:
+    """K7 at the two FPS calls of one model1/model2 ``batched_forward``
+    (8 x 1024 -> 512 and 8 x 512 -> 128), and its single step beside it."""
+    from repro_torch.kernels.fps_update import (
+        fps_batched_cuda, fps_batched_plain, fps_update_cuda,
+        fps_update_plain)
+    per_layer, tot = {}, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+    for name in ("sa1", "sa2"):
+        pts, n_samples, _, _ = fps_cases["cases"][name]
+        b, n, _ = pts.shape
+        row = {"shape": [b, n, n_samples],
+               "ms": cuda_ms(lambda: fps_batched_cuda(pts, n_samples)),
+               "plain_ms": cuda_ms(lambda: fps_batched_plain(pts, n_samples),
+                                   iters=3, warmup=1)}
+        row["us_per_step"] = 1e3 * row["ms"] / n_samples
+        nbytes, ops = _fps_bound(b, n, n_samples)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, FP32_OPS_PER_S)
+        per_layer[name] = row
+        for key in ("ms", "plain_ms"):
+            tot[key] += row[key]
+        tot["bytes"] += nbytes
+        tot["ops"] += ops
+    bms, bby = bound(tot["bytes"], tot["ops"], FP32_OPS_PER_S)
+    # the single step at SA-1's width, over the 8 clouds' first steps
+    pts = fps_cases["cases"]["sa1"][0]
+    p_t = pts[0].T.contiguous()
+    c = p_t[:, :1].contiguous()
+    dist = torch.full((1, p_t.shape[1]), float("inf"), device="cuda")
+    n = p_t.shape[1]
+    step = {"shape": [3, n],
+            "ms": cuda_ms(lambda: fps_update_cuda(p_t, c, dist)),
+            "plain_ms": cuda_ms(lambda: fps_update_plain(p_t, c, dist))}
+    step["bound_ms"], step["bound_by"] = bound(12 * n + 12 + 8 * n, 9 * n,
+                                               FP32_OPS_PER_S)
+    errors = fps_cases["errors"]
+    return {
+        "name": "K7 fps", "route": "cuda",
+        "source": "src/repro_torch/csrc/fps.cu",
+        "replaces": "src/repro/kernels/fps_update.py:34",
+        "launches": counts_of["model1/reram-fused"]["fps"],
+        "max_abs_err": max(max(e["max_abs_err"], e["step_max_abs_err"])
+                           for e in errors.values()),
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
+        "bound_by": bby, "library_ms": None,
+        "library_call": "none (no one PyTorch call computes FPS or a "
+                        "relaxation step)",
+        "work": "model1/model2 SA-1 + SA-2 FPS, batch 8: the whole "
+                "sampling loop in one launch each",
+        "us_per_step": 1e3 * tot["ms"] / (512 + 128),
+        "per_layer": per_layer, "fps_update_step": step}
+
+
+def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
+                smi) -> list:
     from repro_torch.kernels import aggregate, fused_mlp
     counts_main = counts_of["model1/reram-fused"]
     kernels = []
@@ -631,6 +767,7 @@ def phase_times(cases, cases2, counts_of, models, clouds_np, smi) -> list:
                      + ("8" if key == "K4" else "1")),
             "per_layer": per_layer})
     kernels.append(_k6_row(cases2, counts_of))
+    kernels.append(_k7_row(fps_cases, counts_of))
     # end to end
     e2e = {}
     clouds = torch.from_numpy(clouds_np).cuda()
@@ -659,6 +796,8 @@ def phase_times(cases, cases2, counts_of, models, clouds_np, smi) -> list:
                                    "bound_ms", "bound_by")}
                       for k in kernels},
           "model2_mlps": kernels[1]["model2_mlps"],
+          "K7": {k: kernels[-1][k] for k in ("us_per_step", "per_layer",
+                                             "fps_update_step")},
           "end_to_end": e2e})
     return kernels
 
@@ -727,7 +866,8 @@ def _device_rows(fn) -> list:
 def _port_rows(rows) -> list:
     return [r for r in rows if any(
         name in r["kernel"] for name in ("fused_mlp_", "wstat_",
-                                         "aggregate_diff", "reram_matmul"))]
+                                         "aggregate_diff", "reram_matmul",
+                                         "fps_"))]
 
 
 def main() -> int:
@@ -753,8 +893,10 @@ def main() -> int:
     cases = phase_kernel_vs_plain(models["model1"],
                                   torch.from_numpy(clouds_np).cuda())
     cases2 = phase_model2_kernels(models["model2"], params["model2"])
+    fps_cases = phase_fps_vs_plain(clouds_np)
     counts_of = phase_end_to_end(params, cfgs, clouds_np)
-    kernels = phase_times(cases, cases2, counts_of, models, clouds_np, smi)
+    kernels = phase_times(cases, cases2, fps_cases, counts_of, models,
+                          clouds_np, smi)
     for name in ("model1", "model2"):
         phase_profile(models[name], clouds_np, smi)
     for k in kernels:

@@ -12,40 +12,48 @@
                   float layer over it
 - ``aggregate`` : K4/K5, the plan-ordered neighbor gather + difference
                   (``csrc/aggregate.cu``)
+- ``fps_update``: K7, farthest point sampling (``csrc/fps.cu``): one
+                  relaxation step (``fps_update``), and the whole sampling
+                  loop in one launch (``fps_batched``; ``ops.fps`` is one
+                  cloud)
+- ``ops``       : ``reram_linear``, ``fps``, ``count_dma_elisions``
 - ``_build``    : nvcc build at first use + ctypes binding
 
 Every wrapper runs its plain torch version on CPU tensors and launches its
 kernel on CUDA tensors; :func:`launch_counts` reads the kernel launch
 counters, :func:`reset_launch_counts` zeroes them.
 """
-from . import aggregate, fused_mlp, reram_mlp
+from . import aggregate, fps_update as _fps_update, fused_mlp, reram_mlp
 from .aggregate import aggregate_diff, aggregate_diff_batched
+from .fps_update import fps_batched, fps_update
 from .fused_mlp import reram_mlp_fused, reram_mlp_fused_batched
-from .ops import reram_linear
+from .ops import count_dma_elisions, fps, reram_linear
 from .program import (FUSED_MODES, CrossbarProgram, FusedPlan,
                       LaunchGeometry, build_program, encode_planes,
                       fused_vmem_bytes, plan_fused_mlp, plan_launch,
                       quantize_tensor)
-from .ref import combine_planes, ref_reram_matmul_int
+from .ref import combine_planes, ref_fps_update, ref_reram_matmul_int
 from .reram_mlp import reram_matmul_int
 
 __all__ = [
     "FUSED_MODES", "CrossbarProgram", "FusedPlan", "LaunchGeometry",
     "aggregate_diff", "aggregate_diff_batched", "build_program",
-    "combine_planes", "encode_planes", "fused_vmem_bytes", "launch_counts",
-    "plan_fused_mlp", "plan_launch", "quantize_tensor",
+    "combine_planes", "count_dma_elisions", "encode_planes", "fps",
+    "fps_batched", "fps_update", "fused_vmem_bytes", "launch_counts",
+    "plan_fused_mlp", "plan_launch", "quantize_tensor", "ref_fps_update",
     "ref_reram_matmul_int", "reram_linear", "reram_matmul_int",
     "reram_mlp_fused", "reram_mlp_fused_batched", "reset_launch_counts",
 ]
 
 #: The CUDA sources of the kernels (``csrc/<name>.cu``).
 KERNEL_SOURCES = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
-                  "reram_mlp", "aggregate")
+                  "reram_mlp", "aggregate", "fps")
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by counter: per fused-MLP
-    kernel its MLP calls and its layers, the gathers' launches, and K6's."""
+    kernel its MLP calls and its layers, the gathers' launches, K6's, and
+    K7's (``fps_update`` the single steps, ``fps`` the whole loops)."""
     f = fused_mlp.LAUNCHES
     return {"fused_mlp": f["mlp"], "fused_mlp_layer": f["layer"],
             "fused_mlp_mtiled": f["mtiled"],
@@ -55,11 +63,13 @@ def launch_counts() -> dict[str, int]:
             "aggregate_diff": aggregate.LAUNCHES["aggregate_diff"],
             "aggregate_diff_batched":
                 aggregate.LAUNCHES["aggregate_diff_batched"],
-            "reram_matmul_int": reram_mlp.LAUNCHES["reram_matmul_int"]}
+            "reram_matmul_int": reram_mlp.LAUNCHES["reram_matmul_int"],
+            "fps_update": _fps_update.LAUNCHES["fps_update"],
+            "fps": _fps_update.LAUNCHES["fps"]}
 
 
 def reset_launch_counts() -> None:
     for counts in (fused_mlp.LAUNCHES, aggregate.LAUNCHES,
-                   reram_mlp.LAUNCHES):
+                   reram_mlp.LAUNCHES, _fps_update.LAUNCHES):
         for key in counts:
             counts[key] = 0

@@ -313,18 +313,47 @@ def _edge_candidates(mode: str, d: int) -> range:
 class FusedPlan:
     """The dataflow chosen for one MLP at one row count: ``mode`` (one of
     :data:`FUSED_MODES`), and the TPU tile edge and VMEM residency the
-    choice rests on (``tpu_block_n``, ``vmem_bytes``, against ``budget``).
+    choice rests on (``tpu_block_n``, ``vmem_bytes``, against ``budget``,
+    for ``d_pad`` and the TPU's ``m_pad`` rows of ``n_planes`` planes).
     ``fits_budget`` is False only when nothing fits and 'mtiled' is the
-    fallback."""
+    fallback. The ``*_per_layer`` properties are the JAX package's HBM
+    accounting of that TPU dataflow (what its ``stats()`` reports), not
+    Hopper quantities: the Hopper kernels tile by their own edges."""
 
     mode: str
     tpu_block_n: int
     vmem_bytes: int
     budget: int
+    d_pad: int
+    m_pad: int
+    n_planes: int
 
     @property
     def fits_budget(self) -> bool:
         return self.vmem_bytes <= self.budget
+
+    @property
+    def plane_tile_fetches_per_layer(self) -> int:
+        """``(P, d_pad, tpu_block_n)`` plane tiles crossing HBM to VMEM per
+        layer and batch element: once per N-tile for 'wstat', once for
+        'whole' or a single N-tile, else once per M-stripe and N-tile."""
+        n_steps = self.d_pad // self.tpu_block_n
+        if self.mode == "wstat":
+            return n_steps
+        if self.mode == "whole" or n_steps == 1:
+            return 1
+        return (self.m_pad // _TPU_BLOCK_M) * n_steps
+
+    @property
+    def plane_hbm_bytes_per_layer(self) -> int:
+        return (self.plane_tile_fetches_per_layer * self.n_planes
+                * self.d_pad * self.tpu_block_n)
+
+    @property
+    def act_hbm_bytes_per_layer(self) -> int:
+        """The float32 activation stripe read and written once per layer
+        by 'mtiled'; zero for the dataflows whose panel stays in VMEM."""
+        return 8 * self.m_pad * self.d_pad if self.mode == "mtiled" else 0
 
 
 def plan_fused_mlp(program: CrossbarProgram, m_rows: int, *,
@@ -358,4 +387,5 @@ def plan_fused_mlp(program: CrossbarProgram, m_rows: int, *,
                 mode, bn = cand, found
                 break
     return FusedPlan(mode=mode, tpu_block_n=bn, vmem_bytes=bytes_at(mode, bn),
-                     budget=VMEM_BUDGET_BYTES)
+                     budget=VMEM_BUDGET_BYTES, d_pad=d, m_pad=m_pad,
+                     n_planes=p)

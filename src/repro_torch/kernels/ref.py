@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["combine_planes", "ref_reram_matmul_int"]
+__all__ = ["combine_planes", "ref_fps_update", "ref_reram_matmul_int"]
 
 
 def combine_planes(planes: torch.Tensor, cell_bits: int = 2,
@@ -26,3 +26,12 @@ def ref_reram_matmul_int(x_int: torch.Tensor, planes: torch.Tensor,
     for int8 activations and 8-bit weights, any K below 2^38."""
     w = combine_planes(planes, cell_bits, weight_bits).to(torch.float64)
     return torch.matmul(x_int.to(torch.float64), w).to(torch.int32)
+
+
+def ref_fps_update(points_t: torch.Tensor, centroid: torch.Tensor,
+                   dist: torch.Tensor) -> torch.Tensor:
+    """One FPS relaxation step, the JAX package's oracle formula:
+    ``min(dist, sum((points_t - centroid) ** 2, axis=0))`` over
+    ``(3, N)``, ``(3, 1)``, ``(1, N)``."""
+    d = ((points_t - centroid) ** 2).sum(dim=0, keepdim=True)
+    return torch.minimum(dist, d)

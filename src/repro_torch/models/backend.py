@@ -42,12 +42,13 @@ import torch
 from torch import nn
 
 from repro_torch.core.schedule import (DevicePlan, ExecutionPlan,
-                                       MODE_PRESETS, build_plan)
+                                       MODE_PRESETS, build_plan,
+                                       complete_order)
 from repro_torch.core.workload import PointNetConfig, PointNetWorkload
 from repro_torch.kernels import (FUSED_MODES, aggregate_diff,
-                                 aggregate_diff_batched, plan_fused_mlp,
-                                 reram_linear, reram_mlp_fused,
-                                 reram_mlp_fused_batched)
+                                 aggregate_diff_batched, count_dma_elisions,
+                                 plan_fused_mlp, reram_linear,
+                                 reram_mlp_fused, reram_mlp_fused_batched)
 from repro_torch.models import pointnet2 as _pn
 
 __all__ = [
@@ -110,6 +111,11 @@ class Backend(nn.Module):
 
     def apply_mlp_batched(self, key, x, *, final_relu: bool = True):
         return self.apply_mlp(key, x, final_relu=final_relu)
+
+    def stats(self) -> dict:
+        """What the backend programmed: ``program_bytes``, the crossbar
+        programs' bytes (none for a backend without programs)."""
+        return {"program_bytes": 0}
 
 
 class _FloatMLP(nn.Module):
@@ -213,6 +219,37 @@ class ReramFusedBackend(Backend):
         return reram_mlp_fused_batched(x, self._prog(key),
                                        final_relu=final_relu, mode=plan.mode)
 
+    def stats(self) -> dict:
+        """Program bytes, in all and per MLP (the buffers of each
+        :class:`~repro_torch.kernels.CrossbarProgram`, laid out as the JAX
+        package's, so the counts agree), and per MLP the dataflow chosen at
+        the rows one cloud gives it, with the TPU accounting behind the
+        choice (:meth:`_plan_row`). No reliability entry: fault models and
+        ECC are not ported yet."""
+        progs = {f"sa{i}": p for i, p in enumerate(self.sa)}
+        progs["head"] = self.head
+        nbytes = {k: sum(b.numel() * b.element_size() for b in p.buffers())
+                  for k, p in progs.items()}
+        plans = {f"sa{i}": self._plan_row(("sa", i),
+                                          spec.n_centers * spec.n_neighbors)
+                 for i, spec in enumerate(self.config.layers)}
+        plans["head"] = self._plan_row("head", 1)
+        return {"program_bytes": sum(nbytes.values()),
+                "program_bytes_per_mlp": nbytes, "fused_plan": plans}
+
+    def _plan_row(self, key, rows) -> dict:
+        """The JAX package's ``fused_plan`` row of MLP ``key`` at ``rows``
+        rows: the mode, the TPU tile edge and VMEM bytes it rests on, and
+        that dataflow's HBM accounting on the TPU."""
+        fp = self.fused_plan(key, rows)
+        return {"mode": fp.mode, "block_n": fp.tpu_block_n,
+                "vmem_bytes": fp.vmem_bytes,
+                "fits_budget": fp.fits_budget,
+                "plane_tile_fetches_per_layer":
+                    fp.plane_tile_fetches_per_layer,
+                "plane_hbm_bytes_per_layer": fp.plane_hbm_bytes_per_layer,
+                "act_hbm_bytes_per_layer": fp.act_hbm_bytes_per_layer}
+
 
 @register_backend("reram-fused-mtiled")
 class ReramFusedMTiledBackend(ReramFusedBackend):
@@ -237,11 +274,11 @@ class ReramFusedWStatBackend(ReramFusedBackend):
 # ---------------------------------------------------------------------------
 
 def _canonical_schedule(schedule, config: PointNetConfig):
-    """-> (spec_dict, device_plan_or_None, planned).
+    """-> (spec_dict, host_plan_or_None, device_plan_or_None, planned).
     ``planned`` is False only for the plain layer-by-layer index-order path
-    (the 'baseline' preset). A prebuilt ``ExecutionPlan`` is lowered to a
-    (CPU) :class:`DevicePlan` here, once; a prebuilt ``DevicePlan`` passes
-    through."""
+    (the 'baseline' preset). A prebuilt ``ExecutionPlan`` is kept (for
+    :meth:`CompiledModel.stats`) and lowered to a (CPU) :class:`DevicePlan`
+    here, once; a prebuilt ``DevicePlan`` passes through."""
     sizes = tuple(s.n_centers for s in config.layers)
     if schedule is None:
         schedule = "baseline"
@@ -251,10 +288,10 @@ def _canonical_schedule(schedule, config: PointNetConfig):
                 f"DevicePlan layer sizes {schedule.layer_sizes} do not "
                 f"match config layers {sizes}")
         return ({"intra": schedule.intra,
-                 "coordinated": schedule.coordinated}, schedule, True)
+                 "coordinated": schedule.coordinated}, None, schedule, True)
     if isinstance(schedule, ExecutionPlan):
         return ({"intra": schedule.intra,
-                 "coordinated": schedule.coordinated},
+                 "coordinated": schedule.coordinated}, schedule,
                 DevicePlan.lower(schedule, sizes), True)
     if isinstance(schedule, Mapping):
         spec = dict(schedule)
@@ -267,14 +304,15 @@ def _canonical_schedule(schedule, config: PointNetConfig):
         if spec["intra"] not in ("index", "greedy", "morton"):
             raise ValueError(f"unknown intra mode {spec['intra']!r}; "
                              f"expected 'index', 'greedy' or 'morton'")
-        return spec, None, True
+        return spec, None, None, True
     if isinstance(schedule, str):
         if schedule not in MODE_PRESETS:
             raise ValueError(
                 f"unknown schedule {schedule!r}; expected one of "
                 f"{sorted(MODE_PRESETS)}, a {{'intra', 'coordinated'}} "
                 f"mapping, an ExecutionPlan, or a DevicePlan")
-        return dict(MODE_PRESETS[schedule]), None, schedule != "baseline"
+        return (dict(MODE_PRESETS[schedule]), None, None,
+                schedule != "baseline")
     raise TypeError(f"schedule must be a preset name, a mapping, an "
                     f"ExecutionPlan, or a DevicePlan; got "
                     f"{type(schedule).__name__}")
@@ -302,19 +340,33 @@ class CompiledModel(nn.Module):
     backend plus a compiled schedule, on one device."""
 
     def __init__(self, backend: Backend, config: PointNetConfig,
-                 schedule_spec: dict, planned: bool,
+                 schedule_spec: dict, planned: bool, *,
+                 plan: ExecutionPlan | None = None,
                  device_plan: DevicePlan | None = None):
         super().__init__()
         self.backend = backend
         self.config = config
         self._spec = schedule_spec
-        self._dplan = device_plan
+        self._plan = plan          # user-supplied host plan (stats only)
+        self._dplan = device_plan  # compile-time lowered plan, if any
         self._planned = planned
+        self._last_streams: list | None = None
+
+    # -- public metadata ----------------------------------------------------
+
+    @property
+    def backend_name(self) -> str:
+        return self.backend.name
+
+    @property
+    def schedule(self) -> dict:
+        """The canonical ``{'intra': ..., 'coordinated': ...}`` spec."""
+        return dict(self._spec)
 
     @property
     def planned(self) -> bool:
         """True when execution routes through a gather order (any schedule
-        but 'baseline')."""
+        but 'baseline') — when there is a plan to build and reuse."""
         return self._planned
 
     @property
@@ -331,27 +383,109 @@ class CompiledModel(nn.Module):
         return torch.as_tensor(clouds, dtype=torch.float32,
                                device=self.device).contiguous()
 
+    def build_device_plan(self, cloud, n_valid=None) -> DevicePlan:
+        """The single-cloud :class:`DevicePlan` this model's schedule would
+        use for ``cloud``, on the model's device — the hook of a plan
+        cache: keep the result and pass it back through
+        ``forward(dplan=...)`` (or :meth:`DevicePlan.stack` several into
+        ``batched_forward(dplan=...)``) to skip planning on a repeat.
+        Planning runs on the host; the compile-time plan is returned
+        unchanged when one is bound. ``n_valid`` masks pad rows out of the
+        geometry, so the plan equals the unpadded cloud's."""
+        if not self._planned:
+            raise ValueError("this model's schedule is unplanned "
+                             "('baseline'); there is no plan to build")
+        if self._dplan is not None:
+            return self._dplan
+        geom = _pn.geometry_pass(self.config, self._input(cloud),
+                                 n_valid=n_valid)
+        return self._device_plan_for(*geom)
+
     # -- execution ----------------------------------------------------------
 
     @torch.no_grad()
-    def forward(self, cloud, *, n_valid=None) -> torch.Tensor:
+    def forward(self, cloud, *, n_valid=None,
+                dplan: DevicePlan | None = None) -> torch.Tensor:
         """Single cloud ``(N, 3)`` -> logits ``(n_classes,)``. ``n_valid``
-        marks the real row count of a cloud padded with trailing rows."""
+        marks the real row count of a cloud padded with trailing rows;
+        ``dplan`` supplies a prebuilt single-cloud :class:`DevicePlan` for
+        this call, in place of the compile-time plan or host planning."""
         cloud = self._input(cloud)
         if self._planned:
-            return self._forward_planned(cloud, n_valid)
+            return self._forward_planned(cloud, n_valid, dplan)
+        _refuse_unplanned(dplan)
         return self._forward_base(cloud, n_valid)
 
     @torch.no_grad()
-    def batched_forward(self, clouds, *, n_valid=None) -> torch.Tensor:
+    def batched_forward(self, clouds, *, n_valid=None,
+                        dplan: DevicePlan | None = None) -> torch.Tensor:
         """Batch ``(B, N, 3)`` -> logits ``(B, n_classes)``: one fused-MLP
         call per MLP for the whole batch and, under a plan, one batched
         gather launch per SA layer. ``n_valid`` is a ``(B,)`` vector of
-        real row counts."""
+        real row counts; ``dplan`` a prebuilt :class:`DevicePlan` for this
+        call, batched for this batch size or one plan shared batch-wide."""
         clouds = self._input(clouds)
         if self._planned:
-            return self._batched_forward_planned(clouds, n_valid)
+            return self._batched_forward_planned(clouds, n_valid, dplan)
+        _refuse_unplanned(dplan)
         return self._batched_in_grid(clouds, n_valid)
+
+    def loss_fn(self, clouds, labels):
+        """Mean negative log-likelihood and accuracy of
+        :meth:`batched_forward` over a batch with int ``labels`` ``(B,)``,
+        as 0-d tensors. The port runs inference only: the weights are
+        buffers and the forward runs without autograd, so the loss carries
+        no gradient."""
+        logits = self.batched_forward(clouds)
+        labels = torch.as_tensor(labels, dtype=torch.int64,
+                                 device=logits.device)
+        logp = torch.log_softmax(logits, dim=1)
+        nll = -logp.gather(1, labels[:, None]).mean()
+        acc = (logits.argmax(dim=1) == labels).to(torch.float32).mean()
+        return nll, acc
+
+    @torch.no_grad()
+    def eval_step(self, clouds, labels):
+        """:meth:`loss_fn` under ``torch.no_grad()``. There is no jit: the
+        port runs eagerly, so nothing is traced or cached here."""
+        return self.loss_fn(clouds, labels)
+
+    # -- introspection ------------------------------------------------------
+
+    def stats(self, cloud=None, *, workload: PointNetWorkload | None = None,
+              window: int = 72) -> dict:
+        """Compile and execution report: backend name, schedule spec,
+        program bytes and the fused dataflow per MLP (``Backend.stats``),
+        and — given a ``cloud`` or a prebuilt ``workload`` (geometry by the
+        NumPy planner), else from the last call that planned on the host —
+        the DMA elisions of the plan-ordered neighbor streams that drive
+        the gathers, per layer, through ``count_dma_elisions`` with a
+        ``window``-row working set. A call under a compile-time or
+        caller-supplied plan keeps its geometry on the device and records
+        no stream."""
+        s = {"backend": self.backend_name, "schedule": self.schedule,
+             "planned": self._planned}
+        s.update(self.backend.stats())
+        streams = None
+        if cloud is not None or workload is not None:
+            if workload is None:
+                pts = (cloud.detach().cpu().numpy()
+                       if isinstance(cloud, torch.Tensor) else cloud)
+                workload = PointNetWorkload.build(
+                    np.asarray(pts, np.float64), self.config)
+            if self._plan is not None:
+                plan = self._plan
+            elif self._dplan is not None:
+                plan = self._dplan
+            else:
+                plan = build_plan(workload, **self._spec)
+            streams = _plan_streams(plan, [np.asarray(nb) for nb in
+                                           workload.neighbors[1:]])
+        elif self._last_streams is not None:
+            streams = self._last_streams
+        if streams is not None:
+            s["dma"] = _dma_report(streams, window)
+        return s
 
     # -- execution internals ------------------------------------------------
 
@@ -383,19 +517,32 @@ class CompiledModel(nn.Module):
         g = feats.amax(dim=1)                            # global max pool
         return self.backend.apply_mlp_batched("head", g, final_relu=False)
 
-    def _forward_planned(self, cloud, n_valid=None):
+    def _bound_plan(self, dplan: DevicePlan | None) -> DevicePlan | None:
+        """The plan that drives this call without host planning: the
+        caller's, else the compile-time one, else None."""
+        if dplan is None:
+            return self._dplan
+        sizes = tuple(s.n_centers for s in self.config.layers)
+        if dplan.layer_sizes != sizes:
+            raise ValueError(f"DevicePlan layer sizes {dplan.layer_sizes} "
+                             f"do not match config layers {sizes}")
+        return dplan
+
+    def _forward_planned(self, cloud, n_valid=None, dplan=None):
         """Plan-driven execution of one cloud: each SA layer gathers its
         neighbor differences in plan order through ``aggregate_diff``, runs
         the MLP, and scatters the per-center max back to index order."""
         cfg = self.config
+        dplan = self._bound_plan(dplan)
+        if dplan is not None and dplan.batched:
+            raise ValueError("this DevicePlan is batched; use "
+                             "batched_forward for it")
         feats = _pn.lift_features(cloud, cfg.layers[0].in_features)
         pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, cloud,
                                                          n_valid=n_valid)
-        dplan = (self._dplan if self._dplan is not None
-                 else self._device_plan_for(pts_list, ctr_list, nbr_list))
-        if dplan.batched:
-            raise ValueError("this DevicePlan is batched; use "
-                             "batched_forward for it")
+        if dplan is None:
+            dplan = self._device_plan_for(pts_list, ctr_list, nbr_list,
+                                          record=True)
         dplan = dplan.to(cloud.device)
         for k in range(1, cfg.n_layers + 1):
             order = dplan.order_of(k).long()
@@ -409,21 +556,24 @@ class CompiledModel(nn.Module):
         g = feats.amax(dim=0)
         return self.backend.apply_mlp("head", g, final_relu=False)
 
-    def _batched_forward_planned(self, clouds, n_valid=None):
+    def _batched_forward_planned(self, clouds, n_valid=None, dplan=None):
         """Plan-driven execution of a batch: batched geometry, per-cloud
-        host plans stacked into one batched :class:`DevicePlan`, then one
-        ``aggregate_diff_batched`` launch and one batched MLP call per SA
-        layer. Logits equal the per-cloud ``forward`` row for row."""
+        host plans stacked into one batched :class:`DevicePlan` (or the
+        caller's or compile-time plan), then one ``aggregate_diff_batched``
+        launch and one batched MLP call per SA layer. Logits equal the
+        per-cloud ``forward`` row for row."""
         cfg = self.config
         batch = clouds.shape[0]
+        dplan = self._bound_plan(dplan)
+        if dplan is not None and dplan.batched and dplan.batch_size != batch:
+            raise ValueError(f"batched DevicePlan is for batch "
+                             f"{dplan.batch_size}, got {batch} clouds")
         feats = _pn.lift_features(clouds, cfg.layers[0].in_features)
         pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, clouds,
                                                          n_valid=n_valid)
-        dplan = (self._dplan if self._dplan is not None
-                 else self._device_plan_for(pts_list, ctr_list, nbr_list))
-        if dplan.batched and dplan.batch_size != batch:
-            raise ValueError(f"batched DevicePlan is for batch "
-                             f"{dplan.batch_size}, got {batch} clouds")
+        if dplan is None:
+            dplan = self._device_plan_for(pts_list, ctr_list, nbr_list,
+                                          record=True)
         dplan = dplan.to(clouds.device)
         for k in range(1, cfg.n_layers + 1):
             order = dplan.order_of(k).long()
@@ -451,21 +601,75 @@ class CompiledModel(nn.Module):
             centers=[None] + list(ctrs), neighbors=[None] + list(nbrs))
         return build_plan(wl, **self._spec)
 
-    def _device_plan_for(self, pts_list, ctr_list, nbr_list) -> DevicePlan:
+    def _device_plan_for(self, pts_list, ctr_list, nbr_list, *,
+                         record: bool = False) -> DevicePlan:
         """Pull the geometry (one cloud or a batch) to the host once, build
-        each cloud's plan there and lower the plans onto the device."""
+        each cloud's plan there and lower the plans onto the device. With
+        ``record``, keep the plan-ordered neighbor streams of this call for
+        :meth:`stats`, cut from the host copies already made."""
         pts = [p.cpu().numpy() for p in pts_list]
         ctrs = [c.cpu().numpy() for c in ctr_list[1:]]
         nbrs = [nb.cpu().numpy() for nb in nbr_list[1:]]
         sizes = tuple(s.n_centers for s in self.config.layers)
-        if pts[0].ndim == 2:
+        single = pts[0].ndim == 2
+        if single:
             plans = self._host_plan_for(pts, ctrs, nbrs)
         else:
             plans = [self._host_plan_for([p[b] for p in pts],
                                          [c[b] for c in ctrs],
                                          [nb[b] for nb in nbrs])
                      for b in range(pts[0].shape[0])]
+        if record:
+            clouds = ([(plans, nbrs)] if single else
+                      [(pl, [nb[b] for nb in nbrs])
+                       for b, pl in enumerate(plans)])
+            per = [_plan_streams(pl, nb) for pl, nb in clouds]
+            self._last_streams = [[st for p in per for st in p[k]]
+                                  for k in range(len(nbrs))]
         return DevicePlan.lower(plans, sizes, device=pts_list[0].device)
+
+
+def _refuse_unplanned(dplan) -> None:
+    if dplan is not None:
+        raise ValueError("dplan= was passed but this model's schedule is "
+                         "unplanned ('baseline'); there is no gather order "
+                         "for it to drive")
+
+
+def _plan_streams(plan, neighbors) -> list[list[np.ndarray]]:
+    """The plan-ordered neighbor index streams that drive the gathers:
+    ``streams[k-1]`` holds one array per cloud (a batched plan gives one
+    per batch row) — ``neighbors[k-1]`` ``(n_k, K)`` in the plan's
+    completed order of layer k. ``plan`` is an ``ExecutionPlan`` or a
+    :class:`DevicePlan`."""
+    streams = []
+    for k, nb in enumerate(neighbors, start=1):
+        order = plan.order_of(k)
+        order = (order.cpu().numpy() if isinstance(order, torch.Tensor)
+                 else np.asarray(order))
+        orders = order[None] if order.ndim == 1 else order
+        streams.append([nb[complete_order(o, nb.shape[0], k)]
+                        for o in orders])
+    return streams
+
+
+def _dma_report(streams, window: int) -> dict:
+    """Per-layer and total elision counts of the plan-ordered streams
+    (:func:`_plan_streams`); counts never chain across clouds, and a
+    layer's entry sums over its clouds."""
+    layers = []
+    for per_cloud in streams:
+        counts = [count_dma_elisions(st, window=window) for st in per_cloud]
+        steps = sum(c["steps"] for c in counts)
+        elided = sum(c["elided"] for c in counts)
+        layers.append({"steps": steps, "elided": elided,
+                       "dma": steps - elided,
+                       "elision_rate": elided / max(1, steps)})
+    steps = sum(lyr["steps"] for lyr in layers)
+    elided = sum(lyr["elided"] for lyr in layers)
+    return {"window": window, "layers": layers, "steps": steps,
+            "elided": elided, "dma": steps - elided,
+            "elision_rate": elided / max(1, steps)}
 
 
 # ---------------------------------------------------------------------------
@@ -504,8 +708,8 @@ def compile_model(params: Params, config: PointNetConfig, *,
     except KeyError:
         raise ValueError(f"unknown backend {backend!r}; registered backends: "
                          f"{available_backends()}") from None
-    spec, dplan, planned = _canonical_schedule(schedule, config)
+    spec, plan, dplan, planned = _canonical_schedule(schedule, config)
     model = CompiledModel(cls(params, config, **backend_opts), config, spec,
-                          planned,
+                          planned, plan=plan,
                           device_plan=None if dplan is None else dplan.to(dev))
     return model.to(dev)

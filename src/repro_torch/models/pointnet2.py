@@ -8,11 +8,11 @@ from, parameter init, and crossbar programming of every MLP.
 Every geometry function takes one cloud ``(N, 3)`` or a batch
 ``(B, N, 3)``; a batch gives, row for row, what the single-cloud call
 gives. Indices equal the JAX package's bit for bit on the same float32
-coordinates: FPS takes the first maximum (``torch.argmax`` documents it)
-and sums the three squared coordinate differences left to right, as XLA
-reduces them; kNN sorts distances with a stable ascending sort, so ties go
-to the lower index as ``lax.top_k`` breaks them (``torch.topk`` documents
-no tie order).
+coordinates: FPS (K7, ``kernels/fps_update.py``: one launch per call on
+the card) takes the first maximum and sums the three squared coordinate
+differences left to right, as XLA reduces them; kNN sorts distances with
+a stable ascending sort, so ties go to the lower index as ``lax.top_k``
+breaks them (``torch.topk`` documents no tie order).
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.workload import PointNetConfig, SALayerSpec
-from repro_torch.kernels import build_program
+from repro_torch.kernels import build_program, fps_batched
+from repro_torch.kernels.fps_update import sq_dist, valid_rows
 
 Params = Any
 
@@ -30,20 +31,6 @@ Params = Any
 # ---------------------------------------------------------------------------
 # geometry: the "point mapping" stage
 # ---------------------------------------------------------------------------
-
-def _sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``sum((a - b) ** 2, -1)`` over 3 coordinates, summed left to right."""
-    diff = a - b
-    sq = diff * diff
-    return (sq[..., 0] + sq[..., 1]) + sq[..., 2]
-
-
-def _valid_rows(n: int, n_valid, device) -> torch.Tensor:
-    """Bool ``(…, n)``: row index < ``n_valid`` (an int or a ``(B,)``
-    vector, broadcast over a leading batch axis)."""
-    nv = torch.as_tensor(n_valid, device=device).reshape(-1, 1)
-    return torch.arange(n, device=device) < nv
-
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``x[..., idx, :]`` per batch row: x ``(…, N, C)``, idx ``(…, *S)``
@@ -56,26 +43,16 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def farthest_point_sample(points: torch.Tensor, n_samples: int,
                           start: int = 0, *, n_valid=None) -> torch.Tensor:
-    """FPS over ``points`` ``(…, N, 3)`` -> int64 ``(…, n_samples)``.
+    """FPS over ``points`` ``(…, N, 3)`` -> int64 ``(…, n_samples)``,
+    through :func:`~repro_torch.kernels.fps_batched`: on the card one
+    kernel launch for the whole batch.
 
     ``n_valid`` masks trailing pad rows: they start at ``-inf`` distance,
     so the running argmax never selects them and the result equals FPS on
     ``points[:n_valid]``."""
     single = points.ndim == 2
-    pts = points[None] if single else points
-    batch, n, _ = pts.shape
-    dev = pts.device
-    dist = torch.full((batch, n), float("inf"), dtype=pts.dtype, device=dev)
-    if n_valid is not None:
-        dist = torch.where(_valid_rows(n, n_valid, dev), dist,
-                           float("-inf"))
-    idx = torch.empty((batch, n_samples), dtype=torch.int64, device=dev)
-    cur = torch.full((batch,), int(start), dtype=torch.int64, device=dev)
-    rows = torch.arange(batch, device=dev)
-    for i in range(n_samples):
-        idx[:, i] = cur
-        dist = torch.minimum(dist, _sq_dist(pts, pts[rows, cur][:, None, :]))
-        cur = torch.argmax(dist, dim=1)
+    idx = fps_batched(points[None] if single else points, n_samples, start,
+                      n_valid)
     return idx[0] if single else idx
 
 
@@ -84,9 +61,9 @@ def knn(queries: torch.Tensor, points: torch.Tensor, k: int, *,
     """int64 ``(…, Q, k)`` indices of the k nearest ``points`` per query
     (self included when the query is a member of ``points``). ``n_valid``
     forces pad-row distances to ``+inf``."""
-    d = _sq_dist(queries[..., :, None, :], points[..., None, :, :])
+    d = sq_dist(queries[..., :, None, :], points[..., None, :, :])
     if n_valid is not None:
-        valid = _valid_rows(points.shape[-2], n_valid, points.device)
+        valid = valid_rows(points.shape[-2], n_valid, points.device)
         if points.ndim == 2:
             valid = valid[0]
         d = torch.where(valid[..., None, :], d, float("inf"))

@@ -76,6 +76,16 @@ def test_k6_counts_and_reram_layer_shapes(smoke):
         == 2 * len(shapes)
 
 
+def test_k7_counts(smoke):
+    # points read once, indices written once; 9 float32 operations per
+    # point and step
+    nbytes, ops = smoke._fps_bound(8, 1024, 512)
+    assert nbytes == 8 * 1024 * 12 + 8 * 512 * 8
+    assert ops == 9 * 8 * 1024 * 512
+    ms, by = smoke.bound(nbytes, ops, smoke.FP32_OPS_PER_S)
+    assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3)
+
+
 def test_clouds_are_seeded_float32_surfaces(smoke):
     a, b = smoke.make_clouds(64, 3, 0), smoke.make_clouds(64, 3, 0)
     assert a.dtype == np.float32 and a.shape == (3, 64, 3)

@@ -20,9 +20,12 @@ from repro_torch.core.workload import (PointNetConfig,     # noqa: E402
                                        SALayerSpec)
 from repro_torch.kernels import (KERNEL_SOURCES, _build,   # noqa: E402
                                  aggregate, build_program, encode_planes,
-                                 fused_mlp, launch_counts,
+                                 fps_batched, fused_mlp, launch_counts,
                                  ref_reram_matmul_int, reram_mlp,
                                  reset_launch_counts)
+from repro_torch.kernels.fps_update import (              # noqa: E402
+    MAX_POINTS, fps_batched_cuda, fps_batched_plain, fps_update_cuda,
+    fps_update_plain, max_points_of_kernel)
 from repro_torch.models.pointnet2 import init_params       # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -176,6 +179,8 @@ def test_model_on_card_counts_launches_and_matches_cpu(cuda, backend):
     assert {k: counts[k] for k in _COUNTER.values()} == {
         k: want_n if k == _COUNTER[backend] else 0
         for k in _COUNTER.values()}
+    # one FPS launch per SA layer and call, whatever the batch
+    assert counts["fps"] == 2 * cfg.n_layers and counts["fps_update"] == 0
     want = cpu.batched_forward(clouds)
     # lift_features' sin/cos may differ by an ulp between the card and the
     # CPU, which can move one requantized value by one step
@@ -205,6 +210,7 @@ def test_model2_shaped_launch_counts(cuda):
     counts = launch_counts()
     assert (counts["fused_mlp"], counts["fused_mlp_mtiled"],
             counts["fused_mlp_wstat"]) == (2, 2, 2)
+    assert counts["fps"] == 2 * cfg.n_layers
     assert torch.equal(one, logits[0])
     reset_launch_counts()
     ref = per_layer.batched_forward(clouds)
@@ -212,3 +218,83 @@ def test_model2_shaped_launch_counts(cuda):
     torch.cuda.synchronize()
     assert launch_counts()["reram_matmul_int"] == 2 * 8
     assert torch.equal(ref, logits)
+
+
+def _fps_clouds(kind, batch, n, seed):
+    rng = np.random.default_rng(seed)
+    pts = rng.normal(size=(batch, n, 3))
+    if kind == "duplicated":
+        pts[:, n // 2:] = pts[:, :n - n // 2]
+    elif kind == "grid":                       # many exactly tied distances
+        side = int(round(n ** (1 / 3))) + 1
+        grid = np.stack(np.meshgrid(*[np.arange(float(side))] * 3),
+                        -1).reshape(-1, 3)[:n]
+        pts = np.broadcast_to(grid, (batch, n, 3)) + np.arange(batch)[
+            :, None, None]
+    return torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32))
+
+
+@pytest.mark.parametrize("kind,batch,n,n_samples,ragged", [
+    ("random", 8, 1024, 512, False),    # model1/model2 SA-1
+    ("random", 8, 512, 128, False),     # model1/model2 SA-2
+    ("random", 3, 1000, 300, True),     # ragged N, pad rows by n_valid
+    ("grid", 2, 1000, 400, False),
+    ("duplicated", 2, 1024, 600, True),
+    ("random", 2, MAX_POINTS, 1024, False),
+    ("random", 1, 5, 5, False),
+])
+def test_fps_loop_kernel_bitwise(cuda, kind, batch, n, n_samples, ragged):
+    pts = _fps_clouds(kind, batch, n, seed=n).to(cuda)
+    nv = (torch.tensor([n - 7 * b for b in range(batch)], device=cuda)
+          if ragged else None)
+    start = 3 if ragged else 0
+    got = fps_batched_cuda(pts, n_samples, start, nv)
+    want = fps_batched_plain(pts, n_samples, start, nv)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (batch, n_samples)
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), fps_batched_plain(
+        pts.cpu(), n_samples, start, None if nv is None else nv.cpu()))
+    if ragged:
+        assert bool((got < nv[:, None]).all())
+
+
+@pytest.mark.parametrize("n", [1000, 1024, MAX_POINTS])
+def test_fps_update_kernel_bitwise(cuda, n):
+    rng = np.random.default_rng(n)
+    pts = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
+    dist = torch.from_numpy(rng.uniform(0, 4, (1, n)).astype(np.float32))
+    dist[0, :3] = float("inf")
+    dist[0, -2:] = float("-inf")
+    pts, dist = pts.to(cuda), dist.to(cuda)
+    cen = pts[:, 7:8].contiguous()
+    got = fps_update_cuda(pts, cen, dist)
+    want = fps_update_plain(pts, cen, dist)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), fps_update_plain(pts.cpu(), cen.cpu(),
+                                                   dist.cpu()))
+
+
+def test_fps_refuses_clouds_over_its_limit(cuda):
+    assert max_points_of_kernel() == MAX_POINTS
+    pts = torch.zeros((1, MAX_POINTS + 1, 3), device=cuda)
+    reset_launch_counts()
+    with pytest.raises(ValueError, match="at most"):
+        fps_batched(pts, 4)
+    assert launch_counts()["fps"] == 0
+
+
+@pytest.mark.parametrize("schedule", ["baseline", "pointer"])
+def test_fps_counter_reads_one_launch_per_sa_layer_and_call(cuda, schedule):
+    cfg = _tiny()
+    params = init_params(cfg, seed=0, n_classes=10)
+    clouds = np.random.default_rng(4).normal(size=(5, 64, 3)).astype(
+        np.float32)
+    model = compile_model(params, cfg, backend="float", schedule=schedule)
+    reset_launch_counts()
+    model.batched_forward(clouds)
+    model.forward(clouds[0])
+    model.forward(clouds[1])
+    torch.cuda.synchronize()
+    assert launch_counts()["fps"] == 3 * cfg.n_layers
