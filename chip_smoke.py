@@ -17,8 +17,10 @@ weights from a seed. Phases, each printing one JSON line:
    together);
 3. kernel vs plain: each kernel against its plain torch version on the
    same inputs, bit for bit — K1, K4, K5 at model1's shapes; K1, K2 and K3
-   at each of model2's three MLPs and a ragged one, each also against the
-   others (one function, three dataflows); K6 at every layer shape of the
+   at each of model2's three MLPs, a ragged one, one wider than K1's
+   stripe and one of ten layers, each also against the others (one
+   function, three dataflows); the s8 weight pre-pass of K1
+   and K2 at every MLP of model1 and model2; K6 at every layer shape of the
    model2 'reram' path; K7's loop at both SA layers' FPS (8 x 1024 -> 512,
    8 x 512 -> 128, the real SA-2 input), a ragged cloud with pad rows, grid
    and duplicated clouds (exact ties) and N = 16384, and its single step
@@ -31,7 +33,13 @@ weights from a seed. Phases, each printing one JSON line:
 5. times: each kernel, its plain version and a library yardstick, timed
    with CUDA events after warm-up at the main path's shapes, beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate, whichever is larger); K1, K2 and K3 at each model2 MLP;
+   the peak rate, whichever is larger); for K1, K2 and K3 also the
+   profiler's device time of one call beside the library's (a short call
+   leaves the card idle between back-to-back calls, so their event time
+   measures the host), and in the times line only, for K1 and K2, a
+   model of the bytes their code moves through device memory (re-reads
+   taken to hit L2) and that model over the event time; K1, K2 and K3 at
+   each model2 MLP;
    K7 at the two FPS calls of one ``batched_forward``, with its time per
    sampling step (no PyTorch call computes FPS: no library time);
    ``batched_forward`` and ``forward`` end to end, on the host clock;
@@ -147,7 +155,28 @@ def phase_build() -> None:
                     if "registers" in ln or "spill" in ln]
              for name in KERNEL_SOURCES}
     emit({"phase": "build", "seconds": seconds, "built": built,
-          "ptxas": ptxas})
+          "ptxas": ptxas, "tensor_core_instructions": _imma_counts()})
+
+
+def _imma_counts() -> dict:
+    """Integer tensor-core instructions (IMMA) in the SASS of K1 and K2, by
+    the toolkit's ``cuobjdump``: the products must run on the tensor cores,
+    and a count that cannot be taken fails the check."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = {}
+    for name in ("fused_mlp", "fused_mlp_mtiled"):
+        so = _build._paths(name)[0]
+        try:
+            sass = subprocess.run([tool, "-sass", str(so)],
+                                  capture_output=True, text=True,
+                                  timeout=120, check=True).stdout
+        except (OSError, subprocess.SubprocessError) as e:
+            check(False, f"{name}: cuobjdump could not list its SASS ({e})")
+        out[name] = sum("IMMA" in ln for ln in sass.splitlines())
+        check(out[name] > 0, f"{name}: no IMMA instruction in its SASS")
+    return out
 
 
 def _program_inputs(prog, m: int, seed: int):
@@ -159,13 +188,38 @@ def _program_inputs(prog, m: int, seed: int):
     return fused_mlp.prepare_input(x, prog)
 
 
-def _ragged_program():
+def _ragged_program(widths=(130, 200, 70), seed=SEED + 1):
     from repro_torch.kernels import build_program
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     layers = [{"w": rng.normal(size=(k, n)).astype(np.float32),
                "b": rng.normal(size=(n,)).astype(np.float32)}
-              for k, n in ((130, 200), (200, 70))]
+              for k, n in zip(widths[:-1], widths[1:])]
     return build_program(layers).cuda()
+
+
+#: Beside model2's MLPs, K1, K2 and K3 are held at MLPs past K1's and
+#: K2's on-chip limits: inputs wider than K1's 2048-byte stripe in both
+#: layers (K runs in two ranges, the last 64 and 32 bytes; K2's two stripes
+#: do not fit, so 'mtiled' runs K1), and ten layers (K2 recomputes up to
+#: nine on chip).
+RANGE_MLPS = {"wide": ((2100, 2080, 40), 200),
+              "deep": ((20,) + (48,) * 9 + (24,), 300)}
+
+
+def _check_combine(prog, m: int, what: str) -> dict:
+    """The s8 weight pre-pass of K1/K2 against its plain version, bit for
+    bit over every layer's (k_lim, n_lim); returns its inputs for timing."""
+    from repro_torch.kernels import fused_mlp, plan_launch
+    geom = plan_launch(prog, m, "mtiled")
+    got = fused_mlp.combine_weights_cuda(prog, geom)
+    want = fused_mlp.combine_weights_plain(prog, geom)
+    torch.cuda.synchronize()
+    err = 0
+    for l, (g, w) in enumerate(zip(fused_mlp.weight_regions(got, geom),
+                                   fused_mlp.weight_regions(want, geom))):
+        check(torch.equal(g, w), f"pre-pass {what} layer {l} bitwise")
+        err = max(err, int((g.int() - w.int()).abs().max()))
+    return {"prog": prog, "geom": geom, "max_abs_err": err}
 
 
 def _gather_inputs(model, clouds: torch.Tensor):
@@ -213,7 +267,8 @@ def phase_kernel_vs_plain(model1, clouds) -> dict:
         check(torch.equal(got, want), f"K1 {name} bitwise (max err {err})")
         k1[name] = {"shape": [BATCH, m, list(prog.widths)],
                     "max_abs_err": err, "x_p": x_p, "sx": sx, "prog": prog,
-                    "m": m, "relu": relu}
+                    "m": m, "relu": relu,
+                    "combine": _check_combine(prog, m, f"model1 {name}")}
     gathers = _gather_inputs(model1, clouds)
     k4, k5 = {}, {}
     for layer, (feats, nbr_o, ctr_o) in enumerate(gathers, start=1):
@@ -232,7 +287,8 @@ def phase_kernel_vs_plain(model1, clouds) -> dict:
                                 ctr_o[:1].contiguous()),
                      "max_abs_err": float((one[0] - want_one).abs().max())}
     emit({"phase": "kernel_vs_plain", "tolerance": "bitwise",
-          "K1": {n: {"shape": v["shape"], "max_abs_err": v["max_abs_err"]}
+          "K1": {n: {"shape": v["shape"], "max_abs_err": v["max_abs_err"],
+                     "combine_max_abs_err": v["combine"]["max_abs_err"]}
                  for n, v in k1.items()},
           "K4": {l: {"shape": list(v["inputs"][0].shape)
                      + list(v["inputs"][1].shape[1:]),
@@ -265,13 +321,16 @@ def phase_model2_kernels(model2, params2) -> dict:
             "sa1": (progs["sa"][0], 512 * 16),
             "sa2": (progs["sa"][1], 128 * 16),
             "head": (progs["head"], 1),
-            "ragged": (_ragged_program(), 257)}.items()):
+            "ragged": (_ragged_program(), 257),
+            **{n: (_ragged_program(w, SEED + 3), m)
+               for n, (w, m) in RANGE_MLPS.items()}}.items()):
         x_p, sx = _program_inputs(prog, m, SEED + 20 + i)
         relu = name != "head"
         want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=m,
                                          final_relu=relu)
         row = {"shape": [BATCH, m, list(prog.widths)], "x_p": x_p, "sx": sx,
-               "prog": prog, "m": m, "relu": relu}
+               "prog": prog, "m": m, "relu": relu,
+               "combine": _check_combine(prog, m, f"model2 {name}")}
         for mode in ("whole", "mtiled", "wstat"):
             got = fused_mlp.KERNEL_OF_MODE[mode](x_p, sx, prog, m_real=m,
                                                  final_relu=relu)
@@ -302,7 +361,9 @@ def phase_model2_kernels(model2, params2) -> dict:
     emit({"phase": "kernel_vs_plain_model2", "tolerance": "bitwise",
           "fused_mlp": {n: {"shape": v["shape"],
                             **{f"{md}_max_abs_err": v[f"{md}_max_abs_err"]
-                               for md in ("whole", "mtiled", "wstat")}}
+                               for md in ("whole", "mtiled", "wstat")},
+                            "combine_max_abs_err":
+                                v["combine"]["max_abs_err"]}
                         for n, v in mlps.items()},
           "K6": [{"shape": c["shape"], "max_abs_err": c["max_abs_err"]}
                  for c in k6]})
@@ -391,17 +452,24 @@ def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
 #: must count in one ``batched_forward`` plus one ``forward`` (beside one
 #: gather and one FPS launch per SA layer and pass): model2's SA-1 runs
 #: through K2 ('mtiled'), its SA-2 through K3 ('wstat') and its head
-#: through K1; the per-layer 'reram' backend launches K6 once per layer,
-#: 8 layers.
+#: through K1; each K1 or K2 call launches the s8 weight pre-pass once
+#: (``fused_mlp_combine``) and K2 one launch per layer; the per-layer
+#: 'reram' backend launches K6 once per layer, 8 layers.
 PATHS = {
-    "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_mtiled": 2,
-                               "fused_mlp_wstat": 2},
+    "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_layer": 4,
+                               "fused_mlp_mtiled": 2,
+                               "fused_mlp_mtiled_layer": 6,
+                               "fused_mlp_wstat": 2,
+                               "fused_mlp_combine": 4},
                "reram": {"reram_matmul_int": 16}},
-    "model1": {"reram-fused": {"fused_mlp": 6}, "float": {}},
-    "model0": {"reram-fused": {"fused_mlp": 6}, "float": {}},
+    "model1": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
+                               "fused_mlp_combine": 6}, "float": {}},
+    "model0": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
+                               "fused_mlp_combine": 6}, "float": {}},
 }
-MLP_COUNTERS = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
-                "reram_matmul_int")
+MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
+                "fused_mlp_mtiled_layer", "fused_mlp_wstat",
+                "fused_mlp_combine", "reram_matmul_int")
 
 
 def phase_end_to_end(params, cfgs, clouds_np) -> dict:
@@ -462,9 +530,10 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
     return counts_of
 
 
-def _int_mm_ms(pairs) -> float:
-    """torch._int_mm over int8 ``(x, w)`` pairs, one call each, rows
-    padded up to its minimum of 32 and widths up to multiples of 8."""
+def _int_mm_run(pairs):
+    """A function that runs torch._int_mm over int8 ``(x, w)`` pairs, one
+    call each, rows padded up to its minimum of 32 and widths up to
+    multiples of 8."""
     mats = []
     for x, w in pairs:
         x = torch.nn.functional.pad(x, (0, -x.shape[1] % 8,
@@ -476,17 +545,30 @@ def _int_mm_ms(pairs) -> float:
     def run():
         for x, w in mats:
             torch._int_mm(x, w)
-    return cuda_ms(run)
+    return run
 
 
-def _k1_library_ms(prog, m: int) -> float:
+def _int_mm_ms(pairs) -> float:
+    return cuda_ms(_int_mm_run(pairs))
+
+
+def _k1_library(prog, m: int):
     """torch._int_mm over the MLP's integer products (signed int8
     weights): the library yardstick for the fused MLP's integer product
     alone, no quantize/dequant."""
     ws = [w.to(torch.int8) for w in prog.int_weights()]
-    return _int_mm_ms([(torch.randint(-127, 128, (BATCH * m, w.shape[0]),
-                                      dtype=torch.int8, device="cuda"), w)
-                       for w in ws])
+    return _int_mm_run([(torch.randint(-127, 128, (BATCH * m, w.shape[0]),
+                                       dtype=torch.int8, device="cuda"), w)
+                        for w in ws])
+
+
+def _device_ms(fn) -> float:
+    """Device time of one call of ``fn``, summed over its kernels by
+    ``torch.profiler``: where a call is too short to keep the card busy,
+    the CUDA-event time of back-to-back calls measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    return sum(r["device_ms"] for r in _device_rows(fn))
 
 
 def _k1_bound(prog, m: int):
@@ -503,6 +585,40 @@ def _k1_bound(prog, m: int):
                      + prog.n_layers + BATCH)      # w_scale, input scales
               + 4 * BATCH * m * w[-1])             # float32 output
     return nbytes, 2 * BATCH * m * n_weights
+
+
+def _combine_bytes(prog, geom) -> int:
+    """Device-memory bytes of the s8 pre-pass: the planes of each layer's
+    (k_lim, n_lim) read once, its s8 weights written once."""
+    return sum((prog.n_planes + 1) * k * n
+               for k, n in zip(geom.k_lims, geom.n_lims))
+
+
+def _modeled_bytes(prog, m: int, mode: str) -> int:
+    """A model, not a measurement: the device-memory bytes one batched call
+    of K1 ('whole') or K2 ('mtiled') would move as its code is written if
+    every re-read inside a launch (K1's input rows once per N-chunk, the
+    weights once per block) hit L2, counting each tensor once per launch
+    that touches it: the pre-pass; K1 per layer its input (int8 x0 or the
+    float32
+    panel), s8 weights, bias and mask, and its float32 output panel; K2 in
+    launch j the int8 input, the weights, bias and mask of layers 0 .. j,
+    and the float32 output in the last launch only."""
+    from repro_torch.kernels import plan_launch
+    geom = plan_launch(prog, m, mode)
+    rows = BATCH * geom.m_pad
+    ks, ns = geom.k_lims, geom.n_lims
+    total = _combine_bytes(prog, geom)
+    for l, (k, n) in enumerate(zip(ks, ns)):
+        if mode == "whole":
+            total += rows * k * (1 if l == 0 else 4) + k * n + 8 * n
+            total += 4 * rows * n
+        else:
+            total += rows * ks[0] + sum(a * b + 8 * b for a, b in
+                                        zip(ks[:l + 1], ns[:l + 1]))
+    if mode == "mtiled":
+        total += 4 * rows * ns[-1]
+    return total
 
 
 def _gather_bound(feats, nbr, ctr):
@@ -546,9 +662,13 @@ def _model2_fused_rows(cases2, counts_of) -> list:
             kernel = fused_mlp.KERNEL_OF_MODE[mode]
             row[f"{mode}_ms"] = cuda_ms(lambda: kernel(
                 x_p, sx, prog, m_real=m, final_relu=relu))
+            row[f"{mode}_device_ms"] = _device_ms(lambda: kernel(
+                x_p, sx, prog, m_real=m, final_relu=relu))
         row["plain_ms"] = cuda_ms(lambda: fused_mlp.fused_mlp_plain(
             x_p, sx, prog, m_real=m, final_relu=relu), iters=5)
-        row["library_ms"] = _k1_library_ms(prog, m)
+        lib = _k1_library(prog, m)
+        row["library_ms"] = cuda_ms(lib)
+        row["library_device_ms"] = _device_ms(lib)
         row["bound_ms"], row["bound_by"] = bound(*_k1_bound(prog, m),
                                                  INT8_OPS_PER_S)
         per_mlp[name] = row
@@ -574,8 +694,39 @@ def _model2_fused_rows(cases2, counts_of) -> list:
             "library_call": "torch._int_mm per layer (integer product only)",
             "work": f"model2 {mlp.upper().replace('SA', 'SA-')} MLP, "
                     f"batch 8",
+            "device_ms": r[f"{mode}_device_ms"],
+            "library_device_ms": r["library_device_ms"],
             "model2_mlps": per_mlp})
     return rows
+
+
+def _combine_row(cases, counts_main) -> dict:
+    """The s8 weight pre-pass of K1/K2 at model1's three MLPs (one launch
+    each, as one model1 ``batched_forward`` runs it)."""
+    from repro_torch.kernels import fused_mlp
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
+    for name in ("sa1", "sa2", "head"):
+        c = cases["K1"][name]["combine"]
+        prog, geom = c["prog"], c["geom"]
+        tot["ms"] += cuda_ms(lambda: fused_mlp.combine_weights_cuda(prog,
+                                                                    geom))
+        tot["plain_ms"] += cuda_ms(lambda: fused_mlp.combine_weights_plain(
+            prog, geom), iters=5)
+        tot["bytes"] += _combine_bytes(prog, geom)
+    bms, bby = bound(tot["bytes"], 0, INT8_OPS_PER_S)
+    return {
+        "name": "K1/K2 combine_weights (s8 pre-pass)", "route": "cuda",
+        "source": "src/repro_torch/csrc/fused_mlp.cu",
+        "replaces": "src/repro/kernels/fused_mlp.py:94",
+        "launches": counts_main["fused_mlp_combine"],
+        "max_abs_err": max(cases["K1"][n]["combine"]["max_abs_err"]
+                           for n in cases["K1"]),
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
+        "bound_by": bby, "library_ms": None,
+        "library_call": "none (no one PyTorch call shifts, adds and "
+                        "transposes the planes into s8)",
+        "work": "the planes of model1's three MLPs into s8 weights, one "
+                "launch each (part of every K1/K2 call)"}
 
 
 def _k6_bound(m: int, k: int, n: int):
@@ -698,18 +849,23 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
     for name in ("sa1", "sa2", "head"):
         c = cases["K1"][name]
         x_p, sx, prog, m, relu = c["x_p"], c["sx"], c["prog"], c["m"], c["relu"]
+        run = (lambda: fused_mlp.fused_mlp_cuda(x_p, sx, prog, m_real=m,
+                                                final_relu=relu))
+        lib = _k1_library(prog, m)
         row = {
-            "ms": cuda_ms(lambda: fused_mlp.fused_mlp_cuda(
-                x_p, sx, prog, m_real=m, final_relu=relu)),
+            "ms": cuda_ms(run),
             "plain_ms": cuda_ms(lambda: fused_mlp.fused_mlp_plain(
                 x_p, sx, prog, m_real=m, final_relu=relu), iters=5),
-            "library_ms": _k1_library_ms(prog, m),
+            "library_ms": cuda_ms(lib),
+            "device_ms": _device_ms(run),
+            "library_device_ms": _device_ms(lib),
         }
         nbytes, ops = _k1_bound(prog, m)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, INT8_OPS_PER_S)
         per_mlp[name] = row
-        for key in ("ms", "plain_ms", "library_ms"):
-            k1[key] += row[key]
+        for key in ("ms", "plain_ms", "library_ms", "device_ms",
+                    "library_device_ms"):
+            k1[key] = k1.get(key, 0) + row[key]
         k1["bytes"] += nbytes
         k1["ops"] += ops
     bms, bby = bound(k1["bytes"], k1["ops"], INT8_OPS_PER_S)
@@ -724,8 +880,12 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
         "ms": k1["ms"], "plain_ms": k1["plain_ms"], "bound_ms": bms,
         "bound_by": bby, "library_ms": k1["library_ms"],
         "library_call": "torch._int_mm per layer (integer product only)",
-        "work": "model1 SA-1 + SA-2 + head MLPs, batch 8",
+        "work": "model1 SA-1 + SA-2 + head MLPs, batch 8 (s8 pre-pass "
+                "included)",
+        "device_ms": k1["device_ms"],
+        "library_device_ms": k1["library_device_ms"],
         "per_mlp": per_mlp})
+    kernels.append(_combine_row(cases, counts_main))
     kernels.extend(_model2_fused_rows(cases2, counts_of))
     # K4 / K5: the two plan-ordered gathers of one batched_forward / forward
     for kname, key, wrapper, plain, count_key in (
@@ -793,13 +953,36 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
     emit({"phase": "times", "nvidia_smi": smi, "batch": BATCH,
           "kernels": {k["name"]: {x: k[x] for x in
                                   ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "bound_by")}
+                                   "bound_ms", "bound_by", "device_ms",
+                                   "library_device_ms") if x in k}
                       for k in kernels},
-          "model2_mlps": kernels[1]["model2_mlps"],
+          "modeled": _modeled_rows(cases, cases2, kernels),
+          "model2_mlps": next(k["model2_mlps"] for k in kernels
+                              if "model2_mlps" in k),
           "K7": {k: kernels[-1][k] for k in ("us_per_step", "per_layer",
                                              "fps_update_step")},
           "end_to_end": e2e})
     return kernels
+
+
+def _modeled_rows(cases, cases2, kernels) -> dict:
+    """K1's and K2's modeled device-memory bytes (:func:`_modeled_bytes`)
+    at each MLP timed above, and those bytes over the measured event time:
+    a rate the design would reach if every re-read hit L2, not one the card
+    was seen to move."""
+    k1 = next(k for k in kernels if k["name"] == "K1 fused_mlp")
+    m2 = next(k for k in kernels if "model2_mlps" in k)["model2_mlps"]
+    out = {}
+    for key, case, mode, ms in (
+            [(f"K1 model1 {n}", cases["K1"][n], "whole",
+              k1["per_mlp"][n]["ms"]) for n in ("sa1", "sa2", "head")]
+            + [(f"{kn} model2 {n}", cases2["mlps"][n], mode,
+                m2[n][f"{mode}_ms"]) for n in ("sa1", "sa2", "head")
+               for kn, mode in (("K1", "whole"), ("K2", "mtiled"))]):
+        nbytes = _modeled_bytes(case["prog"], case["m"], mode)
+        out[key] = {"modeled_bytes": nbytes,
+                    "modeled_GBps": nbytes / ms / 1e6}
+    return out
 
 
 def phase_profile(model, clouds_np, smi) -> None:
@@ -865,7 +1048,7 @@ def _device_rows(fn) -> list:
 
 def _port_rows(rows) -> list:
     return [r for r in rows if any(
-        name in r["kernel"] for name in ("fused_mlp_", "wstat_",
+        name in r["kernel"] for name in ("fused_mlp_", "wstat_", "combine_",
                                          "aggregate_diff", "reram_matmul",
                                          "fps_"))]
 

@@ -6,7 +6,9 @@
 - ``fused_mlp`` : the whole crossbar MLP, one launch per layer, in three
                   dataflows: K1 'whole'/'tiled' (``csrc/fused_mlp.cu``),
                   K2 'mtiled' (``csrc/fused_mlp_mtiled.cu``), K3 'wstat'
-                  (``csrc/fused_mlp_wstat.cu``)
+                  (``csrc/fused_mlp_wstat.cu``); K1 and K2 on the tensor
+                  cores after an s8 weight pre-pass (``combine_weights``
+                  in ``csrc/fused_mlp.cu``)
 - ``reram_mlp`` : K6, one bit-sliced INT8 crossbar matmul
                   (``csrc/reram_mlp.cu``); ``ops.reram_linear`` is the
                   float layer over it
@@ -52,7 +54,8 @@ KERNEL_SOURCES = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by counter: per fused-MLP
-    kernel its MLP calls and its layers, the gathers' launches, K6's, and
+    kernel its MLP calls and its layers, the s8 weight pre-pass of K1 and
+    K2 (``fused_mlp_combine``), the gathers' launches, K6's, and
     K7's (``fps_update`` the single steps, ``fps`` the whole loops)."""
     f = fused_mlp.LAUNCHES
     return {"fused_mlp": f["mlp"], "fused_mlp_layer": f["layer"],
@@ -60,6 +63,7 @@ def launch_counts() -> dict[str, int]:
             "fused_mlp_mtiled_layer": f["mtiled_layer"],
             "fused_mlp_wstat": f["wstat"],
             "fused_mlp_wstat_layer": f["wstat_layer"],
+            "fused_mlp_combine": f["combine"],
             "aggregate_diff": aggregate.LAUNCHES["aggregate_diff"],
             "aggregate_diff_batched":
                 aggregate.LAUNCHES["aggregate_diff_batched"],

@@ -10,15 +10,26 @@ int8 activations:
 1. quantize the input once per batch element (plain torch, as in the JAX
    package, where it runs outside the kernel);
 2. per layer: int8 input times the four 2-bit offset-binary planes,
-   shift-and-add, minus ``rowsum << 7``; dequantize
+   shift-and-add, minus ``rowsum << 7`` — the same integer as the input
+   times the s8 weights ``combine_planes(planes)``; dequantize
    ``float(y_int) * (s * w_scale) + bias``; ReLU; mask padded columns and
    rows; a running ``max|y|`` gives the next layer's scale
    ``max(mx / 127, 1e-12)``; requantize ``clip(round(act / s), ±127)``.
 
-Each kernel runs one launch per layer (K3 two: a requantize pass and the
-product) and keeps the running max on the device; the source notes in
-``csrc/`` say how each dataflow moves its data. The plain version below
-runs the same steps in torch, the integer products through
+Every kernel runs one launch per layer (K3 two: a requantize pass and the
+product) and keeps the running max on the device. K1 and K2 multiply on
+the H100's tensor cores (``mma.sync`` s8 x s8) with s8 weights that a
+pre-pass (``combine_weights`` in ``csrc/fused_mlp.cu``,
+:func:`combine_weights_cuda`) combines from the planes once per MLP call;
+K2 keeps the stripe's intermediate layers on chip by recomputing them in
+each launch. K1 and K2 take any number of layers and K1 any width; where
+K2's two stripes do not fit on chip (the widest layer input above 1536),
+'mtiled' runs K1 (:func:`~.program.mtiled_on_chip`). K3 stays on dp4a. On
+the H100 all three are bound by bytes (the int8 input and weights, the
+float32 output: 0.032 ms over model1's three MLPs, 0.040 ms at model2
+SA-1); the source notes in ``csrc/`` say how each dataflow moves its data
+and what its design does about the bound. The plain version below runs the
+same steps in torch, the integer products through
 :func:`~.ref.ref_reram_matmul_int` (exact), and is the plain version of all
 three kernels: they agree with it, and so with each other, bit for bit.
 Against the JAX package they agree bit for bit with zero biases; with
@@ -29,31 +40,35 @@ the result by about an ulp.
 chooses it as the JAX package does. On CPU tensors the wrappers run the
 plain version; on CUDA tensors they launch the mode's kernel (or raise).
 ``LAUNCHES`` counts, per kernel, MLP calls that launched it (``"mlp"``,
-``"mtiled"``, ``"wstat"``) and layers run (``"layer"``, ``"mtiled_layer"``,
-``"wstat_layer"``).
+``"mtiled"``, ``"wstat"``), layers run (``"layer"``, ``"mtiled_layer"``,
+``"wstat_layer"``), and the weight pre-pass's launches (``"combine"``, one
+per K1 or K2 call).
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
 
 from . import _build
-from .program import (BLOCK_K, BLOCK_M, BLOCK_N, FUSED_MODES,
+from .program import (BLOCK_M, BLOCK_N, FUSED_MODES, MAX_SMEM_BYTES,
+                      MMA_BLOCK_K, MMA_BLOCK_N, MMA_STRIPE_K,
                       CrossbarProgram, LaunchGeometry, _quantize, _scale,
-                      _smem_bytes, plan_fused_mlp, plan_launch,
-                      wstat_row_groups)
-from .ref import ref_reram_matmul_int
+                      _smem_bytes, mtiled_on_chip, plan_fused_mlp,
+                      plan_launch, wstat_row_groups)
+from .ref import combine_planes, ref_reram_matmul_int
 
-__all__ = ["LAUNCHES", "fused_mlp", "fused_mlp_cuda",
+__all__ = ["LAUNCHES", "combine_weights_cuda",
+           "combine_weights_plain", "fused_mlp", "fused_mlp_cuda",
            "fused_mlp_mtiled_cuda", "fused_mlp_plain",
            "fused_mlp_wstat_cuda", "prepare_input", "reram_mlp_fused",
-           "reram_mlp_fused_batched"]
+           "reram_mlp_fused_batched", "weight_regions"]
 
-#: Kernel launches, per kernel: MLP calls and layers (plain runs never
-#: count).
+#: Kernel launches, per kernel: MLP calls and layers, and the weight
+#: pre-pass (plain runs never count).
 LAUNCHES = {"mlp": 0, "layer": 0, "mtiled": 0, "mtiled_layer": 0,
-            "wstat": 0, "wstat_layer": 0}
+            "wstat": 0, "wstat_layer": 0, "combine": 0}
 
 
 def _qmax(program: CrossbarProgram) -> float:
@@ -116,6 +131,29 @@ def fused_mlp_plain(x_p, sx, program: CrossbarProgram, *, m_real: int,
     return act[:, :m_real]
 
 
+def weight_regions(wt, geom: LaunchGeometry) -> list:
+    """The part of a pre-pass buffer ``(L, d_pad, d_pad)`` that holds
+    weights: layer l's ``[:n_lims[l], :k_lims[l]]``."""
+    return [wt[l, :n, :k] for l, (k, n) in enumerate(zip(geom.k_lims,
+                                                         geom.n_lims))]
+
+
+def combine_weights_plain(program: CrossbarProgram,
+                          geom: LaunchGeometry):
+    """The pre-pass's plain version: every layer's s8 weights
+    ``combine_planes(planes).to(int8)`` over ``(k_lim, n_lim)``, transposed
+    to ``[n][k]``, in a ``(L, d_pad, d_pad)`` int8 buffer that is zero
+    elsewhere."""
+    d = program.d_pad
+    wt = torch.zeros((program.n_layers, d, d), dtype=torch.int8,
+                     device=program.planes.device)
+    for l, (k, n) in enumerate(zip(geom.k_lims, geom.n_lims)):
+        wt[l, :n, :k] = combine_planes(
+            program.planes[l, :, :k, :n], program.cell_bits,
+            program.weight_bits).T.to(torch.int8)
+    return wt
+
+
 # ---------------------------------------------------------------------------
 # the kernels' bindings
 # ---------------------------------------------------------------------------
@@ -123,31 +161,36 @@ def fused_mlp_plain(x_p, sx, program: CrossbarProgram, *, m_real: int,
 #: C functions of each source: name -> (pointer args, int args), each
 #: followed by the stream.
 _FUNCTIONS = {
-    "fused_mlp": {"fused_mlp_layer": (9, 12)},
-    "fused_mlp_mtiled": {"fused_mlp_mtiled_layer": (8, 12)},
+    "fused_mlp": {"fused_mlp_run": (12, 9), "combine_weights": (5, 6)},
+    "fused_mlp_mtiled": {"fused_mlp_mtiled_run": (11, 9)},
     "fused_mlp_wstat": {"fused_mlp_wstat_requant": (3, 7),
                         "fused_mlp_wstat_layer": (8, 13)},
 }
+
+#: The dataflow whose shared memory each source reports (``{name}_smem``).
+_SMEM_MODE = {"fused_mlp": "whole", "fused_mlp_mtiled": "mtiled",
+              "fused_mlp_wstat": "wstat"}
 
 
 @functools.cache
 def _lib(name: str):
     """The library of ``csrc/{name}.cu``, its functions typed, after
-    checking that its tile edges and shared-memory sizes agree with
-    ``program.py``'s."""
+    checking that its tile edges, stripe width and shared-memory sizes
+    agree with ``program.py``'s."""
     lib = _build.library(name)
     for fn, (n_ptrs, n_ints) in _FUNCTIONS[name].items():
         _build.bind(lib, fn, n_ptrs, n_ints)
-    if name == "fused_mlp":
-        tiles = tuple(_build.int_fn(lib, "fused_mlp_tile")(i)
-                      for i in range(3))
-        if tiles != (BLOCK_M, BLOCK_N, BLOCK_K):
-            raise RuntimeError(f"crossbar.cuh tiles {tiles} disagree with "
-                               f"program.py's {(BLOCK_M, BLOCK_N, BLOCK_K)}")
-    else:
-        mode = name.rsplit("_", 1)[1]
+    if name in ("fused_mlp", "fused_mlp_mtiled"):
+        tiles = tuple(_build.int_fn(lib, f"{name}_tile")(i)
+                      for i in range(4))
+        want = (BLOCK_M, MMA_BLOCK_N, MMA_BLOCK_K, MMA_STRIPE_K)
+        if tiles != want:
+            raise RuntimeError(f"{name}.cu tiles {tiles} disagree with "
+                               f"program.py's {want}")
+    if name in _SMEM_MODE:
+        mode = _SMEM_MODE[name]
         smem = _build.int_fn(lib, f"{name}_smem")
-        for k_lim in (BLOCK_K, 512, 1024):
+        for k_lim in (32, 512, 1024, 4096):
             if smem(k_lim) != _smem_bytes(mode, k_lim):
                 raise RuntimeError(f"{name}.cu needs {smem(k_lim)} bytes of "
                                    f"shared memory at k_lim {k_lim}; "
@@ -173,8 +216,15 @@ def _check_launch(x_p, sx, program: CrossbarProgram, m_real: int,
         raise ValueError(f"input {tuple(x_p.shape)} / scales "
                          f"{tuple(sx.shape)} do not match the program "
                          f"(d_pad {program.d_pad}, m_pad {geom.m_pad})")
-    if m_pad // BLOCK_M > 65535 or batch > 65535:
-        raise ValueError("too many rows or batch elements for one launch")
+    if (m_pad // BLOCK_M > 65535 or batch > 65535
+            or program.n_layers > 65535):
+        raise ValueError("too many rows, batch elements or layers for one "
+                         "launch")
+    # K1's stripe is capped, and K2 runs K1 where its stripes do not fit
+    if mode == "wstat" and max(geom.smem_bytes) > MAX_SMEM_BYTES:
+        raise ValueError(f"d_pad {d} needs {max(geom.smem_bytes)} bytes of "
+                         f"shared memory in mode {mode!r}; a block has "
+                         f"{MAX_SMEM_BYTES}")
     bufs = (x_p, sx, program.planes, program.bias, program.col_mask,
             program.w_scale)
     if not all(t.is_contiguous() for t in bufs):
@@ -182,10 +232,10 @@ def _check_launch(x_p, sx, program: CrossbarProgram, m_real: int,
     return geom
 
 
-def _raise_on(err: int, what: str, layer: int) -> None:
+def _raise_on(err: int, what: str, layer: int | None = None) -> None:
     if err:
-        raise RuntimeError(f"{what} layer {layer} launch failed: CUDA error "
-                           f"{err}")
+        where = "" if layer is None else f" layer {layer}"
+        raise RuntimeError(f"{what}{where} launch failed: CUDA error {err}")
 
 
 def _layer_args(program: CrossbarProgram, l: int) -> tuple[int, ...]:
@@ -197,62 +247,130 @@ def _relu(program: CrossbarProgram, l: int, final_relu: bool) -> int:
     return int(l < program.n_layers - 1 or final_relu)
 
 
+def _lims(geom: LaunchGeometry, device) -> tuple[int, int]:
+    """The layers' ``k_lims`` then ``n_lims``: the addresses of a device
+    copy (read by the kernels) and a host copy (read by the C side for the
+    grids), both kept for later calls and never written."""
+    vals = geom.k_lims + geom.n_lims
+    return (_device_ints(vals, torch.device(device)).data_ptr(),
+            ctypes.addressof(_int_array(vals)))
+
+
+@functools.lru_cache(maxsize=256)
+def _int_array(vals: tuple):
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_ints(vals: tuple, device: torch.device):
+    # a blocking copy: done before any stream can launch a kernel on it
+    return torch.tensor(vals, dtype=torch.int32).to(device)
+
+
+def combine_weights_cuda(program: CrossbarProgram, geom: LaunchGeometry):
+    """The s8 weight pre-pass of K1 and K2 alone, one launch: a ``(L,
+    d_pad, d_pad)`` int8 buffer holding layer l's ``combine_planes`` weights
+    transposed to ``[n][k]`` over ``(k_lims[l], n_lims[l])``; the rest is
+    left unwritten (:func:`weight_regions` cuts out what is written). K1
+    and K2 launch the same kernel from their own entry points."""
+    planes = program.planes
+    if not planes.is_contiguous():
+        raise ValueError("the pre-pass takes contiguous planes")
+    d = program.d_pad
+    wt = torch.empty((program.n_layers, d, d), dtype=torch.int8,
+                     device=planes.device)
+    with torch.cuda.device(planes.device):
+        err = _lib("fused_mlp").combine_weights(
+            planes.data_ptr(), wt.data_ptr(), None,
+            *_lims(geom, planes.device), 0, program.n_layers,
+            program.n_planes, program.cell_bits, program.weight_bits, d,
+            _build.stream_of(planes))
+    _raise_on(err, "combine_weights")
+    LAUNCHES["combine"] += 1
+    return wt
+
+
+def _scratch(program: CrossbarProgram, batch: int, extra: int, device):
+    """One int8 scratch buffer of a K1/K2 call: ``extra`` bytes (K1's
+    second float32 panel), the ``(B, L)`` running maxima and the pre-pass's
+    ``(L, d_pad, d_pad)`` s8 weights. Returns it and the maxima's and
+    weights' addresses (each 256-byte aligned)."""
+    d, n_layers = program.d_pad, program.n_layers
+    mx_bytes = -(-4 * batch * n_layers // 256) * 256
+    buf = torch.empty(extra + mx_bytes + n_layers * d * d, dtype=torch.int8,
+                      device=device)
+    base = buf.data_ptr()
+    return buf, base + extra, base + extra + mx_bytes
+
+
+def _common_args(program: CrossbarProgram, sx, geom: LaunchGeometry):
+    """The arguments K1's and K2's entry points share after their buffers:
+    planes, bias, mask, w_scale, sx, the layer extents (device and host),
+    the layer count and the plane, cell and weight bit counts."""
+    return (program.planes.data_ptr(), program.bias.data_ptr(),
+            program.col_mask.data_ptr(), program.w_scale.data_ptr(),
+            sx.data_ptr(), *_lims(geom, sx.device), program.n_layers,
+            program.n_planes, program.cell_bits, program.weight_bits)
+
+
 def fused_mlp_cuda(x_p, sx, program: CrossbarProgram, *, m_real: int,
                    final_relu: bool = True):
-    """K1 ('whole'/'tiled'), one launch per layer, on CUDA tensors laid out
-    as :func:`prepare_input` makes them -> float32 ``(B, m_real, d_L)``.
-    Activations ping-pong between two float32 panels."""
+    """K1 ('whole'/'tiled') on CUDA tensors laid out as
+    :func:`prepare_input` makes them -> float32 ``(B, m_real, d_L)``: one
+    C call that launches the s8 pre-pass and then one launch per layer.
+    Activations ping-pong between two float32 panels; the last layer's is
+    the output."""
     geom = _check_launch(x_p, sx, program, m_real, "whole")
     batch, m_pad, d = x_p.shape
     n_layers = program.n_layers
-    panels = [torch.empty((batch, m_pad, d), dtype=torch.float32,
-                          device=x_p.device)
-              for _ in range(min(2, n_layers))]
-    mx = torch.zeros((batch, n_layers), dtype=torch.int32, device=x_p.device)
-    lib = _lib("fused_mlp")
-    stream = _build.stream_of(x_p)
+    out = torch.empty((batch, m_pad, d), dtype=torch.float32,
+                      device=x_p.device)
+    other = 4 * batch * m_pad * d if n_layers > 1 else 0
+    buf, mx, wt = _scratch(program, batch, other, x_p.device)
+    # layer l writes panel l % 2: the output must be the last layer's
+    panels = (out.data_ptr(), buf.data_ptr())
+    if n_layers % 2 == 0:
+        panels = panels[::-1]
     with torch.cuda.device(x_p.device):
-        for l in range(n_layers):
-            src = panels[(l - 1) % 2].data_ptr() if l else None
-            err = lib.fused_mlp_layer(
-                x_p.data_ptr(), src, panels[l % 2].data_ptr(),
-                *_layer_args(program, l), sx.data_ptr(), mx.data_ptr(),
-                l, n_layers, program.n_planes, program.cell_bits,
-                program.weight_bits, batch, m_pad, m_real, d,
-                geom.k_lims[l], geom.n_lims[l],
-                _relu(program, l, final_relu), stream)
-            _raise_on(err, "fused_mlp", l)
-            LAUNCHES["layer"] += 1
+        err = _lib("fused_mlp").fused_mlp_run(
+            x_p.data_ptr(), *panels, wt, mx,
+            *_common_args(program, sx, geom), batch, m_pad, m_real, d,
+            int(final_relu), _build.stream_of(x_p))
+    _raise_on(err, "fused_mlp")
+    LAUNCHES["combine"] += 1
+    LAUNCHES["layer"] += n_layers
     LAUNCHES["mlp"] += 1
-    return panels[(n_layers - 1) % 2][:, :m_real, :program.widths[-1]]
+    return out[:, :m_real, :program.widths[-1]]
 
 
 def fused_mlp_mtiled_cuda(x_p, sx, program: CrossbarProgram, *, m_real: int,
                           final_relu: bool = True):
-    """K2 ('mtiled'), one launch per layer, in place on one float32 panel:
-    each block keeps its int8 stripe in shared memory and walks every
-    N-tile of the layer over it. Same layout and result as
-    :func:`fused_mlp_cuda`."""
+    """K2 ('mtiled'): one C call that launches the s8 pre-pass and then one
+    launch per layer. Launch j recomputes layers ``0 .. j-1`` of each
+    block's stripe on chip from the int8 input and the maxima earlier
+    launches published, computes layer j and publishes its max; only the
+    last launch writes the float32 output. Same layout and result as
+    :func:`fused_mlp_cuda`, which runs in its place (and counts as K1)
+    where the two stripes do not fit on chip."""
     geom = _check_launch(x_p, sx, program, m_real, "mtiled")
+    if not mtiled_on_chip(geom):
+        return fused_mlp_cuda(x_p, sx, program, m_real=m_real,
+                              final_relu=final_relu)
     batch, m_pad, d = x_p.shape
     n_layers = program.n_layers
-    panel = torch.empty((batch, m_pad, d), dtype=torch.float32,
-                        device=x_p.device)
-    mx = torch.zeros((batch, n_layers), dtype=torch.int32, device=x_p.device)
-    lib = _lib("fused_mlp_mtiled")
-    stream = _build.stream_of(x_p)
+    out = torch.empty((batch, m_pad, geom.n_lims[-1]), dtype=torch.float32,
+                      device=x_p.device)
+    buf, mx, wt = _scratch(program, batch, 0, x_p.device)
     with torch.cuda.device(x_p.device):
-        for l in range(n_layers):
-            err = lib.fused_mlp_mtiled_layer(
-                x_p.data_ptr(), panel.data_ptr(), *_layer_args(program, l),
-                sx.data_ptr(), mx.data_ptr(), l, n_layers, program.n_planes,
-                program.cell_bits, program.weight_bits, batch, m_pad, m_real,
-                d, geom.k_lims[l], geom.n_lims[l],
-                _relu(program, l, final_relu), stream)
-            _raise_on(err, "fused_mlp_mtiled", l)
-            LAUNCHES["mtiled_layer"] += 1
+        err = _lib("fused_mlp_mtiled").fused_mlp_mtiled_run(
+            x_p.data_ptr(), out.data_ptr(), wt, mx,
+            *_common_args(program, sx, geom), batch, m_pad, m_real, d,
+            int(final_relu), _build.stream_of(x_p))
+    _raise_on(err, "fused_mlp_mtiled")
+    LAUNCHES["combine"] += 1
+    LAUNCHES["mtiled_layer"] += n_layers
     LAUNCHES["mtiled"] += 1
-    return panel[:, :m_real, :program.widths[-1]]
+    return out[:, :m_real, :program.widths[-1]]
 
 
 def fused_mlp_wstat_cuda(x_p, sx, program: CrossbarProgram, *, m_real: int,

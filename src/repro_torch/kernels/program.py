@@ -19,18 +19,38 @@ The TPU's tile edges (``block_n``/``block_k``) only steer that choice; they
 are not taken as arguments and do not shape the Hopper launches.
 
 Launch geometry. On Hopper a block has at most 227 KB of shared memory, so
-no panel fits on chip; each kernel runs one launch per layer over
-``BLOCK_M x BLOCK_N`` output tiles, stepping K in ``BLOCK_K``-byte slabs,
-with the activation panel in device memory (and mostly in the 50 MB L2).
-Per layer, K and N run only as far as they need to: ``k_lim``/``n_lim`` stop
-at the real widths rounded up to the tile edges, because every column
-beyond a layer's real width is zero on input and masked on output —
-skipping it drops only zero terms. K2 and K3 keep a whole stripe or a whole
-weight tile of ``k_lim`` bytes per row in dynamic shared memory
-(:class:`LaunchGeometry`'s ``smem_bytes``).
+no panel fits on chip; the kernels run one launch per layer, because the
+next layer's scale is a max over the whole grid. Per layer, K and N run
+only as far as they need to: ``k_lim``/``n_lim`` stop at the real widths
+rounded up to ``BLOCK_K``/``BLOCK_N``, because every column beyond a
+layer's real width is zero on input and masked on output — skipping it
+drops only zero terms. Every mode shares ``m_pad`` (rows rounded up to
+``BLOCK_M``, the stripe of one block) and ``k_lims``/``n_lims``.
+
+K1 and K2 run on the tensor cores (``csrc/crossbar_mma.cuh``): a block
+owns ``BLOCK_M`` rows as an int8 stripe in shared memory and computes
+``MMA_BLOCK_N``-column chunks, streaming ``MMA_BLOCK_K``-byte slabs of s8
+weights, combined from the planes once per MLP call by a pre-pass
+(``combine_weights`` in ``csrc/fused_mlp.cu``), through a ring of
+``MMA_STAGES`` slabs. A chunk that passes ``n_lim`` masks the columns
+beyond it. K1's grid is ``(ceil(n_lim / MMA_BLOCK_N), m_pad / BLOCK_M, B)``
+per layer, its stripe one layer's ``k_lim`` wide up to ``MMA_STRIPE_K``
+bytes; a wider layer runs K in ranges of ``MMA_STRIPE_K``, so K1 takes any
+width. K2's grid is ``(m_pad / BLOCK_M, B)``: launch j recomputes layers
+``0 .. j-1`` of its stripe from the int8 input into two int8 stripes of
+the widest ``k_lim`` (scales from the maxima earlier launches published),
+so no intermediate panel leaves the chip. Where two such stripes do not
+fit in ``MAX_SMEM_BYTES`` (the widest ``k_lim`` above 1536), 'mtiled'
+runs K1's launches instead (:func:`mtiled_on_chip`). K1 and K2 take any
+number of layers. K3 keeps
+its dp4a design over ``BLOCK_M x BLOCK_N`` tiles and ``BLOCK_K``-byte
+slabs, with a ``k_lim x BLOCK_N`` weight tile in shared memory.
+:class:`LaunchGeometry`'s ``smem_bytes`` is each launch's dynamic shared
+memory.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Sequence
 
@@ -41,18 +61,29 @@ from .ref import combine_planes
 
 __all__ = [
     "BLOCK_K", "BLOCK_M", "BLOCK_N", "CROSSBAR", "CrossbarProgram",
-    "FUSED_MODES", "FusedPlan", "LaunchGeometry", "VMEM_BUDGET_BYTES",
-    "build_program", "encode_planes", "fused_vmem_bytes", "plan_fused_mlp",
-    "plan_launch", "quantize_tensor", "wstat_row_groups",
+    "FUSED_MODES", "FusedPlan", "LaunchGeometry", "MAX_SMEM_BYTES",
+    "MMA_BLOCK_K", "MMA_BLOCK_N", "MMA_STAGES", "MMA_STRIPE_K",
+    "VMEM_BUDGET_BYTES",
+    "build_program", "encode_planes", "fused_vmem_bytes", "mtiled_on_chip",
+    "plan_fused_mlp", "plan_launch", "quantize_tensor", "wstat_row_groups",
 ]
 
 #: Crossbar edge — every program dimension is padded to this (the JAX
 #: package's layout, kept so programs are bitwise comparable).
 CROSSBAR = 128
 
-#: Output tile of one block of the crossbar kernels, and their K slab
-#: (bytes); ``csrc/crossbar.cuh`` holds the same numbers.
+#: Rows of one block (all modes), and the output tile and K slab (bytes) of
+#: K3 and K6 (``csrc/crossbar.cuh`` holds the same numbers). ``n_lims`` and
+#: ``k_lims`` are rounded up to ``BLOCK_N`` and ``BLOCK_K``.
 BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
+
+#: K1's and K2's output chunk, weight slab (bytes), slabs in flight, and the
+#: widest K range of K1's stripe (``csrc/crossbar_mma.cuh``).
+MMA_BLOCK_N, MMA_BLOCK_K, MMA_STAGES, MMA_STRIPE_K = 128, 64, 3, 2048
+
+#: Dynamic shared memory a block of K1/K2/K3 may take on Hopper: the 227 KB
+#: a block may opt in to, less 1 KB kept for static shared memory.
+MAX_SMEM_BYTES = 232448 - 1024
 
 #: The TPU's per-core VMEM budget that the JAX package's dataflow choice is
 #: made against; kept so that both packages choose alike.
@@ -212,9 +243,10 @@ class LaunchGeometry:
     in every mode), and for layer l the K extent ``k_lims[l]`` (real input
     width rounded up to ``BLOCK_K``), the N extent ``n_lims[l]`` (real
     output width rounded up to ``BLOCK_N``) and the dynamic shared memory
-    of one block, ``smem_bytes[l]``. Layer l's grid is
-    ``(n_lims[l] / BLOCK_N, m_pad / BLOCK_M, B)`` for K1,
-    ``(m_pad / BLOCK_M, B)`` for K2 (a block walks every N-tile) and
+    of one block in launch l, ``smem_bytes[l]``. Launch l's grid is
+    ``(ceil(n_lims[l] / MMA_BLOCK_N), m_pad / BLOCK_M, B)`` for K1,
+    ``(m_pad / BLOCK_M, B)`` for K2 (a block recomputes layers ``0 .. l-1``
+    of its stripe and walks every N-chunk of layer l) and
     ``(n_lims[l] / BLOCK_N, row_groups)`` for K3."""
 
     m_pad: int
@@ -224,15 +256,31 @@ class LaunchGeometry:
     smem_bytes: tuple[int, ...] = ()
 
 
+def _stripe_bytes(k_lim: int) -> int:
+    """One ``BLOCK_M``-row int8 stripe of K1/K2 at ``k_lim`` bytes a row
+    (row pitch ``k_lim + 16``)."""
+    return BLOCK_M * (k_lim + 16)
+
+
 def _smem_bytes(mode: str, k_lim: int) -> int:
-    """Dynamic shared memory of one block: none for K1; K2 keeps a
-    ``BLOCK_M``-row int8 stripe, K3 a ``BLOCK_N``-column u8 weight tile,
-    ``k_lim`` bytes each plus one pad word (``csrc/*_smem``)."""
+    """Dynamic shared memory of one block (``csrc/*_smem``): K1 one input
+    stripe of ``k_lim`` bytes a row (at most ``MMA_STRIPE_K``) and the
+    weight ring; K2 two stripes of the widest ``k_lim`` and the ring; K3 a
+    ``BLOCK_N``-column u8 weight tile, ``k_lim`` bytes plus one pad word a
+    column."""
+    ring = MMA_STAGES * MMA_BLOCK_N * (MMA_BLOCK_K + 16)
     if mode == "mtiled":
-        return 4 * BLOCK_M * (k_lim // 4 + 1)
+        return 2 * _stripe_bytes(k_lim) + ring
     if mode == "wstat":
         return 4 * BLOCK_N * (k_lim // 4 + 1)
-    return 0
+    return _stripe_bytes(min(k_lim, MMA_STRIPE_K)) + ring
+
+
+def mtiled_on_chip(geom: LaunchGeometry) -> bool:
+    """Whether K2's two stripes of the widest ``k_lim`` fit in a block's
+    shared memory (the widest ``k_lim`` at most 1536); where they do not,
+    'mtiled' runs K1's launches, which compute the same function."""
+    return max(geom.smem_bytes) <= MAX_SMEM_BYTES
 
 
 def plan_launch(program: CrossbarProgram, m_rows: int,
@@ -240,15 +288,22 @@ def plan_launch(program: CrossbarProgram, m_rows: int,
     """The launch geometry of dataflow ``mode`` for ``m_rows`` rows."""
     if mode not in FUSED_MODES:
         raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
-    w = program.widths
-    k_lims = tuple(min(_ceil_to(k, BLOCK_K), program.d_pad) for k in w[:-1])
+    return _plan_launch(program.widths, program.d_pad,
+                        max(int(m_rows), 1), mode)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_launch(w: tuple, d_pad: int, m_rows: int,
+                 mode: str) -> LaunchGeometry:
+    k_lims = tuple(min(_ceil_to(k, BLOCK_K), d_pad) for k in w[:-1])
+    # K2's stripes hold the widest input of any layer in every launch
+    smem_k = (max(k_lims),) * len(k_lims) if mode == "mtiled" else k_lims
     return LaunchGeometry(
-        m_pad=_ceil_to(max(int(m_rows), 1), BLOCK_M),
+        m_pad=_ceil_to(m_rows, BLOCK_M),
         k_lims=k_lims,
-        n_lims=tuple(min(_ceil_to(n, BLOCK_N), program.d_pad)
-                     for n in w[1:]),
+        n_lims=tuple(min(_ceil_to(n, BLOCK_N), d_pad) for n in w[1:]),
         mode=mode,
-        smem_bytes=tuple(_smem_bytes(mode, k) for k in k_lims))
+        smem_bytes=tuple(_smem_bytes(mode, k) for k in smem_k))
 
 
 #: Blocks of K3 per SM that its grid aims at: 4 x 256 threads, and up to

@@ -59,6 +59,46 @@ def test_k1_and_gather_counts(smoke):
     assert nbytes == 4 * ((7 + 2) * 8 + 2 * 5 * 3 + 2 * 5 + 2 * 5 * 3 * 8)
 
 
+def test_k1_k2_design_bytes(smoke):
+    """The modeled device-memory bytes of K1's and K2's code: one pre-pass over
+    each layer's (k_lim, n_lim); K1 a float32 panel out of every layer and
+    back into the next; K2 the int8 input in every launch, the weights of
+    layers 0 .. j in launch j, and the float32 output once."""
+    rng = np.random.default_rng(1)
+    layers = [{"w": rng.normal(size=(k, n)).astype(np.float32),
+               "b": np.zeros(n, np.float32)}
+              for k, n in ((16, 256), (256, 256), (256, 512))]
+    prog = build_program(layers)           # model2 SA-1's widths
+    b, m = smoke.BATCH, 8192
+    rows = b * m
+    k, n = (32, 256, 256), (256, 256, 512)
+    pre = sum(5 * a * c for a, c in zip(k, n))
+    w = [a * c + 8 * c for a, c in zip(k, n)]
+    assert smoke._modeled_bytes(prog, m, "whole") == pre + (
+        rows * 32 + w[0] + 4 * rows * 256
+        + 4 * rows * 256 + w[1] + 4 * rows * 256
+        + 4 * rows * 256 + w[2] + 4 * rows * 512)
+    assert smoke._modeled_bytes(prog, m, "mtiled") == pre + (
+        3 * rows * 32 + 3 * w[0] + 2 * w[1] + w[2] + 4 * rows * 512)
+    # K2 moves about its bound: the int8 input thrice and the output once
+    bound_bytes, _ = smoke._k1_bound(prog, m)
+    assert smoke._modeled_bytes(prog, m, "mtiled") < 1.05 * bound_bytes
+    assert smoke._modeled_bytes(prog, m, "whole") > 2.5 * bound_bytes
+
+
+def test_paths_count_one_prepass_per_k1_k2_call(smoke):
+    for model, paths in smoke.PATHS.items():
+        fused = paths["reram-fused"]
+        assert fused["fused_mlp_combine"] == (fused["fused_mlp"]
+                                              + fused.get("fused_mlp_mtiled",
+                                                          0))
+        assert set(fused) <= set(smoke.MLP_COUNTERS)
+    # K1 one launch per layer: 3 + 3 + 2 layers, two calls
+    assert smoke.PATHS["model1"]["reram-fused"]["fused_mlp_layer"] == 16
+    assert smoke.PATHS["model2"]["reram-fused"]["fused_mlp_mtiled_layer"] \
+        == 6
+
+
 def test_k6_counts_and_reram_layer_shapes(smoke):
     assert smoke._k6_bound(10, 16, 8) == (10 * 16 + 16 * 8 + 4 * 10 * 8,
                                           2 * 10 * 16 * 8)

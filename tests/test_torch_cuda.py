@@ -102,6 +102,93 @@ def test_fused_mlp_modes_bitwise(cuda, mode, widths, m, batch, final_relu):
     assert torch.equal(got, k1)
 
 
+@pytest.mark.parametrize("widths,m,batch,weight_bits", [
+    ((16, 256, 256, 512), 512 * 16, 2, 8),       # model2 SA-1
+    ((512, 512, 512, 1024), 128 * 16, 2, 8),     # model2 SA-2
+    ((8, 128, 128, 256), 1000, 3, 6),            # ragged rows, 6-bit
+    ((1024, 256, 40), 1, 8, 4),                  # 1-row head, 4-bit
+    ((130, 200, 70), 257, 3, 5),
+    ((2100, 2080, 40), 200, 2, 8),               # K1 in two K ranges
+    ((20,) + (48,) * 9 + (24,), 300, 2, 7),      # ten layers
+])
+def test_tensor_core_kernels_equal_plain_and_k3(cuda, widths, m, batch,
+                                                weight_bits):
+    """K1 and K2 (tensor cores, s8 weights) against the plain version and
+    against K3 (dp4a) bit for bit, with non-zero biases, row counts that
+    are not a multiple of the 64-row stripe and weight_bits below 8; past
+    K1's 2048-byte stripe (where 'mtiled' runs K1) and at ten layers."""
+    rng = np.random.default_rng(5)
+    prog = build_program(_layers(widths, rng),
+                         weight_bits=weight_bits).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(batch, m, widths[0]))
+                         .astype(np.float32)).to(cuda)
+    x_p, sx = fused_mlp.prepare_input(x, prog)
+    want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=m)
+    got = {mode: fused_mlp.KERNEL_OF_MODE[mode](x_p, sx, prog, m_real=m)
+           for mode in ("whole", "mtiled", "wstat")}
+    torch.cuda.synchronize()
+    for mode, y in got.items():
+        assert torch.equal(y, want), mode
+
+
+@pytest.mark.parametrize("widths,m,weight_bits", [
+    ((8, 128, 128, 256), 8192, 8),               # model1 SA-1
+    ((16, 256, 256, 512), 8192, 8),              # model2 SA-1
+    ((1024, 256, 40), 1, 8),                     # model2 head
+    ((130, 200, 70), 257, 6),                    # ragged k_lim / n_lim
+    ((5, 7), 9, 4),
+    ((20,) + (48,) * 9 + (24,), 30, 8),          # ten layers
+])
+def test_combine_weights_kernel_bitwise(cuda, widths, m, weight_bits):
+    """The s8 weight pre-pass against its plain version over every layer's
+    (k_lim, n_lim), padded columns included (-128 at 8 bits)."""
+    from repro_torch.kernels import plan_launch
+    rng = np.random.default_rng(6)
+    prog = build_program(_layers(widths, rng),
+                         weight_bits=weight_bits).to(cuda)
+    geom = plan_launch(prog, m, "mtiled")
+    reset_launch_counts()
+    got = fused_mlp.combine_weights_cuda(prog, geom)
+    want = fused_mlp.combine_weights_plain(prog, geom)
+    torch.cuda.synchronize()
+    assert launch_counts()["fused_mlp_combine"] == 1
+    for l, (g, w) in enumerate(zip(fused_mlp.weight_regions(got, geom),
+                                   fused_mlp.weight_regions(want, geom))):
+        assert torch.equal(g, w), l
+        k, n = widths[l], widths[l + 1]
+        assert torch.equal(w[:n, :k].T.to(torch.int32),
+                           prog.int_weights()[l])
+
+
+@pytest.mark.parametrize("widths,on_chip", [
+    ((1500, 64, 40), True),           # K2's two stripes fit (k_lim 1504)
+    ((2100, 2080, 40), False),        # they do not: 'mtiled' runs K1
+    ((20,) + (48,) * 9 + (24,), True),
+])
+def test_mtiled_launches_by_width_and_depth(cuda, widths, on_chip):
+    """K2 launches once per layer at any depth; where its two stripes do
+    not fit on chip, the 'mtiled' wrapper runs K1 in its place, and the
+    counters say so. Either way the result is the plain version's."""
+    rng = np.random.default_rng(7)
+    prog = build_program(_layers(widths, rng)).to(cuda)
+    x = torch.from_numpy(rng.normal(size=(2, 130, widths[0]))
+                         .astype(np.float32)).to(cuda)
+    x_p, sx = fused_mlp.prepare_input(x, prog)
+    reset_launch_counts()
+    got = fused_mlp.fused_mlp_mtiled_cuda(x_p, sx, prog, m_real=130)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_layers = len(widths) - 1
+    k2 = (1, n_layers) if on_chip else (0, 0)
+    assert (counts["fused_mlp_mtiled"],
+            counts["fused_mlp_mtiled_layer"]) == k2
+    assert (counts["fused_mlp"], counts["fused_mlp_layer"]) == (
+        (0, 0) if on_chip else (1, n_layers))
+    assert counts["fused_mlp_combine"] == 1
+    assert torch.equal(got, fused_mlp.fused_mlp_plain(x_p, sx, prog,
+                                                      m_real=130))
+
+
 @pytest.mark.parametrize("m,k,n", [
     (8192, 16, 256),       # model2 SA-1, first layer, one cloud
     (2048, 512, 1024),     # model2 SA-2, last layer, one cloud
@@ -179,6 +266,9 @@ def test_model_on_card_counts_launches_and_matches_cpu(cuda, backend):
     assert {k: counts[k] for k in _COUNTER.values()} == {
         k: want_n if k == _COUNTER[backend] else 0
         for k in _COUNTER.values()}
+    # K1 and K2 run the s8 weight pre-pass once per MLP call
+    assert counts["fused_mlp_combine"] == (
+        want_n if backend in ("reram-fused", "reram-fused-mtiled") else 0)
     # one FPS launch per SA layer and call, whatever the batch
     assert counts["fps"] == 2 * cfg.n_layers and counts["fps_update"] == 0
     want = cpu.batched_forward(clouds)
@@ -210,6 +300,9 @@ def test_model2_shaped_launch_counts(cuda):
     counts = launch_counts()
     assert (counts["fused_mlp"], counts["fused_mlp_mtiled"],
             counts["fused_mlp_wstat"]) == (2, 2, 2)
+    # one pre-pass per K1 or K2 call; K2 one launch per layer
+    assert counts["fused_mlp_combine"] == 4
+    assert counts["fused_mlp_mtiled_layer"] == 2 * 3
     assert counts["fps"] == 2 * cfg.n_layers
     assert torch.equal(one, logits[0])
     reset_launch_counts()
@@ -217,6 +310,7 @@ def test_model2_shaped_launch_counts(cuda):
     per_layer.forward(clouds[0])
     torch.cuda.synchronize()
     assert launch_counts()["reram_matmul_int"] == 2 * 8
+    assert launch_counts()["fused_mlp_combine"] == 0
     assert torch.equal(ref, logits)
 
 

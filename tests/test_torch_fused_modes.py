@@ -94,12 +94,16 @@ def test_launch_geometry_per_mode():
     prog = build_program([{"w": rng.normal(size=(k, n)).astype(np.float32),
                            "b": np.zeros(n, np.float32)}
                           for k, n in ((16, 256), (256, 1024))])
+    # K1 keeps a 64-row int8 stripe of k_lim bytes (pitch k_lim + 16) and
+    # a ring of 3 weight slabs of 128 x (64 + 16) bytes; K2 two stripes of
+    # the widest k_lim and the ring, in every launch; K3 a 64-column weight
+    # tile, one pad word per column
+    ring = 3 * 128 * (64 + 16)
     whole = plan_launch(prog, 8192)
-    assert whole.smem_bytes == (0, 0)
-    # K2 keeps a 64-row int8 stripe of k_lim bytes, K3 a 64-column weight
-    # tile; one pad word per row or column
+    assert whole.smem_bytes == (64 * (32 + 16) + ring,
+                                64 * (256 + 16) + ring)
     assert plan_launch(prog, 8192, "mtiled").smem_bytes == (
-        4 * 64 * (32 // 4 + 1), 4 * 64 * (256 // 4 + 1))
+        2 * 64 * (256 + 16) + ring,) * 2
     wstat = plan_launch(prog, 8192, "wstat")
     assert wstat.smem_bytes == (4 * 64 * 9, 4 * 64 * 65)
     assert (wstat.m_pad, wstat.k_lims, wstat.n_lims) == (
