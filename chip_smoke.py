@@ -17,11 +17,12 @@ weights from a seed. Phases, each printing one JSON line:
    together);
 3. kernel vs plain: each kernel against its plain torch version on the
    same inputs, bit for bit — K1, K4, K5 at model1's shapes; K1, K2 and K3
-   at each of model2's three MLPs, a ragged one, one wider than K1's
-   stripe and one of ten layers, each also against the others (one
-   function, three dataflows); the s8 weight pre-pass of K1
-   and K2 at every MLP of model1 and model2; K6 at every layer shape of the
-   model2 'reram' path; K7's loop at both SA layers' FPS (8 x 1024 -> 512,
+   at each of model2's three MLPs, a ragged one, ones wider than K1's
+   stripe and K3's chunks and one of ten layers, each also against the
+   others (one function, three dataflows); the s8 weight pre-pass of K1,
+   K2 and K3 at every MLP of model1 and model2; K6 and its own pre-pass at
+   every layer shape of the model2 'reram' path and at unaligned, split
+   and odd shapes; K7's loop at both SA layers' FPS (8 x 1024 -> 512,
    8 x 512 -> 128, the real SA-2 input), a ragged cloud with pad rows, grid
    and duplicated clouds (exact ties) and N = 16384, and its single step
    at the same widths;
@@ -33,7 +34,7 @@ weights from a seed. Phases, each printing one JSON line:
 5. times: each kernel, its plain version and a library yardstick, timed
    with CUDA events after warm-up at the main path's shapes, beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate, whichever is larger); for K1, K2 and K3 also the
+   the peak rate, whichever is larger); for K1, K2, K3 and K6 also the
    profiler's device time of one call beside the library's (a short call
    leaves the card idle between back-to-back calls, so their event time
    measures the host), and in the times line only, for K1 and K2, a
@@ -43,9 +44,9 @@ weights from a seed. Phases, each printing one JSON line:
    K7 at the two FPS calls of one ``batched_forward``, with its time per
    sampling step (no PyTorch call computes FPS: no library time);
    ``batched_forward`` and ``forward`` end to end, on the host clock;
-6. profile: one model1 and one model2 ``batched_forward`` split on the
-   host clock into geometry, host planning and the rest, and their device
-   time by kernel from ``torch.profiler``.
+6. profile: one model1, one model2 and one model2 'reram'
+   ``batched_forward`` split on the host clock into geometry, host planning
+   and the rest, and their device time by kernel from ``torch.profiler``.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -151,22 +152,50 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     built = _build.build(KERNEL_SOURCES)
     seconds = time.perf_counter() - t0
-    ptxas = {name: [ln.strip() for ln in _build.build_log(name).splitlines()
-                    if "registers" in ln or "spill" in ln]
+    ptxas = {name: _ptxas_registers(_build.build_log(name))
              for name in KERNEL_SOURCES}
     emit({"phase": "build", "seconds": seconds, "built": built,
           "ptxas": ptxas, "tensor_core_instructions": _imma_counts()})
 
 
+def _kernel_name(symbol: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol,
+    namespaces dropped: ``wstat_mma_kernelILi4ELb0EE`` is
+    ``wstat_mma_kernel<4, false>``."""
+    import re
+    if not symbol.startswith("_ZN"):
+        return symbol
+    pos, name = 3, symbol
+    while pos < len(symbol) and symbol[pos].isdigit():
+        n = re.match(r"\d+", symbol[pos:]).group()
+        pos += len(n)
+        name, pos = symbol[pos:pos + int(n)], pos + int(n)
+    args = re.match(r"I(?:L[a-z]\d+E)+E", symbol[pos:])
+    return name + (args.group() if args else "")
+
+
+def _ptxas_registers(log: str) -> dict:
+    """Registers and spills of each kernel in a ``-Xptxas -v`` log, by
+    :func:`_kernel_name`."""
+    out, entry = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln and "'" in ln:
+            entry = _kernel_name(ln.split("'")[1])
+        elif entry and ("registers" in ln or "spill" in ln):
+            out.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
+    return out
+
+
 def _imma_counts() -> dict:
-    """Integer tensor-core instructions (IMMA) in the SASS of K1 and K2, by
-    the toolkit's ``cuobjdump``: the products must run on the tensor cores,
-    and a count that cannot be taken fails the check."""
+    """Integer tensor-core instructions (IMMA) in the SASS of K1, K2, K3 and
+    K6, by the toolkit's ``cuobjdump``: the products must run on the tensor
+    cores, and a count that cannot be taken fails the check."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = {}
-    for name in ("fused_mlp", "fused_mlp_mtiled"):
+    for name in ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
+                 "reram_mlp"):
         so = _build._paths(name)[0]
         try:
             sass = subprocess.run([tool, "-sass", str(so)],
@@ -197,18 +226,28 @@ def _ragged_program(widths=(130, 200, 70), seed=SEED + 1):
     return build_program(layers).cuda()
 
 
-#: Beside model2's MLPs, K1, K2 and K3 are held at MLPs past K1's and
-#: K2's on-chip limits: inputs wider than K1's 2048-byte stripe in both
-#: layers (K runs in two ranges, the last 64 and 32 bytes; K2's two stripes
-#: do not fit, so 'mtiled' runs K1), and ten layers (K2 recomputes up to
-#: nine on chip).
+#: Beside model2's MLPs, K1, K2 and K3 are held at MLPs past their
+#: on-chip limits: inputs wider than K1's 2048-byte stripe in both layers
+#: (K runs in two ranges, the last 64 and 32 bytes; K2's two stripes do not
+#: fit, so 'mtiled' runs K1; K3 narrows its chunk to 64 columns), wider
+#: than K3's 64-column chunk (32 columns) and than its 32-column one (K3
+#: runs K in ranges), and ten layers (K2 recomputes up to nine on chip).
 RANGE_MLPS = {"wide": ((2100, 2080, 40), 200),
+              "wide_4000": ((4000, 64, 40), 100),
+              "wide_7000": ((7000, 40), 64),
               "deep": ((20,) + (48,) * 9 + (24,), 300)}
+
+#: K6 beyond the model2 'reram' path's shapes: rows of 4 and 8 bytes
+#: (model0's and model1's first layers: not 16-byte aligned), one row
+#: with K split over 16 blocks, odd and narrow N, and K past one stripe.
+K6_EXTRA_SHAPES = ((65536, 4, 64), (65536, 8, 128), (1, 1024, 256),
+                   (130, 77, 5), (300, 64, 5), (3, 5000, 20))
 
 
 def _check_combine(prog, m: int, what: str) -> dict:
-    """The s8 weight pre-pass of K1/K2 against its plain version, bit for
-    bit over every layer's (k_lim, n_lim); returns its inputs for timing."""
+    """The s8 weight pre-pass of K1/K2/K3 against its plain version, bit
+    for bit over every layer's (k_lim, n_lim); returns its inputs for
+    timing."""
     from repro_torch.kernels import fused_mlp, plan_launch
     geom = plan_launch(prog, m, "mtiled")
     got = fused_mlp.combine_weights_cuda(prog, geom)
@@ -308,10 +347,11 @@ def reram_layer_shapes(params, cfg, batch: int) -> list:
 
 
 def phase_model2_kernels(model2, params2) -> dict:
-    """K1, K2 and K3 at each model2 MLP (batch 8) and the ragged MLP, each
-    bit for bit against the plain version and against each other; K6 at
-    every layer shape of the model2 'reram' path (one ``batched_forward``
-    and one ``forward``) against its plain version."""
+    """K1, K2 and K3 at each model2 MLP (batch 8), the ragged MLP and those
+    of :data:`RANGE_MLPS`, each bit for bit against the plain version and
+    against each other; K6 and its pre-pass at every layer shape of the
+    model2 'reram' path (one ``batched_forward`` and one ``forward``) and
+    at :data:`K6_EXTRA_SHAPES`, against their plain versions."""
     from repro_torch.kernels import (encode_planes, fused_mlp,
                                      quantize_tensor, ref_reram_matmul_int,
                                      reram_mlp)
@@ -345,19 +385,27 @@ def phase_model2_kernels(model2, params2) -> dict:
     g = torch.Generator(device="cpu").manual_seed(SEED + 30)
     layers = [lyr for mlp in params2["sa"] + [params2["head"]] for lyr in mlp]
     shapes = reram_layer_shapes(params2, model2.config, BATCH)
-    for i, (m, k, n) in enumerate(shapes + reram_layer_shapes(
-            params2, model2.config, 1)):
-        planes = encode_planes(quantize_tensor(
-            layers[i % len(layers)]["w"])[0]).cuda()
-        x = torch.randint(-127, 128, (m, k), generator=g,
+    path = shapes + reram_layer_shapes(params2, model2.config, 1)
+    for i, (m, k, n) in enumerate(path + list(K6_EXTRA_SHAPES)):
+        if i < len(path):
+            w = quantize_tensor(layers[i % len(layers)]["w"])[0]
+        else:
+            w = torch.randint(-128, 128, (k, n), generator=g)
+        planes = encode_planes(w).cuda()
+        x = torch.randint(-128, 128, (m, k), generator=g,
                           dtype=torch.int8).cuda()
         got = reram_mlp.reram_matmul_int_cuda(x, planes)
         want = ref_reram_matmul_int(x, planes)
+        wt = reram_mlp.reram_combine_cuda(planes)
+        wt_want = reram_mlp.reram_combine_plain(planes)
         torch.cuda.synchronize()
         check(torch.equal(got, want), f"K6 {m}x{k}x{n} bitwise vs plain")
+        check(torch.equal(wt, wt_want), f"K6 pre-pass {k}x{n} bitwise")
         k6.append({"shape": [m, k, n], "x": x, "planes": planes,
                    "batched": i < len(shapes),
-                   "max_abs_err": float((got - want).abs().max())})
+                   "max_abs_err": float((got - want).abs().max()),
+                   "combine_max_abs_err": int((wt.int() - wt_want.int())
+                                              .abs().max())})
     emit({"phase": "kernel_vs_plain_model2", "tolerance": "bitwise",
           "fused_mlp": {n: {"shape": v["shape"],
                             **{f"{md}_max_abs_err": v[f"{md}_max_abs_err"]
@@ -365,7 +413,8 @@ def phase_model2_kernels(model2, params2) -> dict:
                             "combine_max_abs_err":
                                 v["combine"]["max_abs_err"]}
                         for n, v in mlps.items()},
-          "K6": [{"shape": c["shape"], "max_abs_err": c["max_abs_err"]}
+          "K6": [{"shape": c["shape"], "max_abs_err": c["max_abs_err"],
+                  "combine_max_abs_err": c["combine_max_abs_err"]}
                  for c in k6]})
     return {"mlps": mlps, "K6": k6}
 
@@ -452,16 +501,17 @@ def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
 #: must count in one ``batched_forward`` plus one ``forward`` (beside one
 #: gather and one FPS launch per SA layer and pass): model2's SA-1 runs
 #: through K2 ('mtiled'), its SA-2 through K3 ('wstat') and its head
-#: through K1; each K1 or K2 call launches the s8 weight pre-pass once
-#: (``fused_mlp_combine``) and K2 one launch per layer; the per-layer
-#: 'reram' backend launches K6 once per layer, 8 layers.
+#: through K1; each K1, K2 or K3 call launches the s8 weight pre-pass once
+#: (``fused_mlp_combine``), K2 and K3 one launch per layer; the per-layer
+#: 'reram' backend launches K6 and its pre-pass once per layer, 8 layers.
 PATHS = {
     "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_layer": 4,
                                "fused_mlp_mtiled": 2,
                                "fused_mlp_mtiled_layer": 6,
                                "fused_mlp_wstat": 2,
-                               "fused_mlp_combine": 4},
-               "reram": {"reram_matmul_int": 16}},
+                               "fused_mlp_wstat_layer": 6,
+                               "fused_mlp_combine": 6},
+               "reram": {"reram_matmul_int": 16, "reram_combine": 16}},
     "model1": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
                                "fused_mlp_combine": 6}, "float": {}},
     "model0": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
@@ -469,7 +519,8 @@ PATHS = {
 }
 MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
                 "fused_mlp_mtiled_layer", "fused_mlp_wstat",
-                "fused_mlp_combine", "reram_matmul_int")
+                "fused_mlp_wstat_layer", "fused_mlp_combine",
+                "reram_matmul_int", "reram_combine")
 
 
 def phase_end_to_end(params, cfgs, clouds_np) -> dict:
@@ -701,8 +752,8 @@ def _model2_fused_rows(cases2, counts_of) -> list:
 
 
 def _combine_row(cases, counts_main) -> dict:
-    """The s8 weight pre-pass of K1/K2 at model1's three MLPs (one launch
-    each, as one model1 ``batched_forward`` runs it)."""
+    """The s8 weight pre-pass of K1/K2/K3 at model1's three MLPs (one
+    launch each, as one model1 ``batched_forward`` runs it)."""
     from repro_torch.kernels import fused_mlp
     tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
     for name in ("sa1", "sa2", "head"):
@@ -715,7 +766,7 @@ def _combine_row(cases, counts_main) -> dict:
         tot["bytes"] += _combine_bytes(prog, geom)
     bms, bby = bound(tot["bytes"], 0, INT8_OPS_PER_S)
     return {
-        "name": "K1/K2 combine_weights (s8 pre-pass)", "route": "cuda",
+        "name": "K1/K2/K3 combine_weights (s8 pre-pass)", "route": "cuda",
         "source": "src/repro_torch/csrc/fused_mlp.cu",
         "replaces": "src/repro/kernels/fused_mlp.py:94",
         "launches": counts_main["fused_mlp_combine"],
@@ -726,7 +777,7 @@ def _combine_row(cases, counts_main) -> dict:
         "library_call": "none (no one PyTorch call shifts, adds and "
                         "transposes the planes into s8)",
         "work": "the planes of model1's three MLPs into s8 weights, one "
-                "launch each (part of every K1/K2 call)"}
+                "launch each (part of every K1/K2/K3 call)"}
 
 
 def _k6_bound(m: int, k: int, n: int):
@@ -736,13 +787,15 @@ def _k6_bound(m: int, k: int, n: int):
     return m * k + k * n + 4 * m * n, 2 * m * k * n
 
 
-def _k6_row(cases2, counts_of) -> dict:
+def _k6_rows(cases2, counts_of) -> list:
     """K6 over the 8 layer products of one model2 'reram'
-    ``batched_forward``."""
+    ``batched_forward`` (its pre-pass included), and its pre-pass alone
+    over the same 8 layers' planes."""
     from repro_torch.kernels import combine_planes, ref_reram_matmul_int
     from repro_torch.kernels import reram_mlp
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-           "ops": 0}
+    keys = ("ms", "plain_ms", "library_ms", "device_ms", "library_device_ms")
+    tot = dict.fromkeys(keys, 0.0) | {"bytes": 0, "ops": 0}
+    pre = {"ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0, "bytes": 0}
     per_layer = []
     for c in cases2["K6"]:
         if not c["batched"]:
@@ -750,31 +803,58 @@ def _k6_row(cases2, counts_of) -> dict:
         x, planes = c["x"], c["planes"]
         m, k, n = c["shape"]
         w = combine_planes(planes).to(torch.int8).contiguous()
+        lib = _int_mm_run([(x, w)])
         row = {"shape": [m, k, n],
                "ms": cuda_ms(lambda: reram_mlp.reram_matmul_int_cuda(
                    x, planes)),
                "plain_ms": cuda_ms(lambda: ref_reram_matmul_int(x, planes)),
-               "library_ms": _int_mm_ms([(x, w)])}
+               "library_ms": cuda_ms(lib),
+               "device_ms": _device_ms(lambda: reram_mlp.reram_matmul_int_cuda(
+                   x, planes)),
+               "library_device_ms": _device_ms(lib)}
         nbytes, ops = _k6_bound(m, k, n)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, INT8_OPS_PER_S)
         per_layer.append(row)
-        for key in ("ms", "plain_ms", "library_ms"):
+        for key in keys:
             tot[key] += row[key]
         tot["bytes"] += nbytes
         tot["ops"] += ops
+        pre["ms"] += cuda_ms(lambda: reram_mlp.reram_combine_cuda(planes))
+        pre["device_ms"] += _device_ms(
+            lambda: reram_mlp.reram_combine_cuda(planes))
+        pre["plain_ms"] += cuda_ms(
+            lambda: reram_mlp.reram_combine_plain(planes))
+        pre["bytes"] += (planes.shape[0] + 1) * k * n
     bms, bby = bound(tot["bytes"], tot["ops"], INT8_OPS_PER_S)
-    return {
+    pre_bms, pre_bby = bound(pre["bytes"], 0, INT8_OPS_PER_S)
+    counts = counts_of["model2/reram"]
+    return [{
         "name": "K6 reram_matmul_int", "route": "cuda",
         "source": "src/repro_torch/csrc/reram_mlp.cu",
         "replaces": "src/repro/kernels/reram_mlp.py:83",
-        "launches": counts_of["model2/reram"]["reram_matmul_int"],
+        "launches": counts["reram_matmul_int"],
         "max_abs_err": max(c["max_abs_err"] for c in cases2["K6"]),
         "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
         "bound_by": bby, "library_ms": tot["library_ms"],
         "library_call": "torch._int_mm per layer (same int8 product)",
         "work": "the 8 layer products of one model2 'reram' "
-                "batched_forward, batch 8",
-        "per_layer": per_layer}
+                "batched_forward, batch 8 (s8 pre-pass included)",
+        "device_ms": tot["device_ms"],
+        "library_device_ms": tot["library_device_ms"],
+        "per_layer": per_layer}, {
+        "name": "K6 reram_combine (s8 pre-pass)", "route": "cuda",
+        "source": "src/repro_torch/csrc/reram_mlp.cu",
+        "replaces": "src/repro/kernels/reram_mlp.py:48",
+        "launches": counts["reram_combine"],
+        "max_abs_err": max(c["combine_max_abs_err"] for c in cases2["K6"]),
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"], "bound_ms": pre_bms,
+        "bound_by": pre_bby, "library_ms": None,
+        "library_call": "none (no one PyTorch call shifts, adds and "
+                        "transposes the planes into s8)",
+        "work": "the planes of the 8 layers of one model2 'reram' "
+                "batched_forward into s8 weights, one launch each (part of "
+                "every K6 call)",
+        "device_ms": pre["device_ms"]}]
 
 
 def _fps_bound(batch: int, n: int, n_samples: int):
@@ -926,7 +1006,7 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
             "work": ("model1 SA-1 + SA-2 gathers, batch "
                      + ("8" if key == "K4" else "1")),
             "per_layer": per_layer})
-    kernels.append(_k6_row(cases2, counts_of))
+    kernels.extend(_k6_rows(cases2, counts_of))
     kernels.append(_k7_row(fps_cases, counts_of))
     # end to end
     e2e = {}
@@ -959,6 +1039,8 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
           "modeled": _modeled_rows(cases, cases2, kernels),
           "model2_mlps": next(k["model2_mlps"] for k in kernels
                               if "model2_mlps" in k),
+          "K6_per_layer": next(k["per_layer"] for k in kernels
+                               if k["name"] == "K6 reram_matmul_int"),
           "K7": {k: kernels[-1][k] for k in ("us_per_step", "per_layer",
                                              "fps_update_step")},
           "end_to_end": e2e})
@@ -985,7 +1067,7 @@ def _modeled_rows(cases, cases2, kernels) -> dict:
     return out
 
 
-def phase_profile(model, clouds_np, smi) -> None:
+def phase_profile(model, clouds_np, smi, backend: str) -> None:
     """Where one ``batched_forward`` spends its time: a host-clock
     split into geometry (FPS + kNN on the card), host planning (geometry
     pulled with ``.cpu()``, NumPy Algorithm 1, plan lowered to the card)
@@ -1019,7 +1101,7 @@ def phase_profile(model, clouds_np, smi) -> None:
     single = _device_rows(lambda: model.forward(clouds[0]))
     busy = sum(r["device_ms"] for r in rows)
     emit({"phase": "profile", "nvidia_smi": smi, "model": cfg.name,
-          "batch": BATCH, "host_clock_split_ms": med,
+          "backend": backend, "batch": BATCH, "host_clock_split_ms": med,
           "device_busy_ms": busy,
           "device_busy_share": busy / med["total_ms"] if rows else None,
           "device_kernels": len(rows),
@@ -1080,8 +1162,9 @@ def main() -> int:
     counts_of = phase_end_to_end(params, cfgs, clouds_np)
     kernels = phase_times(cases, cases2, fps_cases, counts_of, models,
                           clouds_np, smi)
-    for name in ("model1", "model2"):
-        phase_profile(models[name], clouds_np, smi)
+    for name in ("model1", "model2", "model2/reram"):
+        phase_profile(models[name], clouds_np, smi,
+                      name.partition("/")[2] or "reram-fused")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit({"kernels": kernels})

@@ -1,31 +1,37 @@
-// Tensor-core pieces of K1 (fused_mlp.cu) and K2 (fused_mlp_mtiled.cu), and
-// the s8 weight pre-pass they launch (alone: fused_mlp.cu's
-// combine_weights).
+// Tensor-core pieces of the crossbar kernels K1 (fused_mlp.cu), K2
+// (fused_mlp_mtiled.cu), K3 (fused_mlp_wstat.cu) and K6 (reram_mlp.cu), and
+// the s8 weight pre-pass they launch (alone: fused_mlp.cu's combine_weights
+// and reram_mlp.cu's reram_combine).
 //
 // The weights are signed int8. combine_planes(planes) = u - (1 << (wb - 1))
 // lies in [-128, 127] for weight_bits <= 8, so
 //   sum_k x[k] * u[k][n] - (sum_k x[k]) << (wb - 1) = sum_k x[k] * w_s8[k][n]
-// exactly: the row sums of the dp4a kernels go away and both operands of
-// the product are s8. The pre-pass writes every layer's (k_lim, n_lim) s8
-// weights once per MLP call, transposed to [n][k] (row pitch d): the
-// "col" layout of the MMA's B operand, K contiguous for each column.
+// exactly: the row sums of the offset-binary product go away and both
+// operands of the product are s8. The pre-pass writes the s8 weights once
+// per call (every layer of an MLP for K1-K3, the one product's for K6),
+// transposed to [n][k]: the "col" layout of the MMA's B operand, K
+// contiguous for each column.
 //
 // The product is mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 on the
-// tensor cores. A block of THREADS threads owns BM rows; its 8 warps tile a
-// BM x BN output chunk 2 (rows) x 4 (columns), 32 x 32 each, i.e. 2 x 4
-// MMAs per 32-deep K step. The activations sit in shared memory as an int8
-// stripe (BM rows, row pitch k + 16 bytes); the weights stream through a
-// STAGES-deep ring of BN x BK slabs filled by cp.async, so the next slabs
-// load while the tensor cores work on the current one, and a chunk's first
-// slabs load during the previous chunk's epilogue. A product runs over one
-// K range [k_begin, k_end) of the stripe; K1 splits a layer wider than
-// STRIPE_K bytes into such ranges and accumulates, so no width is too wide
-// for it. The per-layer extents (k_lims then n_lims) come as a device
-// array, so an MLP may have any number of layers. Fragments are read with
-// 32-bit shared loads; both pitches are an odd multiple of 16 bytes (4
-// banks), so the 8 rows x 4 words a warp reads fall in distinct banks.
+// tensor cores. A block of THREADS threads owns BM rows; its 8 warps tile
+// an output chunk 2 (rows) x 4 (columns), each warp a 32 x 8·NT patch, i.e.
+// 2 x NT MMAs per 32-deep K step (warp_step; NT = 4 but in K3's narrowed
+// chunks). In K1, K2 and K6 the activations sit in shared memory as an
+// int8 stripe (BM rows, row pitch k + 16 bytes) and the weights stream
+// through a STAGES-deep ring of BN x BK slabs filled by cp.async
+// (chunk_product), so the next slabs load while the tensor cores work on
+// the current one, and a chunk's first slabs load during the previous
+// chunk's epilogue; K3 swaps the operands' roles (resident weights, a ring
+// of activation slabs: fused_mlp_wstat.cu). A product runs over one K range
+// [k_begin, k_end) of the stripe; K1 splits a layer wider than STRIPE_K
+// bytes into such ranges and accumulates, and K6 gives each range to a
+// block of its own, so no width is too wide for them. The per-layer extents
+// (k_lims then n_lims) come as a device array, so an MLP may have any
+// number of layers. Fragments are read with 32-bit shared loads; every
+// pitch is an odd multiple of 16 bytes (4 banks), so the 8 rows x 4 words
+// a warp reads fall in distinct banks.
 //
-// The epilogue dequantizes as the plain version does and requantizes with
+// The epilogues dequantize as the plain version does and requantize with
 // a multiply by the scale's reciprocal, falling back to the exact division
 // where the two could round apart (requant_fast), so every step stays bit
 // for bit.
@@ -147,13 +153,43 @@ __device__ __forceinline__ void chunk_prefetch(const int8_t* wt, int d, int n0,
   }
 }
 
-__device__ __forceinline__ void clear(int (&acc)[2][4][4]) {
+template <int NT>
+__device__ __forceinline__ void clear(int (&acc)[2][NT][4]) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+}
+
+// One 32-deep K step of the warp's 32 x 8·NT patch: A points at the
+// block's BM rows at this step's k (row pitch ap bytes), B at the chunk's
+// columns ([n][k], pitch bp) at the same k. acc is [m16 tile][n8 tile][C
+// reg].
+template <int NT>
+__device__ __forceinline__ void warp_step(const int8_t* A, int ap,
+                                          const int8_t* B, int bp, Lane ln,
+                                          int (&acc)[2][NT][4]) {
+  int a[2][4], b[NT][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int8_t* p = A + (ln.wm * 32 + i * 16 + ln.g) * ap + 4 * ln.t;
+    a[i][0] = lds32(p);
+    a[i][1] = lds32(p + 8 * ap);
+    a[i][2] = lds32(p + 16);
+    a[i][3] = lds32(p + 8 * ap + 16);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const int8_t* q = B + (ln.wn * 8 * NT + j * 8 + ln.g) * bp + 4 * ln.t;
+    b[j][0] = lds32(q);
+    b[j][1] = lds32(q + 16);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j) mma_s8(acc[i][j], a[i], b[j]);
 }
 
 // acc += stripe x the layer's weights over K [k_begin, k_end), for output
@@ -185,109 +221,109 @@ __device__ __forceinline__ void chunk_product(const int8_t* As, int ap,
     // whatever the stripe holds beyond k_end (the next row, or the next
     // buffer: it stays inside the block's shared memory) adds nothing.
 #pragma unroll
-    for (int ks = 0; ks < BK / 32; ++ks) {
-      int a[2][4], b[4][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int8_t* p =
-            As + (ln.wm * 32 + i * 16 + ln.g) * ap + k0 + ks * 32 + 4 * ln.t;
-        a[i][0] = lds32(p);
-        a[i][1] = lds32(p + 8 * ap);
-        a[i][2] = lds32(p + 16);
-        a[i][3] = lds32(p + 8 * ap + 16);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* q = bs + (ln.wn * 32 + j * 8 + ln.g) * BP + ks * 32 +
-                          4 * ln.t;
-        b[j][0] = lds32(q);
-        b[j][1] = lds32(q + 16);
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mma_s8(acc[i][j], a[i], b[j]);
-    }
+    for (int ks = 0; ks < BK / 32; ++ks)
+      warp_step<4>(As + k0 + ks * 32, ap, bs + ks * 32, BP, ln, acc);
   }
   cp_async_wait<0>();
   __syncthreads();
 }
 
-// The s8 weight pre-pass of K1 and K2 (one launch per MLP call): for layer
-// l, k < k_lim[l] = lims[l], n < n_lim[l] = lims[n_layers + l],
+// The s8 weight pre-pass (one launch per call): layer l's planes are
+// (n_planes, rows, pitch) int8, and for k < k_lim, n < n_lim
 //   wt[l][n][k] = sum_p planes[l][p][k][n] << (cell_bits * p)
-//                 - (1 << (weight_bits - 1)),
-// in [-128, 127] for weight_bits <= 8 (padded columns, whose planes are
-// zero, give -128; the product masks them). Nothing else of wt is written.
-// A block transposes one 32 x 32 tile through shared memory, so the plane
-// reads (along n) and the writes (along k) are both coalesced. Block 0
-// also zeroes `n_zero` ints at `zero`: the running maxima of the call,
-// which the layer launches queued after it then raise.
+//                 - (1 << (weight_bits - 1))       (k < rows)
+//   wt[l][n][k] = 0                                 (k >= rows)
+// with row pitch dst_pitch (layer stride pitch * dst_pitch). K1-K3 give the
+// extents as the device array lims (k_lim = lims[l], n_lim = lims[n_layers
+// + l]) over square (d, d) planes; K6 gives none (lims null): one layer, the
+// whole plane, k_lim = dst_pitch (K rounded up to 16, so that 16-byte
+// copies stay aligned: the pad is zeros) and n_lim = pitch = N. The values
+// lie in [-128, 127] for weight_bits <= 8 (K1's padded columns, whose
+// planes are zero, give -128; the product masks them). Nothing else of wt
+// is written. A block transposes one 32 x 32 tile through shared memory, so
+// the plane reads (along n) and the writes (along k) are both coalesced.
+// The blocks also zero `n_zero` ints at `zero`, grid-stride: the running
+// maxima of a K1-K3 call, or the output K6's split-K blocks add into, which
+// the launches queued after it then raise.
 __global__ void __launch_bounds__(256)
 combine_weights_kernel(const int8_t* __restrict__ planes,
                        int8_t* __restrict__ wt, int* __restrict__ zero,
                        int n_zero, const int* __restrict__ lims,
                        int n_layers, int n_planes, int cell_bits,
-                       int weight_bits, int d) {
+                       int weight_bits, int rows, int pitch, int dst_pitch) {
   __shared__ int8_t tile[32][33];
-  if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
-    for (int i = threadIdx.y * 32 + threadIdx.x; i < n_zero; i += 256)
-      zero[i] = 0;
+  const int tid = threadIdx.y * 32 + threadIdx.x;
+  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+                  blockIdx.x;
+  const int step = gridDim.x * gridDim.y * gridDim.z * 256;
+  for (int i = blk * 256 + tid; i < n_zero; i += step) zero[i] = 0;
   const int l = blockIdx.z;
-  const int k_lim = lims[l], n_lim = lims[n_layers + l];
+  const int k_lim = lims ? lims[l] : dst_pitch;
+  const int n_lim = lims ? lims[n_layers + l] : pitch;
   const int n0 = blockIdx.x * 32, k0 = blockIdx.y * 32;
   if (n0 >= n_lim || k0 >= k_lim) return;           // uniform per block
-  const size_t plane = static_cast<size_t>(d) * d;
+  const size_t plane = static_cast<size_t>(rows) * pitch;
   const int8_t* src = planes + static_cast<size_t>(l) * n_planes * plane;
   const int offset = 1 << (weight_bits - 1);
+  const int n = n0 + threadIdx.x;
   for (int i = threadIdx.y; i < 32; i += 8) {
-    const size_t idx = static_cast<size_t>(k0 + i) * d + n0 + threadIdx.x;
-    int u = 0;
-    for (int p = 0; p < n_planes; ++p)
-      u += static_cast<int>(static_cast<uint8_t>(src[p * plane + idx]))
-           << (cell_bits * p);
-    tile[i][threadIdx.x] = static_cast<int8_t>(u - offset);
+    const int k = k0 + i;
+    int w = 0;
+    if (k < rows && n < pitch) {
+      const size_t idx = static_cast<size_t>(k) * pitch + n;
+      int u = 0;
+      for (int p = 0; p < n_planes; ++p)
+        u += static_cast<int>(static_cast<uint8_t>(src[p * plane + idx]))
+             << (cell_bits * p);
+      w = u - offset;
+    }
+    tile[i][threadIdx.x] = static_cast<int8_t>(w);
   }
   __syncthreads();
-  int8_t* dst = wt + static_cast<size_t>(l) * plane;
+  int8_t* dst = wt + static_cast<size_t>(l) * pitch * dst_pitch;
   for (int i = threadIdx.y; i < 32; i += 8) {
-    const int n = n0 + i, k = k0 + threadIdx.x;
-    if (n < n_lim && k < k_lim)
-      dst[static_cast<size_t>(n) * d + k] = tile[threadIdx.x][i];
+    const int nn = n0 + i, k = k0 + threadIdx.x;
+    if (nn < n_lim && k < k_lim)
+      dst[static_cast<size_t>(nn) * dst_pitch + k] = tile[threadIdx.x][i];
   }
 }
 
-// Launch the pre-pass over n_layers layers. `lims` is the extents' device
-// array, `lims_host` the same on the host (it sizes the grid). Returns the
+// Launch the pre-pass over n_layers layers of (n_planes, rows, pitch)
+// planes into wt (row pitch dst_pitch). `lims` is the extents' device
+// array and `lims_host` the same on the host (it sizes the grid), or both
+// null for K6's one whole plane (see combine_weights_kernel). Returns the
 // cudaError_t.
 inline int launch_combine(const void* planes, void* wt, void* zero,
                           int n_zero, const int* lims, const int* lims_host,
                           int n_layers, int n_planes, int cell_bits,
-                          int weight_bits, int d, cudaStream_t stream) {
-  if (n_layers < 1 || n_layers > 65535)
+                          int weight_bits, int rows, int pitch, int dst_pitch,
+                          cudaStream_t stream) {
+  if (n_layers < 1 || n_layers > 65535 || (!lims && n_layers != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int kmax = widest(lims_host, n_layers);
-  const int nmax = widest(lims_host + n_layers, n_layers);
+  const int kmax = lims ? widest(lims_host, n_layers) : dst_pitch;
+  const int nmax = lims ? widest(lims_host + n_layers, n_layers) : pitch;
   const dim3 grid((nmax + 31) / 32, (kmax + 31) / 32, n_layers);
+  if (grid.y > 65535) return static_cast<int>(cudaErrorInvalidValue);
   combine_weights_kernel<<<grid, dim3(32, 8), 0, stream>>>(
       static_cast<const int8_t*>(planes), static_cast<int8_t*>(wt),
       static_cast<int*>(zero), n_zero, lims, n_layers, n_planes, cell_bits,
-      weight_bits, d);
+      weight_bits, rows, pitch, dst_pitch);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Call f(row, col, y0_int, y1_int, bias2, mask2) for each pair of adjacent
 // outputs (col, col + 1) the lane holds with col < n_end; row within the
-// stripe, col within the layer (chunk start n0 added). A lane's 32 outputs
-// fall in 4 column pairs, so each pair's bias and mask are loaded once.
-template <typename F>
-__device__ __forceinline__ void for_each_pair(const int (&acc)[2][4][4],
+// stripe, col within the layer (chunk start n0 added). A lane's 8·NT
+// outputs fall in NT column pairs, so each pair's bias and mask are loaded
+// once.
+template <int NT, typename F>
+__device__ __forceinline__ void for_each_pair(const int (&acc)[2][NT][4],
                                               Lane ln, int n0, int n_end,
                                               const float* bias,
                                               const float* mask, F f) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + ln.wn * 32 + j * 8 + 2 * ln.t;
+  for (int j = 0; j < NT; ++j) {
+    const int n = n0 + ln.wn * 8 * NT + j * 8 + 2 * ln.t;
     if (n >= n_end) continue;
     const float2 b2 = *reinterpret_cast<const float2*>(bias + n);
     const float2 m2 = *reinterpret_cast<const float2*>(mask + n);
@@ -311,8 +347,9 @@ __device__ __forceinline__ float dequant(int yi, float c, float bias,
   return row_ok ? y : 0.0f;
 }
 
-// clip(rint(a / s), -qmax, qmax) as one int8 byte, bit for bit as
-// xbar::requant, with r = 1 / s rounded (__frcp_rn). q0 = a * r lies within
+// clip(rint(a / s), -qmax, qmax) as one int8 byte, bit for bit as the
+// exactly rounded division (rintf(__fdiv_rn(a, s)), half to even), with
+// r = 1 / s rounded (__frcp_rn). q0 = a * r lies within
 // 2^-15 of the rounded quotient while |a / s| < 128 (two roundings of
 // relative 2^-24, plus the quotient's own half ulp of 2^-18), so where q0
 // is more than 2^-12 from a half-integer both round to the same integer;

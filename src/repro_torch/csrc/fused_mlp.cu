@@ -182,7 +182,7 @@ int fused_mlp_run(const void* x0, void* panel0, void* panel1, void* wt,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = launch_combine(planes, wt, mx, batch * n_layers,
                            static_cast<const int*>(lims), host, n_layers,
-                           n_planes, cell_bits, weight_bits, d, st);
+                           n_planes, cell_bits, weight_bits, d, d, d, st);
   float* panels[2] = {static_cast<float*>(panel0),
                       static_cast<float*>(panel1)};
   const size_t plane = static_cast<size_t>(d) * d;
@@ -207,8 +207,8 @@ int fused_mlp_run(const void* x0, void* panel0, void* panel1, void* wt,
   return err;
 }
 
-// The s8 weight pre-pass alone, for tests and timing (K1 and K2 launch it
-// from their own entry points): planes (L, n_planes, d, d) int8 -> wt
+// The s8 weight pre-pass alone, for tests and timing (K1, K2 and K3 launch
+// it from their own entry points): planes (L, n_planes, d, d) int8 -> wt
 // (L, d, d) int8 over each layer's (k_lim, n_lim); also zeroes n_zero ints
 // at `zero`. lims, lims_host as for fused_mlp_run. Returns the
 // cudaError_t of the launch (0 on success).
@@ -219,7 +219,7 @@ int combine_weights(const void* planes, void* wt, void* zero,
   return launch_combine(planes, wt, zero, n_zero,
                         static_cast<const int*>(lims),
                         static_cast<const int*>(lims_host), n_layers,
-                        n_planes, cell_bits, weight_bits, d,
+                        n_planes, cell_bits, weight_bits, d, d, d,
                         static_cast<cudaStream_t>(stream));
 }
 

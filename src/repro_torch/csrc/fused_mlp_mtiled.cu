@@ -178,7 +178,8 @@ int fused_mlp_mtiled_run(const void* x0, void* out, void* wt, void* mx,
       static_cast<size_t>(fused_mlp_mtiled_smem(widest(host, n_layers)));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int err = launch_combine(planes, wt, mx, batch * n_layers, dev, host,
-                           n_layers, n_planes, cell_bits, weight_bits, d, st);
+                           n_layers, n_planes, cell_bits, weight_bits, d, d, d,
+                           st);
   if (!err) err = xbar::allow_smem(&fused_mlp_mtiled_mma_kernel, smem);
   for (int j = 0; j < n_layers && !err; ++j) {
     fused_mlp_mtiled_mma_kernel<<<grid, THREADS, smem, st>>>(

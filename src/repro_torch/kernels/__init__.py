@@ -6,12 +6,12 @@
 - ``fused_mlp`` : the whole crossbar MLP, one launch per layer, in three
                   dataflows: K1 'whole'/'tiled' (``csrc/fused_mlp.cu``),
                   K2 'mtiled' (``csrc/fused_mlp_mtiled.cu``), K3 'wstat'
-                  (``csrc/fused_mlp_wstat.cu``); K1 and K2 on the tensor
-                  cores after an s8 weight pre-pass (``combine_weights``
-                  in ``csrc/fused_mlp.cu``)
-- ``reram_mlp`` : K6, one bit-sliced INT8 crossbar matmul
-                  (``csrc/reram_mlp.cu``); ``ops.reram_linear`` is the
-                  float layer over it
+                  (``csrc/fused_mlp_wstat.cu``); all on the tensor cores
+                  after an s8 weight pre-pass (``combine_weights`` in
+                  ``csrc/fused_mlp.cu``)
+- ``reram_mlp`` : K6, one bit-sliced INT8 crossbar matmul on the tensor
+                  cores after its own s8 pre-pass (``csrc/reram_mlp.cu``);
+                  ``ops.reram_linear`` is the float layer over it
 - ``aggregate`` : K4/K5, the plan-ordered neighbor gather + difference
                   (``csrc/aggregate.cu``)
 - ``fps_update``: K7, farthest point sampling (``csrc/fps.cu``): one
@@ -54,9 +54,10 @@ KERNEL_SOURCES = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches since the last reset, by counter: per fused-MLP
-    kernel its MLP calls and its layers, the s8 weight pre-pass of K1 and
-    K2 (``fused_mlp_combine``), the gathers' launches, K6's, and
-    K7's (``fps_update`` the single steps, ``fps`` the whole loops)."""
+    kernel its MLP calls and its layers, the s8 weight pre-pass of K1, K2
+    and K3 (``fused_mlp_combine``), the gathers' launches, K6's products
+    and its pre-pass (``reram_combine``), and K7's (``fps_update`` the
+    single steps, ``fps`` the whole loops)."""
     f = fused_mlp.LAUNCHES
     return {"fused_mlp": f["mlp"], "fused_mlp_layer": f["layer"],
             "fused_mlp_mtiled": f["mtiled"],
@@ -68,6 +69,7 @@ def launch_counts() -> dict[str, int]:
             "aggregate_diff_batched":
                 aggregate.LAUNCHES["aggregate_diff_batched"],
             "reram_matmul_int": reram_mlp.LAUNCHES["reram_matmul_int"],
+            "reram_combine": reram_mlp.LAUNCHES["reram_combine"],
             "fps_update": _fps_update.LAUNCHES["fps_update"],
             "fps": _fps_update.LAUNCHES["fps"]}
 

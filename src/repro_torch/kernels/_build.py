@@ -24,7 +24,8 @@ import subprocess
 import torch
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "bind", "build", "build_log",
-           "int_fn", "library", "nvcc_path", "runs_plain", "stream_of"]
+           "int_fn", "library", "nvcc_path", "runs_plain", "sm_count",
+           "stream_of"]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -126,6 +127,19 @@ def runs_plain(*tensors) -> bool:
 def stream_of(t) -> int:
     """PyTorch's current CUDA stream on ``t``'s device, as a handle."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def sm_count(t) -> int:
+    """The number of SMs of the CUDA device ``t`` lies on (the kernels'
+    grids are sized to fill them)."""
+    index = t.device.index
+    return _sm_count(torch.cuda.current_device() if index is None
+                     else index)
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @functools.cache

@@ -17,19 +17,21 @@ int8 activations:
    ``max(mx / 127, 1e-12)``; requantize ``clip(round(act / s), ±127)``.
 
 Every kernel runs one launch per layer (K3 two: a requantize pass and the
-product) and keeps the running max on the device. K1 and K2 multiply on
+product) and keeps the running max on the device. All three multiply on
 the H100's tensor cores (``mma.sync`` s8 x s8) with s8 weights that a
 pre-pass (``combine_weights`` in ``csrc/fused_mlp.cu``,
 :func:`combine_weights_cuda`) combines from the planes once per MLP call;
-K2 keeps the stripe's intermediate layers on chip by recomputing them in
-each launch. K1 and K2 take any number of layers and K1 any width; where
-K2's two stripes do not fit on chip (the widest layer input above 1536),
-'mtiled' runs K1 (:func:`~.program.mtiled_on_chip`). K3 stays on dp4a. On
-the H100 all three are bound by bytes (the int8 input and weights, the
-float32 output: 0.032 ms over model1's three MLPs, 0.040 ms at model2
-SA-1); the source notes in ``csrc/`` say how each dataflow moves its data
-and what its design does about the bound. The plain version below runs the
-same steps in torch, the integer products through
+one C call per MLP launches the pre-pass and every layer. K2 keeps the
+stripe's intermediate layers on chip by recomputing them in each launch;
+K3 holds one chunk of weights per block in shared memory while the rows
+stream through. All three take any number of layers, K1 and K3 any width;
+where K2's two stripes do not fit on chip (the widest layer input above
+1536), 'mtiled' runs K1 (:func:`~.program.mtiled_on_chip`). On the H100
+all three are bound by bytes (the int8 input and weights, the float32
+output: 0.032 ms over model1's three MLPs, 0.040 ms at model2 SA-1, 0.023
+ms at model2 SA-2); the source notes in ``csrc/`` say how each dataflow
+moves its data and what its design does about the bound. The plain version
+below runs the same steps in torch, the integer products through
 :func:`~.ref.ref_reram_matmul_int` (exact), and is the plain version of all
 three kernels: they agree with it, and so with each other, bit for bit.
 Against the JAX package they agree bit for bit with zero biases; with
@@ -42,7 +44,7 @@ plain version; on CUDA tensors they launch the mode's kernel (or raise).
 ``LAUNCHES`` counts, per kernel, MLP calls that launched it (``"mlp"``,
 ``"mtiled"``, ``"wstat"``), layers run (``"layer"``, ``"mtiled_layer"``,
 ``"wstat_layer"``), and the weight pre-pass's launches (``"combine"``, one
-per K1 or K2 call).
+per MLP call).
 """
 from __future__ import annotations
 
@@ -52,11 +54,11 @@ import functools
 import torch
 
 from . import _build
-from .program import (BLOCK_M, BLOCK_N, FUSED_MODES, MAX_SMEM_BYTES,
-                      MMA_BLOCK_K, MMA_BLOCK_N, MMA_STRIPE_K,
+from .program import (BLOCK_M, FUSED_MODES, MMA_BLOCK_K, MMA_BLOCK_N,
+                      MMA_STRIPE_K, WSTAT_BLOCK_K, WSTAT_BLOCK_N,
                       CrossbarProgram, LaunchGeometry, _quantize, _scale,
                       _smem_bytes, mtiled_on_chip, plan_fused_mlp,
-                      plan_launch, wstat_row_groups)
+                      plan_launch, wstat_chunk, wstat_row_groups)
 from .ref import combine_planes, ref_reram_matmul_int
 
 __all__ = ["LAUNCHES", "combine_weights_cuda",
@@ -163,8 +165,15 @@ def combine_weights_plain(program: CrossbarProgram,
 _FUNCTIONS = {
     "fused_mlp": {"fused_mlp_run": (12, 9), "combine_weights": (5, 6)},
     "fused_mlp_mtiled": {"fused_mlp_mtiled_run": (11, 9)},
-    "fused_mlp_wstat": {"fused_mlp_wstat_requant": (3, 7),
-                        "fused_mlp_wstat_layer": (8, 13)},
+    "fused_mlp_wstat": {"fused_mlp_wstat_run": (13, 9)},
+}
+
+#: Tile edges each source reports (``{name}_tile``): rows, widest output
+#: chunk, K slab (bytes), widest K range.
+_TILES = {
+    "fused_mlp": (BLOCK_M, MMA_BLOCK_N, MMA_BLOCK_K, MMA_STRIPE_K),
+    "fused_mlp_mtiled": (BLOCK_M, MMA_BLOCK_N, MMA_BLOCK_K, MMA_STRIPE_K),
+    "fused_mlp_wstat": (BLOCK_M, WSTAT_BLOCK_N, WSTAT_BLOCK_K, MMA_STRIPE_K),
 }
 
 #: The dataflow whose shared memory each source reports (``{name}_smem``).
@@ -180,28 +189,21 @@ def _lib(name: str):
     lib = _build.library(name)
     for fn, (n_ptrs, n_ints) in _FUNCTIONS[name].items():
         _build.bind(lib, fn, n_ptrs, n_ints)
-    if name in ("fused_mlp", "fused_mlp_mtiled"):
-        tiles = tuple(_build.int_fn(lib, f"{name}_tile")(i)
-                      for i in range(4))
-        want = (BLOCK_M, MMA_BLOCK_N, MMA_BLOCK_K, MMA_STRIPE_K)
-        if tiles != want:
-            raise RuntimeError(f"{name}.cu tiles {tiles} disagree with "
-                               f"program.py's {want}")
+    tiles = tuple(_build.int_fn(lib, f"{name}_tile")(i) for i in range(4))
+    if tiles != _TILES[name]:
+        raise RuntimeError(f"{name}.cu tiles {tiles} disagree with "
+                           f"program.py's {_TILES[name]}")
     if name in _SMEM_MODE:
         mode = _SMEM_MODE[name]
         smem = _build.int_fn(lib, f"{name}_smem")
-        for k_lim in (32, 512, 1024, 4096):
+        # every K3 chunk width and its K ranges, and K1's stripe cap
+        for k_lim in (32, 512, 1024, 2048, 4096, 8192):
             if smem(k_lim) != _smem_bytes(mode, k_lim):
                 raise RuntimeError(f"{name}.cu needs {smem(k_lim)} bytes of "
                                    f"shared memory at k_lim {k_lim}; "
                                    f"program.py says "
                                    f"{_smem_bytes(mode, k_lim)}")
     return lib
-
-
-@functools.cache
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _check_launch(x_p, sx, program: CrossbarProgram, m_real: int,
@@ -220,11 +222,6 @@ def _check_launch(x_p, sx, program: CrossbarProgram, m_real: int,
             or program.n_layers > 65535):
         raise ValueError("too many rows, batch elements or layers for one "
                          "launch")
-    # K1's stripe is capped, and K2 runs K1 where its stripes do not fit
-    if mode == "wstat" and max(geom.smem_bytes) > MAX_SMEM_BYTES:
-        raise ValueError(f"d_pad {d} needs {max(geom.smem_bytes)} bytes of "
-                         f"shared memory in mode {mode!r}; a block has "
-                         f"{MAX_SMEM_BYTES}")
     bufs = (x_p, sx, program.planes, program.bias, program.col_mask,
             program.w_scale)
     if not all(t.is_contiguous() for t in bufs):
@@ -232,19 +229,9 @@ def _check_launch(x_p, sx, program: CrossbarProgram, m_real: int,
     return geom
 
 
-def _raise_on(err: int, what: str, layer: int | None = None) -> None:
+def _raise_on(err: int, what: str) -> None:
     if err:
-        where = "" if layer is None else f" layer {layer}"
-        raise RuntimeError(f"{what}{where} launch failed: CUDA error {err}")
-
-
-def _layer_args(program: CrossbarProgram, l: int) -> tuple[int, ...]:
-    return (program.planes[l].data_ptr(), program.bias[l].data_ptr(),
-            program.col_mask[l].data_ptr(), program.w_scale[l].data_ptr())
-
-
-def _relu(program: CrossbarProgram, l: int, final_relu: bool) -> int:
-    return int(l < program.n_layers - 1 or final_relu)
+        raise RuntimeError(f"{what} launch failed: CUDA error {err}")
 
 
 def _lims(geom: LaunchGeometry, device) -> tuple[int, int]:
@@ -268,11 +255,11 @@ def _device_ints(vals: tuple, device: torch.device):
 
 
 def combine_weights_cuda(program: CrossbarProgram, geom: LaunchGeometry):
-    """The s8 weight pre-pass of K1 and K2 alone, one launch: a ``(L,
+    """The s8 weight pre-pass of K1, K2 and K3 alone, one launch: a ``(L,
     d_pad, d_pad)`` int8 buffer holding layer l's ``combine_planes`` weights
     transposed to ``[n][k]`` over ``(k_lims[l], n_lims[l])``; the rest is
-    left unwritten (:func:`weight_regions` cuts out what is written). K1
-    and K2 launch the same kernel from their own entry points."""
+    left unwritten (:func:`weight_regions` cuts out what is written). The
+    kernels launch the same kernel from their own entry points."""
     planes = program.planes
     if not planes.is_contiguous():
         raise ValueError("the pre-pass takes contiguous planes")
@@ -291,10 +278,11 @@ def combine_weights_cuda(program: CrossbarProgram, geom: LaunchGeometry):
 
 
 def _scratch(program: CrossbarProgram, batch: int, extra: int, device):
-    """One int8 scratch buffer of a K1/K2 call: ``extra`` bytes (K1's
-    second float32 panel), the ``(B, L)`` running maxima and the pre-pass's
-    ``(L, d_pad, d_pad)`` s8 weights. Returns it and the maxima's and
-    weights' addresses (each 256-byte aligned)."""
+    """One int8 scratch buffer of a K1/K2/K3 call: ``extra`` bytes (K1's
+    second float32 panel, K3's int8 snapshot; a multiple of 256), the
+    ``(B, L)`` running maxima and the pre-pass's ``(L, d_pad, d_pad)`` s8
+    weights. Returns it and the maxima's and weights' addresses (each
+    256-byte aligned)."""
     d, n_layers = program.d_pad, program.n_layers
     mx_bytes = -(-4 * batch * n_layers // 256) * 256
     buf = torch.empty(extra + mx_bytes + n_layers * d * d, dtype=torch.int8,
@@ -304,7 +292,7 @@ def _scratch(program: CrossbarProgram, batch: int, extra: int, device):
 
 
 def _common_args(program: CrossbarProgram, sx, geom: LaunchGeometry):
-    """The arguments K1's and K2's entry points share after their buffers:
+    """The arguments the kernels' entry points share after their buffers:
     planes, bias, mask, w_scale, sx, the layer extents (device and host),
     the layer count and the plane, cell and weight bit counts."""
     return (program.planes.data_ptr(), program.bias.data_ptr(),
@@ -375,43 +363,32 @@ def fused_mlp_mtiled_cuda(x_p, sx, program: CrossbarProgram, *, m_real: int,
 
 def fused_mlp_wstat_cuda(x_p, sx, program: CrossbarProgram, *, m_real: int,
                          final_relu: bool = True):
-    """K3 ('wstat'): per layer, an int8 snapshot of the float32 panel
-    (layers > 0), then the product, each block holding one N-tile of
-    combined weights in shared memory while its share of all rows streams
-    through. Output in place on one float32 panel. Same layout and result
-    as :func:`fused_mlp_cuda`."""
+    """K3 ('wstat'): one C call that launches the s8 pre-pass and then, per
+    layer, an int8 snapshot of the float32 panel (layers > 0) and the
+    product, each block holding one chunk of s8 weights in shared memory
+    while its share of all rows streams through. Output in place on one
+    float32 panel. Same layout and result as :func:`fused_mlp_cuda`."""
     geom = _check_launch(x_p, sx, program, m_real, "wstat")
     batch, m_pad, d = x_p.shape
     n_layers = program.n_layers
     panel = torch.empty((batch, m_pad, d), dtype=torch.float32,
                         device=x_p.device)
-    xq = torch.empty_like(x_p) if n_layers > 1 else None
-    mx = torch.zeros((batch, n_layers), dtype=torch.int32, device=x_p.device)
-    lib = _lib("fused_mlp_wstat")
-    stream = _build.stream_of(x_p)
+    snapshot = batch * m_pad * d if n_layers > 1 else 0
+    buf, mx, wt = _scratch(program, batch, snapshot, x_p.device)
+    sms = _build.sm_count(x_p)
     row_tiles = batch * m_pad // BLOCK_M
-    sms = _sm_count(x_p.device.index if x_p.device.index is not None
-                    else torch.cuda.current_device())
+    groups = tuple(
+        wstat_row_groups(-(-n // wstat_chunk(k)[0]), row_tiles, sms, smem)
+        for k, n, smem in zip(geom.k_lims, geom.n_lims, geom.smem_bytes))
     with torch.cuda.device(x_p.device):
-        for l in range(n_layers):
-            src = x_p
-            if l:
-                err = lib.fused_mlp_wstat_requant(
-                    panel.data_ptr(), xq.data_ptr(), mx.data_ptr(), l,
-                    n_layers, program.weight_bits, batch, m_pad, d,
-                    geom.k_lims[l], stream)
-                _raise_on(err, "fused_mlp_wstat requantize", l)
-                src = xq
-            groups = wstat_row_groups(geom.n_lims[l] // BLOCK_N, row_tiles,
-                                      sms)
-            err = lib.fused_mlp_wstat_layer(
-                src.data_ptr(), panel.data_ptr(), *_layer_args(program, l),
-                sx.data_ptr(), mx.data_ptr(), l, n_layers, program.n_planes,
-                program.cell_bits, program.weight_bits, batch, m_pad, m_real,
-                d, geom.k_lims[l], geom.n_lims[l], groups,
-                _relu(program, l, final_relu), stream)
-            _raise_on(err, "fused_mlp_wstat", l)
-            LAUNCHES["wstat_layer"] += 1
+        err = _lib("fused_mlp_wstat").fused_mlp_wstat_run(
+            x_p.data_ptr(), panel.data_ptr(), buf.data_ptr(), wt, mx,
+            ctypes.addressof(_int_array(groups)),
+            *_common_args(program, sx, geom), batch, m_pad, m_real, d,
+            int(final_relu), _build.stream_of(x_p))
+    _raise_on(err, "fused_mlp_wstat")
+    LAUNCHES["combine"] += 1
+    LAUNCHES["wstat_layer"] += n_layers
     LAUNCHES["wstat"] += 1
     return panel[:, :m_real, :program.widths[-1]]
 

@@ -27,26 +27,35 @@ layer's real width is zero on input and masked on output — skipping it
 drops only zero terms. Every mode shares ``m_pad`` (rows rounded up to
 ``BLOCK_M``, the stripe of one block) and ``k_lims``/``n_lims``.
 
-K1 and K2 run on the tensor cores (``csrc/crossbar_mma.cuh``): a block
-owns ``BLOCK_M`` rows as an int8 stripe in shared memory and computes
-``MMA_BLOCK_N``-column chunks, streaming ``MMA_BLOCK_K``-byte slabs of s8
-weights, combined from the planes once per MLP call by a pre-pass
-(``combine_weights`` in ``csrc/fused_mlp.cu``), through a ring of
-``MMA_STAGES`` slabs. A chunk that passes ``n_lim`` masks the columns
+The crossbar kernels (K1, K2, K3 and K6) multiply on the tensor cores
+(``csrc/crossbar_mma.cuh``) with s8 weights that a pre-pass combines from
+the planes once per call (``combine_weights`` in ``csrc/fused_mlp.cu``:
+once per MLP call for K1, K2 and K3). K1 and K2: a block owns ``BLOCK_M``
+rows as an int8 stripe in shared memory and computes ``MMA_BLOCK_N``-column
+chunks, streaming ``MMA_BLOCK_K``-byte slabs of s8 weights through a ring
+of ``MMA_STAGES`` slabs. A chunk that passes ``n_lim`` masks the columns
 beyond it. K1's grid is ``(ceil(n_lim / MMA_BLOCK_N), m_pad / BLOCK_M, B)``
 per layer, its stripe one layer's ``k_lim`` wide up to ``MMA_STRIPE_K``
 bytes; a wider layer runs K in ranges of ``MMA_STRIPE_K``, so K1 takes any
 width. K2's grid is ``(m_pad / BLOCK_M, B)``: launch j recomputes layers
-``0 .. j-1`` of its stripe from the int8 input into two int8 stripes of
-the widest ``k_lim`` (scales from the maxima earlier launches published),
-so no intermediate panel leaves the chip. Where two such stripes do not
-fit in ``MAX_SMEM_BYTES`` (the widest ``k_lim`` above 1536), 'mtiled'
-runs K1's launches instead (:func:`mtiled_on_chip`). K1 and K2 take any
-number of layers. K3 keeps
-its dp4a design over ``BLOCK_M x BLOCK_N`` tiles and ``BLOCK_K``-byte
-slabs, with a ``k_lim x BLOCK_N`` weight tile in shared memory.
-:class:`LaunchGeometry`'s ``smem_bytes`` is each launch's dynamic shared
-memory.
+``0 .. j-1`` of its stripe from the int8 input into two int8 stripes of the
+widest ``k_lim`` (scales from the maxima earlier launches published), so no
+intermediate panel leaves the chip. Where two such stripes do not fit in
+``MAX_SMEM_BYTES`` (the widest ``k_lim`` above 1536), 'mtiled' runs K1's
+launches instead (:func:`mtiled_on_chip`). K1 and K2 take any number of
+layers. K3 swaps the operands' roles: a block holds one chunk of s8
+weights, all of the layer's ``k_lim``, in shared memory and streams its
+share of the rows through a ring of ``WSTAT_STAGES`` activation slabs of
+``WSTAT_BLOCK_K`` bytes; its grid is ``(ceil(n_lim / cols), row_groups)``
+(:func:`wstat_chunk`, :func:`wstat_row_groups`). The chunk is
+``WSTAT_BLOCK_N`` columns wide, narrowed to 64 or 32 where the weights do
+not fit, and past that runs K in ranges of ``MMA_STRIPE_K``, so K3 takes
+any width too. :class:`LaunchGeometry`'s ``smem_bytes`` is each launch's
+dynamic shared memory.
+
+K6, the per-layer crossbar matmul, has no program: :func:`plan_reram`
+splits its K over blocks where its row tiles and column chunks alone would
+leave the SMs idle, or K is wider than one stripe.
 """
 from __future__ import annotations
 
@@ -63,27 +72,37 @@ __all__ = [
     "BLOCK_K", "BLOCK_M", "BLOCK_N", "CROSSBAR", "CrossbarProgram",
     "FUSED_MODES", "FusedPlan", "LaunchGeometry", "MAX_SMEM_BYTES",
     "MMA_BLOCK_K", "MMA_BLOCK_N", "MMA_STAGES", "MMA_STRIPE_K",
-    "VMEM_BUDGET_BYTES",
+    "ReramSplit", "SM_SMEM_BYTES", "VMEM_BUDGET_BYTES", "WSTAT_BLOCK_K",
+    "WSTAT_BLOCK_N", "WSTAT_STAGES",
     "build_program", "encode_planes", "fused_vmem_bytes", "mtiled_on_chip",
-    "plan_fused_mlp", "plan_launch", "quantize_tensor", "wstat_row_groups",
+    "plan_fused_mlp", "plan_launch", "plan_reram", "quantize_tensor",
+    "wstat_chunk", "wstat_row_groups",
 ]
 
 #: Crossbar edge — every program dimension is padded to this (the JAX
 #: package's layout, kept so programs are bitwise comparable).
 CROSSBAR = 128
 
-#: Rows of one block (all modes), and the output tile and K slab (bytes) of
-#: K3 and K6 (``csrc/crossbar.cuh`` holds the same numbers). ``n_lims`` and
-#: ``k_lims`` are rounded up to ``BLOCK_N`` and ``BLOCK_K``.
+#: Rows of one block (every kernel), and the edges the fused MLP's layer
+#: extents are rounded up to: ``n_lims`` to ``BLOCK_N``, ``k_lims`` to
+#: ``BLOCK_K`` (bytes).
 BLOCK_M, BLOCK_N, BLOCK_K = 64, 64, 32
 
-#: K1's and K2's output chunk, weight slab (bytes), slabs in flight, and the
-#: widest K range of K1's stripe (``csrc/crossbar_mma.cuh``).
+#: K1's, K2's and K6's output chunk, weight slab (bytes), slabs in flight,
+#: and the widest K range of a stripe (``csrc/crossbar_mma.cuh``).
 MMA_BLOCK_N, MMA_BLOCK_K, MMA_STAGES, MMA_STRIPE_K = 128, 64, 3, 2048
 
-#: Dynamic shared memory a block of K1/K2/K3 may take on Hopper: the 227 KB
-#: a block may opt in to, less 1 KB kept for static shared memory.
+#: K3's widest output chunk, activation slab (bytes) and activation slabs
+#: in flight (``csrc/fused_mlp_wstat.cu``).
+WSTAT_BLOCK_N, WSTAT_BLOCK_K, WSTAT_STAGES = 128, 64, 4
+
+#: Dynamic shared memory a block may take on Hopper: the 227 KB a block may
+#: opt in to, less 1 KB kept for static shared memory.
 MAX_SMEM_BYTES = 232448 - 1024
+
+#: Shared memory of one SM (228 KB), which its resident blocks share, each
+#: with 1 KB reserved beside its own.
+SM_SMEM_BYTES = 233472
 
 #: The TPU's per-core VMEM budget that the JAX package's dataflow choice is
 #: made against; kept so that both packages choose alike.
@@ -247,7 +266,8 @@ class LaunchGeometry:
     ``(ceil(n_lims[l] / MMA_BLOCK_N), m_pad / BLOCK_M, B)`` for K1,
     ``(m_pad / BLOCK_M, B)`` for K2 (a block recomputes layers ``0 .. l-1``
     of its stripe and walks every N-chunk of layer l) and
-    ``(n_lims[l] / BLOCK_N, row_groups)`` for K3."""
+    ``(ceil(n_lims[l] / cols), row_groups)`` for K3 (``cols`` from
+    :func:`wstat_chunk`, ``row_groups`` from :func:`wstat_row_groups`)."""
 
     m_pad: int
     k_lims: tuple[int, ...]
@@ -262,17 +282,35 @@ def _stripe_bytes(k_lim: int) -> int:
     return BLOCK_M * (k_lim + 16)
 
 
+def wstat_chunk(k_lim: int) -> tuple[int, int]:
+    """K3's chunk at input extent ``k_lim``: ``(columns, resident K
+    bytes)``. The widest of ``WSTAT_BLOCK_N``, 64 and 32 columns whose
+    ``k_lim``-deep s8 weights (row pitch ``k_lim + 16``) fit in
+    ``MAX_SMEM_BYTES`` beside the activation ring; past that 64 columns
+    with K in ranges of ``MMA_STRIPE_K`` bytes, each range's weights
+    reloaded for every row tile."""
+    ring = WSTAT_STAGES * BLOCK_M * (WSTAT_BLOCK_K + 16)
+    cols = WSTAT_BLOCK_N
+    while cols >= 32:
+        if cols * (k_lim + 16) + ring <= MAX_SMEM_BYTES:
+            return cols, k_lim
+        cols //= 2
+    return 64, MMA_STRIPE_K
+
+
 def _smem_bytes(mode: str, k_lim: int) -> int:
     """Dynamic shared memory of one block (``csrc/*_smem``): K1 one input
     stripe of ``k_lim`` bytes a row (at most ``MMA_STRIPE_K``) and the
     weight ring; K2 two stripes of the widest ``k_lim`` and the ring; K3 a
-    ``BLOCK_N``-column u8 weight tile, ``k_lim`` bytes plus one pad word a
-    column."""
+    chunk of s8 weights (:func:`wstat_chunk`, row pitch its resident K plus
+    16) and its ring of activation slabs."""
+    if mode == "wstat":
+        cols, kr = wstat_chunk(k_lim)
+        return (cols * (kr + 16)
+                + WSTAT_STAGES * BLOCK_M * (WSTAT_BLOCK_K + 16))
     ring = MMA_STAGES * MMA_BLOCK_N * (MMA_BLOCK_K + 16)
     if mode == "mtiled":
         return 2 * _stripe_bytes(k_lim) + ring
-    if mode == "wstat":
-        return 4 * BLOCK_N * (k_lim // 4 + 1)
     return _stripe_bytes(min(k_lim, MMA_STRIPE_K)) + ring
 
 
@@ -306,19 +344,73 @@ def _plan_launch(w: tuple, d_pad: int, m_rows: int,
         smem_bytes=tuple(_smem_bytes(mode, k) for k in smem_k))
 
 
-#: Blocks of K3 per SM that its grid aims at: 4 x 256 threads, and up to
-#: 3 blocks' 66 KB weight tiles at d_pad 1024 in the SM's shared memory.
-WSTAT_BLOCKS_PER_SM = 4
+#: Blocks of K3 per SM that its grid aims at: its kernel is built for two
+#: (``__launch_bounds__(256, 2)``: at most 128 registers a thread).
+WSTAT_BLOCKS_PER_SM = 2
 
 
-def wstat_row_groups(n_tiles: int, row_tiles: int, sms: int) -> int:
-    """K3's second grid dimension: enough row groups that the
-    ``n_tiles x row_groups`` blocks fill :data:`WSTAT_BLOCKS_PER_SM` blocks
-    on each of ``sms`` SMs, and no more groups than row tiles. Each block
-    combines its weight tile once and streams ``row_tiles / row_groups``
-    row tiles."""
-    want = -(-WSTAT_BLOCKS_PER_SM * sms // max(n_tiles, 1))
-    return max(1, min(row_tiles, want))
+def wstat_blocks_per_sm(smem_bytes: int) -> int:
+    """K3's resident blocks per SM at ``smem_bytes`` of dynamic shared
+    memory: :data:`WSTAT_BLOCKS_PER_SM`, or fewer where the SM's shared
+    memory holds fewer (one at model2's head, k_lim 1024)."""
+    return max(1, min(WSTAT_BLOCKS_PER_SM,
+                      SM_SMEM_BYTES // (smem_bytes + 1024)))
+
+
+def wstat_row_groups(n_chunks: int, row_tiles: int, sms: int,
+                     smem_bytes: int) -> int:
+    """K3's second grid dimension: enough row groups that the ``n_chunks x
+    row_groups`` blocks fill every resident slot of the ``sms`` SMs once
+    (:func:`wstat_blocks_per_sm` at the launch's ``smem_bytes``), and no
+    more groups than row tiles. Each block loads its chunk of weights once
+    and streams ``row_tiles / row_groups`` row tiles."""
+    slots = wstat_blocks_per_sm(smem_bytes) * sms
+    return max(1, min(row_tiles, -(-slots // max(n_chunks, 1))))
+
+
+@dataclass(frozen=True)
+class ReramSplit:
+    """How K6 (``csrc/reram_mlp.cu``) covers one ``(m, k) x (k, n)``
+    product: blocks of ``BLOCK_M`` rows, ``MMA_BLOCK_N`` columns and one K
+    range of ``k_step`` bytes, over the s8 weights' row pitch ``k_pad`` (K
+    rounded up to 16; zeros beyond K). More than one K range (``split``)
+    makes the blocks add their partial sums into the zeroed output."""
+
+    m: int
+    k: int
+    n: int
+    k_pad: int
+    k_step: int
+
+    @property
+    def split(self) -> int:
+        return -(-self.k_pad // self.k_step)
+
+    def k_ranges(self) -> list[tuple[int, int]]:
+        """The real K ranges, one per grid layer, in order."""
+        return [(kb, min(self.k, kb + self.k_step))
+                for kb in range(0, self.k_pad, self.k_step)]
+
+    def n_ranges(self) -> list[tuple[int, int]]:
+        """The column chunks, one per grid column, in order."""
+        return [(n0, min(self.n, n0 + MMA_BLOCK_N))
+                for n0 in range(0, self.n, MMA_BLOCK_N)]
+
+
+def plan_reram(m: int, k: int, n: int, sms: int) -> ReramSplit:
+    """K6's split of K: where the ``ceil(n / MMA_BLOCK_N) x ceil(m /
+    BLOCK_M)`` blocks fill at most half of the ``sms`` SMs (the head's 8
+    or 1 rows), K splits into up to ``sms // blocks`` ranges of whole
+    ``MMA_BLOCK_K`` slabs, at most one range a slab, so that one wave of
+    blocks covers the card; a range never exceeds ``MMA_STRIPE_K``, so any
+    K runs."""
+    k_pad = _ceil_to(max(k, 1), 16)
+    slabs = -(-k_pad // MMA_BLOCK_K)
+    blocks = -(-n // MMA_BLOCK_N) * -(-m // BLOCK_M)
+    want = max(1, sms // max(blocks, 1))
+    per = -(-slabs // min(slabs, want))
+    per = min(per, MMA_STRIPE_K // MMA_BLOCK_K)
+    return ReramSplit(m=m, k=k, n=n, k_pad=k_pad, k_step=per * MMA_BLOCK_K)
 
 
 # ---------------------------------------------------------------------------

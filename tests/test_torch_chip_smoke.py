@@ -87,12 +87,16 @@ def test_k1_k2_design_bytes(smoke):
 
 
 def test_paths_count_one_prepass_per_k1_k2_call(smoke):
+    """One s8 pre-pass per K1, K2 or K3 call, and one per K6 product."""
     for model, paths in smoke.PATHS.items():
         fused = paths["reram-fused"]
-        assert fused["fused_mlp_combine"] == (fused["fused_mlp"]
-                                              + fused.get("fused_mlp_mtiled",
-                                                          0))
+        assert fused["fused_mlp_combine"] == (
+            fused["fused_mlp"] + fused.get("fused_mlp_mtiled", 0)
+            + fused.get("fused_mlp_wstat", 0))
         assert set(fused) <= set(smoke.MLP_COUNTERS)
+    reram = smoke.PATHS["model2"]["reram"]
+    assert reram["reram_combine"] == reram["reram_matmul_int"]
+    assert set(reram) <= set(smoke.MLP_COUNTERS)
     # K1 one launch per layer: 3 + 3 + 2 layers, two calls
     assert smoke.PATHS["model1"]["reram-fused"]["fused_mlp_layer"] == 16
     assert smoke.PATHS["model2"]["reram-fused"]["fused_mlp_mtiled_layer"] \
@@ -112,7 +116,7 @@ def test_k6_counts_and_reram_layer_shapes(smoke):
                       (65536, 256, 512), (16384, 512, 512),
                       (16384, 512, 512), (16384, 512, 1024),
                       (8, 1024, 256), (8, 256, 40)]
-    assert sum(n for n in smoke.PATHS["model2"]["reram"].values()) \
+    assert smoke.PATHS["model2"]["reram"]["reram_matmul_int"] \
         == 2 * len(shapes)
 
 
@@ -124,6 +128,29 @@ def test_k7_counts(smoke):
     assert ops == 9 * 8 * 1024 * 512
     ms, by = smoke.bound(nbytes, ops, smoke.FP32_OPS_PER_S)
     assert by == "operations" and ms == pytest.approx(ops / 67e12 * 1e3)
+
+
+def test_ptxas_registers_are_read_per_kernel(smoke):
+    """The build phase reports registers per kernel, template arguments
+    kept, though anonymous namespaces mangle with a per-file hash."""
+    ns = "_ZN51_GLOBAL__N__48e030b8_18_fused_mlp_wstat_cu_5b1c2ad5"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{ns}16wstat_mma_kernel"
+        "ILi4ELb0EEEvPKaPfS2_PKfS5_S5_S5_Piiiiiiiiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 100 registers, used 1 barriers, 32 bytes smem",
+        f"ptxas info    : Compiling entry function '{ns}16wstat_mma_kernel"
+        "ILi2ELb1EEEvPKaPfS2_PKfS5_S5_S5_Piiiiiiiiiii' for 'sm_90a'",
+        "ptxas info    : Used 114 registers, used 1 barriers, 32 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN4xmma22combine_weights_kernelEPKaPaPiiPKiiiiiiii' for 'sm_90a'",
+        "ptxas info    : Used 32 registers, used 1 barriers, 1056 bytes smem"])
+    got = smoke._ptxas_registers(log)
+    assert set(got) == {"wstat_mma_kernelILi4ELb0EE",
+                        "wstat_mma_kernelILi2ELb1EE", "combine_weights_kernel"}
+    assert got["wstat_mma_kernelILi4ELb0EE"][-1].startswith("Used 100 ")
+    assert got["wstat_mma_kernelILi2ELb1EE"] == [
+        "Used 114 registers, used 1 barriers, 32 bytes smem"]
 
 
 def test_clouds_are_seeded_float32_surfaces(smoke):

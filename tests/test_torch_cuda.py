@@ -110,13 +110,18 @@ def test_fused_mlp_modes_bitwise(cuda, mode, widths, m, batch, final_relu):
     ((130, 200, 70), 257, 3, 5),
     ((2100, 2080, 40), 200, 2, 8),               # K1 in two K ranges
     ((20,) + (48,) * 9 + (24,), 300, 2, 7),      # ten layers
+    ((4000, 64, 40), 100, 2, 8),                 # K3 in 32-column chunks
+    ((7000, 40), 64, 2, 8),                      # K3 in K ranges
 ])
 def test_tensor_core_kernels_equal_plain_and_k3(cuda, widths, m, batch,
                                                 weight_bits):
-    """K1 and K2 (tensor cores, s8 weights) against the plain version and
-    against K3 (dp4a) bit for bit, with non-zero biases, row counts that
-    are not a multiple of the 64-row stripe and weight_bits below 8; past
-    K1's 2048-byte stripe (where 'mtiled' runs K1) and at ten layers."""
+    """K1, K2 and K3 (tensor cores, s8 weights) against the plain version
+    and so against each other bit for bit, with non-zero biases, row counts
+    that are not a multiple of the 64-row stripe and weight_bits below 8;
+    past K1's 2048-byte stripe (where 'mtiled' runs K1 and K3 narrows its
+    chunk to 64 columns), past K3's 3264-byte 64-column chunk (32
+    columns) and its 6560-byte 32-column chunk (K in ranges), and at ten
+    layers."""
     rng = np.random.default_rng(5)
     prog = build_program(_layers(widths, rng),
                          weight_bits=weight_bits).to(cuda)
@@ -192,22 +197,57 @@ def test_mtiled_launches_by_width_and_depth(cuda, widths, on_chip):
 @pytest.mark.parametrize("m,k,n", [
     (8192, 16, 256),       # model2 SA-1, first layer, one cloud
     (2048, 512, 1024),     # model2 SA-2, last layer, one cloud
-    (8, 1024, 256),        # model2 head at batch 8
+    (8, 1024, 256),        # model2 head at batch 8: K split over blocks
     (130, 77, 5),          # ragged in every dimension
     (1, 3, 2),
+    (8192, 4, 64),         # model0's first layer: rows of 4 bytes
+    (8192, 8, 128),        # model1's first layer: rows of 8 bytes
+    (1, 1024, 256),        # model2 head, one cloud: 16 K ranges
+    (8, 256, 40),          # the last head layer: N = 40
+    (300, 64, 5),          # N = 5, odd
+    (3, 5000, 20),         # K past one stripe: split for width
 ])
 def test_reram_matmul_kernel_bitwise(cuda, m, k, n):
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.integers(-127, 128, size=(m, k))
+    x = torch.from_numpy(rng.integers(-128, 128, size=(m, k))
                          .astype(np.int8)).to(cuda)
-    w = torch.from_numpy(rng.integers(-127, 128, size=(k, n))
+    w = torch.from_numpy(rng.integers(-128, 128, size=(k, n))
                          .astype(np.int32))
     planes = encode_planes(w).to(cuda)
+    reset_launch_counts()
     got = reram_mlp.reram_matmul_int_cuda(x, planes)
     want = ref_reram_matmul_int(x, planes)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(want.cpu(), x.cpu().to(torch.int32) @ w)
+    counts = launch_counts()
+    assert (counts["reram_matmul_int"], counts["reram_combine"]) == (1, 1)
+    # rows that do not start 16-byte aligned take the byte-load path
+    buf = torch.empty(m * k + 1, dtype=torch.int8, device=cuda)
+    x_off = buf[1:].view(m, k)
+    x_off.copy_(x)
+    assert torch.equal(reram_mlp.reram_matmul_int_cuda(x_off, planes), want)
+
+
+@pytest.mark.parametrize("k,n,weight_bits", [
+    (3, 5, 8), (8, 40, 4), (16, 256, 6), (77, 40, 8), (256, 256, 8),
+    (1024, 256, 8), (512, 1024, 5)])
+def test_reram_prepass_kernel_bitwise(cuda, k, n, weight_bits):
+    """K6's s8 pre-pass against its plain version on (P, K, N) planes; its
+    row padding (K up to a multiple of 16) holds zeros."""
+    rng = np.random.default_rng(k + n)
+    half = 1 << (weight_bits - 1)
+    w = torch.from_numpy(rng.integers(-half, half, size=(k, n)))
+    planes = encode_planes(w, weight_bits).to(cuda)
+    reset_launch_counts()
+    got = reram_mlp.reram_combine_cuda(planes, weight_bits=weight_bits)
+    want = reram_mlp.reram_combine_plain(planes, 2, weight_bits)
+    torch.cuda.synchronize()
+    assert launch_counts()["reram_combine"] == 1
+    assert got.shape == (n, k) and torch.equal(got, want)
+    assert torch.equal(want.T.cpu().to(torch.int64), w)
+    pad = got.as_strided((n, -(-k // 16) * 16), (got.stride(0), 1))
+    assert not pad[:, k:].any()
 
 
 @pytest.mark.parametrize("batch,n,c,m,k", [
@@ -266,9 +306,12 @@ def test_model_on_card_counts_launches_and_matches_cpu(cuda, backend):
     assert {k: counts[k] for k in _COUNTER.values()} == {
         k: want_n if k == _COUNTER[backend] else 0
         for k in _COUNTER.values()}
-    # K1 and K2 run the s8 weight pre-pass once per MLP call
+    # K1, K2 and K3 run the s8 weight pre-pass once per MLP call, K6 once
+    # per product
     assert counts["fused_mlp_combine"] == (
-        want_n if backend in ("reram-fused", "reram-fused-mtiled") else 0)
+        0 if backend == "reram" else want_n)
+    assert counts["reram_combine"] == (
+        want_n if backend == "reram" else 0)
     # one FPS launch per SA layer and call, whatever the batch
     assert counts["fps"] == 2 * cfg.n_layers and counts["fps_update"] == 0
     want = cpu.batched_forward(clouds)
@@ -300,8 +343,9 @@ def test_model2_shaped_launch_counts(cuda):
     counts = launch_counts()
     assert (counts["fused_mlp"], counts["fused_mlp_mtiled"],
             counts["fused_mlp_wstat"]) == (2, 2, 2)
-    # one pre-pass per K1 or K2 call; K2 one launch per layer
-    assert counts["fused_mlp_combine"] == 4
+    # one pre-pass per K1, K2 or K3 call; K2 one launch per layer
+    assert counts["fused_mlp_combine"] == 6
+    assert counts["fused_mlp_wstat_layer"] == 2 * 3
     assert counts["fused_mlp_mtiled_layer"] == 2 * 3
     assert counts["fps"] == 2 * cfg.n_layers
     assert torch.equal(one, logits[0])
@@ -310,6 +354,7 @@ def test_model2_shaped_launch_counts(cuda):
     per_layer.forward(clouds[0])
     torch.cuda.synchronize()
     assert launch_counts()["reram_matmul_int"] == 2 * 8
+    assert launch_counts()["reram_combine"] == 2 * 8
     assert launch_counts()["fused_mlp_combine"] == 0
     assert torch.equal(ref, logits)
 

@@ -30,7 +30,8 @@ from repro_torch.kernels import (FUSED_MODES, CrossbarProgram,    # noqa: E402
                                  build_program, fused_mlp, plan_fused_mlp,
                                  plan_launch, reram_mlp_fused,
                                  reram_mlp_fused_batched)
-from repro_torch.kernels.program import wstat_row_groups          # noqa: E402
+from repro_torch.kernels.program import (                          # noqa: E402
+    wstat_blocks_per_sm, wstat_row_groups)
 
 
 def _mlps(model):
@@ -96,8 +97,9 @@ def test_launch_geometry_per_mode():
                           for k, n in ((16, 256), (256, 1024))])
     # K1 keeps a 64-row int8 stripe of k_lim bytes (pitch k_lim + 16) and
     # a ring of 3 weight slabs of 128 x (64 + 16) bytes; K2 two stripes of
-    # the widest k_lim and the ring, in every launch; K3 a 64-column weight
-    # tile, one pad word per column
+    # the widest k_lim and the ring, in every launch; K3 a 128-column chunk
+    # of s8 weights (pitch k_lim + 16) and a ring of 4 activation slabs of
+    # 64 x (64 + 16) bytes
     ring = 3 * 128 * (64 + 16)
     whole = plan_launch(prog, 8192)
     assert whole.smem_bytes == (64 * (32 + 16) + ring,
@@ -105,7 +107,9 @@ def test_launch_geometry_per_mode():
     assert plan_launch(prog, 8192, "mtiled").smem_bytes == (
         2 * 64 * (256 + 16) + ring,) * 2
     wstat = plan_launch(prog, 8192, "wstat")
-    assert wstat.smem_bytes == (4 * 64 * 9, 4 * 64 * 65)
+    a_ring = 4 * 64 * (64 + 16)
+    assert wstat.smem_bytes == (128 * (32 + 16) + a_ring,
+                                128 * (256 + 16) + a_ring)
     assert (wstat.m_pad, wstat.k_lims, wstat.n_lims) == (
         whole.m_pad, whole.k_lims, whole.n_lims)
     # at d_pad 1024 K2's stripe needs the opt-in above 48 KB
@@ -117,9 +121,18 @@ def test_launch_geometry_per_mode():
 
 
 def test_wstat_row_groups_fill_the_card():
-    assert wstat_row_groups(8, 256, 132) == 66       # 4 x 132 / 8 tiles
-    assert wstat_row_groups(16, 8, 132) == 8         # never more than rows
-    assert wstat_row_groups(4096, 256, 132) == 1
+    # model2 SA-2's first layer: k_lim 512 leaves room for two blocks of
+    # 88 KB per SM, so 4 chunks x 66 groups fill 2 x 132 slots
+    smem = 128 * (512 + 16) + 4 * 64 * 80
+    assert wstat_blocks_per_sm(smem) == 2
+    assert wstat_row_groups(4, 256, 132, smem) == 66
+    # the head's k_lim 1024: one 150 KB block per SM, and never more
+    # groups than row tiles
+    head = 128 * (1024 + 16) + 4 * 64 * 80
+    assert wstat_blocks_per_sm(head) == 1
+    assert wstat_row_groups(2, 256, 132, head) == 66
+    assert wstat_row_groups(2, 8, 132, head) == 8
+    assert wstat_row_groups(4096, 256, 132, smem) == 1
 
 
 def _layers(widths, seed, zero_bias):

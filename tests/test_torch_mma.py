@@ -1,8 +1,9 @@
-"""The arithmetic K1 and K2 run on the tensor cores, held on the CPU.
+"""The arithmetic K1, K2 and K3 run on the tensor cores, held on the CPU.
 
-K1 and K2 multiply int8 activations by s8 weights that a pre-pass combines
-from the crossbar planes once per call, and K2 recomputes the stripe's
-earlier layers in every launch instead of reading a float32 panel back.
+K1, K2 and K3 multiply int8 activations by s8 weights that a pre-pass
+combines from the crossbar planes once per call, and K2 recomputes the
+stripe's earlier layers in every launch instead of reading a float32 panel
+back.
 The kernels run only on the card (``tests/test_torch_cuda.py``); here the
 three facts they rest on are checked against the JAX package, and the
 launch geometry that keeps every width and depth runnable is pinned:
@@ -27,7 +28,7 @@ from repro_torch.kernels import (build_program, encode_planes,    # noqa: E402
                                  fused_mlp, plan_launch)
 from repro_torch.kernels.program import (                          # noqa: E402
     BLOCK_M, MAX_SMEM_BYTES, MMA_STRIPE_K, CrossbarProgram, _quantize,
-    _scale, mtiled_on_chip)
+    _scale, mtiled_on_chip, wstat_chunk)
 from repro_torch.kernels.ref import (combine_planes,              # noqa: E402
                                      ref_reram_matmul_int)
 
@@ -181,10 +182,14 @@ def test_mtiled_schedule_with_biases_equals_plain():
 
 def test_bindings_match_the_c_signatures():
     """Each bound C function takes the pointers, ints and stream its
-    ctypes binding declares (a mismatch shows only on the card)."""
+    ctypes binding declares (a mismatch shows only on the card): K1's, K2's
+    and K3's entries, and K6's product and pre-pass."""
     import re
-    from repro_torch.kernels import _build
-    for name, fns in fused_mlp._FUNCTIONS.items():
+    from repro_torch.kernels import _build, reram_mlp
+    sources = {**fused_mlp._FUNCTIONS, "reram_mlp": reram_mlp._FUNCTIONS}
+    assert set(sources["fused_mlp_wstat"]) == {"fused_mlp_wstat_run"}
+    assert set(sources["reram_mlp"]) == {"reram_matmul_int", "reram_combine"}
+    for name, fns in sources.items():
         src = (_build.CSRC / f"{name}.cu").read_text()
         for fn, (n_ptrs, n_ints) in fns.items():
             sig = re.search(rf"\bint {fn}\(([^)]*)\)", src)
@@ -224,12 +229,33 @@ def test_k2_on_chip_up_to_kmax_1536_and_k1_fits_every_width(kmax, on_chip):
 @pytest.mark.parametrize("widths", [(20,) + (48,) * 9 + (24,),
                                     (4000, 40)])
 def test_k1_k2_launch_checks_take_any_depth_and_width(mode, widths):
-    """Ten layers and a 4000-wide input pass K1's and K2's launch checks
-    (K3 keeps its shared-memory limit)."""
+    """Ten layers and a 4000-wide input pass K1's and K2's launch checks,
+    and K3's too: its chunk narrows, then runs K in ranges, so it has no
+    shared-memory limit left."""
     prog = _shape_program(widths)
     x_p, sx = fused_mlp.prepare_input(torch.ones((2, 30, widths[0])), prog)
     geom = fused_mlp._check_launch(x_p, sx, prog, 30, mode)
     assert len(geom.k_lims) == len(widths) - 1
-    if widths[0] == 4000:
-        with pytest.raises(ValueError, match="shared memory"):
-            fused_mlp._check_launch(x_p, sx, prog, 30, "wstat")
+    wstat = fused_mlp._check_launch(x_p, sx, prog, 30, "wstat")
+    assert wstat.k_lims == geom.k_lims
+    assert max(wstat.smem_bytes) <= MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("kmax,cols,resident", [
+    (256, 128, 256), (512, 128, 512), (1536, 128, 1536),
+    (3584, 32, 3584), (4000, 32, 4000), (8192, 64, MMA_STRIPE_K)])
+def test_wstat_geometry_fits_every_width(kmax, cols, resident):
+    """K3 keeps a chunk of s8 weights, all of a layer's k_lim deep, beside
+    its 20 KB activation ring: 128 columns while they fit, then 64 or 32;
+    past that 64 columns over K ranges of ``MMA_STRIPE_K`` bytes. Every
+    layer's shared memory stays within a block's."""
+    prog = _shape_program((kmax, 2100, 64, 40))
+    geom = plan_launch(prog, 100, "wstat")
+    a_ring = 4 * 64 * (64 + 16)
+    assert wstat_chunk(geom.k_lims[0]) == (cols, resident)
+    for k, smem in zip(geom.k_lims, geom.smem_bytes):
+        c, kr = wstat_chunk(k)
+        assert smem == c * (kr + 16) + a_ring <= MAX_SMEM_BYTES
+        assert kr == k or kr == MMA_STRIPE_K < k
+    # the 2100-wide middle layer (k_lim 2112) narrows to 64 columns
+    assert wstat_chunk(geom.k_lims[1]) == (64, 2112)
