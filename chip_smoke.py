@@ -23,9 +23,14 @@ weights from a seed. Phases, each printing one JSON line:
    K2 and K3 at every MLP of model1 and model2; K6 and its own pre-pass at
    every layer shape of the model2 'reram' path and at unaligned, split
    and odd shapes; K7's loop at both SA layers' FPS (8 x 1024 -> 512,
-   8 x 512 -> 128, the real SA-2 input), a ragged cloud with pad rows, grid
-   and duplicated clouds (exact ties) and N = 16384, and its single step
-   at the same widths;
+   8 x 512 -> 128, the real SA-2 input) and at SA-1 of ``forward``
+   (1 x 1024 -> 512) under every tier of its plan (block, cluster,
+   streamed) pinned, a ragged cloud with pad rows, grid and duplicated
+   clouds (exact ties), a cloud with a NaN coordinate, and clouds past
+   one block: N = 16385 and 65536 (clusters of 3 and 8), 131072 (the
+   cluster tier's top, 16 blocks) under the chosen plan and the streamed
+   tier pinned, and 300000 (streamed); and its single step at the same
+   widths;
 4. end to end: each model and backend with the 'pointer' schedule; launch
    counters reset just before each run and read just after, and held to
    the counts the path must launch (FPS: one launch per SA layer and
@@ -41,8 +46,14 @@ weights from a seed. Phases, each printing one JSON line:
    model of the bytes their code moves through device memory (re-reads
    taken to hit L2) and that model over the event time; K1, K2 and K3 at
    each model2 MLP;
-   K7 at the two FPS calls of one ``batched_forward``, with its time per
-   sampling step (no PyTorch call computes FPS: no library time);
+   K7 at the two FPS calls of one ``batched_forward`` under the plan
+   ``plan_fps`` chooses, with its time per sampling step, and each tier
+   and block size at the main path's shapes beside the same loop with the
+   relaxation left out (``chain_us_per_step``: the chain of dependent
+   reductions alone, through ``fps_chain_run``, a measurement entry of
+   ``csrc/fps.cu`` only this script binds), and past one block the
+   cluster tier against the streamed tier at the same clouds; no PyTorch
+   call computes FPS: no library time;
    ``batched_forward`` and ``forward`` end to end, on the host clock;
 6. profile: one model1, one model2 and one model2 'reram'
    ``batched_forward`` split on the host clock into geometry, host planning
@@ -151,9 +162,15 @@ def phase_build() -> None:
     from repro_torch.kernels import KERNEL_SOURCES, _build
     t0 = time.perf_counter()
     built = _build.build(KERNEL_SOURCES)
+    if not _build.build_log("fps"):
+        # a library without its ptxas report: rebuild it, so that K7's
+        # registers are checked below
+        _build._paths("fps")[0].unlink()
+        built["fps"] = _build.build(["fps"])["fps"]
     seconds = time.perf_counter() - t0
     ptxas = {name: _ptxas_registers(_build.build_log(name))
              for name in KERNEL_SOURCES}
+    _check_fps_registers(ptxas["fps"])
     emit({"phase": "build", "seconds": seconds, "built": built,
           "ptxas": ptxas, "tensor_core_instructions": _imma_counts()})
 
@@ -184,6 +201,50 @@ def _ptxas_registers(log: str) -> dict:
         elif entry and ("registers" in ln or "spill" in ln):
             out.setdefault(entry, []).append(ln.split(":", 1)[-1].strip())
     return out
+
+
+def fps_kernel_names() -> set:
+    """The mangled names (as :func:`_kernel_name` gives them) of every
+    loop kernel ``csrc/fps.cu`` instantiates: each register-tier shape of
+    ``FPS_PER_THREAD`` in the block and cluster tiers, and the streamed
+    kernel, each with and without the relaxation."""
+    from repro_torch.kernels.fps_update import (FPS_PER_THREAD,
+                                                FPS_STREAM_THREADS)
+    names = set()
+    for chain in "01":
+        names.add(f"fps_stream_kernelILi{FPS_STREAM_THREADS}ELb{chain}EE")
+        for t, pers in FPS_PER_THREAD.items():
+            for per in pers:
+                for cl in "01":
+                    names.add(f"fps_loop_kernelILi{t}ELi{per}ELb{cl}"
+                              f"ELb{chain}EE")
+    return names
+
+
+def _check_fps_registers(kernels: dict) -> None:
+    """K7's kernels take no more registers than ``plan_fps`` counts on
+    (``FPS_REGS`` by points a thread, ``FPS_STREAM_REGS``) and spill none;
+    every kernel of :func:`fps_kernel_names` must be in the report."""
+    import re
+    from repro_torch.kernels.fps_update import FPS_REGS, FPS_STREAM_REGS
+    missing = fps_kernel_names() - {n for n, lines in kernels.items()
+                                    if any("Used" in ln for ln in lines)}
+    check(not missing, f"K7: no ptxas register report for "
+                       f"{sorted(missing)}")
+    for name, lines in kernels.items():
+        m = re.match(r"fps_loop_kernelILi\d+ELi(\d+)E", name)
+        if m:
+            cap = FPS_REGS[int(m.group(1))]
+        elif name.startswith("fps_stream_kernel"):
+            cap = FPS_STREAM_REGS
+        else:
+            continue
+        for ln in lines:
+            used = re.match(r"Used (\d+) registers", ln)
+            check(used is None or int(used.group(1)) <= cap,
+                  f"K7 {name}: {ln}; the plan counts on {cap} registers")
+            check("spill" not in ln or " 0 bytes spill stores" in ln,
+                  f"K7 {name} spills: {ln}")
 
 
 def _imma_counts() -> dict:
@@ -421,10 +482,11 @@ def phase_model2_kernels(model2, params2) -> dict:
 
 def _fps_cases(clouds_np) -> dict:
     """K7's inputs: the two FPS calls of the main path (SA-1 over the
-    clouds, SA-2 over the 512 points SA-1 selected), a ragged cloud with
-    pad rows, clouds with exact ties, and the largest cloud the kernel
-    takes."""
-    from repro_torch.kernels.fps_update import MAX_POINTS, fps_batched_plain
+    clouds, SA-2 over the 512 points SA-1 selected) and SA-1 of
+    ``forward``, a ragged cloud with pad rows, clouds with exact ties, a
+    cloud with a NaN coordinate, and clouds past one block (a cluster) and
+    past a cluster's registers (streamed)."""
+    from repro_torch.kernels.fps_update import fps_batched_plain
     from repro_torch.models.pointnet2 import gather_rows
     sa1 = torch.from_numpy(clouds_np).cuda()
     sa2 = gather_rows(sa1, fps_batched_plain(sa1, 512)).contiguous()
@@ -433,39 +495,132 @@ def _fps_cases(clouds_np) -> dict:
                     -1).reshape(-1, 3)[:1000]
     dup = rng.normal(size=(2, 1024, 3))
     dup[:, 512:] = dup[:, :512]
+    # a NaN, a negative NaN and a NaN with a payload
+    nan = rng.normal(size=(2, 1024, 3)).astype(np.float32)
+    nan[0, 341, 1] = np.nan
+    nan[1, 200, 2] = -np.float32(np.nan)
+    nan[1, 700, 0] = np.array([0x7F812345], np.uint32).view(np.float32)[0]
 
     def card(a):
         return torch.from_numpy(np.ascontiguousarray(a, np.float32)).cuda()
     return {
         "sa1": (sa1, 512, 0, None), "sa2": (sa2, 128, 0, None),
+        "sa1_forward": (sa1[:1].contiguous(), 512, 0, None),
         "ragged": (card(rng.normal(size=(3, 1000, 3))), 300, 3,
                    torch.tensor([1000, 993, 611], device="cuda")),
         "grid": (card(np.stack([grid, grid + 1.0])), 400, 0, None),
         "duplicated": (card(dup), 600, 5,
                        torch.tensor([1024, 900], device="cuda")),
-        "max_points": (card(rng.normal(size=(2, MAX_POINTS, 3))), 1024, 0,
-                       None)}
+        "nan": (card(nan), 300, 0, None),
+        "n16385": (card(rng.normal(size=(2, 16385, 3))), 1024, 0, None),
+        "n65536": (card(rng.normal(size=(1, 65536, 3))), 256, 0, None),
+        "n131072": (card(rng.normal(size=(1, 131072, 3))), 256, 0, None),
+        "n300000": (card(rng.normal(size=(1, 300000, 3))), 64, 0, None)}
+
+
+#: The cases every tier runs pinned, bit for bit against the plain loop.
+FPS_TIER_CASES = ("sa1", "sa2", "sa1_forward", "ragged", "nan")
+
+#: The clouds past one block, each under the streamed tier pinned (8 and
+#: 16 blocks of 1024 threads) beside ``plan_fps``'s plan.
+FPS_LARGE_CASES = ("n16385", "n65536", "n131072", "n300000")
+
+
+def fps_streamed_plans(n: int) -> dict:
+    """The streamed tier over 8 and 16 blocks for a cloud of ``n``
+    points: what the cluster tier is held and timed against past one
+    block."""
+    from repro_torch.kernels.fps_update import FpsPlan
+    return {f"streamed{c}": FpsPlan("streamed", 1024, -(-n // (1024 * c)), c)
+            for c in (8, 16)}
+
+
+def _bind_fps_chain(lib) -> None:
+    """Type ``fps_chain_run``: 3 pointers, batch, N and samples as int64,
+    tier, threads, points a thread and cluster as int, the stream."""
+    import ctypes
+    f = lib.fps_chain_run
+    f.restype = ctypes.c_int
+    f.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3
+                  + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def fps_chain(pts, n_samples: int, plan=None):
+    """``fps_chain_run`` of ``csrc/fps.cu``: the loop kernel under
+    ``plan`` (``plan_fps``'s where None) with the relaxation left out, so
+    a step is the chain of reductions, the barrier and the center's
+    broadcast alone. Its indices mean nothing; no launch counter moves.
+    The library does not bind it: it is this script's measurement."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fps_update import (FPS_TIERS, check_plan,
+                                                plan_fps)
+    batch, n, _ = pts.shape
+    if plan is None:
+        plan = plan_fps(batch, n, _build.sm_count(pts))
+    check_plan(plan, n)
+    lib = _build.library("fps")
+    _bind_fps_chain(lib)
+    out = torch.empty((batch, n_samples), dtype=torch.int64,
+                      device=pts.device)
+    dist = (torch.empty((batch, n), dtype=torch.float32, device=pts.device)
+            if plan.tier == "streamed" else None)
+    err = lib.fps_chain_run(
+        pts.data_ptr(), out.data_ptr(),
+        None if dist is None else dist.data_ptr(), batch, n, n_samples,
+        FPS_TIERS.index(plan.tier), plan.threads, plan.per_thread,
+        plan.cluster, _build.stream_of(pts))
+    check(err == 0, f"fps_chain_run under {plan}: CUDA error {err}")
+    return out
+
+
+def fps_tier_plans(n: int) -> dict:
+    """K7's plans for a cloud of ``n`` <= 1024 points: the block tier at
+    128, 256 and 512 threads, the cluster tier over 2 and 8 blocks of 128
+    threads, and the streamed tier over 2 blocks of 1024; each register
+    tier at the fewest points a thread (a power of two) that hold the
+    cloud."""
+    from repro_torch.kernels.fps_update import FpsPlan
+
+    def per(threads):
+        return 1 << (-(-n // threads) - 1).bit_length()
+    plans = {f"block{t}": FpsPlan("block", t, per(t), 1)
+             for t in (128, 256, 512)}
+    for c in (2, 8):
+        plans[f"cluster{c}"] = FpsPlan("cluster", 128, per(128 * c), c)
+    plans["streamed"] = FpsPlan("streamed", 1024, per(2048), 2)
+    return plans
 
 
 def phase_fps_vs_plain(clouds_np) -> dict:
-    """K7 against its plain versions, bit for bit: the loop kernel at every
-    case of :func:`_fps_cases`, and the step kernel over the first 8 steps
-    of FPS on the first cloud of each."""
+    """K7 against its plain versions, bit for bit: the loop kernel under
+    ``plan_fps``'s plan at every case of :func:`_fps_cases`, under every
+    plan of :func:`fps_tier_plans` at the cases of
+    :data:`FPS_TIER_CASES` and of :func:`fps_streamed_plans` at
+    :data:`FPS_LARGE_CASES`, and the step kernel over the first 8 steps of
+    FPS on the first cloud of each case."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fps_update import (
         fps_batched_cuda, fps_batched_plain, fps_update_cuda,
-        fps_update_plain, max_points_of_kernel, MAX_POINTS)
-    check(max_points_of_kernel() == MAX_POINTS, "K7 limit as built")
+        fps_update_plain, plan_fps)
     cases = _fps_cases(clouds_np)
     out = {}
     for name, (pts, n_samples, start, nv) in cases.items():
-        got = fps_batched_cuda(pts, n_samples, start, nv)
         want = fps_batched_plain(pts, n_samples, start, nv)
-        torch.cuda.synchronize()
-        err = int((got - want).abs().max())
-        check(torch.equal(got, want), f"K7 fps {name} bitwise (max err "
-                                      f"{err})")
-        if nv is not None:
-            check(bool((got < nv[:, None]).all()), f"K7 {name} pads")
+        plans = {"chosen": None}
+        if name in FPS_TIER_CASES:
+            plans.update(fps_tier_plans(pts.shape[1]))
+        if name in FPS_LARGE_CASES:
+            plans.update(fps_streamed_plans(pts.shape[1]))
+        errs = {}
+        for label, plan in plans.items():
+            got = fps_batched_cuda(pts, n_samples, start, nv, plan=plan)
+            torch.cuda.synchronize()
+            errs[label] = int((got - want).abs().max())
+            check(torch.equal(got, want), f"K7 fps {name} under {label} "
+                                          f"bitwise (max err "
+                                          f"{errs[label]})")
+            if nv is not None:
+                check(bool((got < nv[:, None]).all()), f"K7 {name} pads")
         p_t = pts[0].T.contiguous()
         dist = torch.full((1, pts.shape[1]), float("inf"), device="cuda")
         step_err = 0.0
@@ -474,12 +629,21 @@ def phase_fps_vs_plain(clouds_np) -> dict:
             d_got = fps_update_cuda(p_t, c, dist)
             dist = fps_update_plain(p_t, c, dist)
             torch.cuda.synchronize()
-            check(torch.equal(d_got, dist), f"K7 fps_update {name} step {i} "
-                                            f"bitwise")
-            step_err = max(step_err, float((d_got - dist).abs().max()))
+            # NaN where the plain step has NaN (the NaN cloud), equal
+            # elsewhere
+            nan = torch.isnan(dist)
+            check(torch.equal(torch.isnan(d_got), nan)
+                  and torch.equal(d_got[~nan], dist[~nan]),
+                  f"K7 fps_update {name} step {i} bitwise")
+            if bool((~nan).any()):
+                step_err = max(step_err, float(
+                    (d_got[~nan] - dist[~nan]).abs().max()))
+        chosen = plan_fps(pts.shape[0], pts.shape[1], _build.sm_count(pts))
         out[name] = {"shape": list(pts.shape), "n_samples": n_samples,
                      "start": start, "n_valid": None if nv is None
-                     else nv.tolist(), "max_abs_err": err,
+                     else nv.tolist(), "chosen": chosen.__dict__,
+                     "max_abs_err": max(errs.values()),
+                     "max_abs_err_by_plan": errs,
                      "step_max_abs_err": step_err}
     emit({"phase": "kernel_vs_plain_fps", "tolerance": "bitwise",
           "K7": out})
@@ -865,25 +1029,71 @@ def _fps_bound(batch: int, n: int, n_samples: int):
     return batch * n * 12 + batch * n_samples * 8, 9 * batch * n * n_samples
 
 
+def _k7_tiers(fps_cases) -> dict:
+    """Each plan of :func:`fps_tier_plans` at the main path's three FPS
+    shapes: the loop's time and time per step, and the same loop with the
+    relaxation left out (``chain_us_per_step``); and past one block,
+    ``plan_fps``'s plan beside the streamed tier over 8 and 16 blocks at
+    each cloud of :data:`FPS_LARGE_CASES`."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fps_update import fps_batched_cuda, plan_fps
+    out = {}
+    for name in ("sa1", "sa2", "sa1_forward"):
+        pts, n_samples, _, _ = fps_cases["cases"][name]
+        rows = {}
+        for label, plan in fps_tier_plans(pts.shape[1]).items():
+            ms = cuda_ms(lambda: fps_batched_cuda(pts, n_samples, plan=plan))
+            chain = cuda_ms(lambda: fps_chain(pts, n_samples, plan))
+            rows[label] = {"plan": vars(plan), "ms": ms,
+                           "us_per_step": 1e3 * ms / n_samples,
+                           "chain_us_per_step": 1e3 * chain / n_samples}
+        out[f"{name} {list(pts.shape)} -> {n_samples}"] = rows
+    # past one block: the chosen plan against the streamed tier
+    for name in FPS_LARGE_CASES:
+        pts, n_samples, _, _ = fps_cases["cases"][name]
+        plans = {"chosen": plan_fps(pts.shape[0], pts.shape[1],
+                                    _build.sm_count(pts)),
+                 **fps_streamed_plans(pts.shape[1])}
+        rows = {}
+        for label, plan in plans.items():
+            ms = cuda_ms(lambda: fps_batched_cuda(pts, n_samples, plan=plan),
+                         iters=5, warmup=1)
+            chain = cuda_ms(lambda: fps_chain(pts, n_samples, plan), iters=5,
+                            warmup=1)
+            rows[label] = {"plan": vars(plan), "ms": ms,
+                           "us_per_step": 1e3 * ms / n_samples,
+                           "chain_us_per_step": 1e3 * chain / n_samples}
+        out[f"{name} {list(pts.shape)} -> {n_samples}"] = rows
+    return out
+
+
 def _k7_row(fps_cases, counts_of) -> dict:
     """K7 at the two FPS calls of one model1/model2 ``batched_forward``
-    (8 x 1024 -> 512 and 8 x 512 -> 128), and its single step beside it."""
+    (8 x 1024 -> 512 and 8 x 512 -> 128) under ``plan_fps``'s plans, its
+    single step beside it, and every tier at the main path's shapes."""
+    from repro_torch.kernels import _build
     from repro_torch.kernels.fps_update import (
-        fps_batched_cuda, fps_batched_plain, fps_update_cuda,
-        fps_update_plain)
-    per_layer, tot = {}, {"ms": 0.0, "plain_ms": 0.0, "bytes": 0, "ops": 0}
+        fps_batched_cuda, fps_batched_plain, fps_update_cuda, fps_update_plain,
+        plan_fps)
+    per_layer, tot = {}, {"ms": 0.0, "plain_ms": 0.0, "chain_ms": 0.0,
+                          "bytes": 0, "ops": 0}
     for name in ("sa1", "sa2"):
         pts, n_samples, _, _ = fps_cases["cases"][name]
         b, n, _ = pts.shape
-        row = {"shape": [b, n, n_samples],
+        plan = plan_fps(b, n, _build.sm_count(pts))
+        row = {"shape": [b, n, n_samples], "plan": vars(plan),
                "ms": cuda_ms(lambda: fps_batched_cuda(pts, n_samples)),
+               "chain_ms": cuda_ms(lambda: fps_chain(pts, n_samples)),
                "plain_ms": cuda_ms(lambda: fps_batched_plain(pts, n_samples),
-                                   iters=3, warmup=1)}
+                                   iters=3, warmup=1),
+               "device_ms": _device_ms(lambda: fps_batched_cuda(pts,
+                                                                n_samples))}
         row["us_per_step"] = 1e3 * row["ms"] / n_samples
+        row["chain_us_per_step"] = 1e3 * row["chain_ms"] / n_samples
         nbytes, ops = _fps_bound(b, n, n_samples)
         row["bound_ms"], row["bound_by"] = bound(nbytes, ops, FP32_OPS_PER_S)
         per_layer[name] = row
-        for key in ("ms", "plain_ms"):
+        for key in ("ms", "plain_ms", "chain_ms"):
             tot[key] += row[key]
         tot["bytes"] += nbytes
         tot["ops"] += ops
@@ -900,6 +1110,7 @@ def _k7_row(fps_cases, counts_of) -> dict:
     step["bound_ms"], step["bound_by"] = bound(12 * n + 12 + 8 * n, 9 * n,
                                                FP32_OPS_PER_S)
     errors = fps_cases["errors"]
+    steps = sum(per_layer[k]["shape"][2] for k in per_layer)
     return {
         "name": "K7 fps", "route": "cuda",
         "source": "src/repro_torch/csrc/fps.cu",
@@ -913,8 +1124,12 @@ def _k7_row(fps_cases, counts_of) -> dict:
                         "relaxation step)",
         "work": "model1/model2 SA-1 + SA-2 FPS, batch 8: the whole "
                 "sampling loop in one launch each",
-        "us_per_step": 1e3 * tot["ms"] / (512 + 128),
-        "per_layer": per_layer, "fps_update_step": step}
+        "tier": {k: per_layer[k]["plan"]["tier"] for k in per_layer},
+        "us_per_step": 1e3 * tot["ms"] / steps,
+        "chain_us_per_step": 1e3 * tot["chain_ms"] / steps,
+        "device_ms": sum(per_layer[k]["device_ms"] for k in per_layer),
+        "per_layer": per_layer, "tiers": _k7_tiers(fps_cases),
+        "fps_update_step": step}
 
 
 def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
@@ -1041,8 +1256,9 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
                               if "model2_mlps" in k),
           "K6_per_layer": next(k["per_layer"] for k in kernels
                                if k["name"] == "K6 reram_matmul_int"),
-          "K7": {k: kernels[-1][k] for k in ("us_per_step", "per_layer",
-                                             "fps_update_step")},
+          "K7": {k: kernels[-1][k] for k in (
+              "tier", "us_per_step", "chain_us_per_step",
+              "per_layer", "tiers", "fps_update_step")},
           "end_to_end": e2e})
     return kernels
 

@@ -23,15 +23,18 @@ from .reram_mlp import reram_matmul_int
 __all__ = ["count_dma_elisions", "fps", "reram_linear"]
 
 
-def reram_linear(x, w, b=None, *, batched: bool = False):
+def reram_linear(x, w, b=None, *, batched: bool = False,
+                 check_weights: bool = True):
     """Float ``(…, K) @ (K, N)`` through the bit-sliced crossbar matmul.
 
     All rows share one activation scale, or, with ``batched``, axis 0 is a
     batch of independent inputs, each quantized under its own scale (what
     a per-input loop would give, bit for bit) — and the whole batch still
-    runs as one matmul launch."""
+    runs as one matmul launch. ``check_weights=False`` skips the NaN/Inf
+    check of ``w`` (a host sync on the card), for weights the caller has
+    checked once already."""
     k, n = w.shape
-    w_int, sw = quantize_tensor(w)
+    w_int, sw = quantize_tensor(w, check_finite=check_weights)
     planes = encode_planes(w_int)
     if batched:
         batch = x.shape[0]

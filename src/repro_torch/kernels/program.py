@@ -76,7 +76,7 @@ __all__ = [
     "WSTAT_BLOCK_N", "WSTAT_STAGES",
     "build_program", "encode_planes", "fused_vmem_bytes", "mtiled_on_chip",
     "plan_fused_mlp", "plan_launch", "plan_reram", "quantize_tensor",
-    "wstat_chunk", "wstat_row_groups",
+    "require_finite", "wstat_chunk", "wstat_row_groups",
 ]
 
 #: Crossbar edge — every program dimension is padded to this (the JAX
@@ -132,15 +132,26 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor,
     return torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
 
 
-def quantize_tensor(x: torch.Tensor, bits: int = 8):
-    """Symmetric per-tensor quantization -> (int32 values, float32 scale).
-
-    NaN/Inf inputs are rejected: a single NaN poisons the ``max(|x|)``
+def require_finite(x: torch.Tensor) -> None:
+    """Raise ``ValueError`` if ``x`` holds a NaN or an Inf (a host sync on
+    a CUDA tensor): a single NaN poisons the ``max(|x|)`` quantization
     scale and silently zeroes the whole tensor."""
-    x = torch.as_tensor(x)
     if not bool(torch.isfinite(x).all()):
         raise ValueError("quantize_tensor: input contains NaN/Inf — a "
                          "non-finite value poisons the quantization scale")
+
+
+def quantize_tensor(x: torch.Tensor, bits: int = 8, *,
+                    check_finite: bool = True):
+    """Symmetric per-tensor quantization -> (int32 values, float32 scale).
+
+    NaN/Inf inputs are rejected (:func:`require_finite`). A caller that
+    has checked ``x`` already, as the 'reram' backend checks its weights
+    once when it is built, passes ``check_finite=False`` and saves the
+    host sync."""
+    x = torch.as_tensor(x)
+    if check_finite:
+        require_finite(x)
     qmax = float(2 ** (bits - 1) - 1)
     scale = _scale(x.abs().amax(), qmax)
     return _quantize(x, scale, qmax), scale

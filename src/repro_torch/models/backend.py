@@ -49,6 +49,7 @@ from repro_torch.kernels import (FUSED_MODES, aggregate_diff,
                                  aggregate_diff_batched, count_dma_elisions,
                                  plan_fused_mlp, reram_linear,
                                  reram_mlp_fused, reram_mlp_fused_batched)
+from repro_torch.kernels.program import require_finite
 from repro_torch.models import pointnet2 as _pn
 
 __all__ = [
@@ -160,16 +161,28 @@ class ReramPerLayerBackend(FloatBackend):
     quantized and plane-encoded anew on every call, one kernel launch per
     layer. The reference the fused kernels are tested against. A batch
     quantizes each cloud under its own scale, as a per-cloud loop does, and
-    runs each layer as one launch over all clouds' rows."""
+    runs each layer as one launch over all clouds' rows.
+
+    Every weight is checked for NaN/Inf once, here, with the
+    ``ValueError`` the JAX package raises on its first call; the calls then
+    quantize the weights without the check's host sync."""
+
+    def __init__(self, params, config):
+        super().__init__(params, config)
+        for mlp in (*self.sa, self.head):
+            for lyr in mlp.layers():
+                require_finite(lyr["w"])
 
     def apply_mlp(self, key, x, *, final_relu=True):
-        return _pn._apply_mlp(self._mlp(key).layers(), x,
-                              final_relu=final_relu, matmul=reram_linear)
+        return _pn._apply_mlp(
+            self._mlp(key).layers(), x, final_relu=final_relu,
+            matmul=lambda a, w: reram_linear(a, w, check_weights=False))
 
     def apply_mlp_batched(self, key, x, *, final_relu=True):
         return _pn._apply_mlp(
             self._mlp(key).layers(), x, final_relu=final_relu,
-            matmul=lambda a, w: reram_linear(a, w, batched=True))
+            matmul=lambda a, w: reram_linear(a, w, batched=True,
+                                             check_weights=False))
 
 
 @register_backend("reram-fused")

@@ -6,6 +6,7 @@ operation counts behind it, and that it exits non-zero, printing no
 result, where no card exists."""
 import importlib.util
 import pathlib
+import re
 
 import numpy as np
 import pytest
@@ -165,3 +166,88 @@ def test_exits_nonzero_without_a_card(smoke, capsys):
         pytest.skip("a card is present; the script runs for real there")
     assert smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("n", [1024, 1000, 600, 512, 5])
+def test_k7_tier_plans_cover_every_tier(smoke, n):
+    """The plans K7 is held and timed under at the main path's shapes (and
+    the ragged case's 1000 points) are ones the kernel takes, one or more
+    of each tier."""
+    from repro_torch.kernels.fps_update import FPS_TIERS, check_plan
+    plans = smoke.fps_tier_plans(n)
+    assert {p.tier for p in plans.values()} == set(FPS_TIERS)
+    for plan in plans.values():
+        check_plan(plan, n)
+    assert {plans[f"block{t}"].threads for t in (128, 256, 512)} == {
+        128, 256, 512}
+
+
+def test_k7_register_check_reads_ptxas(smoke):
+    """The build phase holds each K7 kernel's registers to the figure
+    ``plan_fps`` counts on, refuses spills, and refuses a report that
+    lacks one of the kernels (a library built elsewhere has none)."""
+    ok = {name: ["0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                 "loads", "Used 36 registers, used 1 barriers"]
+          for name in smoke.fps_kernel_names()}
+    ok["fps_update_kernel"] = ["Used 21 registers"]
+    smoke._check_fps_registers(ok)
+    with pytest.raises(RuntimeError, match="counts on 48"):
+        smoke._check_fps_registers({
+            **ok, "fps_loop_kernelILi128ELi4ELb1ELb0EE": [
+                "Used 50 registers, used 1 barriers"]})
+    with pytest.raises(RuntimeError, match="spills"):
+        smoke._check_fps_registers({
+            **ok, "fps_stream_kernelILi1024ELb1EE": [
+                "Used 50 registers", "0 bytes stack frame, 8 bytes spill "
+                "stores, 8 bytes spill loads"]})
+    del ok["fps_stream_kernelILi1024ELb0EE"]
+    with pytest.raises(RuntimeError, match="no ptxas register report"):
+        smoke._check_fps_registers(ok)
+    with pytest.raises(RuntimeError, match="no ptxas register report"):
+        smoke._check_fps_registers({})
+
+
+def test_k7_kernel_names_are_the_sources_instantiations(smoke):
+    """The register check expects each ``FPS_SHAPES`` pair in the block and
+    cluster tiers and the streamed kernel, each with and without the
+    relaxation: as many names as the source instantiates."""
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "fps.cu").read_text()
+    shapes = src[src.index("#define FPS_SHAPES"):]
+    shapes = shapes[:shapes.index("\n\n")]
+    pairs = re.findall(r"X\((\d+), (\d+)\)", shapes)
+    names = smoke.fps_kernel_names()
+    assert len(names) == 4 * len(pairs) + 2
+    for t, per in pairs:
+        assert f"fps_loop_kernelILi{t}ELi{per}ELb1ELb0EE" in names
+
+
+def test_k7_chain_binding_matches_the_c_signature(smoke):
+    """``fps_chain_run``, the measurement entry only this script binds: its
+    ctypes types follow the C signature."""
+    import ctypes
+    import types
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "fps.cu").read_text()
+    sig = re.search(r"\bint fps_chain_run\(([^)]*)\)", src)
+    kinds = ["ptr" if "*" in a else "i64" if a.strip().startswith("long long")
+             else "int" for a in sig.group(1).split(",")]
+    lib = types.SimpleNamespace(fps_chain_run=types.SimpleNamespace())
+    smoke._bind_fps_chain(lib)
+    want = {"ptr": ctypes.c_void_p, "i64": ctypes.c_longlong,
+            "int": ctypes.c_int}
+    assert lib.fps_chain_run.argtypes == [want[k] for k in kinds]
+    assert kinds == ["ptr"] * 3 + ["i64"] * 3 + ["int"] * 4 + ["ptr"]
+
+
+@pytest.mark.parametrize("n", [16385, 65536, 131072, 300000])
+def test_k7_streamed_plans_take_the_large_clouds(smoke, n):
+    """The streamed plans the cluster tier is held and timed against past
+    one block are ones the kernel takes, over 8 and 16 blocks."""
+    from repro_torch.kernels.fps_update import check_plan
+    plans = smoke.fps_streamed_plans(n)
+    assert sorted(p.cluster for p in plans.values()) == [8, 16]
+    for plan in plans.values():
+        check_plan(plan, n)
+        assert plan.tier == "streamed"
+        assert plan.threads * plan.per_thread * plan.cluster >= n

@@ -10,6 +10,8 @@ Kernel and plain version must agree bit for bit: the kernels do every
 integer step exactly and every float step as one correctly rounded IEEE
 operation, as the plain versions do.
 """
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -24,8 +26,8 @@ from repro_torch.kernels import (KERNEL_SOURCES, _build,   # noqa: E402
                                  ref_reram_matmul_int, reram_mlp,
                                  reset_launch_counts)
 from repro_torch.kernels.fps_update import (              # noqa: E402
-    MAX_POINTS, fps_batched_cuda, fps_batched_plain, fps_update_cuda,
-    fps_update_plain, max_points_of_kernel)
+    FpsPlan, fps_batched_cuda, fps_batched_plain, fps_update_cuda,
+    fps_update_plain, plan_fps)
 from repro_torch.models.pointnet2 import init_params       # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -370,7 +372,23 @@ def _fps_clouds(kind, batch, n, seed):
                         -1).reshape(-1, 3)[:n]
         pts = np.broadcast_to(grid, (batch, n, 3)) + np.arange(batch)[
             :, None, None]
-    return torch.from_numpy(np.ascontiguousarray(pts, dtype=np.float32))
+    pts = np.ascontiguousarray(pts, dtype=np.float32)
+    if kind == "nan":      # a NaN, a negative NaN and a NaN with a payload
+        pts[0, n // 3, 1] = np.nan
+        pts[-1, n // 5, 2] = -np.float32(np.nan)
+        pts[-1, n // 2, 0] = np.array([0x7F812345], np.uint32).view(
+            np.float32)[0]
+    return torch.from_numpy(pts)
+
+
+def _check_fps(pts, n_samples, start, nv, plan):
+    got = fps_batched_cuda(pts, n_samples, start, nv, plan=plan)
+    want = fps_batched_plain(pts, n_samples, start, nv)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int64 and got.shape == (pts.shape[0],
+                                                      n_samples)
+    assert torch.equal(got, want), plan
+    return got
 
 
 @pytest.mark.parametrize("kind,batch,n,n_samples,ragged", [
@@ -379,7 +397,8 @@ def _fps_clouds(kind, batch, n, seed):
     ("random", 3, 1000, 300, True),     # ragged N, pad rows by n_valid
     ("grid", 2, 1000, 400, False),
     ("duplicated", 2, 1024, 600, True),
-    ("random", 2, MAX_POINTS, 1024, False),
+    ("nan", 2, 1024, 300, False),
+    ("random", 2, 16385, 1024, False),  # past one block's registers
     ("random", 1, 5, 5, False),
 ])
 def test_fps_loop_kernel_bitwise(cuda, kind, batch, n, n_samples, ragged):
@@ -387,18 +406,95 @@ def test_fps_loop_kernel_bitwise(cuda, kind, batch, n, n_samples, ragged):
     nv = (torch.tensor([n - 7 * b for b in range(batch)], device=cuda)
           if ragged else None)
     start = 3 if ragged else 0
-    got = fps_batched_cuda(pts, n_samples, start, nv)
-    want = fps_batched_plain(pts, n_samples, start, nv)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.int64 and got.shape == (batch, n_samples)
-    assert torch.equal(got, want)
+    got = _check_fps(pts, n_samples, start, nv, None)
     assert torch.equal(got.cpu(), fps_batched_plain(
         pts.cpu(), n_samples, start, None if nv is None else nv.cpu()))
     if ragged:
         assert bool((got < nv[:, None]).all())
 
 
-@pytest.mark.parametrize("n", [1000, 1024, MAX_POINTS])
+#: Every tier pinned at the main path's shapes (batch, N, samples) and at
+#: the edge cases, whether or not ``plan_fps`` would pick it.
+_PINNED = [FpsPlan("block", 128, 8, 1), FpsPlan("block", 256, 4, 1),
+           FpsPlan("block", 512, 2, 1), FpsPlan("cluster", 128, 4, 2),
+           FpsPlan("cluster", 128, 1, 8), FpsPlan("cluster", 256, 1, 16),
+           FpsPlan("streamed", 1024, 1, 2), FpsPlan("streamed", 1024, 1, 8)]
+
+
+@pytest.mark.parametrize("plan", _PINNED, ids=lambda p: (
+    f"{p.tier}-{p.threads}x{p.per_thread}x{p.cluster}"))
+@pytest.mark.parametrize("kind,batch,n,n_samples,ragged", [
+    ("random", 8, 1024, 512, False),    # SA-1
+    ("random", 8, 512, 128, False),     # SA-2
+    ("random", 1, 1024, 512, False),    # SA-1 of forward
+    ("random", 3, 1000, 300, True),
+    ("grid", 2, 1000, 400, False),
+    ("duplicated", 2, 1024, 600, True),
+    ("nan", 2, 1024, 300, False),
+])
+def test_fps_every_tier_bitwise(cuda, plan, kind, batch, n, n_samples,
+                                ragged):
+    pts = _fps_clouds(kind, batch, n, seed=n + 1).to(cuda)
+    nv = (torch.tensor([n - 7 * b for b in range(batch)], device=cuda)
+          if ragged else None)
+    got = _check_fps(pts, n_samples, 3 if ragged else 0, nv, plan)
+    if ragged:
+        assert bool((got < nv[:, None]).all())
+
+
+@pytest.mark.parametrize("batch,n,n_samples,tier,cluster", [
+    (2, 16385, 1024, "cluster", 3),
+    (1, 120000, 32, "cluster", 15),     # a non-portable cluster
+    # the cluster tier's top: 16 blocks of 512 threads, one an SM
+    (1, 131072, 64, "cluster", 16),
+    (8, 131072, 16, "cluster", 16),     # 128 blocks in 8 clusters of 16
+    (1, 300000, 64, "streamed", 8),
+])
+def test_fps_large_clouds_bitwise(cuda, batch, n, n_samples, tier,
+                                  cluster):
+    """Clouds past one block and past a cluster's registers run on their
+    own kernel, not the plain loop: the launch counter moves."""
+    pts = _fps_clouds("random", batch, n, seed=7).to(cuda)
+    plan = plan_fps(batch, n, _build.sm_count(pts))
+    assert (plan.tier, plan.cluster) == (tier, cluster)
+    reset_launch_counts()
+    _check_fps(pts, n_samples, 0, None, None)
+    assert launch_counts()["fps"] == 1
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("batch,n,n_samples", [
+    (2, 16385, 256), (1, 131072, 64)])
+def test_fps_streamed_tier_past_one_block_bitwise(cuda, batch, n,
+                                                  n_samples, cluster):
+    """The streamed tier pinned where ``plan_fps`` takes a cluster: the
+    tier the cluster tier is timed against."""
+    plan = FpsPlan("streamed", 1024, -(-n // (1024 * cluster)), cluster)
+    pts = _fps_clouds("random", batch, n, seed=11).to(cuda)
+    _check_fps(pts, n_samples, 0, None, plan)
+
+
+def test_fps_chain_variant_runs_the_same_launch(cuda):
+    """``chip_smoke.py``'s measurement entry, the loop without its
+    relaxation, launches under every tier and keeps the start index; its
+    other indices mean nothing, and it counts no launch."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent
+        / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    pts = _fps_clouds("random", 2, 1024, seed=2).to(cuda)
+    reset_launch_counts()
+    for plan in _PINNED:
+        out = smoke.fps_chain(pts, 64, plan)
+        torch.cuda.synchronize()
+        assert out.shape == (2, 64) and bool((out[:, 0] == 0).all())
+        assert bool(((out >= 0) & (out < 1024)).all())
+    assert launch_counts()["fps"] == 0
+
+
+@pytest.mark.parametrize("n", [1000, 1024, 16384])
 def test_fps_update_kernel_bitwise(cuda, n):
     rng = np.random.default_rng(n)
     pts = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32))
@@ -413,15 +509,6 @@ def test_fps_update_kernel_bitwise(cuda, n):
     assert torch.equal(got, want)
     assert torch.equal(got.cpu(), fps_update_plain(pts.cpu(), cen.cpu(),
                                                    dist.cpu()))
-
-
-def test_fps_refuses_clouds_over_its_limit(cuda):
-    assert max_points_of_kernel() == MAX_POINTS
-    pts = torch.zeros((1, MAX_POINTS + 1, 3), device=cuda)
-    reset_launch_counts()
-    with pytest.raises(ValueError, match="at most"):
-        fps_batched(pts, 4)
-    assert launch_counts()["fps"] == 0
 
 
 @pytest.mark.parametrize("schedule", ["baseline", "pointer"])
