@@ -8,7 +8,9 @@ PAPER_MODELS[m], backend=..., schedule="pointer")`` then
 ``batched_forward`` on 8 clouds of 1024 points and ``forward`` on one — at
 the full width and depth of model2 ('reram-fused' and the per-layer
 'reram'), model1 and model0 ('reram-fused' and 'float'), with random
-weights from a seed. Phases, each printing one JSON line:
+weights from a seed. The path plans on the card, the default: P1 and P2
+build each call's plan from its own geometry. Phases, each printing one
+JSON line:
 
 1. device: the card's name and power limit; TF32 off for float32 matmuls
    and convolutions;
@@ -16,7 +18,9 @@ weights from a seed. Phases, each printing one JSON line:
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together);
 3. kernel vs plain: each kernel against its plain torch version on the
-   same inputs, bit for bit — K1, K4, K5 at model1's shapes; K1, K2 and K3
+   same inputs, bit for bit — K1 at model1's shapes, K4 and K5 (batch 8
+   and 1) through the plan interface (the plan order and the geometry's
+   own int64 indices) at model1's and model2's gathers; K1, K2 and K3
    at each of model2's three MLPs, a ragged one, ones wider than K1's
    stripe and K3's chunks and one of ten layers, each also against the
    others (one function, three dataflows); the s8 weight pre-pass of K1,
@@ -30,22 +34,32 @@ weights from a seed. Phases, each printing one JSON line:
    one block: N = 16385 and 65536 (clusters of 3 and 8), 131072 (the
    cluster tier's top, 16 blocks) under the chosen plan and the streamed
    tier pinned, and 300000 (streamed); and its single step at the same
-   widths;
+   widths; P1 and P2 (phase ``kernel_vs_plain_plan``) against their plain
+   versions on the CPU and the NumPy planner: P1 at 8 x 128, 1 x 128 and
+   1 x 2048 points, P2 at the main path's 8 x (128 x 16 -> 512) walk, both
+   also through model1's geometry of clustered, grid and duplicated clouds;
 4. end to end: each model and backend with the 'pointer' schedule; launch
    counters reset just before each run and read just after, and held to
    the counts the path must launch (FPS: one launch per SA layer and
-   call); the card's logits and geometry (FPS and kNN) held against the
-   port's own CPU run on the first 2 clouds;
+   call; P1 and P2 one each per call); the card's logits and geometry (FPS
+   and kNN) held against the port's own CPU run on the first 2 clouds; the
+   crossbar backends' logits bit for bit against the same model planning
+   on the host (``device_planning=False``); ``jit_batched_forward`` (a
+   captured CUDA graph) bit for bit against eager ``batched_forward`` over
+   two replays on different clouds, ``jit_forward`` against ``forward``,
+   and the kernels one replay launches (``torch.profiler``) holding FPS,
+   P1, P2 and the gather;
 5. times: each kernel, its plain version and a library yardstick, timed
    with CUDA events after warm-up at the main path's shapes, beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
-   the peak rate, whichever is larger); for K1, K2, K3 and K6 also the
-   profiler's device time of one call beside the library's (a short call
-   leaves the card idle between back-to-back calls, so their event time
-   measures the host), and in the times line only, for K1 and K2, a
-   model of the bytes their code moves through device memory (re-reads
-   taken to hit L2) and that model over the event time; K1, K2 and K3 at
-   each model2 MLP;
+   the peak rate, whichever is larger); for K1, K2, K3, K4, K5, K6, P1 and
+   P2 also the profiler's device time of a call (mean of 5; and the library's
+   where there is one: a short call leaves the card idle between
+   back-to-back calls, so their event time measures the host), and the
+   card's launch floor (an empty kernel's device time); in the times line
+   only, for K1 and K2, a model of the bytes their code moves through
+   device memory (re-reads taken to hit L2) and that model over the event
+   time; K1, K2 and K3 at each model2 MLP;
    K7 at the two FPS calls of one ``batched_forward`` under the plan
    ``plan_fps`` chooses, with its time per sampling step, and each tier
    and block size at the main path's shapes beside the same loop with the
@@ -53,11 +67,14 @@ weights from a seed. Phases, each printing one JSON line:
    reductions alone, through ``fps_chain_run``, a measurement entry of
    ``csrc/fps.cu`` only this script binds), and past one block the
    cluster tier against the streamed tier at the same clouds; no PyTorch
-   call computes FPS: no library time;
-   ``batched_forward`` and ``forward`` end to end, on the host clock;
+   call computes FPS, the greedy order or the walk: no library time;
+   ``batched_forward`` and ``forward`` end to end, on the host clock,
+   eager and captured, and ``batched_forward`` planning on the host;
 6. profile: one model1, one model2 and one model2 'reram'
-   ``batched_forward`` split on the host clock into geometry, host planning
-   and the rest, and their device time by kernel from ``torch.profiler``.
+   ``batched_forward`` in three modes — planning on the host (its host
+   clock split into geometry, host planning and the rest), planning on the
+   card eagerly, and captured — each with its host clock, its device time
+   by kernel from ``torch.profiler`` and the device's busy share.
 
 Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
@@ -323,30 +340,65 @@ def _check_combine(prog, m: int, what: str) -> dict:
 
 
 def _gather_inputs(model, clouds: torch.Tensor):
-    """The plan-ordered gather indices of the main path (real geometry and
-    real host plans), with features of each layer's width."""
+    """The main path's gathers (real geometry, the plan built on the card):
+    per SA layer features of the layer's width, the index-order neighbor
+    and centre indices as the geometry gives them (int64; kNN's strided
+    view), the plan order (int32), and the indices in plan order (int32,
+    what the plain version is given)."""
+    from repro_torch.kernels import aggregate
     from repro_torch.models import pointnet2 as pn
     cfg = model.config
     pts, ctr, nbr = pn.geometry_pass(cfg, clouds)
-    dplan = model._device_plan_for(pts, ctr, nbr)
-    out = []
+    dplan = model._traced_plan(pts, nbr)
+    out = {}
     g = torch.Generator(device="cpu").manual_seed(SEED + 2)
     for k, spec in enumerate(cfg.layers, start=1):
-        order = dplan.order_of(k).long()
-        nbr_o = torch.take_along_dim(nbr[k], order[:, :, None], dim=1)
-        ctr_o = torch.take_along_dim(ctr[k], order, dim=1)
+        order = dplan.order_of(k)
+        nbr_o, ctr_o = aggregate.plan_ordered(nbr[k], ctr[k], order)
         n_in = clouds.shape[1] if k == 1 else cfg.layers[k - 2].n_centers
         feats = torch.randn((clouds.shape[0], n_in, spec.in_features),
                             generator=g).cuda()
-        out.append((feats, nbr_o.to(torch.int32).contiguous(),
-                    ctr_o.to(torch.int32).contiguous()))
+        out[k] = {"feats": feats, "nbr": nbr[k], "ctr": ctr[k],
+                  "order": order,
+                  "nbr_o": nbr_o.to(torch.int32).contiguous(),
+                  "ctr_o": ctr_o.to(torch.int32).contiguous()}
     return out
 
 
-def phase_kernel_vs_plain(model1, clouds) -> dict:
-    """Each kernel against its plain version at model1's shapes."""
-    from repro_torch.kernels import aggregate, fused_mlp
-    progs = model1.backend.program
+def _gather_cases(models, clouds) -> tuple[dict, dict]:
+    """K4 (batch 8) and K5 (batch 1, the first cloud) through the plan
+    interface at model1's and model2's gathers, each bit for bit against
+    the plain version over the indices in plan order."""
+    from repro_torch.kernels import aggregate
+    k4, k5 = {}, {}
+    for name in ("model1", "model2"):
+        for layer, c in _gather_inputs(models[name], clouds).items():
+            one = {key: v[:1] for key, v in c.items()}
+            got = aggregate.aggregate_diff_cuda(c["feats"], c["nbr"],
+                                                c["ctr"], c["order"])
+            want = aggregate.aggregate_diff_batched_plain(
+                c["feats"], c["nbr_o"], c["ctr_o"])
+            got1 = aggregate.aggregate_diff_cuda(
+                one["feats"], one["nbr"], one["ctr"], one["order"],
+                counter="aggregate_diff")
+            want1 = aggregate.aggregate_diff_plain(
+                c["feats"][0], c["nbr_o"][0], c["ctr_o"][0])
+            torch.cuda.synchronize()
+            key = f"{name} sa{layer}"
+            check(torch.equal(got, want), f"K4 {key} bitwise")
+            check(torch.equal(got1[0], want1), f"K5 {key} bitwise")
+            k4[key] = {"inputs": c, "max_abs_err":
+                       float((got - want).abs().max())}
+            k5[key] = {"inputs": one,
+                       "max_abs_err": float((got1[0] - want1).abs().max())}
+    return k4, k5
+
+
+def phase_kernel_vs_plain(models, clouds) -> dict:
+    """Each kernel against its plain version: K1 at model1's MLPs, K4 and
+    K5 (through the plan interface) at model1's and model2's gathers."""
+    from repro_torch.kernels import fused_mlp
+    progs = models["model1"].backend.program
     mlp_cases = {
         "sa1": (progs["sa"][0], 512 * 16),
         "sa2": (progs["sa"][1], 128 * 16),
@@ -369,29 +421,13 @@ def phase_kernel_vs_plain(model1, clouds) -> dict:
                     "max_abs_err": err, "x_p": x_p, "sx": sx, "prog": prog,
                     "m": m, "relu": relu,
                     "combine": _check_combine(prog, m, f"model1 {name}")}
-    gathers = _gather_inputs(model1, clouds)
-    k4, k5 = {}, {}
-    for layer, (feats, nbr_o, ctr_o) in enumerate(gathers, start=1):
-        got = aggregate.aggregate_diff_cuda(feats, nbr_o, ctr_o)
-        want = aggregate.aggregate_diff_batched_plain(feats, nbr_o, ctr_o)
-        one = aggregate.aggregate_diff_cuda(feats[:1], nbr_o[:1], ctr_o[:1],
-                                            counter="aggregate_diff")
-        want_one = aggregate.aggregate_diff_plain(feats[0], nbr_o[0],
-                                                  ctr_o[0])
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K4 layer {layer} bitwise")
-        check(torch.equal(one[0], want_one), f"K5 layer {layer} bitwise")
-        k4[layer] = {"inputs": (feats, nbr_o, ctr_o), "max_abs_err":
-                     float((got - want).abs().max())}
-        k5[layer] = {"inputs": (feats[:1].contiguous(), nbr_o[:1].contiguous(),
-                                ctr_o[:1].contiguous()),
-                     "max_abs_err": float((one[0] - want_one).abs().max())}
+    k4, k5 = _gather_cases(models, clouds)
     emit({"phase": "kernel_vs_plain", "tolerance": "bitwise",
           "K1": {n: {"shape": v["shape"], "max_abs_err": v["max_abs_err"],
                      "combine_max_abs_err": v["combine"]["max_abs_err"]}
                  for n, v in k1.items()},
-          "K4": {l: {"shape": list(v["inputs"][0].shape)
-                     + list(v["inputs"][1].shape[1:]),
+          "K4": {l: {"shape": list(v["inputs"]["feats"].shape)
+                     + list(v["inputs"]["nbr"].shape[1:]),
                      "max_abs_err": v["max_abs_err"]} for l, v in k4.items()},
           "K5": {l: {"max_abs_err": v["max_abs_err"]}
                  for l, v in k5.items()}})
@@ -650,6 +686,109 @@ def phase_fps_vs_plain(clouds_np) -> dict:
     return {"cases": cases, "errors": out}
 
 
+def _cloud_kinds(seed: int) -> dict:
+    """1024-point clouds whose plans are full of exact ties: tight clusters
+    (as the JAX package's device-planning tests make them), an integer
+    grid, and every point four times."""
+    rng = np.random.default_rng(seed)
+    ctrs = rng.normal(size=(128, 3)) * 4.0
+    clustered = (ctrs[rng.integers(0, 128, size=1024)]
+                 + 0.25 * rng.normal(size=(1024, 3)))
+    grid = np.stack(np.meshgrid(*[np.arange(11)] * 3, indexing="ij"),
+                    -1).reshape(-1, 3)[:1024]
+    dup = np.repeat(rng.normal(size=(256, 3)), 4, axis=0)
+    return {k: np.stack([v] * 2).astype(np.float32) for k, v in
+            (("clustered", clustered), ("grid", grid), ("dup", dup))}
+
+
+def _oracle_plan(cfg, pts_last: np.ndarray, nbrs) -> list:
+    """The NumPy planner's completed orders of one cloud: the greedy chain
+    over the last layer's float32 points, then the recursive walk."""
+    from repro_torch.core import schedule as sched
+    from repro_torch.core.workload import PointNetWorkload
+    last = sched.greedy_nn_order(pts_last)
+    sizes = [cfg.n_points] + [nb.shape[0] for nb in nbrs]
+    wl = PointNetWorkload(config=cfg, points=[np.zeros((n, 3))
+                                              for n in sizes],
+                          centers=[None] * len(sizes),
+                          neighbors=[None] + list(nbrs))
+    plan = sched.coordinate_layers(wl, last)
+    return [sched.complete_order(plan.order_of(k), nb.shape[0], k)
+            for k, nb in enumerate(nbrs, start=1)]
+
+
+def phase_plan_vs_plain(models, clouds_np) -> dict:
+    """P1 and P2 on the card, bit for bit, against their plain versions run
+    on the CPU and against the NumPy planner: P1 at the main path's 8 x 128
+    and 1 x 128 last layers and at 2048 points; P2 at the main path's 8 x
+    (128 x 16 -> 512) walk; both on clustered, grid and duplicated clouds
+    through model1's geometry."""
+    from repro_torch.core.schedule import device_build_plan, greedy_nn_order
+    from repro_torch.kernels import plan_order
+    from repro_torch.models import pointnet2 as pn
+    cfg = models["model1"].config
+    sets = {"main": clouds_np, **_cloud_kinds(SEED + 5)}
+    p1, p2, cases = {}, {}, {}
+    errors = {"P1": 0, "P2": 0}
+
+    def err(got, want):
+        return int((got.cpu().long() - want.long()).abs().max())
+    for name, cl in sets.items():
+        pts, _, nbr = pn.geometry_pass(cfg, torch.from_numpy(cl).cuda())
+        last = plan_order.plan_greedy_cuda(pts[-1])
+        orders, inverses = plan_order.plan_coordinate_cuda(nbr[1:], last)
+        torch.cuda.synchronize()
+        cpu_last = plan_order.plan_greedy_plain(pts[-1].cpu())
+        cpu_o, cpu_i = plan_order.plan_coordinate_plain(
+            [nb.cpu() for nb in nbr[1:]], cpu_last)
+        errors["P1"] = max(errors["P1"], err(last, cpu_last))
+        errors["P2"] = max([errors["P2"]] + [
+            err(a, b) for a, b in zip(orders + inverses, cpu_o + cpu_i)])
+        check(torch.equal(last.cpu(), cpu_last), f"P1 {name} bitwise")
+        check(all(torch.equal(a.cpu(), b) for a, b in
+                  zip(orders + inverses, cpu_o + cpu_i)),
+              f"P2 {name} bitwise")
+        host_pts = pts[-1].cpu().numpy()
+        host_nbr = [nb.cpu().numpy() for nb in nbr[1:]]
+        for b in range(cl.shape[0]):
+            want = _oracle_plan(cfg, host_pts[b], [nb[b] for nb in host_nbr])
+            check(np.array_equal(orders[-1][b].cpu().numpy(), want[-1]),
+                  f"P1 {name} cloud {b} vs the NumPy planner")
+            check(all(np.array_equal(o[b].cpu().numpy(), w)
+                      for o, w in zip(orders, want)),
+                  f"P2 {name} cloud {b} vs the NumPy planner")
+        plan = device_build_plan(nbr[1:], pts[-1], intra="greedy",
+                                 coordinated=True)
+        check(all(torch.equal(plan.order_of(k), orders[k - 1])
+                  for k in (1, 2)), f"device_build_plan {name}")
+        p1[name] = list(pts[-1].shape)
+        p2[name] = [list(nb.shape) for nb in nbr[1:]]
+        if name == "main":
+            cases["p1"] = pts[-1].contiguous()
+            cases["p2"] = (list(nbr[1:]), last)
+    # the forward's one cloud, and the most points one block holds
+    big = torch.from_numpy(np.random.default_rng(SEED + 6).normal(
+        size=(1, 2048, 3)).astype(np.float32)).cuda()
+    for name, pts in (("forward", cases["p1"][:1].contiguous()),
+                      ("n2048", big)):
+        got = plan_order.plan_greedy_cuda(pts)
+        torch.cuda.synchronize()
+        want = plan_order.plan_greedy_plain(pts.cpu())
+        errors["P1"] = max(errors["P1"], err(got, want))
+        check(torch.equal(got.cpu(), want), f"P1 {name} bitwise")
+        check(np.array_equal(got[0].cpu().numpy(),
+                             greedy_nn_order(pts[0].cpu().numpy())),
+              f"P1 {name} vs the NumPy planner")
+        p1[name] = list(pts.shape)
+    cases["p1_forward"] = cases["p1"][:1].contiguous()
+    cases["p1_2048"] = big
+    cases["errors"] = errors
+    emit({"phase": "kernel_vs_plain_plan", "tolerance": "bitwise",
+          "against": ["plain version on the CPU", "NumPy planner"],
+          "P1": p1, "P2": p2, "max_abs_err": errors})
+    return cases
+
+
 def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
     """One ``batched_forward`` and one ``forward``, launch counters reset
     just before and read just after."""
@@ -663,11 +802,12 @@ def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
 
 #: Backends driven end to end, per model, and the MLP launches each path
 #: must count in one ``batched_forward`` plus one ``forward`` (beside one
-#: gather and one FPS launch per SA layer and pass): model2's SA-1 runs
-#: through K2 ('mtiled'), its SA-2 through K3 ('wstat') and its head
-#: through K1; each K1, K2 or K3 call launches the s8 weight pre-pass once
-#: (``fused_mlp_combine``), K2 and K3 one launch per layer; the per-layer
-#: 'reram' backend launches K6 and its pre-pass once per layer, 8 layers.
+#: gather and one FPS launch per SA layer and pass, and one P1 and one P2
+#: launch per pass): model2's SA-1 runs through K2 ('mtiled'), its SA-2
+#: through K3 ('wstat') and its head through K1; each K1, K2 or K3 call
+#: launches the s8 weight pre-pass once (``fused_mlp_combine``), K2 and K3
+#: one launch per layer; the per-layer 'reram' backend launches K6 and its
+#: pre-pass once per layer, 8 layers.
 PATHS = {
     "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_layer": 4,
                                "fused_mlp_mtiled": 2,
@@ -686,12 +826,40 @@ MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
                 "fused_mlp_wstat_layer", "fused_mlp_combine",
                 "reram_matmul_int", "reram_combine")
 
+#: The port's kernels by the names ``torch.profiler`` gives them.
+PORT_KERNELS = ("fused_mlp_", "wstat_", "combine_", "aggregate_diff",
+                "reram_matmul", "fps_", "greedy_kernel", "coordinate_kernel")
+
+#: Kernels a captured ``batched_forward`` under the 'pointer' schedule must
+#: replay: FPS, P1, P2 and the gather.
+CAPTURED_KERNELS = ("fps_loop_kernel", "greedy_kernel", "coordinate_kernel",
+                    "aggregate_diff_kernel")
+
+
+def _captured_kernels(model, clouds) -> dict:
+    """Kernel launches by name in one replay of ``model``'s captured
+    ``batched_forward`` (``torch.profiler`` over the replay: the launch
+    counters move while a graph is captured, not when it is replayed)."""
+    model.jit_batched_forward(clouds)
+    torch.cuda.synchronize()
+    rows = _device_rows(lambda: model.jit_batched_forward(clouds))
+    return {"kernel_launches": sum(r["count"] for r in rows),
+            "device_ms": sum(r["device_ms"] for r in rows),
+            "port_kernels": {r["kernel"]: r["count"]
+                             for r in _port_rows(rows)}}
+
 
 def phase_end_to_end(params, cfgs, clouds_np) -> dict:
-    """Every path of :data:`PATHS`; returns the launch counts of each."""
+    """Every path of :data:`PATHS` under the default, planning on the card;
+    returns the launch counts of each. Per path: the launches; logits and
+    geometry against the port's CPU run; the crossbar backends' logits bit
+    for bit against the same model planning on the host; and the captured
+    entry points bit for bit against eager calls, over two replays on
+    different clouds."""
     import repro_torch
     from repro_torch.models import pointnet2 as pn
     clouds = torch.from_numpy(clouds_np).cuda()
+    others = torch.from_numpy(make_clouds(1024, BATCH, SEED + 7)).cuda()
     results, counts_of = {}, {}
     for name, cfg in cfgs.items():
         L = cfg.n_layers
@@ -705,16 +873,43 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
             model = repro_torch.compile_model(params[name], cfg,
                                               backend=backend,
                                               schedule="pointer")
+            check(model.device_planning, f"{name}/{backend} plans on the "
+                                         f"card by default")
             counts, logits, single = run_main_path(model, clouds)
             quantized = backend != "float"
             want = {"aggregate_diff_batched": L, "aggregate_diff": L,
-                    "fps": 2 * L, "fps_update": 0,
+                    "fps": 2 * L, "fps_update": 0, "plan_greedy": 2,
+                    "plan_coordinate": 2,
                     **{c: mlp_counts.get(c, 0) for c in MLP_COUNTERS}}
             for key, n in want.items():
                 check(counts[key] == n,
                       f"{name}/{backend}: {key} launched {counts[key]} "
                       f"times, expected {n}")
             counts_of[f"{name}/{backend}"] = counts
+            host = repro_torch.compile_model(params[name], cfg,
+                                             backend=backend,
+                                             schedule="pointer",
+                                             device_planning=False)
+            host_logits = host.batched_forward(clouds)
+            host_single = host.forward(clouds[0])
+            host_equal = (torch.equal(host_logits, logits)
+                          and torch.equal(host_single, single))
+            if quantized:
+                check(host_equal, f"{name}/{backend}: device-planned "
+                                  f"logits != host-planned")
+            replays = [model.jit_batched_forward(clouds),
+                       model.jit_batched_forward(others)]
+            eager_others = model.batched_forward(others)
+            check(torch.equal(replays[0], logits)
+                  and torch.equal(replays[1], eager_others),
+                  f"{name}/{backend}: captured batched_forward != eager")
+            check(torch.equal(model.jit_forward(clouds[0]), single),
+                  f"{name}/{backend}: captured forward != eager")
+            captured = _captured_kernels(model, clouds)
+            for kname in CAPTURED_KERNELS:
+                check(any(kname in k for k in captured["port_kernels"]),
+                      f"{name}/{backend}: {kname} not in the captured "
+                      f"call's replay")
             cpu = repro_torch.compile_model(params[name], cfg,
                                             backend=backend,
                                             schedule="pointer", device="cpu")
@@ -740,6 +935,9 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
             results[f"{name}/{backend}"] = {
                 "launches": counts, "cpu_max_abs_err": err,
                 "tolerance": tol, "forward_vs_batched_err": single_err,
+                "device_vs_host_planned_bitwise": host_equal,
+                "captured_vs_eager_bitwise": True,
+                "captured_replay": captured,
                 "argmax": logits.argmax(1).tolist()}
     emit({"phase": "end_to_end", "batch": BATCH, "results": results})
     return counts_of
@@ -777,13 +975,20 @@ def _k1_library(prog, m: int):
                         for w in ws])
 
 
-def _device_ms(fn) -> float:
+def _device_ms(fn, calls: int = 5) -> float:
     """Device time of one call of ``fn``, summed over its kernels by
-    ``torch.profiler``: where a call is too short to keep the card busy,
-    the CUDA-event time of back-to-back calls measures the host."""
+    ``torch.profiler`` over ``calls`` calls and divided by them: where a
+    call is too short to keep the card busy, the CUDA-event time of
+    back-to-back calls measures the host. A session that records no
+    kernel at all (seen once for a 2 µs launch) is profiled again, up to
+    three times."""
     fn()
     torch.cuda.synchronize()
-    return sum(r["device_ms"] for r in _device_rows(fn))
+    for _ in range(3):
+        rows = _device_rows(fn, calls)
+        if rows:
+            break
+    return sum(r["device_ms"] for r in rows) / calls
 
 
 def _k1_bound(prog, m: int):
@@ -836,15 +1041,18 @@ def _modeled_bytes(prog, m: int, mode: str) -> int:
     return total
 
 
-def _gather_bound(feats, nbr, ctr):
+def _gather_bound(feats, nbr, ctr, order=None):
     """Bytes and float32 subtractions of one gather: the feature rows the
-    indices refer to (each read once), the indices, and the output."""
+    indices refer to (each read once), the indices (at their own width)
+    and the plan order, and the output."""
     b, m, k = nbr.shape
     c = feats.shape[2]
     rows = sum(int(torch.unique(torch.cat((nbr[i].reshape(-1),
                                            ctr[i]))).numel())
                for i in range(b))
-    nbytes = 4 * (rows * c + nbr.numel() + ctr.numel() + b * m * k * c)
+    nbytes = (4 * rows * c + nbr.element_size() * b * m * k
+              + ctr.element_size() * b * m + 4 * b * m * k * c
+              + (0 if order is None else 4 * b * m))
     return nbytes, b * m * k * c
 
 
@@ -1132,9 +1340,174 @@ def _k7_row(fps_cases, counts_of) -> dict:
         "fps_update_step": step}
 
 
-def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
-                smi) -> list:
-    from repro_torch.kernels import aggregate, fused_mlp
+def _launch_floor() -> dict:
+    """The card's launch floor: an empty kernel (``torch.cuda._sleep(0)``,
+    a spin of no cycles), its device time from ``torch.profiler`` and its
+    time on CUDA events."""
+    return {"device_ms": _device_ms(lambda: torch.cuda._sleep(0)),
+            "ms": cuda_ms(lambda: torch.cuda._sleep(0))}
+
+
+def _gather_rows(cases, counts_main, floor: dict) -> list:
+    """K4 and K5 through the plan interface at the two gathers of one
+    model1 ``batched_forward`` / ``forward`` (model2's beside them): CUDA
+    events and device time, the plain version, and the library's two
+    ``index_select`` and subtraction on events and on the device."""
+    from repro_torch.kernels import aggregate
+    rows = []
+    for kname, key, where, counter in (
+            ("K4 aggregate_diff_batched", "K4", "aggregate.py:100",
+             "aggregate_diff_batched"),
+            ("K5 aggregate_diff", "K5", "aggregate.py:51",
+             "aggregate_diff")):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+               "device_ms": 0.0, "library_device_ms": 0.0, "bytes": 0,
+               "ops": 0}
+        per_layer = {}
+        for layer, c in cases[key].items():
+            x = c["inputs"]
+            run = (lambda: aggregate.aggregate_diff_cuda(
+                x["feats"], x["nbr"], x["ctr"], x["order"], counter=counter))
+            lib = _gather_library(x["feats"], x["nbr_o"], x["ctr_o"])
+            row = {"ms": cuda_ms(run),
+                   "plain_ms": cuda_ms(
+                       lambda: aggregate.aggregate_diff_batched_plain(
+                           x["feats"], x["nbr_o"], x["ctr_o"])),
+                   "library_ms": cuda_ms(lib), "device_ms": _device_ms(run),
+                   "library_device_ms": _device_ms(lib)}
+            nbytes, ops = _gather_bound(x["feats"], x["nbr"], x["ctr"],
+                                        x["order"])
+            row["bound_ms"], row["bound_by"] = bound(nbytes, ops,
+                                                     FP32_OPS_PER_S)
+            per_layer[layer] = row
+            if layer.startswith("model1"):
+                for k in ("ms", "plain_ms", "library_ms", "device_ms",
+                          "library_device_ms"):
+                    tot[k] += row[k]
+                tot["bytes"] += nbytes
+                tot["ops"] += ops
+        bms, bby = bound(tot["bytes"], tot["ops"], FP32_OPS_PER_S)
+        rows.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/csrc/aggregate.cu",
+            "replaces": f"src/repro/kernels/{where}",
+            "launches": counts_main[counter],
+            "max_abs_err": max(c["max_abs_err"] for c in cases[key].values()),
+            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
+            "bound_by": bby, "library_ms": tot["library_ms"],
+            "library_call": "index_select x2 + sub over indices already in "
+                            "plan order (no one-call library op)",
+            "work": ("model1 SA-1 + SA-2 gathers in plan order, batch "
+                     + ("8" if key == "K4" else "1")),
+            "device_ms": tot["device_ms"],
+            "library_device_ms": tot["library_device_ms"],
+            "per_layer": per_layer})
+    rows[-1]["launch_floor"] = floor                # beside K5's time
+    return rows
+
+
+def _p1_bound(batch: int, n: int):
+    """Bytes and float32 operations of P1 over ``batch`` clouds of ``n``
+    points: the points read once, the int32 order written once; per step
+    (n - 1 of them) and point the squared distance, 3 subtractions, 3
+    multiplications and 2 additions (the key and argmin not counted)."""
+    return batch * n * 12 + batch * n * 4, 8 * batch * n * (n - 1)
+
+
+def _p2_bound(nbrs, last):
+    """Bytes of P2: the last order and the walked rows of each layer's
+    receptive fields (int64; every row of the main path is walked) read
+    once, an int32 order and inverse per layer written once. No float
+    operation."""
+    batch = last.shape[0]
+    nbytes = last.numel() * last.element_size()
+    nbytes += sum(batch * nb.shape[1] * nb.shape[2] * nb.element_size()
+                  for nb in nbrs[1:])
+    nbytes += sum(2 * 4 * batch * nb.shape[1] for nb in nbrs)
+    return nbytes, 0
+
+
+def _plan_rows(plan_cases, counts_main) -> list:
+    """P1 and P2 at the main path's shapes (the plan of one batch-8
+    ``batched_forward``), beside their bounds and launches; P1 also at the
+    forward's one cloud and at 2048 points, per step."""
+    from repro_torch.kernels import plan_order
+    pts = plan_cases["p1"]
+    b, n, _ = pts.shape
+    p1 = {"ms": cuda_ms(lambda: plan_order.plan_greedy_cuda(pts)),
+          "plain_ms": cuda_ms(lambda: plan_order.plan_greedy_plain(pts),
+                              iters=3, warmup=1),
+          "device_ms": _device_ms(lambda: plan_order.plan_greedy_cuda(pts))}
+    p1["bound_ms"], p1["bound_by"] = bound(*_p1_bound(b, n), FP32_OPS_PER_S)
+    p1["us_per_step"] = 1e3 * p1["device_ms"] / (n - 1)
+    extra = {}
+    for label, key in (("1x128 (forward)", "p1_forward"),
+                       ("1x2048", "p1_2048")):
+        x = plan_cases[key]
+        dev = _device_ms(lambda: plan_order.plan_greedy_cuda(x))
+        extra[label] = {"ms": cuda_ms(lambda: plan_order.plan_greedy_cuda(x),
+                                      iters=5, warmup=1),
+                        "device_ms": dev,
+                        "us_per_step": 1e3 * dev / (x.shape[1] - 1),
+                        "bound_ms": bound(*_p1_bound(1, x.shape[1]),
+                                          FP32_OPS_PER_S)[0]}
+    nbrs, last = plan_cases["p2"]
+    p2 = {"ms": cuda_ms(lambda: plan_order.plan_coordinate_cuda(nbrs, last)),
+          "plain_ms": cuda_ms(lambda: plan_order.plan_coordinate_plain(
+              nbrs, last), iters=5, warmup=1),
+          "device_ms": _device_ms(
+              lambda: plan_order.plan_coordinate_cuda(nbrs, last))}
+    p2["bound_ms"], p2["bound_by"] = bound(*_p2_bound(nbrs, last),
+                                           FP32_OPS_PER_S)
+    return [
+        {"name": "P1 plan_greedy", "route": "cuda",
+         "source": "src/repro_torch/csrc/plan.cu",
+         "replaces": "src/repro/core/schedule.py:628 (device_order_greedy, "
+                     "a lax.fori_loop; no pallas_call)",
+         "launches": counts_main["plan_greedy"],
+         "max_abs_err": plan_cases["errors"]["P1"],
+         "ms": p1["ms"], "plain_ms": p1["plain_ms"],
+         "bound_ms": p1["bound_ms"], "bound_by": p1["bound_by"],
+         "library_ms": None,
+         "library_call": "none (no one PyTorch call computes a greedy "
+                         "nearest-neighbour chain)",
+         "work": f"the greedy order of one batch-8 batched_forward "
+                 f"({b} x {n} points)",
+         "device_ms": p1["device_ms"], "us_per_step": p1["us_per_step"],
+         "other_shapes": extra},
+        {"name": "P2 plan_coordinate", "route": "cuda",
+         "source": "src/repro_torch/csrc/plan.cu",
+         "replaces": "src/repro/core/schedule.py:689 (device_coordinate, a "
+                     "lax.scan/lax.cond walk; no pallas_call)",
+         "launches": counts_main["plan_coordinate"],
+         "max_abs_err": plan_cases["errors"]["P2"],
+         "ms": p2["ms"], "plain_ms": p2["plain_ms"],
+         "bound_ms": p2["bound_ms"], "bound_by": p2["bound_by"],
+         "library_ms": None,
+         "library_call": "none (no one PyTorch call computes the walk)",
+         "work": f"the coordination walk of one batch-8 batched_forward "
+                 f"({last.shape[0]} x ({list(nbrs[-1].shape[1:])} -> "
+                 f"{nbrs[0].shape[1]}))",
+         "device_ms": p2["device_ms"]}]
+
+
+def _wall_ms(fn, n: int = 5) -> list:
+    """Host-clock times of ``n`` calls of ``fn``, each ended by a
+    synchronize, after one call of warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return walls
+
+
+def phase_times(cases, cases2, fps_cases, plan_cases, counts_of, models,
+                hosts, clouds_np, smi) -> list:
+    from repro_torch.kernels import fused_mlp
     counts_main = counts_of["model1/reram-fused"]
     kernels = []
     # K1: the three MLPs of one model1 batched_forward
@@ -1182,69 +1555,30 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
         "per_mlp": per_mlp})
     kernels.append(_combine_row(cases, counts_main))
     kernels.extend(_model2_fused_rows(cases2, counts_of))
-    # K4 / K5: the two plan-ordered gathers of one batched_forward / forward
-    for kname, key, wrapper, plain, count_key in (
-            ("K4 aggregate_diff_batched", "K4", "src/repro/kernels/"
-             "aggregate.py:100", aggregate.aggregate_diff_batched_plain,
-             "aggregate_diff_batched"),
-            ("K5 aggregate_diff", "K5", "src/repro/kernels/aggregate.py:51",
-             aggregate.aggregate_diff_batched_plain, "aggregate_diff")):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0,
-               "ops": 0}
-        per_layer = {}
-        for layer, c in cases[key].items():
-            feats, nbr, ctr = c["inputs"]
-            row = {
-                "ms": cuda_ms(lambda: aggregate.aggregate_diff_cuda(
-                    feats, nbr, ctr, counter=count_key)),
-                "plain_ms": cuda_ms(lambda: plain(feats, nbr, ctr)),
-                "library_ms": cuda_ms(_gather_library(feats, nbr, ctr)),
-            }
-            nbytes, ops = _gather_bound(feats, nbr, ctr)
-            row["bound_ms"], row["bound_by"] = bound(nbytes, ops,
-                                                     FP32_OPS_PER_S)
-            per_layer[layer] = row
-            for k in ("ms", "plain_ms", "library_ms"):
-                tot[k] += row[k]
-            tot["bytes"] += nbytes
-            tot["ops"] += ops
-        bms, bby = bound(tot["bytes"], tot["ops"], FP32_OPS_PER_S)
-        kernels.append({
-            "name": kname, "route": "cuda",
-            "source": "src/repro_torch/csrc/aggregate.cu",
-            "replaces": wrapper, "launches": counts_main[count_key],
-            "max_abs_err": max(c["max_abs_err"] for c in cases[key].values()),
-            "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
-            "bound_by": bby, "library_ms": tot["library_ms"],
-            "library_call": "index_select x2 + sub (two-call gather "
-                            "expression; no one-call library op)",
-            "work": ("model1 SA-1 + SA-2 gathers, batch "
-                     + ("8" if key == "K4" else "1")),
-            "per_layer": per_layer})
+    floor = _launch_floor()
+    kernels.extend(_gather_rows(cases, counts_main, floor))
+    kernels.extend(_plan_rows(plan_cases, counts_main))
     kernels.extend(_k6_rows(cases2, counts_of))
     kernels.append(_k7_row(fps_cases, counts_of))
-    # end to end
+    # end to end, on the host clock: the default (planning on the card,
+    # eager), the same call captured, and host planning
     e2e = {}
     clouds = torch.from_numpy(clouds_np).cuda()
     for name, model in models.items():
-        model.batched_forward(clouds)
-        torch.cuda.synchronize()
-        walls = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            model.batched_forward(clouds)
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t0))
-        single = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            model.forward(clouds[0])
-            torch.cuda.synchronize()
-            single.append(1e3 * (time.perf_counter() - t0))
-        e2e[name] = {"batched_forward_ms_median": statistics.median(walls),
-                     "batched_forward_ms": walls,
-                     "clouds_per_s": BATCH / (statistics.median(walls) / 1e3),
-                     "forward_ms_median": statistics.median(single)}
+        walls = _wall_ms(lambda: model.batched_forward(clouds))
+        row = {"batched_forward_ms_median": statistics.median(walls),
+               "batched_forward_ms": walls,
+               "clouds_per_s": BATCH / (statistics.median(walls) / 1e3),
+               "captured_ms_median": statistics.median(
+                   _wall_ms(lambda: model.jit_batched_forward(clouds))),
+               "forward_ms_median": statistics.median(
+                   _wall_ms(lambda: model.forward(clouds[0]))),
+               "forward_captured_ms_median": statistics.median(
+                   _wall_ms(lambda: model.jit_forward(clouds[0])))}
+        if name in hosts:
+            row["host_planned_ms_median"] = statistics.median(
+                _wall_ms(lambda: hosts[name].batched_forward(clouds)))
+        e2e[name] = row
     emit({"phase": "times", "nvidia_smi": smi, "batch": BATCH,
           "kernels": {k["name"]: {x: k[x] for x in
                                   ("ms", "plain_ms", "library_ms",
@@ -1259,6 +1593,11 @@ def phase_times(cases, cases2, fps_cases, counts_of, models, clouds_np,
           "K7": {k: kernels[-1][k] for k in (
               "tier", "us_per_step", "chain_us_per_step",
               "per_layer", "tiers", "fps_update_step")},
+          "K4_K5_per_layer": {k["name"]: k["per_layer"] for k in kernels
+                              if k["name"][:2] in ("K4", "K5")},
+          "launch_floor": floor,
+          "P1": next({x: k[x] for x in ("us_per_step", "other_shapes")}
+                     for k in kernels if k["name"] == "P1 plan_greedy"),
           "end_to_end": e2e})
     return kernels
 
@@ -1283,18 +1622,20 @@ def _modeled_rows(cases, cases2, kernels) -> dict:
     return out
 
 
-def phase_profile(model, clouds_np, smi, backend: str) -> None:
-    """Where one ``batched_forward`` spends its time: a host-clock
-    split into geometry (FPS + kNN on the card), host planning (geometry
-    pulled with ``.cpu()``, NumPy Algorithm 1, plan lowered to the card)
-    and the rest (lift, gathers, MLPs, scatters, head); then
-    ``torch.profiler`` over one call for device time by kernel name and
-    the device's busy share of the unprofiled wall time, and over one
-    ``forward`` for the port's kernels on the single-cloud path."""
+def phase_profile(name: str, model, host, clouds_np, smi) -> None:
+    """Where one batch-8 ``batched_forward`` of ``model`` spends its time,
+    in three modes: planning on the host (``host``; its host clock split
+    into geometry, host planning — geometry pulled with ``.cpu()``, NumPy
+    Algorithm 1, plan lowered to the card — and the rest), planning on the
+    card eagerly (the default), and that call captured into a CUDA graph
+    (``jit_batched_forward``). For each: the host clock (median of 5), the
+    device time by kernel from ``torch.profiler`` over one call, and the
+    device's busy share of the unprofiled wall time; and the port's
+    kernels in one ``forward``."""
     from repro_torch.models import pointnet2 as pn
     clouds = torch.from_numpy(clouds_np).cuda()
     cfg = model.config
-    model.batched_forward(clouds)
+    host.batched_forward(clouds)
     torch.cuda.synchronize()
     split = {"geometry_ms": [], "host_plan_ms": [], "total_ms": []}
     for _ in range(3):
@@ -1302,10 +1643,10 @@ def phase_profile(model, clouds_np, smi, backend: str) -> None:
         geom = pn.geometry_pass(cfg, clouds)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        model._device_plan_for(*geom)
+        host._device_plan_for(*geom)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
-        model.batched_forward(clouds)
+        host.batched_forward(clouds)
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         split["geometry_ms"].append(1e3 * (t1 - t0))
@@ -1313,27 +1654,35 @@ def phase_profile(model, clouds_np, smi, backend: str) -> None:
         split["total_ms"].append(1e3 * (t3 - t2))
     med = {k: statistics.median(v) for k, v in split.items()}
     med["rest_ms"] = med["total_ms"] - med["geometry_ms"] - med["host_plan_ms"]
-    rows = _device_rows(lambda: model.batched_forward(clouds))
-    single = _device_rows(lambda: model.forward(clouds[0]))
-    busy = sum(r["device_ms"] for r in rows)
+    modes = {}
+    for mode, fn in (
+            ("host_planned", lambda: host.batched_forward(clouds)),
+            ("device_planned", lambda: model.batched_forward(clouds)),
+            ("captured", lambda: model.jit_batched_forward(clouds))):
+        wall = statistics.median(_wall_ms(fn))
+        rows = _device_rows(fn)
+        busy = sum(r["device_ms"] for r in rows)
+        modes[mode] = {"wall_ms_median": wall, "device_busy_ms": busy,
+                       "device_busy_share": busy / wall if rows else None,
+                       "device_kernels": len(rows),
+                       "kernel_launches": sum(r["count"] for r in rows),
+                       "port_kernels": _port_rows(rows),
+                       "top_kernels": rows[:12]}
     emit({"phase": "profile", "nvidia_smi": smi, "model": cfg.name,
-          "backend": backend, "batch": BATCH, "host_clock_split_ms": med,
-          "device_busy_ms": busy,
-          "device_busy_share": busy / med["total_ms"] if rows else None,
-          "device_kernels": len(rows),
-          "kernel_launches": sum(r["count"] for r in rows),
-          "port_kernels": _port_rows(rows),
-          "forward_port_kernels": _port_rows(single),
-          "top_kernels": rows[:12]})
+          "path": name, "batch": BATCH, "host_clock_split_ms": med,
+          "modes": modes,
+          "forward_port_kernels": _port_rows(
+              _device_rows(lambda: model.forward(clouds[0])))})
 
 
-def _device_rows(fn) -> list:
-    """Device time by kernel name for one call of ``fn``, from
+def _device_rows(fn, calls: int = 1) -> list:
+    """Device time by kernel name over ``calls`` calls of ``fn``, from
     ``torch.profiler``."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     rows = []
     for e in prof.key_averages():
@@ -1345,10 +1694,8 @@ def _device_rows(fn) -> list:
 
 
 def _port_rows(rows) -> list:
-    return [r for r in rows if any(
-        name in r["kernel"] for name in ("fused_mlp_", "wstat_", "combine_",
-                                         "aggregate_diff", "reram_matmul",
-                                         "fps_"))]
+    return [r for r in rows if any(name in r["kernel"]
+                                   for name in PORT_KERNELS)]
 
 
 def main() -> int:
@@ -1364,23 +1711,25 @@ def main() -> int:
     cfgs = {m: repro_torch.PAPER_MODELS[m] for m in PATHS}
     params = {m: init_params(cfg, seed=SEED) for m, cfg in cfgs.items()}
     clouds_np = make_clouds(1024, BATCH, SEED)
-    models = {m: repro_torch.compile_model(params[m], cfg,
-                                           backend="reram-fused",
-                                           schedule="pointer")
-              for m, cfg in cfgs.items()}
-    models["model2/reram"] = repro_torch.compile_model(
-        params["model2"], cfgs["model2"], backend="reram",
-        schedule="pointer")
-    cases = phase_kernel_vs_plain(models["model1"],
-                                  torch.from_numpy(clouds_np).cuda())
+
+    def compile_path(name, backend, **kw):
+        m = name.partition("/")[0]
+        return repro_torch.compile_model(params[m], cfgs[m], backend=backend,
+                                         schedule="pointer", **kw)
+    models = {m: compile_path(m, "reram-fused") for m in cfgs}
+    models["model2/reram"] = compile_path("model2", "reram")
+    hosts = {name: compile_path(name, name.partition("/")[2]
+                                or "reram-fused", device_planning=False)
+             for name in ("model1", "model2", "model2/reram")}
+    cases = phase_kernel_vs_plain(models, torch.from_numpy(clouds_np).cuda())
     cases2 = phase_model2_kernels(models["model2"], params["model2"])
     fps_cases = phase_fps_vs_plain(clouds_np)
+    plan_cases = phase_plan_vs_plain(models, clouds_np)
     counts_of = phase_end_to_end(params, cfgs, clouds_np)
-    kernels = phase_times(cases, cases2, fps_cases, counts_of, models,
-                          clouds_np, smi)
-    for name in ("model1", "model2", "model2/reram"):
-        phase_profile(models[name], clouds_np, smi,
-                      name.partition("/")[2] or "reram-fused")
+    kernels = phase_times(cases, cases2, fps_cases, plan_cases, counts_of,
+                          models, hosts, clouds_np, smi)
+    for name, host in hosts.items():
+        phase_profile(name, models[name], host, clouds_np, smi)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
     emit({"kernels": kernels})

@@ -1,14 +1,20 @@
-"""Scheduling Order Generation (paper Algorithm 1), host half.
+"""Scheduling Order Generation (paper Algorithm 1), on the host and on
+the device.
 
-The port's copy of the NumPy planner in ``repro.core.schedule``: the
+The port's copy of the planner in ``repro.core.schedule``: the
 ``ExecutionPlan`` an Algorithm-1 walk produces, its three intra-layer
 orders ('index', 'greedy', 'morton'), inter-layer coordination, and the
-``MODE_PRESETS`` design points. Planning runs on the host: the forward
-pass pulls its geometry with ``.cpu()``, builds the plan here and lowers
-it with :meth:`DevicePlan.lower` into int32 torch tensors on the card.
+``MODE_PRESETS`` design points, in NumPy (the host oracles; a host-planned
+forward pulls its geometry with ``.cpu()`` and lowers the plan with
+:meth:`DevicePlan.lower`), and their ``device_*`` twins in torch, which
+build a :class:`DevicePlan` from the forward's own geometry tensors
+without leaving the device: :func:`device_build_plan`. On the card the
+greedy order runs through P1 and the coordination walk through P2
+(``kernels/plan_order.py``); on CPU tensors their plain versions run.
 
 Contract: on the same coordinates every function returns the permutation
-the JAX package's planner returns, bit for bit (tested).
+the JAX package's planner returns, bit for bit, the device twins included
+(tested); ties go to the first index, orphans are appended ascending.
 """
 from __future__ import annotations
 
@@ -18,6 +24,10 @@ from typing import Literal, Sequence
 import numpy as np
 import torch
 
+from ..kernels.plan_order import (GREEDY_MAX_POINTS, plan_coordinate,
+                                  plan_greedy)
+from ..kernels.plan_order import device_complete as _device_complete
+from ..kernels.plan_order import device_inverse as _device_inverse
 from .workload import PointNetWorkload
 
 __all__ = [
@@ -31,6 +41,10 @@ __all__ = [
     "complete_order",
     "inverse_permutation",
     "MODE_PRESETS",
+    "device_build_plan",
+    "device_coordinate",
+    "device_order_greedy",
+    "device_order_morton",
 ]
 
 IntraMode = Literal["index", "greedy", "morton"]
@@ -195,7 +209,7 @@ class DevicePlan:
 
 #: Above this many points ``greedy_nn_order`` recomputes distances per step
 #: instead of materializing the O(n^2) pairwise matrix (n=2048 -> 32 MB).
-GREEDY_DENSE_LIMIT = 2048
+GREEDY_DENSE_LIMIT = GREEDY_MAX_POINTS
 
 
 def greedy_nn_order(points: np.ndarray, start: int = 0) -> np.ndarray:
@@ -315,3 +329,107 @@ MODE_PRESETS: dict[str, dict] = {
     # beyond-paper
     "pointer-morton": dict(intra="morton", coordinated=True),
 }
+
+
+# ---------------------------------------------------------------------------
+# on-device planning: the same passes as torch computations
+# ---------------------------------------------------------------------------
+#
+# The ``device_*`` twins of the NumPy oracles above. Each takes a leading
+# batch axis (the reference vmaps a single-cloud function) or none, and
+# returns int32 tensors in DevicePlan layout on the input's device, with
+# no host transfer: on the card the greedy order is P1 and the
+# coordination walk P2, one launch each for the whole batch.
+
+def _batched(x, ndim: int):
+    """``(x with a leading batch axis, whether one was added)``."""
+    return (x[None], True) if x.ndim == ndim else (x, False)
+
+
+def device_order_greedy(points, start: int = 0):
+    """Device twin of :func:`greedy_nn_order`: ``(n, 3)`` or ``(B, n, 3)``
+    -> int32 ``(n,)`` or ``(B, n)``, limited to n <=
+    ``GREEDY_DENSE_LIMIT`` as the reference's dense sweep is."""
+    pts, single = _batched(points, 2)
+    n = pts.shape[1]
+    if n > GREEDY_DENSE_LIMIT:
+        raise ValueError(
+            f"device_order_greedy is limited to n <= {GREEDY_DENSE_LIMIT} "
+            f"(one block holds the cloud); got n={n} (use the host "
+            f"greedy_nn_order fallback)")
+    out = plan_greedy(pts, start)
+    return out[0] if single else out
+
+
+def device_order_morton(points, nbits: int = 10):
+    """Device twin of :func:`morton_order`: quantize each axis to ``nbits``
+    buckets (degenerate axes to bucket 0), interleave the bits into a key,
+    stable-sort. Keys are int64: torch has no full uint32 arithmetic."""
+    if 3 * nbits > 32:
+        raise ValueError(f"3*nbits must fit a uint32 key; got nbits={nbits}")
+    pts, single = _batched(points, 2)
+    lo = pts.amin(dim=1, keepdim=True)
+    hi = pts.amax(dim=1, keepdim=True)
+    extent = hi - lo
+    safe = torch.where(extent > 0, extent, torch.ones_like(extent))
+    q = ((pts - lo) / safe * (2 ** nbits - 1)).to(torch.int64)
+    b = torch.arange(nbits, device=pts.device)
+    bits = (q[..., None] >> b) & 1                       # (B, n, 3, nbits)
+    axis = torch.arange(3, device=pts.device)[:, None]
+    key = (bits << (3 * b + 2 - axis)).sum(dim=(2, 3))   # disjoint bits
+    out = torch.sort(key, dim=1, stable=True).indices.to(torch.int32)
+    return out[0] if single else out
+
+
+def _coordinated(neighbors, last_order):
+    nbrs = list(neighbors)
+    single = last_order.ndim == 1
+    if single:
+        nbrs = [nb[None] for nb in nbrs]
+        last_order = last_order[None]
+    orders, inverses = plan_coordinate(nbrs, last_order)
+    if single:
+        orders, inverses = [o[0] for o in orders], [i[0] for i in inverses]
+    return orders, inverses
+
+
+def device_coordinate(neighbors, last_order):
+    """Device twin of :func:`coordinate_layers`: ``neighbors[k-1]`` layer
+    k's receptive fields ``(n_k, K)`` (or ``(B, n_k, K)``; layer 1's is
+    carried for its size only), ``last_order`` ``(n_L,)`` (or ``(B,
+    n_L)``) -> one int32 full permutation per layer 1..L, the walk's order
+    completed with the orphans in ascending order."""
+    return _coordinated(neighbors, last_order)[0]
+
+
+def device_build_plan(neighbors, last_points, *, intra: IntraMode = "index",
+                      coordinated: bool = False, start: int = 0,
+                      nbits: int = 10) -> DevicePlan:
+    """The whole of :func:`build_plan` + :meth:`DevicePlan.lower` on the
+    device: ``neighbors[k-1]`` layer k's receptive fields ``(n_k, K)``,
+    ``last_points`` the layer-L coordinates ``(n_L, 3)`` — or both with a
+    leading batch axis, for a batched plan."""
+    pts, single = _batched(last_points, 2)
+    nbrs = [nb[None] for nb in neighbors] if single else list(neighbors)
+    sizes = tuple(int(nb.shape[1]) for nb in nbrs)
+    batch, dev = pts.shape[0], pts.device
+    if intra == "index":
+        last = torch.arange(sizes[-1], dtype=torch.int32,
+                            device=dev).expand(batch, -1)
+    elif intra == "greedy":
+        last = device_order_greedy(pts, start=start)
+    elif intra == "morton":
+        last = device_order_morton(pts, nbits=nbits)
+    else:
+        raise ValueError(f"unknown intra mode {intra!r}")
+    if coordinated:
+        orders, inverses = _coordinated(nbrs, last)
+    else:
+        orders = [torch.arange(n, dtype=torch.int32,
+                               device=dev).expand(batch, -1)
+                  for n in sizes[:-1]] + [last]
+        inverses = orders[:-1] + [_device_inverse(last)]
+    if single:
+        orders, inverses = [o[0] for o in orders], [i[0] for i in inverses]
+    return DevicePlan(orders, inverses, sizes, intra=intra,
+                      coordinated=coordinated)

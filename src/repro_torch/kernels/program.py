@@ -135,7 +135,12 @@ def _quantize(x: torch.Tensor, scale: torch.Tensor,
 def require_finite(x: torch.Tensor) -> None:
     """Raise ``ValueError`` if ``x`` holds a NaN or an Inf (a host sync on
     a CUDA tensor): a single NaN poisons the ``max(|x|)`` quantization
-    scale and silently zeroes the whole tensor."""
+    scale and silently zeroes the whole tensor. A call being captured into
+    a CUDA graph cannot read its values back, so there the check is
+    skipped, as the reference's cannot raise on a traced value under
+    jit."""
+    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
     if not bool(torch.isfinite(x).all()):
         raise ValueError("quantize_tensor: input contains NaN/Inf — a "
                          "non-finite value poisons the quantization scale")

@@ -11,26 +11,35 @@ Lifecycle — the same three phases as the accelerator:
   plan    : ``schedule=`` pins the execution order (paper Algorithm 1):
             ``"baseline"`` is plain layer-by-layer index order; any other
             preset / ``{"intra": ..., "coordinated": ...}`` spec routes
-            execution through a per-cloud plan built on the host from the
-            forward's own geometry; a prebuilt ``ExecutionPlan`` is lowered
-            here, once, into a :class:`DevicePlan` (also accepted
+            execution through a per-cloud plan built from the forward's own
+            geometry — on the device by default (``device_planning``: the
+            ``device_*`` twins of ``core/schedule.py``, greedy through P1
+            and coordination through P2), on the host with
+            ``device_planning=False``; a prebuilt ``ExecutionPlan`` is
+            lowered here, once, into a :class:`DevicePlan` (also accepted
             directly, possibly batched).
   execute : ``CompiledModel.forward``/``batched_forward``. Under a plan,
             each SA layer runs its centers in plan order through the gather
             kernels (``aggregate_diff`` for one cloud, one
-            ``aggregate_diff_batched`` launch per layer for a batch), the
-            MLP runs through the backend's kernels, and the per-center max is
-            scattered back to index order — so logits are bitwise invariant
-            to the order.
+            ``aggregate_diff_batched`` launch per layer for a batch), which
+            read the plan order and the index-order geometry themselves,
+            the MLP runs through the backend's kernels, and the per-center
+            max is scattered back to index order — so logits are bitwise
+            invariant to the order. ``jit_forward``/``jit_batched_forward``
+            (and ``eval_step``) capture one call per input shape into a CUDA
+            graph and replay it.
 
 Devices: a compiled model runs on ``cuda`` unless ``compile_model`` is given
 ``device="cpu"``, and raises when asked for a card that is not there. On
 the card every kernel wrapper launches its CUDA kernel; on the CPU it runs
 its plain torch version. Nothing falls back from one to the other.
 
-Planning runs on the host in this port: the geometry is pulled with
-``.cpu()``, the NumPy planner builds the plan and ``DevicePlan.lower``
-moves it to the device (the JAX package's ``device_planning=False`` path).
+Under device planning a call makes no host transfer (no ``.cpu()``,
+``.item()`` or ``bool`` of a tensor), which is what lets it be captured.
+Host planning pulls the geometry with ``.cpu()``, builds the plan with the
+NumPy planner and lowers it with ``DevicePlan.lower`` (the JAX package's
+``device_planning=False`` path); only it records the plan-ordered neighbor
+streams that :meth:`CompiledModel.stats` reports after a call.
 """
 from __future__ import annotations
 
@@ -41,9 +50,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core.schedule import (DevicePlan, ExecutionPlan,
-                                       MODE_PRESETS, build_plan,
-                                       complete_order)
+from repro_torch.core.schedule import (GREEDY_DENSE_LIMIT, DevicePlan,
+                                       ExecutionPlan, MODE_PRESETS,
+                                       build_plan, complete_order,
+                                       device_build_plan)
 from repro_torch.core.workload import PointNetConfig, PointNetWorkload
 from repro_torch.kernels import (FUSED_MODES, aggregate_diff,
                                  aggregate_diff_batched, count_dma_elisions,
@@ -331,6 +341,28 @@ def _canonical_schedule(schedule, config: PointNetConfig):
                     f"{type(schedule).__name__}")
 
 
+def _device_planning_blocker(spec: dict,
+                             config: PointNetConfig) -> str | None:
+    """Why plan construction can NOT run on the device for this (spec,
+    config) — or None when device planning is available. The host-only
+    cases: an intra choice still made per workload (a policy's 'auto'; the
+    port has no policy yet, so it cannot arise), and a greedy order whose
+    last layer exceeds the one-block limit."""
+    intra = spec["intra"]
+    if intra == "auto":
+        return ("the policy's intra choice is per-workload (scored on "
+                "concrete geometry); precommit it to one candidate "
+                "first — policy.precommit(representative_workload)")
+    if intra == "greedy" and config.layers[-1].n_centers > GREEDY_DENSE_LIMIT:
+        return (f"device greedy ordering holds a cloud in one block and is "
+                f"limited to last-layer sizes <= "
+                f"GREEDY_DENSE_LIMIT={GREEDY_DENSE_LIMIT}; this config's "
+                f"last layer has {config.layers[-1].n_centers} centers")
+    if intra not in ("index", "greedy", "morton"):
+        return f"unknown intra mode {intra!r}"
+    return None
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` as a ``torch.device``; None means ``cuda``. Asking for a
     card that is not there raises — the port never runs on the CPU unless
@@ -348,6 +380,40 @@ def resolve_device(device=None) -> torch.device:
 # the compiled model
 # ---------------------------------------------------------------------------
 
+class CudaGraphCall:
+    """One call of ``fn`` on CUDA tensors captured into a
+    ``torch.cuda.CUDAGraph`` for its input shapes: warmed up on a side
+    stream, then captured over static input buffers. Calling it copies the
+    inputs in, replays the graph and returns clones of the outputs. A
+    failed capture raises; nothing falls back to eager execution."""
+
+    #: eager calls on the side stream before the capture (they build the
+    #: kernels and fill the wrappers' shape caches)
+    WARMUP = 2
+
+    def __init__(self, fn: Callable, args: tuple):
+        dev = args[0].device
+        self.inputs = tuple(a.clone() for a in args)
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(self.WARMUP):
+                    fn(*self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                self.outputs = fn(*self.inputs)
+
+    def __call__(self, *args):
+        for buf, a in zip(self.inputs, args):
+            buf.copy_(a)
+        self.graph.replay()
+        if isinstance(self.outputs, tuple):
+            return tuple(o.clone() for o in self.outputs)
+        return self.outputs.clone()
+
+
 class CompiledModel(nn.Module):
     """The executable returned by :func:`compile_model`: a programmed
     backend plus a compiled schedule, on one device."""
@@ -355,7 +421,8 @@ class CompiledModel(nn.Module):
     def __init__(self, backend: Backend, config: PointNetConfig,
                  schedule_spec: dict, planned: bool, *,
                  plan: ExecutionPlan | None = None,
-                 device_plan: DevicePlan | None = None):
+                 device_plan: DevicePlan | None = None,
+                 device_planning: bool = False):
         super().__init__()
         self.backend = backend
         self.config = config
@@ -363,7 +430,9 @@ class CompiledModel(nn.Module):
         self._plan = plan          # user-supplied host plan (stats only)
         self._dplan = device_plan  # compile-time lowered plan, if any
         self._planned = planned
+        self._device_planning = device_planning
         self._last_streams: list | None = None
+        self._graphs: dict = {}    # (entry, input shapes) -> CudaGraphCall
 
     # -- public metadata ----------------------------------------------------
 
@@ -381,6 +450,15 @@ class CompiledModel(nn.Module):
         """True when execution routes through a gather order (any schedule
         but 'baseline') — when there is a plan to build and reuse."""
         return self._planned
+
+    @property
+    def device_planning(self) -> bool:
+        """True when each call builds its plan on the device from its own
+        geometry (``device_build_plan``: no host transfer, so the call can
+        be captured). False for host planning (``device_planning=False``)
+        and for schedules with no per-cloud construction at all (baseline,
+        prebuilt plans)."""
+        return self._device_planning
 
     @property
     def device_plan(self) -> DevicePlan | None:
@@ -402,9 +480,10 @@ class CompiledModel(nn.Module):
         cache: keep the result and pass it back through
         ``forward(dplan=...)`` (or :meth:`DevicePlan.stack` several into
         ``batched_forward(dplan=...)``) to skip planning on a repeat.
-        Planning runs on the host; the compile-time plan is returned
-        unchanged when one is bound. ``n_valid`` masks pad rows out of the
-        geometry, so the plan equals the unpadded cloud's."""
+        Planning runs on the device under device planning, on the host
+        otherwise; the compile-time plan is returned unchanged when one is
+        bound. ``n_valid`` masks pad rows out of the geometry, so the plan
+        equals the unpadded cloud's."""
         if not self._planned:
             raise ValueError("this model's schedule is unplanned "
                              "('baseline'); there is no plan to build")
@@ -412,6 +491,8 @@ class CompiledModel(nn.Module):
             return self._dplan
         geom = _pn.geometry_pass(self.config, self._input(cloud),
                                  n_valid=n_valid)
+        if self._device_planning:
+            return self._traced_plan(geom[0], geom[2])
         return self._device_plan_for(*geom)
 
     # -- execution ----------------------------------------------------------
@@ -422,7 +503,7 @@ class CompiledModel(nn.Module):
         """Single cloud ``(N, 3)`` -> logits ``(n_classes,)``. ``n_valid``
         marks the real row count of a cloud padded with trailing rows;
         ``dplan`` supplies a prebuilt single-cloud :class:`DevicePlan` for
-        this call, in place of the compile-time plan or host planning."""
+        this call, in place of the compile-time plan or planning."""
         cloud = self._input(cloud)
         if self._planned:
             return self._forward_planned(cloud, n_valid, dplan)
@@ -459,9 +540,52 @@ class CompiledModel(nn.Module):
 
     @torch.no_grad()
     def eval_step(self, clouds, labels):
-        """:meth:`loss_fn` under ``torch.no_grad()``. There is no jit: the
-        port runs eagerly, so nothing is traced or cached here."""
-        return self.loss_fn(clouds, labels)
+        """:meth:`loss_fn` under ``torch.no_grad()``, captured into a CUDA
+        graph per input shape on the card (replayed on later calls), as the
+        reference jits it. A model that plans on the host per cloud runs
+        eagerly, as does one on the CPU (there is nothing to capture)."""
+        if self._planned and self._dplan is None \
+                and not self._device_planning:
+            return self.loss_fn(clouds, labels)
+        labels = torch.as_tensor(labels, dtype=torch.int64,
+                                 device=self.device)
+        return self._replay(self.loss_fn, self._input(clouds), labels)
+
+    def _require_traceable(self, what: str) -> None:
+        if self._planned and self._dplan is None \
+                and not self._device_planning:
+            raise TypeError(
+                f"{what} needs the whole pipeline captured into one CUDA "
+                f"graph, but this model plans on host per cloud "
+                f"(device_planning is off); compile with "
+                f"device_planning=True, or pass a prebuilt "
+                f"ExecutionPlan/DevicePlan")
+
+    def jit_forward(self, cloud) -> torch.Tensor:
+        """:meth:`forward` as one captured CUDA graph, cloud -> logits:
+        captured on the first call of each cloud shape, replayed after.
+        Under device planning the graph holds the geometry, the plan's
+        construction (P1, P2), the gathers and the MLPs: no host work. On
+        a CPU model it is :meth:`forward`."""
+        self._require_traceable("jit_forward")
+        return self._replay(self.forward, self._input(cloud))
+
+    def jit_batched_forward(self, clouds) -> torch.Tensor:
+        """:meth:`batched_forward` as one captured CUDA graph per batch
+        shape, as :meth:`jit_forward` is for one cloud."""
+        self._require_traceable("jit_batched_forward")
+        return self._replay(self.batched_forward, self._input(clouds))
+
+    def _replay(self, fn, *args):
+        """``fn(*args)`` through its :class:`CudaGraphCall` for these input
+        shapes (captured on first use) on the card; eagerly on the CPU."""
+        if self.device.type != "cuda":
+            return fn(*args)
+        key = (fn.__name__,) + tuple((tuple(a.shape), a.dtype) for a in args)
+        call = self._graphs.get(key)
+        if call is None:
+            call = self._graphs[key] = CudaGraphCall(fn, args)
+        return call(*args)
 
     # -- introspection ------------------------------------------------------
 
@@ -473,9 +597,9 @@ class CompiledModel(nn.Module):
         NumPy planner), else from the last call that planned on the host —
         the DMA elisions of the plan-ordered neighbor streams that drive
         the gathers, per layer, through ``count_dma_elisions`` with a
-        ``window``-row working set. A call under a compile-time or
-        caller-supplied plan keeps its geometry on the device and records
-        no stream."""
+        ``window``-row working set. A call that plans on the device, or
+        runs under a compile-time or caller-supplied plan, keeps its
+        geometry on the device and records no stream."""
         s = {"backend": self.backend_name, "schedule": self.schedule,
              "planned": self._planned}
         s.update(self.backend.stats())
@@ -531,8 +655,8 @@ class CompiledModel(nn.Module):
         return self.backend.apply_mlp_batched("head", g, final_relu=False)
 
     def _bound_plan(self, dplan: DevicePlan | None) -> DevicePlan | None:
-        """The plan that drives this call without host planning: the
-        caller's, else the compile-time one, else None."""
+        """The plan that drives this call without planning: the caller's,
+        else the compile-time one, else None."""
         if dplan is None:
             return self._dplan
         sizes = tuple(s.n_centers for s in self.config.layers)
@@ -541,10 +665,47 @@ class CompiledModel(nn.Module):
                              f"do not match config layers {sizes}")
         return dplan
 
+    def _resolved_intra(self) -> str:
+        """The concrete intra mode device planning builds (a policy's
+        'auto' would resolve here; the port has no policy yet)."""
+        return self._spec["intra"]
+
+    def _traced_plan(self, pts_list, nbr_list) -> DevicePlan:
+        """Plan construction on the device from the forward's own geometry
+        (one cloud or a batch): Algorithm 1 through
+        :func:`~repro_torch.core.schedule.device_build_plan`, no host
+        transfer."""
+        return device_build_plan(nbr_list[1:], pts_list[-1],
+                                 intra=self._resolved_intra(),
+                                 coordinated=self._spec["coordinated"])
+
+    def _planned_layers(self, feats, ctr_list, nbr_list, dplan: DevicePlan,
+                        batched: bool):
+        """The SA layers in plan order: per layer one gather (the kernel
+        reads the plan order and the index-order indices), the MLP, the
+        max over K, and the scatter back to index order. Returns the last
+        layer's features in index order."""
+        for k in range(1, self.config.n_layers + 1):
+            order = dplan.order_of(k)
+            inv = dplan.inverse_of(k).long()
+            if batched:
+                diff = aggregate_diff_batched(feats, nbr_list[k],
+                                              ctr_list[k], order)
+                h = self.backend.apply_mlp_batched(("sa", k - 1), diff)
+                out = h.amax(dim=2)                      # reduction over K
+                if inv.ndim == 1:                 # one plan shared batch-wide
+                    inv = inv.expand(out.shape[0], -1)
+                feats = torch.take_along_dim(out, inv[:, :, None], dim=1)
+            else:
+                diff = aggregate_diff(feats, nbr_list[k], ctr_list[k], order)
+                h = self.backend.apply_mlp(("sa", k - 1), diff)
+                feats = h.amax(dim=1)[inv]       # back to index order
+        return feats
+
     def _forward_planned(self, cloud, n_valid=None, dplan=None):
-        """Plan-driven execution of one cloud: each SA layer gathers its
-        neighbor differences in plan order through ``aggregate_diff``, runs
-        the MLP, and scatters the per-center max back to index order."""
+        """Plan-driven execution of one cloud. The plan: the caller's, else
+        the compile-time one, else built on the device from this cloud's
+        geometry (device planning), else built on the host."""
         cfg = self.config
         dplan = self._bound_plan(dplan)
         if dplan is not None and dplan.batched:
@@ -554,54 +715,57 @@ class CompiledModel(nn.Module):
         pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, cloud,
                                                          n_valid=n_valid)
         if dplan is None:
-            dplan = self._device_plan_for(pts_list, ctr_list, nbr_list,
-                                          record=True)
-        dplan = dplan.to(cloud.device)
-        for k in range(1, cfg.n_layers + 1):
-            order = dplan.order_of(k).long()
-            inv = dplan.inverse_of(k).long()
-            nbr_o = nbr_list[k][order].to(torch.int32)
-            ctr_o = ctr_list[k][order].to(torch.int32)
-            diff = aggregate_diff(feats, nbr_o, ctr_o)   # plan-ordered gather
-            h = self.backend.apply_mlp(("sa", k - 1), diff)
-            out = h.amax(dim=1)                          # reduction over K
-            feats = out[inv]                             # back to index order
+            dplan = (self._traced_plan(pts_list, nbr_list)
+                     if self._device_planning else
+                     self._device_plan_for(pts_list, ctr_list, nbr_list,
+                                           record=True))
+        feats = self._planned_layers(feats, ctr_list, nbr_list,
+                                     dplan.to(cloud.device), batched=False)
         g = feats.amax(dim=0)
         return self.backend.apply_mlp("head", g, final_relu=False)
 
     def _batched_forward_planned(self, clouds, n_valid=None, dplan=None):
-        """Plan-driven execution of a batch: batched geometry, per-cloud
-        host plans stacked into one batched :class:`DevicePlan` (or the
-        caller's or compile-time plan), then one ``aggregate_diff_batched``
+        """Plan-driven execution of a batch. A caller's or compile-time
+        :class:`DevicePlan`, or device planning, go through
+        :meth:`_batched_forward_device`; here the host plans: batched
+        geometry pulled to the host once, per-cloud NumPy plans stacked into
+        one batched :class:`DevicePlan`, then one ``aggregate_diff_batched``
         launch and one batched MLP call per SA layer. Logits equal the
         per-cloud ``forward`` row for row."""
+        dplan = self._bound_plan(dplan)
+        if dplan is not None or self._device_planning:
+            return self._batched_forward_device(clouds, n_valid, dplan)
+        cfg = self.config
+        feats = _pn.lift_features(clouds, cfg.layers[0].in_features)
+        pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, clouds,
+                                                         n_valid=n_valid)
+        dplan = self._device_plan_for(pts_list, ctr_list, nbr_list,
+                                      record=True)
+        feats = self._planned_layers(feats, ctr_list, nbr_list, dplan,
+                                     batched=True)
+        g = feats.amax(dim=1)                            # global max pool
+        return self.backend.apply_mlp_batched("head", g, final_relu=False)
+
+    def _batched_forward_device(self, clouds, n_valid=None, dplan=None):
+        """The batched path without host work: batched geometry, the plan
+        built on the device for the whole batch (P1 and P2 one launch each
+        on the card) unless a prebuilt or caller-supplied
+        :class:`DevicePlan` is given, then one ``aggregate_diff_batched``
+        launch and one batched MLP call per SA layer. Same arithmetic per
+        row as the host-planned path, so the logits equal it bit for bit
+        (crossbar backends)."""
         cfg = self.config
         batch = clouds.shape[0]
-        dplan = self._bound_plan(dplan)
         if dplan is not None and dplan.batched and dplan.batch_size != batch:
             raise ValueError(f"batched DevicePlan is for batch "
                              f"{dplan.batch_size}, got {batch} clouds")
         feats = _pn.lift_features(clouds, cfg.layers[0].in_features)
         pts_list, ctr_list, nbr_list = _pn.geometry_pass(cfg, clouds,
                                                          n_valid=n_valid)
-        if dplan is None:
-            dplan = self._device_plan_for(pts_list, ctr_list, nbr_list,
-                                          record=True)
-        dplan = dplan.to(clouds.device)
-        for k in range(1, cfg.n_layers + 1):
-            order = dplan.order_of(k).long()
-            inv = dplan.inverse_of(k).long()
-            if not dplan.batched:                 # one plan shared batch-wide
-                order = order.expand(batch, -1)
-                inv = inv.expand(batch, -1)
-            nbr_o = torch.take_along_dim(nbr_list[k], order[:, :, None],
-                                         dim=1).to(torch.int32)
-            ctr_o = torch.take_along_dim(ctr_list[k], order,
-                                         dim=1).to(torch.int32)
-            diff = aggregate_diff_batched(feats, nbr_o, ctr_o)  # one launch
-            h = self.backend.apply_mlp_batched(("sa", k - 1), diff)
-            out = h.amax(dim=2)                          # reduction over K
-            feats = torch.take_along_dim(out, inv[:, :, None], dim=1)
+        dplan = (self._traced_plan(pts_list, nbr_list) if dplan is None
+                 else dplan.to(clouds.device))
+        feats = self._planned_layers(feats, ctr_list, nbr_list, dplan,
+                                     batched=True)
         g = feats.amax(dim=1)                            # global max pool
         return self.backend.apply_mlp_batched("head", g, final_relu=False)
 
@@ -691,6 +855,7 @@ def _dma_report(streams, window: int) -> dict:
 
 def compile_model(params: Params, config: PointNetConfig, *,
                   backend: str = "float", schedule=None,
+                  device_planning: bool | None = None,
                   device=None, **backend_opts) -> CompiledModel:
     """Compile PointNet++ ``params`` for execution on ``device``.
 
@@ -706,6 +871,17 @@ def compile_model(params: Params, config: PointNetConfig, *,
                ``{'intra', 'coordinated'}`` mapping, a prebuilt
                :class:`ExecutionPlan`, or a prebuilt (possibly batched)
                :class:`DevicePlan`.
+    device_planning : build each call's plan on the device from its own
+               geometry (:func:`~repro_torch.core.schedule.
+               device_build_plan`: greedy through P1, coordination through
+               P2), so a call makes no host transfer and
+               ``jit_forward``/``jit_batched_forward`` can capture it.
+               None (the default) turns it on wherever the schedule allows
+               (a spec-driven planned schedule whose greedy last layer is
+               within ``GREEDY_DENSE_LIMIT``); True demands it
+               (``ValueError`` naming the blocker); False keeps host
+               planning, which also records the plan-ordered streams
+               :meth:`CompiledModel.stats` reports.
     device   : where the model runs; default ``cuda``, which raises when no
                card is present. ``device="cpu"`` runs the plain versions.
     backend_opts : go to the backend's constructor — ``mode=`` ('whole',
@@ -722,7 +898,25 @@ def compile_model(params: Params, config: PointNetConfig, *,
         raise ValueError(f"unknown backend {backend!r}; registered backends: "
                          f"{available_backends()}") from None
     spec, plan, dplan, planned = _canonical_schedule(schedule, config)
+    if planned and dplan is None:
+        blocker = _device_planning_blocker(spec, config)
+        if device_planning is None:
+            device_planning = blocker is None
+        elif device_planning and blocker is not None:
+            raise ValueError(f"device_planning=True impossible for this "
+                             f"schedule: {blocker}")
+    else:
+        # baseline, or a prebuilt ExecutionPlan/DevicePlan: construction
+        # already happened, there is nothing to run on the device
+        if device_planning:
+            raise ValueError(
+                "device_planning=True needs a spec-driven planned schedule "
+                "(preset name or {'intra', 'coordinated'} mapping); "
+                "baseline and prebuilt plans have no plan construction "
+                "left to lower")
+        device_planning = False
     model = CompiledModel(cls(params, config, **backend_opts), config, spec,
                           planned, plan=plan,
-                          device_plan=None if dplan is None else dplan.to(dev))
+                          device_plan=None if dplan is None else dplan.to(dev),
+                          device_planning=bool(device_planning))
     return model.to(dev)

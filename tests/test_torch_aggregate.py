@@ -13,7 +13,7 @@ from repro_torch.kernels import (aggregate_diff,                   # noqa: E402
                                  aggregate_diff_batched, launch_counts,
                                  reset_launch_counts)
 from repro_torch.kernels import aggregate                          # noqa: E402
-from repro_torch.kernels.aggregate import centers_per_block        # noqa: E402
+from repro_torch.kernels.aggregate import gather_launch            # noqa: E402
 
 
 def _inputs(batch, n, c, m, k, seed=0):
@@ -76,7 +76,67 @@ def test_empty_gather_launches_nothing(m, k):
 
 
 def test_centers_per_block_fills_the_card():
-    # model1: C=8 at SA-1 packs several centers per block; C=256 one
-    assert centers_per_block(8, 512, 16, 8) > 1
-    assert centers_per_block(8, 128, 16, 256) == 1
-    assert 8 * -(-512 // centers_per_block(8, 512, 16, 8)) >= 2 * 132
+    # one thread a 16-byte chunk of an output row: a centre's K rows are
+    # spread over blocks, so batch 1 at model2 SA-2 (128 x 16 x 512) and
+    # model1 SA-1 at batch 8 (512 x 16 x 8) both give blocks for every SM
+    assert gather_launch(128, 16, 512) == (4, 128 * 16 * 128 // 256)
+    assert gather_launch(128, 16, 256)[1] >= 2 * 132
+    assert gather_launch(512, 16, 8) == (4, 512 * 16 * 2 // 256)
+    assert 8 * gather_launch(512, 16, 8)[1] >= 2 * 132
+    # C not a multiple of 4, or rows not 16-byte aligned: one float a thread
+    assert gather_launch(40, 7, 3) == (1, -(-40 * 7 * 3 // 256))
+    assert gather_launch(8, 4, 16, aligned=False) == (1, 2)
+
+
+@pytest.mark.parametrize("idx", [torch.int32, torch.int64])
+@pytest.mark.parametrize("batch,n,c,m,k", [(3, 64, 4, 24, 4),
+                                           (2, 40, 3, 40, 7)])
+def test_plan_order_composed_bitwise_vs_jax(idx, batch, n, c, m, k):
+    """With ``order``, row i is centre ``order[i]``'s: the same tensor as
+    the reference's gather over the indices permuted first (the plain
+    version the kernel is held to), for one order per cloud, one order
+    batch-wide, and one cloud."""
+    feats, nbr, ctr = _inputs(batch, n, c, m, k, seed=3)
+    rng = np.random.default_rng(4)
+    order = np.stack([rng.permutation(m) for _ in range(batch)]).astype(
+        np.int32)
+    t_f, t_nbr, t_ctr = (torch.from_numpy(a) for a in (feats, nbr, ctr))
+    t_nbr, t_ctr = t_nbr.to(idx), t_ctr.to(idx)
+    t_ord = torch.from_numpy(order)
+    nbr_o = np.take_along_axis(nbr, order[:, :, None], axis=1)
+    ctr_o = np.take_along_axis(ctr, order, axis=1)
+    ref = np.asarray(jagg_b(jnp.asarray(feats), jnp.asarray(nbr_o),
+                            jnp.asarray(ctr_o)))
+    got = aggregate_diff_batched(t_f, t_nbr, t_ctr, t_ord).numpy()
+    np.testing.assert_array_equal(got, ref)
+    shared = aggregate_diff_batched(t_f, t_nbr, t_ctr, t_ord[0]).numpy()
+    np.testing.assert_array_equal(
+        shared[0], np.asarray(jagg(jnp.asarray(feats[0]),
+                                   jnp.asarray(nbr[0][order[0]]),
+                                   jnp.asarray(ctr[0][order[0]]))))
+    one = aggregate_diff(t_f[1], t_nbr[1], t_ctr[1], t_ord[1]).numpy()
+    np.testing.assert_array_equal(one, ref[1])
+    # kNN's (M, K) index view of a wider sort: strided rows
+    wide = torch.cat([t_nbr, t_nbr], dim=2)[:, :, :k]
+    np.testing.assert_array_equal(
+        aggregate_diff_batched(t_f, wide, t_ctr, t_ord).numpy(), ref)
+    with pytest.raises(ValueError, match="does not match"):
+        aggregate_diff_batched(t_f, t_nbr, t_ctr, t_ord[:, :-1])
+
+
+def test_binding_matches_the_c_signature():
+    """``aggregate_diff``'s ctypes types follow its C signature (a
+    mismatch shows only on the card)."""
+    import ctypes
+    import re
+    import types
+    from repro_torch.kernels import _build
+    src = (_build.CSRC / "aggregate.cu").read_text()
+    sig = re.search(r"\bint aggregate_diff\(([^)]*)\)", src)
+    want = {"ptr": ctypes.c_void_p, "i64": ctypes.c_longlong,
+            "int": ctypes.c_int}
+    kinds = ["ptr" if "*" in a else "i64" if "long long" in a else "int"
+             for a in sig.group(1).split(",")]
+    lib = types.SimpleNamespace(aggregate_diff=types.SimpleNamespace())
+    aggregate._bind(lib)
+    assert lib.aggregate_diff.argtypes == [want[k] for k in kinds]

@@ -251,3 +251,78 @@ def test_k7_streamed_plans_take_the_large_clouds(smoke, n):
         check_plan(plan, n)
         assert plan.tier == "streamed"
         assert plan.threads * plan.per_thread * plan.cluster >= n
+
+
+def test_gather_bound_counts_index_width_and_the_order(smoke):
+    """The plan interface's gather reads int64 index-order indices and an
+    int32 plan order: each at its own width, once."""
+    feats = torch.zeros((2, 30, 8))
+    nbr = (torch.arange(2 * 5 * 3).reshape(2, 5, 3) % 7).to(torch.int64)
+    ctr = torch.zeros((2, 5), dtype=torch.int64)
+    order = torch.zeros((2, 5), dtype=torch.int32)
+    nbytes, ops = smoke._gather_bound(feats, nbr, ctr, order)
+    rows = sum(int(torch.unique(torch.cat((nbr[i].reshape(-1), ctr[i])))
+                   .numel()) for i in range(2))
+    assert ops == 2 * 5 * 3 * 8
+    assert nbytes == (4 * rows * 8 + 8 * 2 * 5 * 3 + 8 * 2 * 5
+                      + 4 * 2 * 5 * 3 * 8 + 4 * 2 * 5)
+
+
+def test_plan_bounds(smoke):
+    """P1: the points in and the int32 order out once, 8 float operations
+    a point and step over n - 1 steps; P2: the last order and the walked
+    receptive fields in, an order and an inverse a layer out, no float
+    operation: bound by bytes."""
+    assert smoke._p1_bound(8, 128) == (8 * 128 * 16, 8 * 8 * 128 * 127)
+    ms, by = smoke.bound(*smoke._p1_bound(8, 128), smoke.FP32_OPS_PER_S)
+    assert by == "operations"
+    nbrs = [torch.zeros((8, 512, 16), dtype=torch.int64),
+            torch.zeros((8, 128, 16), dtype=torch.int64)]
+    last = torch.zeros((8, 128), dtype=torch.int32)
+    nbytes, ops = smoke._p2_bound(nbrs, last)
+    assert ops == 0
+    assert nbytes == 8 * 128 * 4 + 8 * 128 * 16 * 8 + 2 * 4 * 8 * (512 + 128)
+    assert smoke.bound(nbytes, ops, smoke.FP32_OPS_PER_S)[1] == "bytes"
+
+
+def test_profiled_kernel_names_are_the_sources(smoke):
+    """The names the script looks for in ``torch.profiler``'s rows (the
+    port's kernels, and those a captured call must replay) are kernels
+    the CUDA sources define."""
+    from repro_torch.kernels import _build
+    src = "".join(p.read_text() for p in _build.CSRC.glob("*.cu*"))
+    for name in smoke.CAPTURED_KERNELS:
+        assert re.search(rf"\b{name}\b", src), name
+    for name in smoke.PORT_KERNELS:
+        assert name in src, name
+    assert set(smoke.CAPTURED_KERNELS) >= {"greedy_kernel",
+                                           "coordinate_kernel"}
+
+
+def test_tie_clouds_are_seeded_and_tie_heavy(smoke):
+    kinds = smoke._cloud_kinds(0)
+    assert set(kinds) == {"clustered", "grid", "dup"}
+    for name, c in kinds.items():
+        assert c.shape == (2, 1024, 3) and c.dtype == np.float32, name
+        assert np.array_equal(c, smoke._cloud_kinds(0)[name])
+    # the grid and the duplicated cloud repeat distances exactly
+    assert np.unique(kinds["dup"][0], axis=0).shape[0] == 256
+    assert np.array_equal(kinds["grid"][0], np.round(kinds["grid"][0]))
+
+
+def test_oracle_plan_is_the_device_twins_plan(smoke):
+    """The NumPy planner the plan phase holds P1 and P2 to gives, on the
+    CPU, the device twins' plan of model1's geometry on the tie clouds."""
+    from repro_torch import PAPER_MODELS
+    from repro_torch.core.schedule import device_build_plan
+    from repro_torch.models import pointnet2 as pn
+    cfg = PAPER_MODELS["model1"]
+    for name, clouds in smoke._cloud_kinds(3).items():
+        pts, _, nbr = pn.geometry_pass(cfg, torch.from_numpy(clouds[:1]))
+        plan = device_build_plan(nbr[1:], pts[-1], intra="greedy",
+                                 coordinated=True)
+        want = smoke._oracle_plan(cfg, pts[-1][0].numpy(),
+                                  [nb[0].numpy() for nb in nbr[1:]])
+        for k in (1, 2):
+            np.testing.assert_array_equal(plan.order_of(k)[0].numpy(),
+                                          want[k - 1])

@@ -28,6 +28,8 @@ from repro_torch.kernels import (KERNEL_SOURCES, _build,   # noqa: E402
 from repro_torch.kernels.fps_update import (              # noqa: E402
     FpsPlan, fps_batched_cuda, fps_batched_plain, fps_update_cuda,
     fps_update_plain, plan_fps)
+from repro_torch.kernels import plan_order                 # noqa: E402
+from repro_torch.core import schedule as tsched            # noqa: E402
 from repro_torch.models.pointnet2 import init_params       # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -524,3 +526,161 @@ def test_fps_counter_reads_one_launch_per_sa_layer_and_call(cuda, schedule):
     model.forward(clouds[1])
     torch.cuda.synchronize()
     assert launch_counts()["fps"] == 3 * cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# P1, P2, K4/K5's plan interface, device planning and capture
+# ---------------------------------------------------------------------------
+
+def _cloud_batch(kind, batch, n, seed=0):
+    rng = np.random.default_rng(seed)
+    if kind == "grid":
+        side = int(np.ceil(n ** (1 / 3)))
+        g = np.stack(np.meshgrid(*[np.arange(side)] * 3, indexing="ij"),
+                     -1).reshape(-1, 3)[:n].astype(np.float32)
+        return np.stack([g] * batch)
+    pts = rng.normal(size=(batch, n, 3)).astype(np.float32)
+    if kind == "dup":
+        pts = np.repeat(pts[:, :-(-n // 4)], 4, axis=1)[:, :n]
+    if kind == "nan":
+        pts[:, n // 3, 1] = np.nan
+    return np.ascontiguousarray(pts)
+
+
+@pytest.mark.parametrize("kind,batch,n,start", [
+    ("normal", 8, 128, 0), ("normal", 1, 128, 5), ("normal", 3, 300, 17),
+    ("normal", 1, 2048, 0), ("grid", 2, 512, 0), ("dup", 2, 128, 3),
+    ("nan", 1, 100, 0), ("normal", 4, 1, 0), ("normal", 2, 33, 32)])
+def test_plan_greedy_kernel_bitwise(cuda, kind, batch, n, start):
+    pts = _cloud_batch(kind, batch, n)
+    got = plan_order.plan_greedy_cuda(torch.from_numpy(pts).to(cuda), start)
+    want = plan_order.plan_greedy_plain(torch.from_numpy(pts), start)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for b in range(batch):
+        np.testing.assert_array_equal(
+            got[b].cpu().numpy(), tsched.greedy_nn_order(pts[b], start))
+
+
+def _walk_inputs(seed, sizes, ks, batch):
+    rng = np.random.default_rng(seed)
+    below = [2 * sizes[0]] + list(sizes[:-1])
+    nbrs = [torch.from_numpy(rng.integers(0, max(1, nb // 2),
+                                          size=(batch, n, k)))
+            for n, k, nb in zip(sizes, ks, below)]
+    last = torch.from_numpy(np.stack([rng.permutation(sizes[-1])
+                                      for _ in range(batch)]).astype(np.int32))
+    return nbrs, last
+
+
+@pytest.mark.parametrize("sizes,ks,batch", [
+    ((512, 128), (16, 16), 8), ((60, 20, 7), (5, 6, 3), 4),
+    ((9,), (2,), 2), ((4096, 1024, 256), (32, 16, 8), 2)])
+def test_plan_coordinate_kernel_bitwise(cuda, sizes, ks, batch):
+    nbrs, last = _walk_inputs(1, sizes, ks, batch)
+    got_o, got_i = plan_order.plan_coordinate_cuda(
+        [nb.to(cuda) for nb in nbrs], last.to(cuda))
+    want_o, want_i = plan_order.plan_coordinate_plain(nbrs, last)
+    torch.cuda.synchronize()
+    for g, w in zip(got_o + got_i, want_o + want_i):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_plan_coordinate_kernel_on_the_main_path_geometry(cuda):
+    """8 clouds of 1024 points through model1's geometry: the kNN views
+    (strided rows) and P1's order, as ``device_build_plan`` hands them."""
+    from repro_torch.models import pointnet2 as pn
+    cfg = PAPER_MODELS["model1"]
+    x = torch.from_numpy(_cloud_batch("normal", 8, 1024, seed=3)).to(cuda)
+    pts, ctr, nbr = pn.geometry_pass(cfg, x)
+    reset_launch_counts()
+    plan = tsched.device_build_plan(nbr[1:], pts[-1], intra="greedy",
+                                    coordinated=True)
+    torch.cuda.synchronize()
+    assert launch_counts()["plan_greedy"] == 1
+    assert launch_counts()["plan_coordinate"] == 1
+    want = tsched.device_build_plan([n.cpu() for n in nbr[1:]],
+                                    pts[-1].cpu(), intra="greedy",
+                                    coordinated=True)
+    for k in (1, 2):
+        assert torch.equal(plan.order_of(k).cpu(), want.order_of(k))
+        assert torch.equal(plan.inverse_of(k).cpu(), want.inverse_of(k))
+
+
+@pytest.mark.parametrize("idx", [torch.int64, torch.int32])
+@pytest.mark.parametrize("batch,n,c,m,k", [
+    (8, 1024, 8, 512, 16),      # model1 SA-1 gather, K4
+    (8, 512, 256, 128, 16),     # model1 SA-2 gather, K4
+    (1, 1024, 16, 512, 16),     # model2 SA-1, K5
+    (1, 512, 512, 128, 16),     # model2 SA-2, K5
+    (2, 64, 3, 24, 4),          # C not a multiple of 4
+])
+def test_aggregate_kernel_plan_order_bitwise(cuda, idx, batch, n, c, m, k):
+    """The kernel composing the plan order itself equals the plain version
+    over the indices permuted first, for per-cloud and shared orders and
+    kNN-shaped strided index views."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    feats = torch.randn((batch, n, c), generator=g).to(cuda)
+    wide = torch.randint(0, n, (batch, m, 2 * k), generator=g).to(idx)
+    nbr = wide.to(cuda)[:, :, :k]                   # strided rows
+    ctr = torch.randint(0, n, (batch, m), generator=g).to(idx).to(cuda)
+    order = torch.stack([torch.randperm(m, generator=g)
+                         for _ in range(batch)]).to(torch.int32).to(cuda)
+    nbr_o, ctr_o = aggregate.plan_ordered(nbr, ctr, order)
+    want = aggregate.aggregate_diff_batched_plain(feats, nbr_o, ctr_o)
+    got = aggregate.aggregate_diff_batched(feats, nbr, ctr, order)
+    shared = aggregate.aggregate_diff_batched(feats, nbr, ctr, order[0])
+    one = aggregate.aggregate_diff(feats[0], nbr[0], ctr[0], order[0])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(one, want[0])
+    assert torch.equal(shared[0], want[0])
+
+
+@pytest.mark.parametrize("backend", ["reram-fused", "reram", "float"])
+def test_device_planning_on_card_equals_host_planning(cuda, backend):
+    cfg = _tiny()
+    params = init_params(cfg, seed=0, n_classes=10)
+    clouds = np.random.default_rng(2).normal(size=(3, 64, 3)).astype(
+        np.float32)
+    dev = compile_model(params, cfg, backend=backend, schedule="pointer")
+    host = compile_model(params, cfg, backend=backend, schedule="pointer",
+                         device_planning=False)
+    assert dev.device_planning and not host.device_planning
+    reset_launch_counts()
+    got = dev.batched_forward(clouds)
+    one = dev.forward(clouds[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["plan_greedy"] == 2 and counts["plan_coordinate"] == 2
+    assert torch.equal(got, host.batched_forward(clouds))
+    assert torch.equal(one, host.forward(clouds[0]))
+
+
+@pytest.mark.parametrize("backend", ["reram-fused", "reram", "float"])
+def test_captured_replays_equal_eager(cuda, backend):
+    """``jit_batched_forward`` replays one CUDA graph per batch shape:
+    bitwise equal to eager ``batched_forward`` over two inputs and two
+    batch shapes; ``jit_forward`` and ``eval_step`` alike. A replay moves
+    no launch counter: its kernels were counted when it was captured."""
+    cfg = PAPER_MODELS["model0"]
+    params = init_params(cfg, seed=0)
+    model = compile_model(params, cfg, backend=backend, schedule="pointer")
+    rng = np.random.default_rng(5)
+    for batch in (4, 2):
+        for _ in range(2):
+            x = torch.from_numpy(rng.normal(size=(batch, 1024, 3)).astype(
+                np.float32)).to(cuda)
+            got = model.jit_batched_forward(x)
+            assert torch.equal(got, model.batched_forward(x))
+    reset_launch_counts()
+    model.jit_batched_forward(x)
+    torch.cuda.synchronize()
+    assert set(launch_counts().values()) == {0}
+    for c in x:
+        assert torch.equal(model.jit_forward(c), model.forward(c))
+    labels = torch.tensor([3, 9], device=cuda)
+    nll, acc = model.eval_step(x, labels)
+    e_nll, e_acc = model.loss_fn(x, labels)
+    assert torch.equal(nll, e_nll) and torch.equal(acc, e_acc)
+    assert len(model._graphs) == 4      # two batch shapes, forward, eval

@@ -5,8 +5,8 @@ same weights (``params_from_numpy``) and the same clouds.
 Program bytes, fused-plan rows, DMA-elision reports and plan orders are
 integers and equal exactly; the loss is within 1e-5 relative (the float
 logits differ in the last bits between the frameworks), the accuracy
-equal. The JAX side plans on the host (``device_planning=False``), the
-path the port takes."""
+equal. Both sides plan on the host (``device_planning=False``): only host
+planning records the streams ``stats()`` reports after a call."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +52,7 @@ def _pair(setup, backend, schedule):
     jm = repro.compile_model(jparams, cfg_j, backend=backend,
                              schedule=schedule, **kw)
     tm = repro_torch.compile_model(tparams, cfg_t, backend=backend,
-                                   schedule=schedule, device="cpu")
+                                   schedule=schedule, device="cpu", **kw)
     return jm, tm
 
 
