@@ -74,9 +74,24 @@ JSON line:
    ``batched_forward`` in three modes — planning on the host (its host
    clock split into geometry, host planning and the rest), planning on the
    card eagerly, and captured — each with its host clock, its device time
-   by kernel from ``torch.profiler`` and the device's busy share.
+   by kernel from ``torch.profiler`` and the device's busy share;
+7. serve: the serving tier (``repro_torch.launch``) over a fresh model2
+   'reram-fused' at full width and depth, shape buckets of 768 and 1024
+   points and batches of 1, 2, 4 and 8: a pool stream (64 requests of 8
+   clouds of 1024 and 700 points) saturated and paced, and a LiDAR stream
+   (32 frames at 10 Hz, frame reuse), each under FIFO and EDF on the wall
+   clock. Launch counters reset just before the runs and read just after,
+   held to what the captures and the plan builds must launch; every served
+   row bit for bit against ``forward`` on its bare cloud; at most one
+   capture per bucket shape, none added by a second pass; plan-cache and
+   frame hits; a hit step replays K7 twice, the gather twice and no P1 or
+   P2 (``torch.profiler``), a miss launches P1 and P2 once each. Printed:
+   throughput and p50/p99 per stream and scheduler, the served step at
+   each batch bucket beside the bare captured call, the host's share of a
+   served step, and a miss's plan build.
 
-Then one ``{"kernels": [...]}`` line, the ``nvidia-smi`` name and power
+Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
+launches in the serve phase's runs), the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
 raises, so the exit code is not 0 and the last line is never printed. It
 needs a CUDA card and the repository's ``src/`` beside it.
@@ -815,7 +830,16 @@ PATHS = {
                                "fused_mlp_wstat": 2,
                                "fused_mlp_wstat_layer": 6,
                                "fused_mlp_combine": 6},
-               "reram": {"reram_matmul_int": 16, "reram_combine": 16}},
+               "reram": {"reram_matmul_int": 16, "reram_combine": 16},
+               # the served path (phase ``serve``): one served step is one
+               # ``batched_forward`` under a stacked plan, and its captures
+               # and plan builds set how many steps a run makes
+               "serve": {"fused_mlp": 1, "fused_mlp_layer": 2,
+                         "fused_mlp_mtiled": 1,
+                         "fused_mlp_mtiled_layer": 3,
+                         "fused_mlp_wstat": 1,
+                         "fused_mlp_wstat_layer": 3,
+                         "fused_mlp_combine": 3}},
     "model1": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
                                "fused_mlp_combine": 6}, "float": {}},
     "model0": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
@@ -870,6 +894,8 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
                 check(torch.equal(geom[part][k].cpu(), ref_geom[part][k]),
                       f"{name} geometry layer {k} bitwise card vs CPU")
         for backend, mlp_counts in PATHS[name].items():
+            if backend == "serve":          # driven by phase_serve
+                continue
             model = repro_torch.compile_model(params[name], cfg,
                                               backend=backend,
                                               schedule="pointer")
@@ -1622,6 +1648,295 @@ def _modeled_rows(cases, cases2, kernels) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the serving tier
+# ---------------------------------------------------------------------------
+
+#: The served configuration: model2 'reram-fused' at full width and depth,
+#: 1024-point and 700-point clouds in two point buckets.
+SERVE_BUCKETS = {"points": (768, 1024), "batch": (1, 2, 4, 8)}
+#: Poisson arrivals of the paced pool stream (requests/s): below the
+#: card's batch-8 rate, so batches stay small and latency is the measure.
+SERVE_PACED_HZ = 500.0
+#: The kernel rows of the ``{"kernels": [...]}`` line a served step or a
+#: plan-cache miss launches, by launch counter.
+SERVE_KERNELS = {"K1 fused_mlp": "fused_mlp",
+                 "K1/K2/K3 combine_weights (s8 pre-pass)":
+                     "fused_mlp_combine",
+                 "K2 fused_mlp_mtiled": "fused_mlp_mtiled",
+                 "K3 fused_mlp_wstat": "fused_mlp_wstat",
+                 "K4 aggregate_diff_batched": "aggregate_diff_batched",
+                 "K7 fps": "fps", "P1 plan_greedy": "plan_greedy",
+                 "P2 plan_coordinate": "plan_coordinate"}
+
+
+def _serve_streams() -> dict:
+    """name -> (arrivals, servable options, deadline of an item in us)."""
+    from repro_torch.data import request_stream
+    pool = list(request_stream(64, n_points=(1024, 700), pool=8,
+                               repeat_p=0.7, seed=0))
+    paced = list(request_stream(64, rate_hz=SERVE_PACED_HZ,
+                                n_points=(1024, 700), pool=8,
+                                repeat_p=0.7, seed=0))
+    lidar = list(request_stream(32, rate_hz=10.0, n_points=(1024,), pool=4,
+                                seed=0, mode="lidar"))
+    urgent = (lambda it: 4_000 if it[2] % 4 == 0 else 50_000)
+    return {"pool_saturated": ([(0.0,) + tuple(it[1:]) for it in pool],
+                               False, urgent),
+            "pool_paced": (paced, False, urgent),
+            "lidar": (lidar, True, lambda it: 100_000)}
+
+
+def _serve_run(model, arrivals, reuse, deadline, scheduler):
+    from repro_torch.core.schedule import FrameTracker
+    from repro_torch.launch import (PointCloudServable, ServingEngine,
+                                    ShapeBuckets)
+    servable = PointCloudServable(
+        model, buckets=ShapeBuckets(**SERVE_BUCKETS),
+        frame_reuse=FrameTracker(tol=1e-3) if reuse else False)
+    engine = ServingEngine(servable, scheduler=scheduler)
+    stats = engine.serve_stream(arrivals, deadline_us=deadline)
+    return servable, engine, stats
+
+
+def _stream_row(stats: dict) -> dict:
+    return {k: stats[k] for k in (
+        "n_requests", "wall_s", "throughput_rps", "p50_ms", "p99_ms",
+        "mean_ms", "deadline_miss_rate", "batches", "jit_traces",
+        "trace_shapes", "plan_cache", "frame_tracker") if k in stats}
+
+
+def _served_bitwise(model, runs) -> int:
+    """Every served row against ``forward`` on its bare cloud, bit for
+    bit; returns how many rows were held."""
+    from repro_torch.core.schedule import cloud_content_key
+    refs, n = {}, 0
+    for _, engine, _ in runs:
+        for req in engine.completed:
+            key = cloud_content_key(req.payload)
+            if key not in refs:
+                refs[key] = model.forward(req.payload)
+            check(tuple(req.result.shape) == (40,)
+                  and bool(torch.isfinite(req.result).all()),
+                  f"served row {req.id}: shape or finiteness")
+            check(torch.equal(req.result, refs[key]),
+                  f"served row {req.id} != forward on its bare cloud")
+            n += 1
+    return n
+
+
+def _hit_batch(servable, payloads) -> dict:
+    """One served step whose plans are all cache hits: its replay's port
+    kernels by name (``torch.profiler``), held to K7 twice, the gather
+    twice and no P1 or P2."""
+    misses = servable.plan_cache.misses
+    rows = _device_rows(lambda: servable.run_batch(payloads))
+    check(servable.plan_cache.misses == misses, "hit batch missed")
+    names = {r["kernel"]: r["count"] for r in _port_rows(rows)}
+
+    def count(part):
+        return sum(c for k, c in names.items() if part in k)
+    check(count("fps_loop_kernel") == 2,
+          f"hit step: K7 launched {count('fps_loop_kernel')} times, not 2")
+    check(count("aggregate_diff_kernel") == 2,
+          f"hit step: gather launched {count('aggregate_diff_kernel')} "
+          f"times, not 2")
+    check(count("greedy_kernel") == 0 and count("coordinate_kernel") == 0,
+          "hit step launched P1 or P2")
+    return {"port_kernels": names,
+            "device_ms": sum(r["device_ms"] for r in rows),
+            "kernel_launches": sum(r["count"] for r in rows)}
+
+
+def _miss_batch(model, servable, cloud) -> dict:
+    """One served step of a cloud no cache holds, on a captured shape:
+    the plan's build launches K7 twice, P1 and P2 once each, and the
+    replayed step moves no counter."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    captures = model.captures
+    reset_launch_counts()
+    servable.run_batch([cloud])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(model.captures == captures, "the miss step was not a replay")
+    want = {"plan_greedy": 1, "plan_coordinate": 1, "fps": 2}
+    for key, n in counts.items():
+        check(n == want.get(key, 0),
+              f"miss step: {key} launched {n} times, expected "
+              f"{want.get(key, 0)}")
+    return {k: n for k, n in counts.items() if n}
+
+
+def _served_step_times(model, bare, servable, payloads) -> list:
+    """Per batch bucket at 1024 points, all plans cache hits: the served
+    step (``run_batch`` ended by a synchronize; host clock, median of 10)
+    and its device time, beside the bare captured ``jit_batched_forward``
+    (planning on the card) of ``bare`` at the same batch, device and host
+    clock; and the served step's host work split into hashing, stacking,
+    copying in, and replaying plus synchronizing."""
+    from repro_torch.core.schedule import DevicePlan, cloud_content_key
+    from repro_torch.models.backend import graph_key
+    rows = []
+    top = SERVE_BUCKETS["points"][-1]
+    for b_real in SERVE_BUCKETS["batch"]:
+        batch = [payloads[i % len(payloads)] for i in range(b_real)]
+        b = max(2, b_real)
+        padded = np.stack([batch[i % b_real] for i in range(b)])
+        n_valid = np.full((b,), top, np.int32)
+        served = _wall_ms(lambda: servable.run_batch(batch), n=10)
+        step_rows = _device_rows(lambda: servable.run_batch(batch))
+        clouds = torch.from_numpy(padded).cuda()
+        cap_wall = _wall_ms(lambda: bare.jit_batched_forward(clouds), n=10)
+        cap_rows = _device_rows(lambda: bare.jit_batched_forward(clouds))
+        # the host's pieces of the same step
+        plans = [servable.plan_cache.get(cloud_content_key(c))
+                 for c in padded]
+        x = model._input(padded)
+        nv = torch.as_tensor(n_valid, dtype=torch.int32, device=x.device)
+        dplan = DevicePlan.stack(plans)
+        call = model._graphs[graph_key(model._batched_step, (x, nv, dplan))]
+
+        def copy_in():
+            xi = model._input(padded)
+            nvi = torch.as_tensor(n_valid, dtype=torch.int32,
+                                  device=x.device)
+            call(xi, nvi, DevicePlan.stack(plans))
+
+        def replay():
+            call.graph.replay()
+        split = {
+            "hash_ms": _wall_ms(lambda: [cloud_content_key(c)
+                                         for c in batch], n=10),
+            "stack_ms": _wall_ms(lambda: DevicePlan.stack(plans), n=10),
+            "copy_in_replay_sync_ms": _wall_ms(copy_in, n=10),
+            "replay_sync_ms": _wall_ms(replay, n=10)}
+        split = {k: statistics.median(v) for k, v in split.items()}
+        split["copy_in_ms"] = (split.pop("copy_in_replay_sync_ms")
+                               - split["replay_sync_ms"]
+                               - split["stack_ms"])
+        step_device = sum(r["device_ms"] for r in step_rows)
+        med = statistics.median(served)
+        rows.append({
+            "batch": b_real, "batch_bucket": b, "served_ms_median": med,
+            "served_ms": served, "served_device_ms": step_device,
+            "served_requests_per_s": b_real / (med / 1e3),
+            "captured_ms_median": statistics.median(cap_wall),
+            "captured_device_ms": sum(r["device_ms"] for r in cap_rows),
+            "host_split_ms": split,
+            "host_share": 1.0 - step_device / med})
+    return rows
+
+
+def _miss_build_ms(model, payloads) -> dict:
+    """A plan-cache miss's build (``build_device_plan``, eager: FPS, kNN,
+    P1 and P2 on the card) per point bucket: host clock ended by a
+    synchronize (median of 5) and device time."""
+    out = {}
+    for cloud in payloads:
+        n = cloud.shape[0]
+        bucket = next(p for p in SERVE_BUCKETS["points"] if n <= p)
+        padded = np.zeros((bucket, 3), np.float32)
+        padded[:n] = cloud
+        build = (lambda: model.build_device_plan(padded, n_valid=n))
+        rows = _device_rows(build)
+        out[f"{n}_in_{bucket}"] = {
+            "ms_median": statistics.median(_wall_ms(build)),
+            "device_ms": sum(r["device_ms"] for r in rows),
+            "kernel_launches": sum(r["count"] for r in rows)}
+    return out
+
+
+def phase_serve(params2, cfg2, bare, smi) -> dict:
+    """The serving tier over model2 'reram-fused' at full width and depth
+    (a fresh model, so its captures are the served path's alone): the pool
+    stream (64 requests of 8 clouds, 1024 and 700 points, repeated with
+    probability 0.7) saturated and paced at :data:`SERVE_PACED_HZ`, and
+    the LiDAR stream (32 frames at 10 Hz, frame reuse at 1e-3), each under
+    FIFO and EDF on the wall clock. Launch counters reset just before the
+    six runs and read just after, held to the served steps' captures and
+    the plan builds; every served row bit for bit against ``forward``;
+    captures at most one per bucket shape, none added by a second pass of
+    the six runs; plan-cache and frame hits; one hit step and one miss
+    step by kernel. Then times: per stream and scheduler, throughput and
+    p50/p99 of the second pass (the first pass's, which include the
+    captures, beside them); per batch bucket the served step beside the
+    bare captured call of ``bare``; a miss's plan build. Returns the
+    served path's counts."""
+    import repro_torch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models.backend import CudaGraphCall
+    t0 = time.perf_counter()
+    model = repro_torch.compile_model(params2, cfg2, backend="reram-fused",
+                                      schedule="pointer")
+    streams = _serve_streams()
+    runs = {}
+    reset_launch_counts()
+    for name, (arrivals, reuse, deadline) in streams.items():
+        for sched in ("fifo", "edf"):
+            runs[f"{name}/{sched}"] = _serve_run(model, arrivals, reuse,
+                                                 deadline, sched)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    captures = model.captures
+    builds = sum(r[0].plan_cache.misses for r in runs.values())
+    # a capture calls the step WARMUP times on a side stream, then once
+    # under capture; a replay moves no counter
+    calls = (CudaGraphCall.WARMUP + 1) * captures
+    per_step = PATHS["model2"]["serve"]
+    want = {"fps": 2 * calls + 2 * builds, "plan_greedy": builds,
+            "plan_coordinate": builds, "aggregate_diff_batched": 2 * calls,
+            **{c: per_step.get(c, 0) * calls for c in MLP_COUNTERS}}
+    for key, n in counts.items():
+        check(n == want.get(key, 0),
+              f"serve: {key} launched {n} times, expected "
+              f"{want.get(key, 0)} ({captures} captures, {builds} builds)")
+    n_points, n_batch = (len(SERVE_BUCKETS["points"]),
+                         len(SERVE_BUCKETS["batch"]))
+    check(0 < captures <= n_points * n_batch,
+          f"serve: {captures} captures for {n_points} x {n_batch} buckets")
+    for name, (servable, _, stats) in runs.items():
+        check(servable.jit_traces <= captures
+              and stats["n_requests"] == len(streams[name.split("/")[0]][0]),
+              f"serve {name}: step keys or requests")
+        if name.startswith("pool"):
+            check(stats["plan_cache"]["hits"] > 0, f"{name}: no cache hit")
+        else:
+            check(stats["frame_tracker"]["frame_hits"] > 0,
+                  f"{name}: no frame hit")
+    # the second pass: the same six runs on warm captures (fresh
+    # servables, so cold plan caches); its stats are the times reported
+    warm = {name: _serve_run(model, *streams[name.split("/")[0]],
+                             name.split("/")[1]) for name in runs}
+    check(model.captures == captures, "a second pass over the streams "
+                                      "captured again")
+    rows_held = _served_bitwise(model, [*runs.values(), *warm.values()])
+    servable = warm["pool_saturated/fifo"][0]
+    top = SERVE_BUCKETS["points"][-1]
+    big = [c for _, c, _ in streams["pool_saturated"][0]
+           if c.shape[0] == top]
+    distinct = list({id(c): c for c in big}.values())
+    hit = _hit_batch(servable, (distinct * 8)[:8])
+    from repro_torch.data import synthetic_cloud
+    miss = _miss_batch(model, servable, synthetic_cloud(5, top, seed=99))
+    small = next(c for _, c, _ in streams["pool_saturated"][0]
+                 if c.shape[0] < top)
+    out = {"phase": "serve", "nvidia_smi": smi, "model": cfg2.name,
+           "backend": "reram-fused", "buckets": SERVE_BUCKETS,
+           "paced_hz": SERVE_PACED_HZ, "launches": counts,
+           "captures": captures, "plan_builds": builds,
+           "rows_bitwise": rows_held, "hit_step": hit, "miss_step": miss,
+           "streams": {name: _stream_row(stats)
+                       for name, (_, _, stats) in warm.items()},
+           "first_pass_streams": {name: _stream_row(stats)
+                                  for name, (_, _, stats) in runs.items()},
+           "batch_buckets": _served_step_times(model, bare, servable,
+                                               distinct),
+           "miss_build": _miss_build_ms(model, [distinct[0], small])}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+    return counts
+
+
 def phase_profile(name: str, model, host, clouds_np, smi) -> None:
     """Where one batch-8 ``batched_forward`` of ``model`` spends its time,
     in three modes: planning on the host (``host``; its host clock split
@@ -1730,8 +2045,16 @@ def main() -> int:
                           models, hosts, clouds_np, smi)
     for name, host in hosts.items():
         phase_profile(name, models[name], host, clouds_np, smi)
+    serve_counts = phase_serve(params["model2"], cfgs["model2"],
+                               models["model2"], smi)
+    check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
+          "a served kernel has no row")
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on the path")
+        if k["name"] in SERVE_KERNELS:
+            k["serve_launches"] = serve_counts[SERVE_KERNELS[k["name"]]]
+            check(k["serve_launches"] > 0,
+                  f"{k['name']} never launched on the served path")
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

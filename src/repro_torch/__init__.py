@@ -16,15 +16,29 @@ The model runs on ``cuda`` unless ``device="cpu"`` is passed. On the card
 the fused crossbar MLP and the plan-ordered gather run as hand-written
 CUDA kernels (``repro_torch/csrc``), built with ``nvcc`` at first use; on
 the CPU their plain torch versions run instead.
+
+The serving tier (``repro_torch.launch``) batches requests into shape
+buckets behind a FIFO or EDF scheduler and reuses plans through a
+content-keyed :class:`PlanCache` and a :class:`FrameTracker`; on the card
+each bucket shape replays one captured CUDA graph.
 """
 from repro_torch.core.schedule import (DevicePlan, ExecutionPlan,
-                                       MODE_PRESETS, build_plan)
+                                       FrameTracker, MODE_PRESETS,
+                                       PlanCache, build_plan,
+                                       cloud_content_key, frame_fingerprint)
 from repro_torch.core.workload import PAPER_MODELS
+from repro_torch.launch.serve import (EDFScheduler, FIFOScheduler,
+                                      PointCloudServable, Request,
+                                      Scheduler, Servable, ServingEngine,
+                                      ShapeBuckets, VirtualClock)
 from repro_torch.models.backend import (CompiledModel, available_backends,
                                         compile_model, register_backend)
 
 __all__ = [
-    "CompiledModel", "DevicePlan", "ExecutionPlan", "MODE_PRESETS",
-    "PAPER_MODELS", "available_backends", "build_plan", "compile_model",
-    "register_backend",
+    "CompiledModel", "DevicePlan", "EDFScheduler", "ExecutionPlan",
+    "FIFOScheduler", "FrameTracker", "MODE_PRESETS", "PAPER_MODELS",
+    "PlanCache", "PointCloudServable", "Request", "Scheduler", "Servable",
+    "ServingEngine", "ShapeBuckets", "VirtualClock", "available_backends",
+    "build_plan", "cloud_content_key", "compile_model",
+    "frame_fingerprint", "register_backend",
 ]

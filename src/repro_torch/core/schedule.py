@@ -11,6 +11,10 @@ build a :class:`DevicePlan` from the forward's own geometry tensors
 without leaving the device: :func:`device_build_plan`. On the card the
 greedy order runs through P1 and the coordination walk through P2
 (``kernels/plan_order.py``); on CPU tensors their plain versions run.
+The serving tier's plan reuse lives here too: :class:`PlanCache`, keyed by
+:func:`cloud_content_key`, and :class:`FrameTracker`, keyed by
+:func:`frame_fingerprint` (hashlib and NumPy; their keys are the JAX
+package's strings).
 
 Contract: on the same coordinates every function returns the permutation
 the JAX package's planner returns, bit for bit, the device twins included
@@ -18,8 +22,10 @@ the JAX package's planner returns, bit for bit, the device twins included
 """
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Literal, Sequence
+from typing import Callable, Literal, Sequence
 
 import numpy as np
 import torch
@@ -33,6 +39,10 @@ from .workload import PointNetWorkload
 __all__ = [
     "ExecutionPlan",
     "DevicePlan",
+    "PlanCache",
+    "FrameTracker",
+    "cloud_content_key",
+    "frame_fingerprint",
     "GREEDY_DENSE_LIMIT",
     "greedy_nn_order",
     "morton_order",
@@ -205,6 +215,196 @@ class DevicePlan:
     def inverse_of(self, layer: int) -> torch.Tensor:
         _check_layer(layer, self.n_layers)
         return self.inverses[layer - 1]
+
+
+# ---------------------------------------------------------------------------
+# the plan cache and frame-coherent plan reuse (serving tier)
+# ---------------------------------------------------------------------------
+
+def host_array(cloud) -> np.ndarray:
+    """``cloud`` as a NumPy array. A torch tensor, on any device, is pulled
+    to the host here, explicitly: the one device-to-host copy a key or a
+    fingerprint of a tensor costs."""
+    if isinstance(cloud, torch.Tensor):
+        return cloud.detach().cpu().numpy()
+    return np.asarray(cloud)
+
+
+def cloud_content_key(cloud, n_valid: int | None = None) -> str:
+    """Content hash of one cloud's real rows, the plan-cache key: blake2b
+    over the trimmed shape, dtype and raw bytes of ``cloud[:n_valid]``, so
+    a cloud and its padded copy hash alike and any byte change of a real
+    coordinate misses. Row-order sensitive, since FPS is. The same hex
+    string as the JAX package's key for the same NumPy input."""
+    arr = np.ascontiguousarray(host_array(cloud))
+    if n_valid is not None:
+        arr = np.ascontiguousarray(arr[:int(n_valid)])
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str((arr.shape, arr.dtype.str)).encode())
+    h.update(arr.tobytes())
+    return h.hexdigest()
+
+
+class PlanCache:
+    """Content-keyed LRU cache of single-cloud :class:`DevicePlan` s, kept
+    on the model's device. A hit skips geometry-driven planning; inserting
+    past ``capacity`` drops the least recently used entry (``evictions``).
+    One cache per compiled model: a key maps to the plan of one schedule."""
+
+    def __init__(self, capacity: int = 256):
+        if capacity < 1:
+            raise ValueError(f"capacity must be >= 1; got {capacity}")
+        self.capacity = int(capacity)
+        self._entries: OrderedDict[str, DevicePlan] = OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._entries
+
+    def get(self, key: str) -> DevicePlan | None:
+        """The cached plan for ``key`` (refreshing its recency), or None —
+        counted as a hit or a miss."""
+        plan = self._entries.get(key)
+        if plan is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        return plan
+
+    def put(self, key: str, plan: DevicePlan) -> None:
+        """Insert (or refresh) ``key``, evicting the coldest entry past
+        capacity."""
+        if key in self._entries:
+            self._entries.move_to_end(key)
+        self._entries[key] = plan
+        while len(self._entries) > self.capacity:
+            self._entries.popitem(last=False)
+            self.evictions += 1
+
+    def get_or_build(self, key: str,
+                     build: Callable[[], DevicePlan]) -> DevicePlan:
+        """``get(key)``, calling ``build()`` and caching its result on a
+        miss."""
+        plan = self.get(key)
+        if plan is None:
+            plan = build()
+            self.put(key, plan)
+        return plan
+
+    def clear(self) -> None:
+        """Drop every entry; the counters keep accumulating."""
+        self._entries.clear()
+
+    def stats(self) -> dict:
+        """``{'size', 'capacity', 'hits', 'misses', 'evictions',
+        'hit_rate'}``, the hit rate over all lookups so far."""
+        total = self.hits + self.misses
+        return {"size": len(self._entries), "capacity": self.capacity,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+                "hit_rate": self.hits / total if total else 0.0}
+
+
+def frame_fingerprint(cloud, n_valid: int | None = None, *,
+                      cell: float = 1e-3) -> str:
+    """Coarse fingerprint of one cloud's real rows: each coordinate floored
+    onto a float64 grid of pitch ``cell``, the int64 buckets blake2b-hashed
+    with the trimmed shape. Equal fingerprints certify that every point
+    moved less than ``cell`` per axis. The same hex string as the JAX
+    package's for the same NumPy input."""
+    if cell <= 0.0:
+        raise ValueError(f"cell must be > 0; got {cell}")
+    arr = host_array(cloud)
+    if n_valid is not None:
+        arr = arr[:int(n_valid)]
+    q = np.floor(np.asarray(arr, np.float64) / cell).astype(np.int64)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(str(arr.shape).encode())
+    h.update(np.ascontiguousarray(q).tobytes())
+    return h.hexdigest()
+
+
+class FrameTracker:
+    """Frame-coherent :class:`DevicePlan` reuse for streaming LiDAR: one
+    anchor (the last cloud a plan was built for) whose plan serves any
+    frame within ``tol`` of it — first by :func:`frame_fingerprint`
+    equality, then by the exact largest per-coordinate displacement. A
+    miss re-anchors (:meth:`update`), so drift stays within ``tol``.
+    Logits are bitwise invariant to the plan (it only permutes), so reuse
+    never changes a served row."""
+
+    def __init__(self, tol: float = 1e-3, *, cell: float | None = None):
+        if tol <= 0.0:
+            raise ValueError(f"tol must be > 0; got {tol}")
+        self.tol = float(tol)
+        self.cell = self.tol if cell is None else float(cell)
+        if self.cell <= 0.0:
+            raise ValueError(f"cell must be > 0; got {cell}")
+        self._anchor: np.ndarray | None = None
+        self._anchor_fp: str | None = None
+        self._anchor_plan: DevicePlan | None = None
+        self.frame_hits = 0
+        self.frame_misses = 0
+        self.fingerprint_hits = 0
+        self.reanchors = 0
+
+    @staticmethod
+    def _trim(cloud, n_valid):
+        arr = host_array(cloud)
+        return arr if n_valid is None else arr[:int(n_valid)]
+
+    def lookup(self, cloud, n_valid: int | None = None) -> DevicePlan | None:
+        """The anchor's plan if ``cloud``'s real rows are within ``tol`` of
+        the anchor frame (a ``frame_hit``), else None (a ``frame_miss``:
+        build or fetch a plan and :meth:`update` with it)."""
+        arr = self._trim(cloud, n_valid)
+        if (self._anchor is None or arr.shape != self._anchor.shape
+                or arr.dtype != self._anchor.dtype):
+            self.frame_misses += 1
+            return None
+        if frame_fingerprint(arr, cell=self.cell) == self._anchor_fp:
+            self.fingerprint_hits += 1
+            self.frame_hits += 1
+            return self._anchor_plan
+        disp = np.max(np.abs(np.asarray(arr, np.float64)
+                             - np.asarray(self._anchor, np.float64)))
+        if disp <= self.tol:
+            self.frame_hits += 1
+            return self._anchor_plan
+        self.frame_misses += 1
+        return None
+
+    def update(self, cloud, plan: DevicePlan,
+               n_valid: int | None = None) -> None:
+        """Re-anchor on ``cloud``'s real rows and its freshly built
+        ``plan``."""
+        arr = np.array(self._trim(cloud, n_valid), copy=True)
+        self._anchor = arr
+        self._anchor_fp = frame_fingerprint(arr, cell=self.cell)
+        self._anchor_plan = plan
+        self.reanchors += 1
+
+    def clear(self) -> None:
+        """Drop the anchor; the counters keep accumulating."""
+        self._anchor = None
+        self._anchor_fp = None
+        self._anchor_plan = None
+
+    def stats(self) -> dict:
+        """``{'frame_hits', 'frame_misses', 'fingerprint_hits',
+        'reanchors', 'hit_rate'}``, the hit rate over all lookups so far."""
+        total = self.frame_hits + self.frame_misses
+        return {"frame_hits": self.frame_hits,
+                "frame_misses": self.frame_misses,
+                "fingerprint_hits": self.fingerprint_hits,
+                "reanchors": self.reanchors,
+                "hit_rate": self.frame_hits / total if total else 0.0}
 
 
 #: Above this many points ``greedy_nn_order`` recomputes distances per step

@@ -72,6 +72,7 @@ __all__ = [
     "ReramPerLayerBackend",
     "available_backends",
     "compile_model",
+    "graph_key",
     "register_backend",
     "resolve_device",
 ]
@@ -380,34 +381,84 @@ def resolve_device(device=None) -> torch.device:
 # the compiled model
 # ---------------------------------------------------------------------------
 
+def _flatten(args) -> tuple[list, tuple]:
+    """The tensors of a call's operands and the structure around them: a
+    :class:`DevicePlan` gives its orders then its inverses, None gives
+    nothing."""
+    leaves, spec = [], []
+    for a in args:
+        if isinstance(a, DevicePlan):
+            leaves += [*a.orders, *a.inverses]
+            spec.append(("plan", a.n_layers, a.layer_sizes, a.intra,
+                         a.coordinated))
+        elif a is None:
+            spec.append(None)
+        else:
+            leaves.append(a)
+            spec.append("tensor")
+    return leaves, tuple(spec)
+
+
+def _unflatten(leaves, spec) -> tuple:
+    """The operands :func:`_flatten` took apart, rebuilt over ``leaves``."""
+    it = iter(leaves)
+    out = []
+    for s in spec:
+        if s is None:
+            out.append(None)
+        elif s == "tensor":
+            out.append(next(it))
+        else:
+            _, n, sizes, intra, coordinated = s
+            orders = [next(it) for _ in range(n)]
+            inverses = [next(it) for _ in range(n)]
+            out.append(DevicePlan(orders, inverses, sizes, intra,
+                                  coordinated))
+    return tuple(out)
+
+
+def graph_key(fn, args) -> tuple:
+    """The capture a call of ``fn`` on ``args`` replays: its name, the
+    operands' structure (a plan or None) and every tensor's shape and
+    dtype — for a served step, the batch size, the point count and
+    whether there is a plan, batched or shared."""
+    leaves, spec = _flatten(args)
+    return ((fn.__name__, spec)
+            + tuple((tuple(t.shape), t.dtype) for t in leaves))
+
+
 class CudaGraphCall:
-    """One call of ``fn`` on CUDA tensors captured into a
-    ``torch.cuda.CUDAGraph`` for its input shapes: warmed up on a side
-    stream, then captured over static input buffers. Calling it copies the
-    inputs in, replays the graph and returns clones of the outputs. A
-    failed capture raises; nothing falls back to eager execution."""
+    """One call of ``fn`` on CUDA operands captured into a
+    ``torch.cuda.CUDAGraph`` for their shapes: warmed up on a side stream,
+    then captured over static input buffers. Operands are tensors, None,
+    or a :class:`DevicePlan`, whose orders and inverses become static
+    buffers too. Calling it copies the operands' tensors in, replays the
+    graph and returns clones of the outputs. A failed capture raises;
+    nothing falls back to eager execution."""
 
     #: eager calls on the side stream before the capture (they build the
     #: kernels and fill the wrappers' shape caches)
     WARMUP = 2
 
     def __init__(self, fn: Callable, args: tuple):
-        dev = args[0].device
-        self.inputs = tuple(a.clone() for a in args)
+        leaves, spec = _flatten(args)
+        dev = leaves[0].device
+        self.inputs = tuple(t.clone() for t in leaves)
+        static = _unflatten(self.inputs, spec)
         with torch.cuda.device(dev):
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 for _ in range(self.WARMUP):
-                    fn(*self.inputs)
+                    fn(*static)
             torch.cuda.current_stream(dev).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
-                self.outputs = fn(*self.inputs)
+                self.outputs = fn(*static)
 
     def __call__(self, *args):
-        for buf, a in zip(self.inputs, args):
-            buf.copy_(a)
+        for buf, t in zip(self.inputs, _flatten(args)[0]):
+            buf.copy_(t)
         self.graph.replay()
         if isinstance(self.outputs, tuple):
             return tuple(o.clone() for o in self.outputs)
@@ -570,18 +621,42 @@ class CompiledModel(nn.Module):
         self._require_traceable("jit_forward")
         return self._replay(self.forward, self._input(cloud))
 
-    def jit_batched_forward(self, clouds) -> torch.Tensor:
+    def jit_batched_forward(self, clouds, *, n_valid=None,
+                            dplan: DevicePlan | None = None) -> torch.Tensor:
         """:meth:`batched_forward` as one captured CUDA graph per batch
-        shape, as :meth:`jit_forward` is for one cloud."""
-        self._require_traceable("jit_batched_forward")
-        return self._replay(self.batched_forward, self._input(clouds))
+        shape, as :meth:`jit_forward` is for one cloud. ``n_valid`` and
+        ``dplan`` are operands of the graph, as the clouds are: ``n_valid``
+        goes onto the device before the replay and the plan's orders and
+        inverses are copied into the graph's buffers, so one capture per
+        batch size, point count and kind of plan (none, batched or shared)
+        serves every call. With a ``dplan`` even a host-planned model runs
+        captured: the plan is all the planning there is."""
+        if dplan is None:
+            self._require_traceable("jit_batched_forward")
+        else:
+            dplan = dplan.to(self.device)
+        if n_valid is not None:
+            n_valid = torch.as_tensor(n_valid, dtype=torch.int32,
+                                      device=self.device)
+        return self._replay(self._batched_step, self._input(clouds),
+                            n_valid, dplan)
+
+    def _batched_step(self, clouds, n_valid, dplan):
+        return self.batched_forward(clouds, n_valid=n_valid, dplan=dplan)
+
+    @property
+    def captures(self) -> int:
+        """How many CUDA graphs this model has captured (one per key of
+        :func:`graph_key`)."""
+        return len(self._graphs)
 
     def _replay(self, fn, *args):
-        """``fn(*args)`` through its :class:`CudaGraphCall` for these input
-        shapes (captured on first use) on the card; eagerly on the CPU."""
+        """``fn(*args)`` through its :class:`CudaGraphCall` for these
+        operands' shapes (captured on first use) on the card; eagerly on
+        the CPU."""
         if self.device.type != "cuda":
             return fn(*args)
-        key = (fn.__name__,) + tuple((tuple(a.shape), a.dtype) for a in args)
+        key = graph_key(fn, args)
         call = self._graphs.get(key)
         if call is None:
             call = self._graphs[key] = CudaGraphCall(fn, args)

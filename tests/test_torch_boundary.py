@@ -30,7 +30,9 @@ def _tiny():
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     code = ("import sys, repro_torch, repro_torch.kernels, "
-            "repro_torch.models.backend, repro_torch.convert\n"
+            "repro_torch.models.backend, repro_torch.convert, "
+            "repro_torch.launch, repro_torch.launch.serve, "
+            "repro_torch.data\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"

@@ -326,3 +326,42 @@ def test_oracle_plan_is_the_device_twins_plan(smoke):
         for k in (1, 2):
             np.testing.assert_array_equal(plan.order_of(k)[0].numpy(),
                                           want[k - 1])
+
+
+def test_served_path_counts_are_the_batched_half(smoke):
+    """One served step is one ``batched_forward``: half of what the
+    'reram-fused' path (a ``batched_forward`` and a ``forward``) counts,
+    one pre-pass per MLP call; the kernels the serve phase must see
+    launched are rows of the kernels line and counters of the port."""
+    from repro_torch.kernels import launch_counts
+    fused, serve = (smoke.PATHS["model2"]["reram-fused"],
+                    smoke.PATHS["model2"]["serve"])
+    assert {k: 2 * n for k, n in serve.items()} == fused
+    assert serve["fused_mlp_combine"] == (serve["fused_mlp"]
+                                          + serve["fused_mlp_mtiled"]
+                                          + serve["fused_mlp_wstat"])
+    assert set(smoke.SERVE_KERNELS.values()) <= set(launch_counts())
+    assert {"K5 aggregate_diff", "K6 reram_matmul_int"}.isdisjoint(
+        smoke.SERVE_KERNELS)
+
+
+def test_served_streams_are_the_configured_ones(smoke):
+    """Both point buckets in use (1024 and 700 -> 768), every bucket with
+    SA-1's 512 centres of real points, the pool stream saturated (every
+    arrival at t=0) and paced, the LiDAR stream at 10 Hz."""
+    streams = smoke._serve_streams()
+    assert set(streams) == {"pool_saturated", "pool_paced", "lidar"}
+    sat, paced, lidar = (streams[k][0] for k in (
+        "pool_saturated", "pool_paced", "lidar"))
+    assert len(sat) == len(paced) == 64 and len(lidar) == 32
+    assert {t for t, _, _ in sat} == {0.0}
+    assert all(a[1] is not None and np.array_equal(a[1], b[1])
+               for a, b in zip(sat, paced))
+    assert paced[-1][0] > 0 and lidar[1][0] == pytest.approx(0.1)
+    sizes = {c.shape[0] for _, c, _ in sat}
+    assert sizes == {1024, 700}
+    buckets = smoke.SERVE_BUCKETS["points"]
+    assert {next(b for b in buckets if n <= b) for n in sizes} == set(
+        buckets)
+    assert min(sizes) >= 512
+    assert [s[1] for s in streams.values()] == [False, False, True]

@@ -684,3 +684,77 @@ def test_captured_replays_equal_eager(cuda, backend):
     e_nll, e_acc = model.loss_fn(x, labels)
     assert torch.equal(nll, e_nll) and torch.equal(acc, e_acc)
     assert len(model._graphs) == 4      # two batch shapes, forward, eval
+
+
+def _serve_on_card(model, clouds, scheduler, *, reuse=False, servable=None):
+    from repro_torch.core.schedule import FrameTracker
+    from repro_torch.launch import (PointCloudServable, ServingEngine,
+                                    ShapeBuckets)
+    if servable is None:
+        servable = PointCloudServable(
+            model, buckets=ShapeBuckets(points=(48, 64), batch=(1, 2, 4)),
+            frame_reuse=FrameTracker(tol=1e-3) if reuse else False)
+    eng = ServingEngine(servable, scheduler=scheduler)
+    reqs = [eng.submit(c, t=i * 1e-3,
+                       deadline_us=10_000 if i in (1, 3) else None)
+            for i, c in enumerate(clouds)]
+    eng.drain(now=0.1)
+    torch.cuda.synchronize()
+    return servable, reqs
+
+
+def _served_clouds(seed):
+    rng = np.random.default_rng(seed)
+    clouds = [rng.normal(size=(n, 3)).astype(np.float32)
+              for n in (40, 48, 56, 64, 44)]
+    return clouds + [clouds[4] + np.float32(1e-6)]
+
+
+@pytest.mark.parametrize("backend", ["reram-fused", "reram"])
+@pytest.mark.parametrize("scheduler", ["fifo", "edf"])
+@pytest.mark.parametrize("reuse", [False, True])
+def test_served_rows_bitwise_on_card(cuda, backend, scheduler, reuse):
+    """Every served row (point pads, batch pads, plan-cache and frame
+    hits) equals ``forward`` on the bare cloud, on the card."""
+    cfg = _tiny()
+    model = compile_model(init_params(cfg, seed=0, n_classes=10), cfg,
+                          backend=backend, schedule="pointer")
+    clouds = _served_clouds(0)
+    servable, reqs = _serve_on_card(model, clouds, scheduler, reuse=reuse)
+    for req, cloud in zip(reqs, clouds):
+        assert req.result.device.type == "cuda"
+        assert torch.equal(req.result, model.forward(cloud)), req.id
+    assert model.captures == servable.jit_traces > 0
+
+
+def test_serving_captures_once_per_bucket_shape(cuda):
+    """At most one capture per (batch bucket, point bucket); a second pass
+    over the same stream captures nothing, launches nothing outside the
+    replays (every plan a cache hit) and gives the same rows."""
+    cfg = _tiny()
+    model = compile_model(init_params(cfg, seed=0, n_classes=10), cfg,
+                          backend="reram-fused", schedule="pointer")
+    clouds = _served_clouds(1)
+    servable, first = _serve_on_card(model, clouds, "fifo")
+    captures = model.captures
+    assert 0 < captures == servable.jit_traces <= 2 * 3
+    reset_launch_counts()
+    _, second = _serve_on_card(model, clouds, "fifo", servable=servable)
+    assert set(launch_counts().values()) == {0}
+    assert model.captures == captures == servable.jit_traces
+    assert servable.plan_cache.stats()["hits"] == len(clouds)
+    for a, b in zip(first, second):
+        assert torch.equal(a.result, b.result)
+
+
+def test_served_replay_on_a_new_batch_of_the_same_shape(cuda):
+    cfg = _tiny()
+    model = compile_model(init_params(cfg, seed=0, n_classes=10), cfg,
+                          backend="reram-fused", schedule="pointer")
+    _serve_on_card(model, _served_clouds(2), "edf")
+    captures = model.captures
+    clouds = _served_clouds(3)
+    _, reqs = _serve_on_card(model, clouds, "edf")
+    assert model.captures == captures
+    for req, cloud in zip(reqs, clouds):
+        assert torch.equal(req.result, model.forward(cloud)), req.id
