@@ -6,17 +6,28 @@
 Drives the port's main path — ``repro_torch.compile_model(params,
 PAPER_MODELS[m], backend=..., schedule="pointer")`` then
 ``batched_forward`` on 8 clouds of 1024 points and ``forward`` on one — at
-the full width and depth of model2 ('reram-fused' and the per-layer
-'reram'), model1 and model0 ('reram-fused' and 'float'), with random
-weights from a seed. The path plans on the card, the default: P1 and P2
-build each call's plan from its own geometry. Phases, each printing one
-JSON line:
+the full width and depth of model2 ('reram-fused', 'reram-fused-mtiled'
+and the per-layer 'reram'), model1 and model0 ('reram-fused' and 'float'),
+with random weights from a seed. The path plans on the card, the default:
+P1 and P2 build each call's plan from its own geometry; 'reram-fused'
+launches the Hopper dataflow choice (``PlanPolicy.select_launch``) per MLP
+and batch size. Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; TF32 off for float32 matmuls
    and convolutions;
 2. build: every CUDA kernel of the paths built from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together);
+   dataflow (first, so that model0's MLPs are K2's first launches in the
+   process, one of them at exactly 48 KB of dynamic shared memory): K1, K2
+   and K3 at every MLP of model0, model1 and model2 at batch 1 and 8, each
+   bit for bit against the plain version, with its device time
+   (``torch.profiler``) beside the TPU's choice, the Hopper choice and the
+   policy's predicted time of each, and the shapes where the choice is more
+   than 10% slower than the fastest kernel; summed over the grid, the
+   Hopper choice's time over the fastest kernels' must not exceed the
+   TPU's choice's; the cost model's constants refitted to the run's times
+   (``fit_launch_model``) beside the package's;
 3. kernel vs plain: each kernel against its plain torch version on the
    same inputs, bit for bit — K1 at model1's shapes, K4 and K5 (batch 8
    and 1) through the plan interface (the plan order and the geometry's
@@ -49,6 +60,27 @@ JSON line:
    two replays on different clouds, ``jit_forward`` against ``forward``,
    and the kernels one replay launches (``torch.profiler``) holding FPS,
    P1, P2 and the gather;
+   policy: model2 'reram-fused' under ``PlanPolicy().precommit(workload)``,
+   planning on the card, eager and captured, bit for bit the 'pointer'
+   schedule's logits, its launches held as the path's; a policy that is
+   not precommitted plans on the host and refuses ``jit_batched_forward``
+   (``TypeError``);
+   reliability: model2 'reram-fused' at batch 8 under ECC at groups 16 and
+   4 (``d_pad`` 1024 -> 1408 and 1792 at SA-2), K1, K2 and K3 on the widened
+   programs bit for bit against plain and the unprotected outputs, logits
+   bit for bit the unprotected model's; under ``FaultModel(p_stuck0=0.01,
+   p_stuck1=0.01, seed=3)`` raw and under each ECC, the kernels against
+   plain and every MLP bit for bit against the CPU on the same inputs, the
+   whole logits bit for bit against the CPU run given the card's layer-0
+   features (against the CPU's own run within the end-to-end tolerance,
+   argmax equal, only where the card's layer-0 features differ);
+   'reram'
+   faulted, eager and captured, K6 against plain on every layer's faulted
+   planes; the captured call's device time protected, faulted and not;
+   one ``pareto.sweep`` of model0 (stuck rates 0, 0.001, 0.002, 0.005;
+   'none'/'ecc' at group 4; 8 clouds), its points, front and time, ECC
+   more accurate than raw at one rate and less at none;
+   quickstart: ``examples/quickstart_torch.py``'s ``main()``, once;
 5. times: each kernel, its plain version and a library yardstick, timed
    with CUDA events after warm-up at the main path's shapes, beside the
    least time the card could take (bytes over 3.35 TB/s or operations over
@@ -816,33 +848,37 @@ def run_main_path(model, clouds) -> tuple[dict, torch.Tensor, torch.Tensor]:
 
 
 #: Backends driven end to end, per model, and the MLP launches each path
-#: must count in one ``batched_forward`` plus one ``forward`` (beside one
-#: gather and one FPS launch per SA layer and pass, and one P1 and one P2
-#: launch per pass): model2's SA-1 runs through K2 ('mtiled'), its SA-2
-#: through K3 ('wstat') and its head through K1; each K1, K2 or K3 call
-#: launches the s8 weight pre-pass once (``fused_mlp_combine``), K2 and K3
-#: one launch per layer; the per-layer 'reram' backend launches K6 and its
-#: pre-pass once per layer, 8 layers.
+#: must count in one ``batched_forward`` (batch 8) plus one ``forward``
+#: (batch 1) (beside one gather and one FPS launch per SA layer and pass,
+#: and one P1 and one P2 launch per pass). 'reram-fused' runs the Hopper
+#: choice (``PlanPolicy.select_launch``): on model2 K3 ('wstat') for every
+#: MLP; on model1 K3 but at SA-1 of ``forward`` (K1, 'whole'); on model0
+#: K1 at both SA layers and K3 at the head. 'reram-fused-mtiled' pins K2
+#: for every MLP; each K1, K2 or K3 call launches the s8 weight pre-pass
+#: once (``fused_mlp_combine``) and one launch per layer; the per-layer
+#: 'reram' backend launches K6 and its pre-pass once per layer, 8 layers.
 PATHS = {
-    "model2": {"reram-fused": {"fused_mlp": 2, "fused_mlp_layer": 4,
-                               "fused_mlp_mtiled": 2,
-                               "fused_mlp_mtiled_layer": 6,
-                               "fused_mlp_wstat": 2,
-                               "fused_mlp_wstat_layer": 6,
+    "model2": {"reram-fused": {"fused_mlp_wstat": 6,
+                               "fused_mlp_wstat_layer": 16,
                                "fused_mlp_combine": 6},
+               "reram-fused-mtiled": {"fused_mlp_mtiled": 6,
+                                      "fused_mlp_mtiled_layer": 16,
+                                      "fused_mlp_combine": 6},
                "reram": {"reram_matmul_int": 16, "reram_combine": 16},
                # the served path (phase ``serve``): one served step is one
-               # ``batched_forward`` under a stacked plan, and its captures
-               # and plan builds set how many steps a run makes
-               "serve": {"fused_mlp": 1, "fused_mlp_layer": 2,
-                         "fused_mlp_mtiled": 1,
-                         "fused_mlp_mtiled_layer": 3,
-                         "fused_mlp_wstat": 1,
-                         "fused_mlp_wstat_layer": 3,
-                         "fused_mlp_combine": 3}},
-    "model1": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
+               # ``batched_forward`` under a stacked plan, per batch
+               # bucket (K3 for every MLP at every bucket), and its
+               # captures and plan builds set how many steps a run makes
+               "serve": {b: {"fused_mlp_wstat": 3,
+                             "fused_mlp_wstat_layer": 8,
+                             "fused_mlp_combine": 3} for b in (1, 2, 4, 8)}},
+    "model1": {"reram-fused": {"fused_mlp": 1, "fused_mlp_layer": 3,
+                               "fused_mlp_wstat": 5,
+                               "fused_mlp_wstat_layer": 13,
                                "fused_mlp_combine": 6}, "float": {}},
-    "model0": {"reram-fused": {"fused_mlp": 6, "fused_mlp_layer": 16,
+    "model0": {"reram-fused": {"fused_mlp": 4, "fused_mlp_layer": 12,
+                               "fused_mlp_wstat": 2,
+                               "fused_mlp_wstat_layer": 4,
                                "fused_mlp_combine": 6}, "float": {}},
 }
 MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
@@ -1033,40 +1069,6 @@ def _k1_bound(prog, m: int):
     return nbytes, 2 * BATCH * m * n_weights
 
 
-def _combine_bytes(prog, geom) -> int:
-    """Device-memory bytes of the s8 pre-pass: the planes of each layer's
-    (k_lim, n_lim) read once, its s8 weights written once."""
-    return sum((prog.n_planes + 1) * k * n
-               for k, n in zip(geom.k_lims, geom.n_lims))
-
-
-def _modeled_bytes(prog, m: int, mode: str) -> int:
-    """A model, not a measurement: the device-memory bytes one batched call
-    of K1 ('whole') or K2 ('mtiled') would move as its code is written if
-    every re-read inside a launch (K1's input rows once per N-chunk, the
-    weights once per block) hit L2, counting each tensor once per launch
-    that touches it: the pre-pass; K1 per layer its input (int8 x0 or the
-    float32
-    panel), s8 weights, bias and mask, and its float32 output panel; K2 in
-    launch j the int8 input, the weights, bias and mask of layers 0 .. j,
-    and the float32 output in the last launch only."""
-    from repro_torch.kernels import plan_launch
-    geom = plan_launch(prog, m, mode)
-    rows = BATCH * geom.m_pad
-    ks, ns = geom.k_lims, geom.n_lims
-    total = _combine_bytes(prog, geom)
-    for l, (k, n) in enumerate(zip(ks, ns)):
-        if mode == "whole":
-            total += rows * k * (1 if l == 0 else 4) + k * n + 8 * n
-            total += 4 * rows * n
-        else:
-            total += rows * ks[0] + sum(a * b + 8 * b for a, b in
-                                        zip(ks[:l + 1], ns[:l + 1]))
-    if mode == "mtiled":
-        total += 4 * rows * ns[-1]
-    return total
-
-
 def _gather_bound(feats, nbr, ctr, order=None):
     """Bytes and float32 subtractions of one gather: the feature rows the
     indices refer to (each read once), the indices (at their own width)
@@ -1098,15 +1100,19 @@ def _gather_library(feats, nbr, ctr):
 
 
 def _model2_fused_rows(cases2, counts_of) -> list:
-    """K2 and K3 at the model2 MLPs the main path runs them on (SA-1 and
-    SA-2), and K1, K2 and K3 side by side at each model2 MLP: whether the
-    dataflow the JAX package's VMEM budget picks is also Hopper's fastest."""
+    """K2 at model2 SA-1 (launches: the 'reram-fused-mtiled' path's) and
+    K3 at SA-2 (launches: the main path's), and K1, K2 and K3 side by side
+    at each model2 MLP (batch 8) beside the TPU's and the Hopper
+    choice."""
+    from repro_torch.core.policy import DEFAULT_POLICY
     from repro_torch.kernels import fused_mlp, plan_fused_mlp
     per_mlp = {}
     for name in ("sa1", "sa2", "head"):
         c = cases2["mlps"][name]
         x_p, sx, prog, m, relu = c["x_p"], c["sx"], c["prog"], c["m"], c["relu"]
-        row = {"chosen": plan_fused_mlp(prog, m).mode}
+        row = {"tpu_choice": plan_fused_mlp(prog, m).mode,
+               "hopper_choice": DEFAULT_POLICY.select_launch(
+                   prog, m, batch=BATCH).mode}
         for mode in ("whole", "mtiled", "wstat"):
             kernel = fused_mlp.KERNEL_OF_MODE[mode]
             row[f"{mode}_ms"] = cuda_ms(lambda: kernel(
@@ -1121,20 +1127,20 @@ def _model2_fused_rows(cases2, counts_of) -> list:
         row["bound_ms"], row["bound_by"] = bound(*_k1_bound(prog, m),
                                                  INT8_OPS_PER_S)
         per_mlp[name] = row
-    counts = counts_of["model2/reram-fused"]
     rows = []
-    for kname, mode, mlp, source, line in (
+    for kname, mode, mlp, source, line, path in (
             ("K2 fused_mlp_mtiled", "mtiled", "sa1", "fused_mlp_mtiled.cu",
-             360),
+             360, "model2/reram-fused-mtiled"),
             ("K3 fused_mlp_wstat", "wstat", "sa2", "fused_mlp_wstat.cu",
-             330)):
-        r = per_mlp[mlp]
+             330, "model2/reram-fused")):
+        r, counts = per_mlp[mlp], counts_of[path]
         rows.append({
             "name": kname, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/fused_mlp.py:{line}",
             "launches": counts[f"fused_mlp_{mode}"],
             "layer_launches": counts[f"fused_mlp_{mode}_layer"],
+            "launches_on": path,
             "max_abs_err": max(v[f"{mode}_max_abs_err"]
                                for v in cases2["mlps"].values()),
             "ms": r[f"{mode}_ms"], "plain_ms": r["plain_ms"],
@@ -1153,6 +1159,7 @@ def _combine_row(cases, counts_main) -> dict:
     """The s8 weight pre-pass of K1/K2/K3 at model1's three MLPs (one
     launch each, as one model1 ``batched_forward`` runs it)."""
     from repro_torch.kernels import fused_mlp
+    from repro_torch.kernels.program import combine_bytes
     tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0}
     for name in ("sa1", "sa2", "head"):
         c = cases["K1"][name]["combine"]
@@ -1161,7 +1168,7 @@ def _combine_row(cases, counts_main) -> dict:
                                                                     geom))
         tot["plain_ms"] += cuda_ms(lambda: fused_mlp.combine_weights_plain(
             prog, geom), iters=5)
-        tot["bytes"] += _combine_bytes(prog, geom)
+        tot["bytes"] += combine_bytes(prog, geom)
     bms, bby = bound(tot["bytes"], 0, INT8_OPS_PER_S)
     return {
         "name": "K1/K2/K3 combine_weights (s8 pre-pass)", "route": "cuda",
@@ -1629,10 +1636,12 @@ def phase_times(cases, cases2, fps_cases, plan_cases, counts_of, models,
 
 
 def _modeled_rows(cases, cases2, kernels) -> dict:
-    """K1's and K2's modeled device-memory bytes (:func:`_modeled_bytes`)
+    """K1's and K2's modeled device-memory bytes
+    (``kernels/program.py::launch_bytes``, the cost model's byte model)
     at each MLP timed above, and those bytes over the measured event time:
     a rate the design would reach if every re-read hit L2, not one the card
     was seen to move."""
+    from repro_torch.kernels import launch_bytes
     k1 = next(k for k in kernels if k["name"] == "K1 fused_mlp")
     m2 = next(k for k in kernels if "model2_mlps" in k)["model2_mlps"]
     out = {}
@@ -1642,10 +1651,473 @@ def _modeled_rows(cases, cases2, kernels) -> dict:
             + [(f"{kn} model2 {n}", cases2["mlps"][n], mode,
                 m2[n][f"{mode}_ms"]) for n in ("sa1", "sa2", "head")
                for kn, mode in (("K1", "whole"), ("K2", "mtiled"))]):
-        nbytes = _modeled_bytes(case["prog"], case["m"], mode)
+        nbytes = launch_bytes(case["prog"], case["m"], mode, batch=BATCH)
         out[key] = {"modeled_bytes": nbytes,
                     "modeled_GBps": nbytes / ms / 1e6}
     return out
+
+
+# ---------------------------------------------------------------------------
+# the dataflow choice, the policy path and reliability
+# ---------------------------------------------------------------------------
+
+#: Batch sizes the dataflow phase times K1, K2 and K3 at.
+DATAFLOW_BATCHES = (1, 8)
+
+#: The kernel each dataflow runs (where K2's stripes do not fit on chip,
+#: 'mtiled' runs K1).
+KERNEL_NAMES = {"whole": "K1", "mtiled": "K2", "wstat": "K3"}
+
+
+def _model_mlps(cfg, progs) -> dict:
+    """Every MLP of a model's program: name -> (program, rows per cloud,
+    final ReLU)."""
+    out = {f"sa{i + 1}": (progs["sa"][i], s.n_centers * s.n_neighbors, True)
+           for i, s in enumerate(cfg.layers)}
+    out["head"] = (progs["head"], 1, False)
+    return out
+
+
+def _fused_all_modes(x_p, sx, prog, m: int, relu: bool, what: str) -> dict:
+    """K1, K2 and K3 on the same inputs, each bit for bit against the plain
+    version (and so against each other); returns the plain output."""
+    from repro_torch.kernels import fused_mlp
+    want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=m,
+                                     final_relu=relu)
+    for mode in ("whole", "mtiled", "wstat"):
+        got = fused_mlp.KERNEL_OF_MODE[mode](x_p, sx, prog, m_real=m,
+                                             final_relu=relu)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{mode} {what} finite")
+        check(torch.equal(got, want), f"{mode} {what} bitwise vs plain "
+              f"(max err {float((got - want).abs().max())})")
+    return want
+
+
+def fit_launch_model(samples, hw) -> dict:
+    """The per-launch constants of ``PlanPolicy.launch_cost`` that best fit
+    measured device times: ``samples`` are ``(launch_work, ms)`` pairs, one
+    per kernel call. For each ``block_overlap`` on a grid of 0.05 from 1
+    to 4, the launch, slab, tile and requant costs are the least-squares
+    solution on the relative error, with every block launch taken at its
+    busiest SM's time and every grid-stride pass at its bytes over
+    ``hw.hbm_gbps`` (the memory term binds at none of the dataflow grid's
+    block launches); the overlap with the least residual wins. Returns
+    the constants in cycles at ``hw.freq_ghz`` and the fit's root mean
+    square relative error."""
+    us_per_byte = 1e-3 / hw.hbm_gbps
+    best = None
+    for overlap in np.arange(1.0, 4.0001, 0.05):
+        a_rows, y = [], []
+        for work, ms in samples:
+            us = ms * 1e3
+            row, fixed = np.zeros(4), 0.0
+            for w in work:
+                row[0] += 1
+                if not w.blocks:
+                    fixed += w.bytes * us_per_byte
+                    continue
+                busy = max(1.0, -(-w.blocks // hw.sms) / overlap)
+                row[1:] += busy * np.array([w.slabs, w.tiles, w.requant])
+            a_rows.append(row / us)
+            y.append((us - fixed) / us)
+        a_m, y = np.array(a_rows), np.array(y)
+        x = np.linalg.lstsq(a_m, y, rcond=None)[0]
+        res = float(np.mean((a_m @ x - y) ** 2))
+        if best is None or res < best[0]:
+            best = (res, float(overlap), x)
+    res, overlap, x = best
+    cycles_per_us = hw.freq_ghz * 1e3
+    return {"launch_cycles": x[0] * cycles_per_us,
+            "slab_cycles": x[1] * cycles_per_us,
+            "tile_cycles": x[2] * cycles_per_us,
+            "requant_cycles": x[3] * cycles_per_us,
+            "block_overlap": overlap, "rms_rel_err": res ** 0.5}
+
+
+def _choice_over_fastest(rows, pick) -> float:
+    """Summed device time of the kernels ``pick(row)`` names over that of
+    the fastest kernel of each row."""
+    return (sum(r[f"{pick(r)}_device_ms"] for r in rows)
+            / sum(r[f"{r['fastest']}_device_ms"] for r in rows))
+
+
+def phase_dataflow(params, cfgs, smi) -> None:
+    """K1, K2 and K3 at every MLP of model0, model1 and model2 at batch 1
+    and 8 (random rows at the MLP's input width): each bit for bit against
+    the plain version, its device time (``torch.profiler``, mean of 5
+    calls), and beside them the TPU's choice (``plan_fused_mlp``), the
+    Hopper choice (``DEFAULT_POLICY.select_launch``) and the policy's
+    predicted time of each mode; how far the choice is from the fastest
+    measured kernel, summed over the grid beside the TPU's choice and each
+    kernel everywhere (the Hopper choice must not be slower than the
+    TPU's); and the cost model's constants refitted to this run's times
+    (``fit_launch_model``) beside the package's."""
+    from repro_torch.core.policy import DEFAULT_POLICY as policy
+    from repro_torch.kernels import fused_mlp, launch_work, plan_fused_mlp
+    from repro_torch.models.pointnet2 import build_model_program
+    cycles_per_ms = policy.hw.freq_ghz * 1e6
+    rows, samples = [], []
+    t0 = time.perf_counter()
+    for name, cfg in cfgs.items():
+        progs = build_model_program(params[name])
+        for mlp, (prog, m, relu) in _model_mlps(cfg, progs).items():
+            prog = prog.cuda()
+            for batch in DATAFLOW_BATCHES:
+                g = torch.Generator(device="cpu").manual_seed(SEED + batch)
+                x = torch.randn((batch, m, prog.widths[0]), generator=g)
+                x_p, sx = fused_mlp.prepare_input(x.cuda(), prog)
+                _fused_all_modes(x_p, sx, prog, m, relu,
+                                 f"{name} {mlp} batch {batch}")
+                tpu = plan_fused_mlp(prog, m).mode
+                row = {"model": name, "mlp": mlp, "batch": batch,
+                       "rows": m, "widths": list(prog.widths),
+                       "tpu_choice": "whole" if tpu == "tiled" else tpu,
+                       "hopper_choice": policy.select_launch(
+                           prog, m, batch=batch).mode}
+                for mode, kname in KERNEL_NAMES.items():
+                    kernel = fused_mlp.KERNEL_OF_MODE[mode]
+                    row[f"{kname}_device_ms"] = _device_ms(
+                        lambda: kernel(x_p, sx, prog, m_real=m,
+                                       final_relu=relu))
+                    row[f"{kname}_predicted_ms"] = policy.launch_cost(
+                        prog, m, mode, batch=batch) / cycles_per_ms
+                    samples.append((launch_work(prog, m, mode, batch=batch,
+                                                sms=policy.hw.sms),
+                                    row[f"{kname}_device_ms"]))
+                times = {k: row[f"{k}_device_ms"]
+                         for k in KERNEL_NAMES.values()}
+                row["fastest"] = min(times, key=times.get)
+                chosen = KERNEL_NAMES[row["hopper_choice"]]
+                row["choice_over_fastest"] = (times[chosen]
+                                              / times[row["fastest"]])
+                rows.append(row)
+    summed = {"hopper_choice": _choice_over_fastest(
+                  rows, lambda r: KERNEL_NAMES[r["hopper_choice"]]),
+              "tpu_choice": _choice_over_fastest(
+                  rows, lambda r: KERNEL_NAMES[r["tpu_choice"]]),
+              **{f"{k}_everywhere": _choice_over_fastest(
+                  rows, lambda r, k=k: k) for k in KERNEL_NAMES.values()}}
+    check(summed["hopper_choice"] <= summed["tpu_choice"],
+          f"the Hopper choice takes {summed['hopper_choice']:.3f}x the "
+          f"fastest kernels summed over the grid, the TPU's "
+          f"{summed['tpu_choice']:.3f}x")
+    slow = [f"{r['model']} {r['mlp']} batch {r['batch']}" for r in rows
+            if r["choice_over_fastest"] > 1.10]
+    rel = [r[f"{k}_predicted_ms"] / r[f"{k}_device_ms"] - 1
+           for r in rows for k in KERNEL_NAMES.values()]
+    package = {k: getattr(policy.hw, k) for k in (
+        "launch_cycles", "slab_cycles", "tile_cycles", "requant_cycles",
+        "block_overlap")}
+    emit({"phase": "dataflow", "nvidia_smi": smi, "tolerance": "bitwise",
+          "rows": rows, "choice_over_10pct_slower": slow,
+          "summed_over_fastest": summed,
+          "cost_model": {"package": package,
+                         "package_rms_rel_err": float(
+                             np.mean(np.square(rel)) ** 0.5),
+                         "refit": fit_launch_model(samples, policy.hw)},
+          "seconds": time.perf_counter() - t0})
+
+
+def phase_policy(params2, cfg2, clouds_np, pointer_model) -> None:
+    """model2 'reram-fused' under a precommitted ``PlanPolicy``: it plans
+    on the card (P1 when the policy picked 'greedy', P2), eager and
+    captured, its logits bit for bit those of ``schedule="pointer"``, its
+    launch counters held as the other paths'; a policy that is not
+    precommitted plans on the host and refuses ``jit_batched_forward``
+    with ``TypeError``."""
+    import repro_torch
+    from repro_torch.core.workload import PointNetWorkload
+    clouds = torch.from_numpy(clouds_np).cuda()
+    wl = PointNetWorkload.build(clouds_np[0].astype(np.float64), cfg2)
+    policy = repro_torch.PlanPolicy().precommit(wl)
+    intra = policy.intra_candidates[0]
+    model = repro_torch.compile_model(params2, cfg2, backend="reram-fused",
+                                      policy=policy)
+    check(model.device_planning, "a precommitted policy plans on the card")
+    counts, logits, single = run_main_path(model, clouds)
+    L = cfg2.n_layers
+    want = {"aggregate_diff_batched": L, "aggregate_diff": L, "fps": 2 * L,
+            "plan_greedy": 2 if intra == "greedy" else 0,
+            "plan_coordinate": 2,
+            **{c: PATHS["model2"]["reram-fused"].get(c, 0)
+               for c in MLP_COUNTERS}}
+    for key, n in want.items():
+        check(counts[key] == n, f"policy path: {key} launched "
+                                f"{counts[key]} times, expected {n}")
+    ref = pointer_model.batched_forward(clouds)
+    check(torch.equal(logits, ref), "policy logits != 'pointer' logits")
+    check(torch.equal(single, pointer_model.forward(clouds[0])),
+          "policy forward != 'pointer' forward")
+    captured = model.jit_batched_forward(clouds)
+    check(torch.equal(captured, ref), "captured policy call != eager")
+    check(model.captures == 1, f"{model.captures} captures for one shape")
+    replay = _captured_kernels(model, clouds)
+    for kname in CAPTURED_KERNELS:
+        if kname == "greedy_kernel" and intra != "greedy":
+            continue
+        check(any(kname in k for k in replay["port_kernels"]),
+              f"policy path: {kname} not in the captured replay")
+    host = repro_torch.compile_model(params2, cfg2, backend="reram-fused",
+                                     policy=repro_torch.PlanPolicy())
+    check(not host.device_planning, "a policy that is not precommitted "
+                                    "plans on the host")
+    try:
+        host.jit_batched_forward(clouds)
+    except TypeError as e:
+        refused = str(e)
+    else:
+        refused = None
+    check(refused is not None, "jit_batched_forward of a host-planning "
+                               "policy did not raise TypeError")
+    check(torch.equal(host.batched_forward(clouds), ref),
+          "host-planning policy logits != 'pointer' logits")
+    emit({"phase": "policy", "intra": intra, "launches": counts,
+          "bitwise_vs_pointer": True, "captured_bitwise": True,
+          "captured_replay": replay, "not_precommitted_refuses": refused,
+          "launch_plan": model.stats()["launch_plan"]})
+
+
+#: The fault model of the reliability phase.
+FAULTS = {"p_stuck0": 0.01, "p_stuck1": 0.01, "seed": 3}
+#: The stuck-cell rates of its Pareto sweep of model0: below 1%, where ECC
+#: at group 4 corrects most faults and the raw program already loses
+#: agreement (above it both sit near chance over 8 clouds).
+SWEEP_RATES = (0.0, 0.001, 0.002, 0.005)
+
+
+def _mlp_outputs(model, cfg, inputs: dict, what: str) -> dict:
+    """Every MLP of a fused model through K1, K2 and K3 on ``inputs``
+    (name -> float rows), each bit for bit against the plain version;
+    returns the outputs."""
+    from repro_torch.kernels import fused_mlp
+    out = {}
+    for mlp, (prog, m, relu) in _model_mlps(
+            cfg, model.backend.program).items():
+        x_p, sx = fused_mlp.prepare_input(inputs[mlp], prog)
+        out[mlp] = _fused_all_modes(x_p, sx, prog, m, relu,
+                                    f"{what} {mlp}")
+    return out
+
+
+def _cpu_logits_on_card_features(cpu_model, clouds) -> torch.Tensor:
+    """``cpu_model.batched_forward`` of the card's ``clouds`` (a CUDA
+    tensor), its layer-0 features those the card computes
+    (``lift_features``' sin/cos may round apart from the CPU's by an ulp):
+    so the CPU run and the card see the same inputs."""
+    from repro_torch.models import pointnet2 as pn
+    real = pn.lift_features
+    points = clouds.cpu()
+
+    def lift(pts, n_features):
+        if pts.shape == points.shape and torch.equal(pts, points):
+            return real(clouds, n_features).cpu()
+        return real(pts, n_features)
+    pn.lift_features = lift
+    try:
+        return cpu_model.batched_forward(points)
+    finally:
+        pn.lift_features = real
+
+
+def _captured_device_ms(model, clouds) -> float:
+    model.jit_batched_forward(clouds)
+    torch.cuda.synchronize()
+    return _device_ms(lambda: model.jit_batched_forward(clouds))
+
+
+def phase_reliability(params2, cfg2, params0, cfg0, clouds_np,
+                      pointer_model) -> None:
+    """model2 'reram-fused' (batch 8) protected with ECC at groups 16 and 4:
+    K1, K2 and K3 on the widened programs bit for bit against the plain
+    version and against the unprotected programs' outputs, and the logits
+    bit for bit the unprotected model's; faulted (:data:`FAULTS`) raw and
+    under each ECC, K1/K2/K3 against plain and the logits against the
+    port's CPU run of the same model (the MLPs bit for bit on the same
+    inputs; the logits bit for bit against the CPU run given the card's
+    layer-0 features, and against the CPU's own run bit for bit, or within
+    the end-to-end tolerance with argmax equal where the card's layer-0
+    features differ from the CPU's); 'reram' faulted, eager and captured,
+    K6 against plain on the
+    faulted planes; the captured call's device time protected, faulted
+    and unprotected; then one Pareto sweep of model0 at
+    :data:`SWEEP_RATES`, ECC at group 4 at least as accurate as raw at
+    every rate and more at one."""
+    import repro_torch
+    from repro_torch.kernels import (encode_planes, fused_mlp,
+                                     launch_counts, quantize_tensor,
+                                     ref_reram_matmul_int, reram_mlp,
+                                     reset_launch_counts)
+    from repro_torch.models import pointnet2 as pn
+    from repro_torch.reliability import EccConfig, FaultModel, pareto
+    clouds = torch.from_numpy(clouds_np).cuda()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cpu").manual_seed(SEED + 40)
+    inputs = {mlp: torch.randn((BATCH, m, prog.widths[0]), generator=g)
+              for mlp, (prog, m, _) in _model_mlps(
+                  cfg2, pointer_model.backend.program).items()}
+    inputs_cuda = {k: v.cuda() for k, v in inputs.items()}
+    base_logits = pointer_model.batched_forward(clouds)
+    base_mlps = _mlp_outputs(pointer_model, cfg2, inputs_cuda,
+                             "unprotected")
+    base_ms = _captured_device_ms(pointer_model, clouds)
+    fm = FaultModel(**FAULTS)
+    out = {"phase": "reliability", "fault_model": FAULTS,
+           "unprotected_captured_device_ms": base_ms, "ecc": {},
+           "faulted": {}}
+
+    def compile2(**kw):
+        return repro_torch.compile_model(params2, cfg2, schedule="pointer",
+                                         **kw)
+    for group in (16, 4):
+        model = compile2(backend="reram-fused", ecc=EccConfig(group))
+        d_pads = {mlp: p.d_pad for mlp, (p, _, _) in _model_mlps(
+            cfg2, model.backend.program).items()}
+        mlps = _mlp_outputs(model, cfg2, inputs_cuda, f"ecc {group}")
+        for mlp, y in mlps.items():
+            check(torch.equal(y, base_mlps[mlp]),
+                  f"ecc {group} {mlp}: protected != unprotected")
+        logits = model.batched_forward(clouds)
+        check(torch.equal(logits, base_logits),
+              f"ecc {group}: logits != unprotected logits")
+        check(torch.equal(model.jit_batched_forward(clouds), logits),
+              f"ecc {group}: captured != eager")
+        out["ecc"][group] = {
+            "d_pad": d_pads, "bitwise_vs_unprotected": True,
+            "captured_device_ms": _captured_device_ms(model, clouds),
+            "reliability": model.stats()["reliability"]["ecc"]["per_mlp"]}
+    in_f = cfg2.layers[0].in_features
+    lift_bitwise = torch.equal(
+        pn.lift_features(clouds[:2], in_f).cpu(),
+        pn.lift_features(torch.from_numpy(clouds_np[:2]), in_f))
+    out["layer0_features_bitwise_vs_cpu"] = lift_bitwise
+    for label, ecc in (("raw", None), ("ecc16", EccConfig(16)),
+                       ("ecc4", EccConfig(4))):
+        model = compile2(backend="reram-fused", ecc=ecc, fault_model=fm)
+        cpu = compile2(backend="reram-fused", ecc=ecc, fault_model=fm,
+                       device="cpu")
+        mlps = _mlp_outputs(model, cfg2, inputs_cuda, f"faulted {label}")
+        for mlp, (prog, m, relu) in _model_mlps(
+                cfg2, cpu.backend.program).items():
+            x_p, sx = fused_mlp.prepare_input(inputs[mlp], prog)
+            want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=m,
+                                             final_relu=relu)
+            check(torch.equal(mlps[mlp].cpu(), want),
+                  f"faulted {label} {mlp}: card != CPU")
+        logits = model.batched_forward(clouds)
+        check(torch.equal(model.jit_batched_forward(clouds), logits),
+              f"faulted {label}: captured != eager")
+        # bit for bit against the CPU run on the same inputs, the card's
+        # layer-0 features included
+        check(torch.equal(logits[:2].cpu(),
+                          _cpu_logits_on_card_features(cpu, clouds[:2])),
+              f"faulted {label}: logits != the CPU's on the card's "
+              f"layer-0 features")
+        # against the CPU's own run: bit for bit where the card's layer-0
+        # features equal the CPU's, else (sin/cos an ulp apart can move one
+        # requantized value a step) within the end-to-end tolerance
+        ref = cpu.batched_forward(clouds_np[:2])
+        err = float((logits[:2].cpu() - ref).abs().max())
+        tol = 0.0 if lift_bitwise else 1e-2 * float(ref.abs().max())
+        check(err <= tol, f"faulted {label}: card vs CPU err {err} > {tol} "
+                          f"(layer-0 features bitwise: {lift_bitwise})")
+        check(torch.equal(logits[:2].cpu().argmax(1), ref.argmax(1)),
+              f"faulted {label}: argmax card vs CPU")
+        changed = int((logits.argmax(1) != base_logits.argmax(1)).sum())
+        out["faulted"][label] = {
+            "mlps_bitwise_vs_cpu": True,
+            "logits_bitwise_vs_cpu_on_card_features": True,
+            "logits_bitwise_vs_cpu": bool(torch.equal(logits[:2].cpu(),
+                                                      ref)),
+            "cpu_max_abs_err": err, "tolerance": tol,
+            "argmax_changed_vs_ideal": changed,
+            "captured_device_ms": _captured_device_ms(model, clouds)}
+    # 'reram' faulted: K6 on the faulted planes of every layer, eager and
+    # captured logits, launches
+    reram = compile2(backend="reram", fault_model=fm)
+    reset_launch_counts()
+    logits = reram.batched_forward(clouds)
+    single = reram.forward(clouds[0])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for key in ("reram_matmul_int", "reram_combine"):
+        want = PATHS["model2"]["reram"][key]
+        check(counts[key] == want, f"faulted 'reram': {key} launched "
+                                   f"{counts[key]} times, expected {want}")
+    check(torch.equal(reram.jit_batched_forward(clouds), logits),
+          "faulted 'reram': captured != eager")
+    check(torch.equal(reram.jit_forward(clouds[0]), single),
+          "faulted 'reram': captured forward != eager")
+    check(torch.equal(single, logits[0]),
+          "faulted 'reram': forward != batched_forward row 0")
+    cpu = compile2(backend="reram", fault_model=fm, device="cpu")
+    ref = cpu.batched_forward(clouds_np[:2])
+    err = float((logits[:2].cpu() - ref).abs().max())
+    check(err <= 1e-2 * float(ref.abs().max()),
+          f"faulted 'reram': card vs CPU err {err}")
+    check(torch.equal(logits[:2].cpu().argmax(1), ref.argmax(1)),
+          "faulted 'reram': argmax card vs CPU")
+    k6 = 0
+    gx = torch.Generator(device="cpu").manual_seed(SEED + 41)
+    layers = [(key, l, lyr) for key, mlp in
+              [(("sa", i), m) for i, m in enumerate(params2["sa"])]
+              + [("head", params2["head"])] for l, lyr in enumerate(mlp)]
+    for key, l, lyr in layers:
+        draws = reram.backend.fault_draws(key, l)
+        planes = fm.transform_planes(encode_planes(
+            quantize_tensor(lyr["w"])[0]), draws).cuda()
+        x = torch.randint(-128, 128, (257, lyr["w"].shape[0]),
+                          generator=gx, dtype=torch.int8).cuda()
+        got = reram_mlp.reram_matmul_int_cuda(x, planes)
+        torch.cuda.synchronize()
+        check(torch.equal(got, ref_reram_matmul_int(x, planes)),
+              f"K6 faulted {key} layer {l} bitwise vs plain")
+        k6 += 1
+    out["reram_faulted"] = {
+        "launches": {k: counts[k] for k in ("reram_matmul_int",
+                                            "reram_combine")},
+        "k6_layers_bitwise": k6, "cpu_max_abs_err": err,
+        "captured_device_ms": _captured_device_ms(reram, clouds)}
+    # one Pareto sweep of model0 on the card
+    t1 = time.perf_counter()
+    points = pareto.sweep(params0, cfg0, fault_rates=SWEEP_RATES,
+                          protections=("none", "ecc"), ecc_group=4,
+                          n_clouds=8, device="cuda")
+    sweep_s = time.perf_counter() - t1
+    front = pareto.pareto_front(points)
+    # a fault-free model (protected or not) is the ideal one, bit for bit;
+    # below 1% stuck cells ECC at group 4 keeps agreement where the raw
+    # program loses it: at least as high at every rate, higher at one
+    check(all(p.accuracy == 1.0 for p in points if p.fault_rate == 0.0),
+          "a fault-free sweep point disagrees with the ideal model")
+    acc = {(p.protection, p.fault_rate): p.accuracy for p in points}
+    check(all(acc["ecc", r] >= acc["none", r] for r in SWEEP_RATES)
+          and any(acc["ecc", r] > acc["none", r] for r in SWEEP_RATES),
+          f"ECC at group 4 does not separate from raw: {acc}")
+    out["pareto"] = {"seconds": sweep_s,
+                     "points": [dict(p.__dict__) for p in points],
+                     "front": [dict(p.__dict__) for p in front],
+                     "archetypes": pareto.classify_archetypes(
+                         points)["counts"]}
+    out["seconds"] = time.perf_counter() - t0
+    emit(out)
+
+
+def phase_quickstart() -> None:
+    """``examples/quickstart_torch.py``'s ``main()`` on the card, once."""
+    import importlib.util
+    path = ROOT / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    t0 = time.perf_counter()
+    got = module.main("cuda")
+    check(got["argmax_agree"], "quickstart: float and fused argmax differ")
+    for key in ("policy_bitwise", "captured_bitwise", "precommitted_bitwise"):
+        check(got[key], f"quickstart: {key} is False")
+    emit({"phase": "quickstart", "seconds": time.perf_counter() - t0,
+          **{k: got[k] for k in ("designs", "elision", "choices",
+                                 "picked")}})
 
 
 # ---------------------------------------------------------------------------
@@ -1660,10 +2132,8 @@ SERVE_BUCKETS = {"points": (768, 1024), "batch": (1, 2, 4, 8)}
 SERVE_PACED_HZ = 500.0
 #: The kernel rows of the ``{"kernels": [...]}`` line a served step or a
 #: plan-cache miss launches, by launch counter.
-SERVE_KERNELS = {"K1 fused_mlp": "fused_mlp",
-                 "K1/K2/K3 combine_weights (s8 pre-pass)":
+SERVE_KERNELS = {"K1/K2/K3 combine_weights (s8 pre-pass)":
                      "fused_mlp_combine",
-                 "K2 fused_mlp_mtiled": "fused_mlp_mtiled",
                  "K3 fused_mlp_wstat": "fused_mlp_wstat",
                  "K4 aggregate_diff_batched": "aggregate_diff_batched",
                  "K7 fps": "fps", "P1 plan_greedy": "plan_greedy",
@@ -1884,8 +2354,10 @@ def phase_serve(params2, cfg2, bare, smi) -> dict:
     calls = (CudaGraphCall.WARMUP + 1) * captures
     per_step = PATHS["model2"]["serve"]
     want = {"fps": 2 * calls + 2 * builds, "plan_greedy": builds,
-            "plan_coordinate": builds, "aggregate_diff_batched": 2 * calls,
-            **{c: per_step.get(c, 0) * calls for c in MLP_COUNTERS}}
+            "plan_coordinate": builds, "aggregate_diff_batched": 2 * calls}
+    for key in model._graphs:        # (entry, operands, (clouds' shape, …))
+        for c, n in per_step[key[2][0][0]].items():
+            want[c] = want.get(c, 0) + (CudaGraphCall.WARMUP + 1) * n
     for key, n in counts.items():
         check(n == want.get(key, 0),
               f"serve: {key} launched {n} times, expected "
@@ -2026,6 +2498,9 @@ def main() -> int:
     cfgs = {m: repro_torch.PAPER_MODELS[m] for m in PATHS}
     params = {m: init_params(cfg, seed=SEED) for m, cfg in cfgs.items()}
     clouds_np = make_clouds(1024, BATCH, SEED)
+    # first, so that model0's MLPs are K2's first launches in the process
+    # (a launch at exactly 48 KB of dynamic shared memory)
+    phase_dataflow(params, cfgs, smi)
 
     def compile_path(name, backend, **kw):
         m = name.partition("/")[0]
@@ -2041,6 +2516,11 @@ def main() -> int:
     fps_cases = phase_fps_vs_plain(clouds_np)
     plan_cases = phase_plan_vs_plain(models, clouds_np)
     counts_of = phase_end_to_end(params, cfgs, clouds_np)
+    phase_policy(params["model2"], cfgs["model2"], clouds_np,
+                 models["model2"])
+    phase_reliability(params["model2"], cfgs["model2"], params["model0"],
+                      cfgs["model0"], clouds_np, models["model2"])
+    phase_quickstart()
     kernels = phase_times(cases, cases2, fps_cases, plan_cases, counts_of,
                           models, hosts, clouds_np, smi)
     for name, host in hosts.items():

@@ -21,24 +21,39 @@ The serving tier (``repro_torch.launch``) batches requests into shape
 buckets behind a FIFO or EDF scheduler and reuses plans through a
 content-keyed :class:`PlanCache` and a :class:`FrameTracker`; on the card
 each bucket shape replays one captured CUDA graph.
+
+:class:`PlanPolicy` is the cost model behind the scheduling decisions (the
+Hopper dataflow each fused MLP launches, the intra-layer order), and
+``repro_torch.reliability`` injects ReRAM faults (:class:`FaultModel`)
+and protects the crossbar programs with ECC.
 """
+from repro_torch.core.energy import RooflineParams
+from repro_torch.core.policy import PlanPolicy
 from repro_torch.core.schedule import (DevicePlan, ExecutionPlan,
                                        FrameTracker, MODE_PRESETS,
                                        PlanCache, build_plan,
                                        cloud_content_key, frame_fingerprint)
-from repro_torch.core.workload import PAPER_MODELS
+from repro_torch.core.workload import (PAPER_MODELS, PointNetConfig,
+                                       PointNetWorkload)
+from repro_torch.kernels import CrossbarProgram
 from repro_torch.launch.serve import (EDFScheduler, FIFOScheduler,
                                       PointCloudServable, Request,
                                       Scheduler, Servable, ServingEngine,
                                       ShapeBuckets, VirtualClock)
-from repro_torch.models.backend import (CompiledModel, available_backends,
-                                        compile_model, register_backend)
+from repro_torch.models.backend import (Backend, CompiledModel,
+                                        available_backends, compile_model,
+                                        register_backend)
+from repro_torch import reliability
+from repro_torch.reliability import FaultModel
 
 __all__ = [
-    "CompiledModel", "DevicePlan", "EDFScheduler", "ExecutionPlan",
-    "FIFOScheduler", "FrameTracker", "MODE_PRESETS", "PAPER_MODELS",
-    "PlanCache", "PointCloudServable", "Request", "Scheduler", "Servable",
-    "ServingEngine", "ShapeBuckets", "VirtualClock", "available_backends",
-    "build_plan", "cloud_content_key", "compile_model",
-    "frame_fingerprint", "register_backend",
+    "Backend", "CompiledModel", "CrossbarProgram", "DevicePlan",
+    "EDFScheduler", "ExecutionPlan", "FIFOScheduler", "FaultModel",
+    "FrameTracker", "MODE_PRESETS", "PAPER_MODELS", "PlanCache",
+    "PlanPolicy", "PointCloudServable", "PointNetConfig",
+    "PointNetWorkload", "Request", "RooflineParams", "Scheduler",
+    "Servable", "ServingEngine", "ShapeBuckets", "VirtualClock",
+    "available_backends", "build_plan", "cloud_content_key",
+    "compile_model", "frame_fingerprint", "register_backend",
+    "reliability",
 ]

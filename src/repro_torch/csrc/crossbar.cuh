@@ -50,11 +50,14 @@ __device__ __forceinline__ void publish_max(float local, float* red,
   __syncthreads();
 }
 
-// Allow `bytes` of dynamic shared memory for `kernel` (above 48 KB a launch
-// is refused without it). Returns the cudaError_t.
+// Allow `bytes` of dynamic shared memory for `kernel`. Without it a launch
+// is refused once dynamic plus static shared memory pass 48 KB — so at
+// exactly 48 KB of dynamic memory beside a kernel's own few static bytes
+// (K2 at a widest k_lim of 128) — and the attribute, once raised, stays for
+// the process: set it on every call, so that no launch depends on an
+// earlier, larger one. Returns the cudaError_t.
 template <typename Kernel>
 inline int allow_smem(Kernel kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes)));

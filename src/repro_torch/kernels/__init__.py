@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the port, each beside its plain version.
 
 - ``program``   : CrossbarProgram — weights quantized + plane-encoded once
-                  at program time; the dataflow choice (``plan_fused_mlp``)
-                  and the kernels' launch geometry
+                  at program time; the TPU's dataflow choice
+                  (``plan_fused_mlp``), the kernels' launch geometry and
+                  what a call moves, computes and launches (the cost
+                  model's inputs)
 - ``fused_mlp`` : the whole crossbar MLP, one launch per layer, in three
                   dataflows: K1 'whole'/'tiled' (``csrc/fused_mlp.cu``),
                   K2 'mtiled' (``csrc/fused_mlp_mtiled.cu``), K3 'wstat'
@@ -36,17 +38,20 @@ from .fused_mlp import reram_mlp_fused, reram_mlp_fused_batched
 from .ops import count_dma_elisions, fps, reram_linear
 from .plan_order import plan_coordinate, plan_greedy
 from .program import (FUSED_MODES, CrossbarProgram, FusedPlan,
-                      LaunchGeometry, build_program, encode_planes,
-                      fused_vmem_bytes, plan_fused_mlp, plan_launch,
-                      quantize_tensor)
+                      LaunchGeometry, LaunchWork, build_program,
+                      encode_planes, fused_vmem_bytes, launch_bytes,
+                      launch_count, launch_work, plan_fused_mlp,
+                      plan_launch, quantize_tensor)
 from .ref import combine_planes, ref_fps_update, ref_reram_matmul_int
 from .reram_mlp import reram_matmul_int
 
 __all__ = [
     "FUSED_MODES", "CrossbarProgram", "FusedPlan", "LaunchGeometry",
+    "LaunchWork",
     "aggregate_diff", "aggregate_diff_batched", "build_program",
     "combine_planes", "count_dma_elisions", "encode_planes", "fps",
-    "fps_batched", "fps_update", "fused_vmem_bytes", "launch_counts",
+    "fps_batched", "fps_update", "fused_vmem_bytes", "launch_bytes",
+    "launch_count", "launch_counts", "launch_work",
     "plan_coordinate", "plan_fused_mlp", "plan_greedy", "plan_launch",
     "quantize_tensor", "ref_fps_update",
     "ref_reram_matmul_int", "reram_linear", "reram_matmul_int",

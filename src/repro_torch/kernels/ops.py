@@ -3,11 +3,12 @@ through the crossbar matmul K6), ``fps`` (farthest point sampling through
 K7) and ``count_dma_elisions`` (the gather's DMA-elision count, NumPy).
 
 ``reram_linear`` is the counterpart of the JAX package's
-``repro.kernels.ops.reram_linear`` (without ``fault_model``): INT8
-symmetric quantization of both operands, the bit-sliced crossbar matmul in
-the integer domain (exact), dequantized output. The weights are quantized
-and plane-encoded anew on every call, as in the JAX package; the
-weight-stationary path is the fused MLP, which programs them once.
+``repro.kernels.ops.reram_linear``: INT8 symmetric quantization of both
+operands, the bit-sliced crossbar matmul in the integer domain (exact),
+dequantized output. The weights are quantized and plane-encoded anew on
+every call, as in the JAX package; the weight-stationary path is the fused
+MLP, which programs them once. A ``fault_model`` lands on the freshly
+encoded ``(P, K, N)`` planes before K6's own s8 pre-pass combines them.
 """
 from __future__ import annotations
 
@@ -24,7 +25,8 @@ __all__ = ["count_dma_elisions", "fps", "reram_linear"]
 
 
 def reram_linear(x, w, b=None, *, batched: bool = False,
-                 check_weights: bool = True):
+                 check_weights: bool = True, fault_model=None,
+                 fault_key=()):
     """Float ``(…, K) @ (K, N)`` through the bit-sliced crossbar matmul.
 
     All rows share one activation scale, or, with ``batched``, axis 0 is a
@@ -32,10 +34,20 @@ def reram_linear(x, w, b=None, *, batched: bool = False,
     a per-input loop would give, bit for bit) — and the whole batch still
     runs as one matmul launch. ``check_weights=False`` skips the NaN/Inf
     check of ``w`` (a host sync on the card), for weights the caller has
-    checked once already."""
+    checked once already.
+
+    ``fault_model`` (a :class:`repro_torch.reliability.FaultModel`, read
+    through its ``is_ideal_for``/``transform_planes``) injects ReRAM
+    non-idealities into the encoded planes before the product;
+    ``fault_key`` is its site tuple (drawn on the CPU in this call) or the
+    site's :class:`~repro_torch.reliability.faults.FaultDraws`, made
+    before — what a captured call passes, so that it draws nothing."""
     k, n = w.shape
     w_int, sw = quantize_tensor(w, check_finite=check_weights)
     planes = encode_planes(w_int)
+    if fault_model is not None and not fault_model.is_ideal_for(2):
+        planes = fault_model.transform_planes(planes, fault_key,
+                                              cell_bits=2)
     if batched:
         batch = x.shape[0]
         x3 = x.reshape(batch, -1, k)

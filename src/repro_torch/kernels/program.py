@@ -11,12 +11,13 @@ programmed crossbars to the card.
 Dataflow choice. The JAX package picks one of four dataflows per MLP and
 row count (:data:`FUSED_MODES`) by a 16 MB VMEM budget;
 :func:`plan_fused_mlp` here is a copy of that arithmetic
-(``repro/kernels/program.py:283-459``, without ``policy=``), so the same
-MLP runs the same dataflow in both packages. The modes map to kernels:
-'whole' and 'tiled' to K1 (``csrc/fused_mlp.cu``), 'mtiled' to K2
-(``csrc/fused_mlp_mtiled.cu``), 'wstat' to K3 (``csrc/fused_mlp_wstat.cu``).
-The TPU's tile edges (``block_n``/``block_k``) only steer that choice; they
-are not taken as arguments and do not shape the Hopper launches.
+(``repro/kernels/program.py:283-459``, ``policy=`` and the tile-edge pins
+included), so the TPU's choice can be reported beside the port's. The port
+launches its own choice, made over the Hopper quantities below:
+:meth:`~repro_torch.core.policy.PlanPolicy.select_launch` ranks K1
+('whole'; 'tiled' is the same kernel), K2 ('mtiled', ``csrc/
+fused_mlp_mtiled.cu``) and K3 ('wstat', ``csrc/fused_mlp_wstat.cu``) by
+the time their launches take (:func:`launch_work`).
 
 Launch geometry. On Hopper a block has at most 227 KB of shared memory, so
 no panel fits on chip; the kernels run one launch per layer, because the
@@ -70,13 +71,15 @@ from .ref import combine_planes
 
 __all__ = [
     "BLOCK_K", "BLOCK_M", "BLOCK_N", "CROSSBAR", "CrossbarProgram",
-    "FUSED_MODES", "FusedPlan", "LaunchGeometry", "MAX_SMEM_BYTES",
+    "FUSED_MODES", "FusedPlan", "LaunchGeometry", "LaunchWork",
+    "MAX_SMEM_BYTES",
     "MMA_BLOCK_K", "MMA_BLOCK_N", "MMA_STAGES", "MMA_STRIPE_K",
     "ReramSplit", "SM_SMEM_BYTES", "VMEM_BUDGET_BYTES", "WSTAT_BLOCK_K",
     "WSTAT_BLOCK_N", "WSTAT_STAGES",
-    "build_program", "encode_planes", "fused_vmem_bytes", "mtiled_on_chip",
-    "plan_fused_mlp", "plan_launch", "plan_reram", "quantize_tensor",
-    "require_finite", "wstat_chunk", "wstat_row_groups",
+    "build_program", "combine_bytes", "encode_planes", "fused_vmem_bytes",
+    "launch_bytes", "launch_count", "launch_work",
+    "mtiled_on_chip", "plan_fused_mlp", "plan_launch", "plan_reram",
+    "quantize_tensor", "require_finite", "wstat_chunk", "wstat_row_groups",
 ]
 
 #: Crossbar edge — every program dimension is padded to this (the JAX
@@ -111,10 +114,6 @@ VMEM_BUDGET_BYTES = 16 * 2 ** 20
 #: The four fused-MLP dataflows of the JAX package, in its order. Kernels:
 #: 'whole'/'tiled' -> K1, 'mtiled' -> K2, 'wstat' -> K3.
 FUSED_MODES = ("whole", "tiled", "mtiled", "wstat")
-
-#: The TPU's activation stripe height, which the VMEM accounting assumes.
-_TPU_BLOCK_M = CROSSBAR
-
 
 def _scale(absmax: torch.Tensor, qmax: float) -> torch.Tensor:
     """``max(absmax / qmax, 1e-12)`` in float32, as the JAX package
@@ -184,11 +183,14 @@ class CrossbarProgram(nn.Module):
     w_scale : (L, 1) float32 per-layer weight quantization scale
     col_mask: (L, d_pad) float32, 1.0 on each layer's real output columns
     widths  : (d0, ..., dL) — the original float MLP widths
+    ecc     : an :class:`~repro_torch.reliability.ecc.EccSpec` when the
+              planes carry Hamming parity in their spare columns
+              (``build_program(..., ecc=...)``); None for bare programs
     """
 
     def __init__(self, planes, bias, w_scale, col_mask,
                  widths: Sequence[int], weight_bits: int = 8,
-                 cell_bits: int = 2):
+                 cell_bits: int = 2, ecc=None):
         super().__init__()
         self.register_buffer("planes", planes)
         self.register_buffer("bias", bias)
@@ -197,6 +199,23 @@ class CrossbarProgram(nn.Module):
         self.widths = tuple(int(w) for w in widths)
         self.weight_bits = weight_bits
         self.cell_bits = cell_bits
+        self.ecc = ecc
+
+    def replace(self, **tensors) -> "CrossbarProgram":
+        """A new program with some of ``planes``, ``bias``, ``w_scale``,
+        ``col_mask`` and ``ecc`` replaced (``dataclasses.replace`` of the
+        JAX package's program); the rest shared with this one."""
+        fields = {"planes": self.planes, "bias": self.bias,
+                  "w_scale": self.w_scale, "col_mask": self.col_mask,
+                  "ecc": self.ecc}
+        unknown = set(tensors) - set(fields)
+        if unknown:
+            raise TypeError(f"cannot replace {sorted(unknown)}")
+        fields.update(tensors)
+        ecc = fields.pop("ecc")
+        return CrossbarProgram(**fields, widths=self.widths,
+                               weight_bits=self.weight_bits,
+                               cell_bits=self.cell_bits, ecc=ecc)
 
     @property
     def n_layers(self) -> int:
@@ -228,13 +247,17 @@ class CrossbarProgram(nn.Module):
 
 
 def build_program(layers: Sequence, *, weight_bits: int = 8,
-                  cell_bits: int = 2) -> CrossbarProgram:
+                  cell_bits: int = 2, ecc=None) -> CrossbarProgram:
     """Program an MLP into crossbars: quantize + plane-encode every layer
     exactly once, pad to the 128x128 geometry, stack into one module (on
     the device the weights lie on).
 
     ``layers``: sequence of ``{"w": (k, n), "b": (n,)}`` dicts or
-    ``(w, b)`` tuples."""
+    ``(w, b)`` tuples. ``ecc``: an
+    :class:`~repro_torch.reliability.ecc.EccConfig` (or True for the
+    default) Hamming-encodes the planes' spare columns here
+    (:func:`~repro_torch.reliability.ecc.protect_program`); the products
+    do not change."""
     wbs = []
     for lyr in layers:
         w, b = (lyr["w"], lyr["b"]) if isinstance(lyr, dict) else lyr
@@ -265,10 +288,15 @@ def build_program(layers: Sequence, *, weight_bits: int = 8,
         bias[l, :n] = b
         mask[l, :n] = 1.0
         scale.append(sw)
-    return CrossbarProgram(planes, bias,
-                           torch.stack(scale).reshape(-1, 1), mask,
-                           widths, weight_bits=weight_bits,
-                           cell_bits=cell_bits)
+    program = CrossbarProgram(planes, bias,
+                              torch.stack(scale).reshape(-1, 1), mask,
+                              widths, weight_bits=weight_bits,
+                              cell_bits=cell_bits)
+    if ecc is not None and ecc is not False:
+        # deferred: reliability sits above kernels in the layering
+        from repro_torch.reliability.ecc import protect_program
+        program = protect_program(program, ecc)
+    return program
 
 
 @dataclass(frozen=True)
@@ -430,7 +458,108 @@ def plan_reram(m: int, k: int, n: int, sms: int) -> ReramSplit:
 
 
 # ---------------------------------------------------------------------------
-# the dataflow choice: a copy of the JAX package's VMEM accounting
+# what one call of a Hopper dataflow does: launches, blocks, work, bytes
+# ---------------------------------------------------------------------------
+
+def combine_bytes(program: CrossbarProgram, geom: LaunchGeometry) -> int:
+    """Device-memory bytes of the s8 pre-pass: the planes of each layer's
+    ``(k_lim, n_lim)`` read once, its s8 weights written once."""
+    return sum((program.n_planes + 1) * k * n
+               for k, n in zip(geom.k_lims, geom.n_lims))
+
+
+@dataclass(frozen=True)
+class LaunchWork:
+    """One kernel launch of a fused-MLP call, as the cost model
+    (:meth:`~repro_torch.core.policy.PlanPolicy.launch_cost`) reads it.
+    ``blocks`` is the grid (0 for a grid-stride pass: the s8 pre-pass, K3's
+    snapshot pass); one block runs, one after another, ``slabs`` products of
+    ``BLOCK_M`` rows x ``MMA_BLOCK_N`` columns x ``MMA_BLOCK_K`` bytes,
+    ``tiles`` epilogues of ``BLOCK_M x MMA_BLOCK_N`` outputs (dequantized
+    and stored, or requantized into shared memory) and requantizes
+    ``requant`` float32 inputs as it loads them; ``bytes`` is what the
+    launch moves in device memory if every re-read inside it hits L2, each
+    tensor counted once."""
+
+    blocks: int
+    slabs: float
+    tiles: float
+    requant: int
+    bytes: int
+
+
+def launch_work(program: CrossbarProgram, m_rows: int, mode: str, *,
+                batch: int = 1, sms: int = 132) -> tuple[LaunchWork, ...]:
+    """The launches of one call of ``batch`` elements of ``m_rows`` rows
+    under ``mode``, as its kernels are written (:class:`LaunchGeometry`'s
+    grids on ``sms`` SMs). All modes start with the pre-pass
+    (:func:`combine_bytes`). K1 ('whole'/'tiled'), per layer: a block one
+    ``MMA_BLOCK_N`` chunk of one row tile over ``k_lim``, loading its input
+    as int8 (layer 0) or requantizing the float32 panel; moving the input,
+    s8 weights, bias and mask, and the float32 output panel. K2 ('mtiled'),
+    launch j: a block one row tile through layers ``0 .. j``, every
+    N-chunk of each; moving the int8 input, the weights, bias and mask of
+    layers ``0 .. j``, and the float32 output in the last launch only. K3
+    ('wstat'), per layer: the snapshot pass after layer 0 (the float32
+    panel read, the int8 snapshot written), then a block one chunk of
+    ``cols`` columns (:func:`wstat_chunk`) over its share of the row
+    tiles; moving the int8 input, weights, bias, mask and float32 output.
+    'mtiled' where K2's stripes do not fit on chip is K1, which runs in its
+    place."""
+    geom = plan_launch(program, m_rows, mode)
+    if mode == "tiled" or (mode == "mtiled" and not mtiled_on_chip(geom)):
+        mode = "whole"
+    rows = batch * geom.m_pad
+    row_tiles = rows // BLOCK_M
+    ks, ns = geom.k_lims, geom.n_lims
+    slabs = [-(-k // MMA_BLOCK_K) for k in ks]
+    chunks = [-(-n // MMA_BLOCK_N) for n in ns]
+    out = [LaunchWork(0, 0, 0, 0, combine_bytes(program, geom))]
+    for l, (k, n, smem) in enumerate(zip(ks, ns, geom.smem_bytes)):
+        wbytes = k * n + 8 * n
+        if mode == "whole":
+            out.append(LaunchWork(
+                chunks[l] * row_tiles, slabs[l], 1,
+                BLOCK_M * k if l else 0,
+                rows * k * (4 if l else 1) + wbytes + 4 * rows * n))
+        elif mode == "mtiled":
+            last = l == len(ks) - 1
+            out.append(LaunchWork(
+                row_tiles,
+                sum(s * c for s, c in zip(slabs[:l + 1], chunks[:l + 1])),
+                sum(chunks[:l + 1]), 0,
+                rows * ks[0] + sum(a * b + 8 * b for a, b in
+                                   zip(ks[:l + 1], ns[:l + 1]))
+                + (4 * rows * ns[-1] if last else 0)))
+        else:
+            if l:
+                out.append(LaunchWork(0, 0, 0, 0, 5 * rows * k))
+            cols = wstat_chunk(k)[0]
+            n_chunks = -(-n // cols)
+            groups = wstat_row_groups(n_chunks, row_tiles, sms, smem)
+            tiles = -(-row_tiles // groups) * cols / MMA_BLOCK_N
+            out.append(LaunchWork(n_chunks * groups, tiles * slabs[l], tiles,
+                                  0, rows * k + wbytes + 4 * rows * n))
+    return tuple(out)
+
+
+def launch_bytes(program: CrossbarProgram, m_rows: int, mode: str, *,
+                 batch: int = 1) -> int:
+    """A model, not a measurement: the device-memory bytes one call moves
+    under ``mode``, summed over its launches (:func:`launch_work`)."""
+    return sum(w.bytes for w in launch_work(program, m_rows, mode,
+                                            batch=batch))
+
+
+def launch_count(program: CrossbarProgram, mode: str) -> int:
+    """Kernel launches of one call: the pre-pass and one per layer; K3
+    also a snapshot pass per layer after the first."""
+    n_layers = program.n_layers
+    return 1 + n_layers + (n_layers - 1 if mode == "wstat" else 0)
+
+
+# ---------------------------------------------------------------------------
+# the TPU's dataflow choice: a copy of the JAX package's VMEM accounting
 # ---------------------------------------------------------------------------
 
 def fused_vmem_bytes(d_pad: int, n_planes: int, m_pad: int, block_m: int,
@@ -463,8 +592,18 @@ def fused_vmem_bytes(d_pad: int, n_planes: int, m_pad: int, block_m: int,
     return 2 * blocks + scratch
 
 
+def _largest_fitting_edge(d, edges, bytes_at, vmem_budget):
+    """Largest tile edge among ``edges`` that divides ``d_pad`` and fits."""
+    for cand in edges:
+        if d % cand == 0 and bytes_at(cand) <= vmem_budget:
+            return cand
+    return None
+
+
 def _edge_candidates(mode: str, d: int) -> range:
-    """TPU tile edges a mode may take, largest first."""
+    """TPU tile edges a mode may take, largest first: 'whole' is the single
+    N-tile, 'wstat'/'tiled' only make sense split, 'mtiled' may keep the
+    full edge."""
     if mode == "whole":
         return range(d, d + 1)
     if mode == "mtiled":
@@ -474,43 +613,61 @@ def _edge_candidates(mode: str, d: int) -> range:
 
 @dataclass(frozen=True)
 class FusedPlan:
-    """The dataflow chosen for one MLP at one row count: ``mode`` (one of
-    :data:`FUSED_MODES`), and the TPU tile edge and VMEM residency the
-    choice rests on (``tpu_block_n``, ``vmem_bytes``, against ``budget``,
-    for ``d_pad`` and the TPU's ``m_pad`` rows of ``n_planes`` planes).
-    ``fits_budget`` is False only when nothing fits and 'mtiled' is the
-    fallback. The ``*_per_layer`` properties are the JAX package's HBM
-    accounting of that TPU dataflow (what its ``stats()`` reports), not
-    Hopper quantities: the Hopper kernels tile by their own edges."""
+    """The TPU dataflow chosen for one MLP at one row count, field for
+    field the JAX package's ``FusedPlan``: the TPU kernel's launch
+    geometry (``block_m``/``block_n``/``block_k`` tile edges over
+    ``d_pad`` and ``m_pad``) and its per-grid-step VMEM residency
+    (``vmem_bytes``, against ``budget``; ``whole_bytes`` what 'whole' would
+    have taken). ``fits_budget`` is False only when nothing fits and
+    'mtiled' is the fallback. The ``*_per_layer`` properties are the JAX
+    package's HBM accounting of that TPU dataflow, not Hopper quantities:
+    the Hopper kernels tile by their own edges (:class:`LaunchGeometry`)
+    and the port launches the Hopper choice
+    (:meth:`~repro_torch.core.policy.PlanPolicy.select_launch`)."""
 
-    mode: str
-    tpu_block_n: int
-    vmem_bytes: int
-    budget: int
     d_pad: int
     m_pad: int
-    n_planes: int
+    block_m: int
+    block_n: int
+    block_k: int
+    vmem_bytes: int
+    whole_bytes: int
+    budget: int = VMEM_BUDGET_BYTES
+    mode: str = "whole"
+    n_planes: int = 4
+
+    @property
+    def tiled(self) -> bool:
+        """True when the N dimension is split (``block_n < d_pad``)."""
+        return self.block_n < self.d_pad
 
     @property
     def fits_budget(self) -> bool:
         return self.vmem_bytes <= self.budget
 
     @property
+    def n_steps(self) -> int:
+        return self.d_pad // self.block_n
+
+    @property
+    def m_steps(self) -> int:
+        return self.m_pad // self.block_m
+
+    @property
     def plane_tile_fetches_per_layer(self) -> int:
-        """``(P, d_pad, tpu_block_n)`` plane tiles crossing HBM to VMEM per
+        """``(P, d_pad, block_n)`` plane tiles crossing HBM to VMEM per
         layer and batch element: once per N-tile for 'wstat', once for
         'whole' or a single N-tile, else once per M-stripe and N-tile."""
-        n_steps = self.d_pad // self.tpu_block_n
         if self.mode == "wstat":
-            return n_steps
-        if self.mode == "whole" or n_steps == 1:
+            return self.n_steps
+        if self.mode == "whole" or self.n_steps == 1:
             return 1
-        return (self.m_pad // _TPU_BLOCK_M) * n_steps
+        return self.m_steps * self.n_steps
 
     @property
     def plane_hbm_bytes_per_layer(self) -> int:
-        return (self.plane_tile_fetches_per_layer * self.n_planes
-                * self.d_pad * self.tpu_block_n)
+        return (self.plane_tile_fetches_per_layer
+                * self.n_planes * self.d_pad * self.block_n)
 
     @property
     def act_hbm_bytes_per_layer(self) -> int:
@@ -520,35 +677,87 @@ class FusedPlan:
 
 
 def plan_fused_mlp(program: CrossbarProgram, m_rows: int, *,
-                   mode: str | None = None) -> FusedPlan:
-    """Choose the dataflow for ``m_rows`` activation rows as the JAX
-    package's ``plan_fused_mlp`` does with its defaults: the first of
-    whole -> wstat -> tiled -> mtiled that fits the VMEM budget at some tile
-    edge, or 'mtiled' with ``fits_budget`` False when none does. ``mode``
-    pins the dataflow instead."""
-    d, p = program.d_pad, program.n_planes
+                   mode: str | None = None, block_m: int = CROSSBAR,
+                   block_n: int | None = None, block_k: int | None = None,
+                   vmem_budget: int | None = None,
+                   policy=None) -> FusedPlan:
+    """The JAX package's TPU dataflow choice for ``m_rows`` activation
+    rows (``repro/kernels/program.py::plan_fused_mlp``, the same
+    arithmetic and the same result field for field).
+
+    Unpinned, it walks whole -> wstat -> tiled -> mtiled and takes the
+    first dataflow with a tile edge that fits the VMEM budget ('mtiled'
+    with ``fits_budget`` False when none does). ``policy`` (a
+    :class:`~repro_torch.core.policy.PlanPolicy`, read through its
+    ``fused_cost``/``vmem_budget``) ranks every fitting dataflow by its
+    roofline cost instead, ties in that order; without an explicit
+    ``vmem_budget`` the policy's budget applies. ``mode`` pins the
+    dataflow (its largest fitting edge still picked), ``block_n`` and
+    ``block_k`` pin tile edges (validated against the crossbar geometry);
+    an explicit ``block_n`` without ``mode`` selects 'whole' at ``block_n
+    == d_pad``, else 'tiled'. The Hopper kernels launched for the chosen
+    mode tile by their own edges; none of these arguments shapes them."""
+    d = program.d_pad
+    p = program.n_planes
+    if vmem_budget is None:
+        vmem_budget = (getattr(policy, "vmem_budget", None)
+                       if policy is not None else None) or VMEM_BUDGET_BYTES
+    if block_m % 8 != 0 or block_m <= 0:
+        raise ValueError(f"block_m={block_m} must be a positive multiple "
+                         f"of 8 (f32 sublane tiling)")
     if mode is not None and mode not in FUSED_MODES:
         raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
-    m_pad = _ceil_to(max(int(m_rows), 1), _TPU_BLOCK_M)
+    m_pad = -(-max(int(m_rows), 1) // block_m) * block_m
 
-    def bytes_at(md: str, bn: int) -> int:
-        return fused_vmem_bytes(d, p, m_pad, _TPU_BLOCK_M, bn, mode=md)
+    def bytes_at(md, bn):
+        return fused_vmem_bytes(d, p, m_pad, block_m, bn, mode=md)
 
-    def largest_fitting_edge(md: str) -> int | None:
-        for cand in _edge_candidates(md, d):
-            if d % cand == 0 and bytes_at(md, cand) <= VMEM_BUDGET_BYTES:
-                return cand
-        return None
-
-    if mode is not None:
-        bn = d if mode == "whole" else largest_fitting_edge(mode) or CROSSBAR
+    whole = bytes_at("whole", d)
+    if block_k is None:
+        bk = min(d, 4 * CROSSBAR)
     else:
-        mode, bn = "mtiled", CROSSBAR
-        for cand in ("whole", "wstat", "tiled", "mtiled"):
-            found = largest_fitting_edge(cand)
+        bk = block_k
+        if bk <= 0 or bk % CROSSBAR != 0 or d % bk != 0:
+            raise ValueError(f"block_k={bk} must be a multiple of "
+                             f"{CROSSBAR} dividing d_pad={d}")
+
+    def plan_at(md, bn):
+        return FusedPlan(
+            d_pad=d, m_pad=m_pad, block_m=block_m, block_n=bn, block_k=bk,
+            vmem_bytes=bytes_at(md, bn), whole_bytes=whole,
+            budget=vmem_budget, mode=md, n_planes=p)
+
+    if block_n is not None:
+        bn = block_n
+        if bn <= 0 or bn % CROSSBAR != 0 or d % bn != 0:
+            raise ValueError(f"block_n={bn} must be a multiple of "
+                             f"{CROSSBAR} dividing d_pad={d}")
+        if mode is None:
+            mode = "whole" if bn == d else "tiled"
+        elif mode == "whole" and bn != d:
+            raise ValueError(f"mode='whole' is the single-N-tile dataflow; "
+                             f"block_n={bn} != d_pad={d}")
+    elif mode is not None:
+        if mode == "whole":
+            bn = d
+        else:
+            bn = _largest_fitting_edge(d, _edge_candidates(mode, d),
+                                       lambda c: bytes_at(mode, c),
+                                       vmem_budget) or CROSSBAR
+    else:
+        fitting: list[tuple[str, int]] = []
+        for cand_mode in ("whole", "wstat", "tiled", "mtiled"):
+            found = _largest_fitting_edge(
+                d, _edge_candidates(cand_mode, d),
+                lambda c: bytes_at(cand_mode, c), vmem_budget)
             if found is not None:
-                mode, bn = cand, found
-                break
-    return FusedPlan(mode=mode, tpu_block_n=bn, vmem_bytes=bytes_at(mode, bn),
-                     budget=VMEM_BUDGET_BYTES, d_pad=d, m_pad=m_pad,
-                     n_planes=p)
+                fitting.append((cand_mode, found))
+        if not fitting:
+            mode, bn = "mtiled", CROSSBAR
+        elif policy is None:
+            mode, bn = fitting[0]
+        else:
+            mode, bn = min(
+                enumerate(fitting),
+                key=lambda t: (policy.fused_cost(plan_at(*t[1])), t[0]))[1]
+    return plan_at(mode, bn)

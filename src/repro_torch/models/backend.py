@@ -8,7 +8,12 @@ Lifecycle — the same three phases as the accelerator:
             'reram-fused' backend quantizes + plane-encodes every MLP into
             a :class:`~repro_torch.kernels.CrossbarProgram` here, exactly
             once), then moves the model to its device.
-  plan    : ``schedule=`` pins the execution order (paper Algorithm 1):
+  plan    : ``policy=`` hands the scheduling decisions to a
+            :class:`~repro_torch.core.policy.PlanPolicy` cost model (the
+            fused dataflow launched on the card, and the intra-layer order
+            per workload unless ``schedule=`` pins it; a precommitted
+            policy plans on the card like a preset).
+            ``schedule=`` pins the execution order (paper Algorithm 1):
             ``"baseline"`` is plain layer-by-layer index order; any other
             preset / ``{"intra": ..., "coordinated": ...}`` spec routes
             execution through a per-cloud plan built from the forward's own
@@ -43,6 +48,8 @@ streams that :meth:`CompiledModel.stats` reports after a call.
 """
 from __future__ import annotations
 
+import dataclasses
+import inspect
 import math
 from typing import Any, Callable, Mapping
 
@@ -50,6 +57,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.energy import TPU_ROOFLINE
+from repro_torch.core.policy import DEFAULT_POLICY, PlanPolicy
 from repro_torch.core.schedule import (GREEDY_DENSE_LIMIT, DevicePlan,
                                        ExecutionPlan, MODE_PRESETS,
                                        build_plan, complete_order,
@@ -59,7 +68,10 @@ from repro_torch.kernels import (FUSED_MODES, aggregate_diff,
                                  aggregate_diff_batched, count_dma_elisions,
                                  plan_fused_mlp, reram_linear,
                                  reram_mlp_fused, reram_mlp_fused_batched)
-from repro_torch.kernels.program import require_finite
+from repro_torch.kernels.program import (launch_count, launch_work,
+                                         mtiled_on_chip, plan_launch,
+                                         require_finite)
+from repro_torch.reliability.faults import FaultDraws
 from repro_torch.models import pointnet2 as _pn
 
 __all__ = [
@@ -113,6 +125,10 @@ class Backend(nn.Module):
     ``apply_mlp_batched`` treats axis 0 as a batch of independent clouds."""
 
     name = "?"
+    #: :class:`~repro_torch.core.policy.PlanPolicy` stamped by
+    #: ``compile_model`` (None without one); the fused backends consult it
+    #: for their dataflow choices.
+    policy: PlanPolicy | None = None
 
     def __init__(self, params: Params, config: PointNetConfig):
         super().__init__()
@@ -176,46 +192,131 @@ class ReramPerLayerBackend(FloatBackend):
 
     Every weight is checked for NaN/Inf once, here, with the
     ``ValueError`` the JAX package raises on its first call; the calls then
-    quantize the weights without the check's host sync."""
+    quantize the weights without the check's host sync.
 
-    def __init__(self, params, config):
+    ``fault_model`` (a :class:`~repro_torch.reliability.FaultModel`)
+    injects ReRAM non-idealities into each product's freshly encoded
+    planes, site ``(mlp, layer)`` (the head MLP 0, SA layer i's MLP i + 1)
+    as the reference keys them. The reference draws the same faults on
+    every call, so each site's draws are made once, here, and kept as
+    buffers: a call draws nothing, and a captured call replays the same
+    faults. The zero-fault model takes the ideal path bit for bit."""
+
+    def __init__(self, params, config, *, fault_model=None):
         super().__init__(params, config)
         for mlp in (*self.sa, self.head):
             for lyr in mlp.layers():
                 require_finite(lyr["w"])
+        self.fault_model = fault_model
+        if fault_model is None or fault_model.is_ideal:
+            return
+        for key in (*(("sa", i) for i in range(len(self.sa))), "head"):
+            for l, lyr in enumerate(self._mlp(key).layers()):
+                # the four 2-bit cell planes of an 8-bit weight
+                draws = fault_model.draw((4, *lyr["w"].shape),
+                                         _mlp_index(key), l)
+                for part, t in zip(("noise", "u0", "u1"), draws):
+                    self.register_buffer(_draw_name(key, l, part), t)
+
+    def fault_draws(self, key, layer: int) -> FaultDraws:
+        """The draws of site ``(mlp, layer)`` made when the backend was
+        built, on the model's device."""
+        return FaultDraws(*(getattr(self, _draw_name(key, layer, part))
+                            for part in ("noise", "u0", "u1")))
+
+    def _matmul(self, key, batched: bool):
+        fm = self.fault_model
+        if fm is None or fm.is_ideal:
+            return lambda a, w: reram_linear(a, w, batched=batched,
+                                             check_weights=False)
+        layer = iter(range(len(self._mlp(key).layers())))
+
+        def mm(a, w):
+            return reram_linear(a, w, batched=batched, check_weights=False,
+                                fault_model=fm,
+                                fault_key=self.fault_draws(key, next(layer)))
+        return mm
 
     def apply_mlp(self, key, x, *, final_relu=True):
-        return _pn._apply_mlp(
-            self._mlp(key).layers(), x, final_relu=final_relu,
-            matmul=lambda a, w: reram_linear(a, w, check_weights=False))
+        return _pn._apply_mlp(self._mlp(key).layers(), x,
+                              final_relu=final_relu,
+                              matmul=self._matmul(key, False))
 
     def apply_mlp_batched(self, key, x, *, final_relu=True):
-        return _pn._apply_mlp(
-            self._mlp(key).layers(), x, final_relu=final_relu,
-            matmul=lambda a, w: reram_linear(a, w, batched=True,
-                                             check_weights=False))
+        return _pn._apply_mlp(self._mlp(key).layers(), x,
+                              final_relu=final_relu,
+                              matmul=self._matmul(key, True))
+
+
+def _mlp_index(key) -> int:
+    """The MLP's index in a fault site: 0 for the head, i + 1 for SA layer
+    i (the reference's fold-in order)."""
+    return 0 if key == "head" else key[1] + 1
+
+
+def _draw_name(key, layer: int, part: str) -> str:
+    return f"fault_{_mlp_index(key)}_{layer}_{part}"
+
+
+def _tpu_policy(policy):
+    """``policy`` as the JAX package holds it, for the reference's TPU
+    dataflow rows: the TPU's roofline (:data:`~repro_torch.core.energy.
+    TPU_ROOFLINE`) and the TPU's VMEM budget, unless ``policy`` set a
+    budget apart from its own roofline's on-chip memory. None stays None
+    (the reference's first-fit walk)."""
+    if policy is None:
+        return None
+    own = policy.vmem_budget != policy.hw.vmem_bytes
+    return dataclasses.replace(policy, hw=TPU_ROOFLINE,
+                               vmem_budget=policy.vmem_budget if own else 0)
 
 
 @register_backend("reram-fused")
 class ReramFusedBackend(Backend):
     """Weight-stationary path: every MLP programmed into crossbar planes
-    exactly once at compile time, then each MLP runs through one fused
-    kernel. ``mode`` pins the dataflow ('whole'/'tiled' -> K1, 'mtiled' ->
-    K2, 'wstat' -> K3); by default :func:`plan_fused_mlp` chooses it per
-    MLP and row count as the JAX package does, once per shape."""
+    exactly once at compile time (or pass a prebuilt ``program=`` from
+    :func:`~repro_torch.models.pointnet2.build_model_program`), then each
+    MLP runs through one fused kernel call. ``mode`` pins the dataflow
+    ('whole'/'tiled' -> K1, 'mtiled' -> K2, 'wstat' -> K3); by default the
+    Hopper choice runs — the compiled policy's
+    :meth:`~repro_torch.core.policy.PlanPolicy.select_launch`, else
+    :data:`~repro_torch.core.policy.DEFAULT_POLICY`'s — per MLP, row count
+    and batch size, made once per shape. The reference's TPU choice
+    (:func:`plan_fused_mlp` under the policy's TPU twin,
+    :func:`_tpu_policy`) is reported beside it in :meth:`stats`.
+
+    ``ecc`` (an :class:`~repro_torch.reliability.EccConfig`) protects the
+    programs with Hamming parity in their spare columns; ``fault_model``
+    (a :class:`~repro_torch.reliability.FaultModel`) then injects faults
+    into the planes and the ECC scrub corrects them, once, here — the
+    kernels run the post-scrub planes."""
 
     #: the dataflow this registry entry pins (None: chosen per shape)
     mode: str | None = None
 
-    def __init__(self, params, config, *, mode: str | None = None):
+    def __init__(self, params, config, *, program=None,
+                 mode: str | None = None, ecc=None, fault_model=None):
         super().__init__(params, config)
         if mode is not None and mode not in FUSED_MODES:
             raise ValueError(f"mode={mode!r} must be one of {FUSED_MODES}")
-        program = _pn.build_model_program(params)
+        if program is None:
+            program = _pn.build_model_program(params, ecc=ecc)
+        elif ecc is not None:
+            raise ValueError(
+                "pass ecc= to build_model_program when prebuilding the "
+                "program, not alongside program=")
+        if fault_model is not None and not fault_model.is_ideal:
+            # protect (at build) -> inject -> correct; without ECC the
+            # correction passes the faulted planes through unchanged
+            from repro_torch.reliability.ecc import correct_model_program
+            program = correct_model_program(
+                fault_model.apply_model_program(program))
         self.sa = nn.ModuleList(program["sa"])
         self.head = program["head"]
+        self.fault_model = fault_model
         self.mode = mode if mode is not None else type(self).mode
         self._plan_cache: dict = {}
+        self._launch_cache: dict = {}
 
     def _prog(self, key):
         return self.head if key == "head" else self.sa[key[1]]
@@ -225,54 +326,115 @@ class ReramFusedBackend(Backend):
         return {"sa": list(self.sa), "head": self.head}
 
     def fused_plan(self, key, m_rows: int):
-        """The dataflow choice for MLP ``key`` at ``m_rows`` rows per
-        cloud, made once per (MLP, rows) and cached."""
+        """The reference's TPU dataflow for MLP ``key`` at ``m_rows`` rows
+        per cloud (:func:`plan_fused_mlp` under the compiled policy's TPU
+        twin, :func:`_tpu_policy`), made once per (MLP, rows) and
+        cached."""
         ck = (key, int(m_rows))
         if ck not in self._plan_cache:
-            self._plan_cache[ck] = plan_fused_mlp(self._prog(key), m_rows,
-                                                  mode=self.mode)
+            self._plan_cache[ck] = plan_fused_mlp(
+                self._prog(key), m_rows, mode=self.mode,
+                policy=_tpu_policy(self.policy))
         return self._plan_cache[ck]
 
+    def launch_plan(self, key, m_rows: int, batch: int = 1):
+        """The Hopper launch geometry MLP ``key`` runs at ``m_rows`` rows
+        per cloud and ``batch`` clouds: the pinned mode's, else the policy's
+        choice (:meth:`~repro_torch.core.policy.PlanPolicy.select_launch`),
+        made once per shape and cached."""
+        ck = (key, int(m_rows), int(batch))
+        if ck not in self._launch_cache:
+            prog = self._prog(key)
+            self._launch_cache[ck] = (
+                plan_launch(prog, m_rows, self.mode)
+                if self.mode is not None else
+                (self.policy or DEFAULT_POLICY).select_launch(
+                    prog, m_rows, batch=batch))
+        return self._launch_cache[ck]
+
     def apply_mlp(self, key, x, *, final_relu=True):
-        plan = self.fused_plan(key, math.prod(x.shape[:-1]))
+        geom = self.launch_plan(key, math.prod(x.shape[:-1]))
         return reram_mlp_fused(x, self._prog(key), final_relu=final_relu,
-                               mode=plan.mode)
+                               mode=geom.mode)
 
     def apply_mlp_batched(self, key, x, *, final_relu=True):
-        plan = self.fused_plan(key, math.prod(x.shape[1:-1]))
+        geom = self.launch_plan(key, math.prod(x.shape[1:-1]), x.shape[0])
         return reram_mlp_fused_batched(x, self._prog(key),
-                                       final_relu=final_relu, mode=plan.mode)
+                                       final_relu=final_relu, mode=geom.mode)
 
     def stats(self) -> dict:
-        """Program bytes, in all and per MLP (the buffers of each
-        :class:`~repro_torch.kernels.CrossbarProgram`, laid out as the JAX
-        package's, so the counts agree), and per MLP the dataflow chosen at
-        the rows one cloud gives it, with the TPU accounting behind the
-        choice (:meth:`_plan_row`). No reliability entry: fault models and
-        ECC are not ported yet."""
+        """Program bytes, in all and per MLP (laid out as the JAX
+        package's, so the counts agree); per MLP at the rows one cloud
+        gives it, the reference's TPU dataflow row (``fused_plan``,
+        :meth:`_plan_row`) and beside it the Hopper launch the port runs
+        for one cloud (``launch_plan``, :meth:`_launch_row`); and under
+        ``reliability`` the fault model and the summed ECC overhead, when
+        there are any."""
         progs = {f"sa{i}": p for i, p in enumerate(self.sa)}
         progs["head"] = self.head
         nbytes = {k: sum(b.numel() * b.element_size() for b in p.buffers())
                   for k, p in progs.items()}
-        plans = {f"sa{i}": self._plan_row(("sa", i),
-                                          spec.n_centers * spec.n_neighbors)
-                 for i, spec in enumerate(self.config.layers)}
-        plans["head"] = self._plan_row("head", 1)
-        return {"program_bytes": sum(nbytes.values()),
-                "program_bytes_per_mlp": nbytes, "fused_plan": plans}
+        keys = {f"sa{i}": (("sa", i), spec.n_centers * spec.n_neighbors)
+                for i, spec in enumerate(self.config.layers)}
+        keys["head"] = ("head", 1)
+        out = {"program_bytes": sum(nbytes.values()),
+               "program_bytes_per_mlp": nbytes,
+               "fused_plan": {k: self._plan_row(*v)
+                              for k, v in keys.items()},
+               "launch_plan": {k: self._launch_row(*v)
+                               for k, v in keys.items()}}
+        rel = {}
+        if self.fault_model is not None:
+            rel["fault_model"] = dataclasses.asdict(self.fault_model)
+        protected = {k: p for k, p in progs.items() if p.ecc is not None}
+        if protected:
+            from repro_torch.reliability.ecc import ecc_overhead
+            per = {k: ecc_overhead(p) for k, p in protected.items()}
+            rel["ecc"] = {
+                "per_mlp": per,
+                "parity_cells": sum(o["parity_cells"] for o in per.values()),
+                "extra_arrays": sum(o["extra_arrays"] for o in per.values()),
+                "scrub_energy_j": sum(o["scrub_energy_j"]
+                                      for o in per.values()),
+                "scrub_cycles": sum(o["scrub_cycles"] for o in per.values()),
+            }
+        if rel:
+            out["reliability"] = rel
+        return out
 
     def _plan_row(self, key, rows) -> dict:
         """The JAX package's ``fused_plan`` row of MLP ``key`` at ``rows``
         rows: the mode, the TPU tile edge and VMEM bytes it rests on, and
         that dataflow's HBM accounting on the TPU."""
         fp = self.fused_plan(key, rows)
-        return {"mode": fp.mode, "block_n": fp.tpu_block_n,
+        return {"mode": fp.mode, "block_n": fp.block_n,
                 "vmem_bytes": fp.vmem_bytes,
                 "fits_budget": fp.fits_budget,
                 "plane_tile_fetches_per_layer":
                     fp.plane_tile_fetches_per_layer,
                 "plane_hbm_bytes_per_layer": fp.plane_hbm_bytes_per_layer,
                 "act_hbm_bytes_per_layer": fp.act_hbm_bytes_per_layer}
+
+    def _launch_row(self, key, rows) -> dict:
+        """The Hopper launch of MLP ``key`` for one cloud of ``rows`` rows:
+        the kernel and mode, each layer launch's dynamic shared memory and
+        blocks, the call's launches, and the policy's predicted
+        device-memory bytes and cycles."""
+        geom = self.launch_plan(key, rows)
+        prog, mode = self._prog(key), geom.mode
+        policy = self.policy or DEFAULT_POLICY
+        kernel = {"whole": "K1", "tiled": "K1", "mtiled": "K2",
+                  "wstat": "K3"}[mode]
+        if mode == "mtiled" and not mtiled_on_chip(geom):
+            kernel = "K1"
+        work = launch_work(prog, rows, mode, sms=policy.hw.sms)
+        return {"kernel": kernel, "mode": mode,
+                "smem_bytes": list(geom.smem_bytes),
+                "blocks": [w.blocks for w in work if w.blocks],
+                "launches": launch_count(prog, mode),
+                "predicted_bytes": policy.predict_device_bytes(prog, rows,
+                                                               mode),
+                "predicted_cycles": policy.launch_cost(prog, rows, mode)}
 
 
 @register_backend("reram-fused-mtiled")
@@ -342,18 +504,20 @@ def _canonical_schedule(schedule, config: PointNetConfig):
                     f"{type(schedule).__name__}")
 
 
-def _device_planning_blocker(spec: dict,
-                             config: PointNetConfig) -> str | None:
+def _device_planning_blocker(spec: dict, config: PointNetConfig,
+                             policy: PlanPolicy | None) -> str | None:
     """Why plan construction can NOT run on the device for this (spec,
-    config) — or None when device planning is available. The host-only
-    cases: an intra choice still made per workload (a policy's 'auto'; the
-    port has no policy yet, so it cannot arise), and a greedy order whose
-    last layer exceeds the one-block limit."""
+    config, policy) — or None when device planning is available. The
+    host-only cases: a policy whose intra choice is still per workload
+    (scored on concrete geometry; ``precommit`` it first), and a greedy
+    order whose last layer exceeds the one-block limit."""
     intra = spec["intra"]
     if intra == "auto":
-        return ("the policy's intra choice is per-workload (scored on "
-                "concrete geometry); precommit it to one candidate "
-                "first — policy.precommit(representative_workload)")
+        if policy is None or len(policy.intra_candidates) != 1:
+            return ("the policy's intra choice is per-workload (scored on "
+                    "concrete geometry); precommit it to one candidate "
+                    "first — policy.precommit(representative_workload)")
+        intra = policy.intra_candidates[0]
     if intra == "greedy" and config.layers[-1].n_centers > GREEDY_DENSE_LIMIT:
         return (f"device greedy ordering holds a cloud in one block and is "
                 f"limited to last-layer sizes <= "
@@ -473,6 +637,7 @@ class CompiledModel(nn.Module):
                  schedule_spec: dict, planned: bool, *,
                  plan: ExecutionPlan | None = None,
                  device_plan: DevicePlan | None = None,
+                 policy: PlanPolicy | None = None,
                  device_planning: bool = False):
         super().__init__()
         self.backend = backend
@@ -480,6 +645,7 @@ class CompiledModel(nn.Module):
         self._spec = schedule_spec
         self._plan = plan          # user-supplied host plan (stats only)
         self._dplan = device_plan  # compile-time lowered plan, if any
+        self._policy = policy
         self._planned = planned
         self._device_planning = device_planning
         self._last_streams: list | None = None
@@ -493,8 +659,16 @@ class CompiledModel(nn.Module):
 
     @property
     def schedule(self) -> dict:
-        """The canonical ``{'intra': ..., 'coordinated': ...}`` spec."""
+        """The canonical ``{'intra': ..., 'coordinated': ...}`` spec. Under
+        a policy that owns the ordering, ``intra`` is ``'auto'``: the cost
+        model picks it per workload (or once, if precommitted)."""
         return dict(self._spec)
+
+    @property
+    def policy(self) -> PlanPolicy | None:
+        """The :class:`~repro_torch.core.policy.PlanPolicy` compiled in, if
+        any."""
+        return self._policy
 
     @property
     def planned(self) -> bool:
@@ -609,8 +783,8 @@ class CompiledModel(nn.Module):
                 f"{what} needs the whole pipeline captured into one CUDA "
                 f"graph, but this model plans on host per cloud "
                 f"(device_planning is off); compile with "
-                f"device_planning=True, or pass a prebuilt "
-                f"ExecutionPlan/DevicePlan")
+                f"device_planning=True, precommit the policy, or pass a "
+                f"prebuilt ExecutionPlan/DevicePlan")
 
     def jit_forward(self, cloud) -> torch.Tensor:
         """:meth:`forward` as one captured CUDA graph, cloud -> logits:
@@ -677,6 +851,8 @@ class CompiledModel(nn.Module):
         geometry on the device and records no stream."""
         s = {"backend": self.backend_name, "schedule": self.schedule,
              "planned": self._planned}
+        if self._policy is not None:
+            s["policy"] = self._policy
         s.update(self.backend.stats())
         streams = None
         if cloud is not None or workload is not None:
@@ -689,6 +865,8 @@ class CompiledModel(nn.Module):
                 plan = self._plan
             elif self._dplan is not None:
                 plan = self._dplan
+            elif self._policy is not None:
+                plan = self._policy.build_plan(workload)
             else:
                 plan = build_plan(workload, **self._spec)
             streams = _plan_streams(plan, [np.asarray(nb) for nb in
@@ -741,9 +919,12 @@ class CompiledModel(nn.Module):
         return dplan
 
     def _resolved_intra(self) -> str:
-        """The concrete intra mode device planning builds (a policy's
-        'auto' would resolve here; the port has no policy yet)."""
-        return self._spec["intra"]
+        """The concrete intra mode device planning builds ('auto' resolves
+        to the precommitted policy's single candidate)."""
+        intra = self._spec["intra"]
+        if intra == "auto":
+            return self._policy.intra_candidates[0]
+        return intra
 
     def _traced_plan(self, pts_list, nbr_list) -> DevicePlan:
         """Plan construction on the device from the forward's own geometry
@@ -851,6 +1032,8 @@ class CompiledModel(nn.Module):
             config=self.config,
             points=[np.asarray(p, np.float64) for p in pts],
             centers=[None] + list(ctrs), neighbors=[None] + list(nbrs))
+        if self._policy is not None and self._spec["intra"] == "auto":
+            return self._policy.build_plan(wl)
         return build_plan(wl, **self._spec)
 
     def _device_plan_for(self, pts_list, ctr_list, nbr_list, *,
@@ -930,8 +1113,10 @@ def _dma_report(streams, window: int) -> dict:
 
 def compile_model(params: Params, config: PointNetConfig, *,
                   backend: str = "float", schedule=None,
+                  policy: PlanPolicy | None = None,
                   device_planning: bool | None = None,
-                  device=None, **backend_opts) -> CompiledModel:
+                  fault_model=None, device=None,
+                  **backend_opts) -> CompiledModel:
     """Compile PointNet++ ``params`` for execution on ``device``.
 
     params   : ``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of tensors —
@@ -941,6 +1126,16 @@ def compile_model(params: Params, config: PointNetConfig, *,
     backend  : registry name — 'float', 'reram', 'reram-fused',
                'reram-fused-mtiled' or 'reram-fused-wstat' (or anything
                added with :func:`register_backend`).
+    policy   : a :class:`~repro_torch.core.policy.PlanPolicy` — the cost
+               model of the scheduling decisions: the fused backends launch
+               its Hopper dataflow choice (and report its TPU one), and
+               unless ``schedule`` pins the order the intra-layer order is
+               picked per workload by predicted DMA elisions (on the host;
+               a precommitted policy plans on the card).
+    fault_model : a :class:`~repro_torch.reliability.FaultModel` — ReRAM
+               non-idealities injected into the crossbar planes; a backend
+               without cell planes ('float') raises ``ValueError``. The
+               zero-fault model equals compiling without one, bit for bit.
     schedule : None/'baseline', a ``MODE_PRESETS`` name ('pointer-1',
                'pointer-12', 'pointer', 'pointer-morton'), an
                ``{'intra', 'coordinated'}`` mapping, a prebuilt
@@ -959,9 +1154,11 @@ def compile_model(params: Params, config: PointNetConfig, *,
                :meth:`CompiledModel.stats` reports.
     device   : where the model runs; default ``cuda``, which raises when no
                card is present. ``device="cpu"`` runs the plain versions.
-    backend_opts : go to the backend's constructor — ``mode=`` ('whole',
-               'tiled', 'mtiled', 'wstat') pins the fused dataflow of
-               'reram-fused'.
+    backend_opts : go to the backend's constructor — on 'reram-fused',
+               ``mode=`` ('whole', 'tiled', 'mtiled', 'wstat') pins the
+               fused dataflow, ``program=`` passes prebuilt programs,
+               ``ecc=`` (an :class:`~repro_torch.reliability.EccConfig`)
+               protects them.
     """
     dev = resolve_device(device)
     if not isinstance(backend, str):
@@ -972,9 +1169,25 @@ def compile_model(params: Params, config: PointNetConfig, *,
     except KeyError:
         raise ValueError(f"unknown backend {backend!r}; registered backends: "
                          f"{available_backends()}") from None
-    spec, plan, dplan, planned = _canonical_schedule(schedule, config)
+    if policy is not None and not isinstance(policy, PlanPolicy):
+        raise TypeError(f"policy must be a PlanPolicy; got "
+                        f"{type(policy).__name__}")
+    if fault_model is not None:
+        if "fault_model" not in inspect.signature(cls.__init__).parameters:
+            raise ValueError(
+                f"backend {backend!r} does not support fault injection "
+                f"(no fault_model= constructor option — the float path "
+                f"has no crossbar cell planes to fault); use a crossbar "
+                f"backend such as 'reram' or 'reram-fused'")
+        backend_opts["fault_model"] = fault_model
+    if schedule is None and policy is not None:
+        # the policy owns the ordering decision: per-workload intra choice
+        spec = {"intra": "auto", "coordinated": policy.coordinated}
+        plan, dplan, planned = None, None, True
+    else:
+        spec, plan, dplan, planned = _canonical_schedule(schedule, config)
     if planned and dplan is None:
-        blocker = _device_planning_blocker(spec, config)
+        blocker = _device_planning_blocker(spec, config, policy)
         if device_planning is None:
             device_planning = blocker is None
         elif device_planning and blocker is not None:
@@ -986,12 +1199,14 @@ def compile_model(params: Params, config: PointNetConfig, *,
         if device_planning:
             raise ValueError(
                 "device_planning=True needs a spec-driven planned schedule "
-                "(preset name or {'intra', 'coordinated'} mapping); "
-                "baseline and prebuilt plans have no plan construction "
-                "left to lower")
+                "(preset name, {'intra', 'coordinated'} mapping, or "
+                "policy=); baseline and prebuilt plans have no plan "
+                "construction left to lower")
         device_planning = False
-    model = CompiledModel(cls(params, config, **backend_opts), config, spec,
-                          planned, plan=plan,
+    be = cls(params, config, **backend_opts)
+    be.policy = policy           # dataflow decisions consult the cost model
+    model = CompiledModel(be, config, spec, planned, plan=plan,
                           device_plan=None if dplan is None else dplan.to(dev),
+                          policy=policy,
                           device_planning=bool(device_planning))
     return model.to(dev)

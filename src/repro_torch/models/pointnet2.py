@@ -3,7 +3,10 @@
 The counterpart of the JAX package's ``repro.models.pointnet2``: farthest
 point sampling and kNN (the "point mapping" stage), the layer-0 feature
 lift, the per-layer geometry pass that planned execution builds its plans
-from, parameter init, and crossbar programming of every MLP.
+from, parameter init, and crossbar programming of every MLP; and the
+module-level delegates ``sa_layer``, ``forward``, ``batched_forward``,
+``loss_fn`` and ``eval_step``, thin wrappers over
+:func:`repro_torch.models.backend.compile_model` (the card by default).
 
 Every geometry function takes one cloud ``(N, 3)`` or a batch
 ``(B, N, 3)``; a batch gives, row for row, what the single-cloud call
@@ -95,12 +98,14 @@ def init_params(config: PointNetConfig, seed: int = 0,
     return {"sa": sa, "head": head}
 
 
-def build_model_program(params: Params) -> dict:
+def build_model_program(params: Params, *, ecc=None) -> dict:
     """Program every MLP of the model into crossbars: one
     :class:`~repro_torch.kernels.CrossbarProgram` per SA layer plus one for
-    the head, quantized and plane-encoded here, exactly once."""
-    return {"sa": [build_program(mlp) for mlp in params["sa"]],
-            "head": build_program(params["head"])}
+    the head, quantized and plane-encoded here, exactly once. ``ecc`` (an
+    :class:`~repro_torch.reliability.EccConfig`, or True) protects every
+    program with Hamming parity in its spare columns."""
+    return {"sa": [build_program(mlp, ecc=ecc) for mlp in params["sa"]],
+            "head": build_program(params["head"], ecc=ecc)}
 
 
 # ---------------------------------------------------------------------------
@@ -157,3 +162,57 @@ def _sa_geometry(spec: SALayerSpec, points, features, n_valid=None):
     f_nbr = gather_rows(features, nbr)
     f_ctr = gather_rows(features, centers)[..., None, :]
     return c_pts, f_nbr - f_ctr
+
+
+def sa_layer(mlp_params, spec: SALayerSpec, points, features):
+    """One set-abstraction layer, float MLP: points ``(…, N, 3)``, features
+    ``(…, N, C_in)`` -> ``(…, M, 3)``, ``(…, M, C_out)``. For any other
+    backend, compose :func:`_sa_geometry` with a registered backend's
+    ``apply_mlp`` (:mod:`repro_torch.models.backend`)."""
+    c_pts, diff = _sa_geometry(spec, points, features)
+    h = _apply_mlp(mlp_params, diff)                    # feature comp. M(.)
+    return c_pts, h.amax(dim=-2)                        # reduction over K
+
+
+def _compiled(params, config, schedule, policy, device):
+    from repro_torch.models.backend import compile_model
+    return compile_model(params, config, schedule=schedule, policy=policy,
+                         device=device)
+
+
+def forward(params: Params, config: PointNetConfig, cloud, *,
+            schedule=None, policy=None, device=None) -> torch.Tensor:
+    """Single-cloud float forward: ``(N, 3)`` -> logits ``(n_classes,)``,
+    a thin delegate to :func:`~repro_torch.models.backend.compile_model`
+    (the entry point, and the place to pick any other backend);
+    ``schedule``/``policy`` pass straight through, ``device`` too (the card
+    by default)."""
+    return _compiled(params, config, schedule, policy,
+                     device).forward(cloud)
+
+
+def batched_forward(params: Params, config: PointNetConfig, clouds, *,
+                    schedule=None, policy=None, device=None) -> torch.Tensor:
+    """Batch ``(B, N, 3)`` -> logits ``(B, n_classes)``, float backend,
+    through :func:`~repro_torch.models.backend.compile_model`."""
+    return _compiled(params, config, schedule, policy,
+                     device).batched_forward(clouds)
+
+
+def loss_fn(params: Params, config: PointNetConfig, clouds, labels, *,
+            schedule=None, policy=None, device=None):
+    """Mean negative log-likelihood and accuracy of the float
+    :func:`batched_forward` over ``labels``."""
+    return _compiled(params, config, schedule, policy,
+                     device).loss_fn(clouds, labels)
+
+
+@torch.no_grad()
+def eval_step(params: Params, config: PointNetConfig, clouds, labels, *,
+              schedule=None, policy=None, device=None):
+    """:func:`loss_fn` without autograd, run eagerly: each call compiles
+    the model anew, so a captured graph would never be replayed. To reuse
+    one, compile once and call the compiled model's captured
+    :meth:`~repro_torch.models.backend.CompiledModel.eval_step`."""
+    return loss_fn(params, config, clouds, labels, schedule=schedule,
+                   policy=policy, device=device)

@@ -13,7 +13,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build_program                     # noqa: E402
+from repro_torch.kernels import build_program, launch_bytes       # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -75,33 +75,70 @@ def test_k1_k2_design_bytes(smoke):
     k, n = (32, 256, 256), (256, 256, 512)
     pre = sum(5 * a * c for a, c in zip(k, n))
     w = [a * c + 8 * c for a, c in zip(k, n)]
-    assert smoke._modeled_bytes(prog, m, "whole") == pre + (
+    assert launch_bytes(prog, m, "whole", batch=b) == pre + (
         rows * 32 + w[0] + 4 * rows * 256
         + 4 * rows * 256 + w[1] + 4 * rows * 256
         + 4 * rows * 256 + w[2] + 4 * rows * 512)
-    assert smoke._modeled_bytes(prog, m, "mtiled") == pre + (
+    assert launch_bytes(prog, m, "mtiled", batch=b) == pre + (
         3 * rows * 32 + 3 * w[0] + 2 * w[1] + w[2] + 4 * rows * 512)
     # K2 moves about its bound: the int8 input thrice and the output once
     bound_bytes, _ = smoke._k1_bound(prog, m)
-    assert smoke._modeled_bytes(prog, m, "mtiled") < 1.05 * bound_bytes
-    assert smoke._modeled_bytes(prog, m, "whole") > 2.5 * bound_bytes
+    assert launch_bytes(prog, m, "mtiled", batch=b) < 1.05 * bound_bytes
+    assert launch_bytes(prog, m, "whole", batch=b) > 2.5 * bound_bytes
 
 
 def test_paths_count_one_prepass_per_k1_k2_call(smoke):
-    """One s8 pre-pass per K1, K2 or K3 call, and one per K6 product."""
+    """One s8 pre-pass per K1, K2 or K3 call, and one per K6 product; the
+    'reram-fused' paths count the Hopper choice of every MLP at batch 8
+    (``batched_forward``) and 1 (``forward``)."""
+    from repro_torch import PAPER_MODELS
+    from repro_torch.core.policy import DEFAULT_POLICY
+    from repro_torch.models.pointnet2 import build_model_program, init_params
+    counter = {"whole": "fused_mlp", "mtiled": "fused_mlp_mtiled",
+               "wstat": "fused_mlp_wstat"}
     for model, paths in smoke.PATHS.items():
-        fused = paths["reram-fused"]
-        assert fused["fused_mlp_combine"] == (
-            fused["fused_mlp"] + fused.get("fused_mlp_mtiled", 0)
-            + fused.get("fused_mlp_wstat", 0))
-        assert set(fused) <= set(smoke.MLP_COUNTERS)
+        for name in ("reram-fused", "reram-fused-mtiled"):
+            fused = paths.get(name)
+            if fused is None:
+                continue
+            assert fused["fused_mlp_combine"] == (
+                fused.get("fused_mlp", 0) + fused.get("fused_mlp_mtiled", 0)
+                + fused.get("fused_mlp_wstat", 0))
+            assert set(fused) <= set(smoke.MLP_COUNTERS)
+        cfg = PAPER_MODELS[model]
+        progs = build_model_program(init_params(cfg, seed=0))
+        rows = [s.n_centers * s.n_neighbors for s in cfg.layers] + [1]
+        want = {}
+        for prog, r in zip(progs["sa"] + [progs["head"]], rows):
+            for batch in (smoke.BATCH, 1):
+                c = counter[DEFAULT_POLICY.select_launch(
+                    prog, r, batch=batch).mode]
+                want[c] = want.get(c, 0) + 1
+                layer = "fused_mlp_layer" if c == "fused_mlp" else c + "_layer"
+                want[layer] = want.get(layer, 0) + prog.n_layers
+                want["fused_mlp_combine"] = want.get(
+                    "fused_mlp_combine", 0) + 1
+        assert paths["reram-fused"] == want, model
     reram = smoke.PATHS["model2"]["reram"]
     assert reram["reram_combine"] == reram["reram_matmul_int"]
     assert set(reram) <= set(smoke.MLP_COUNTERS)
-    # K1 one launch per layer: 3 + 3 + 2 layers, two calls
-    assert smoke.PATHS["model1"]["reram-fused"]["fused_mlp_layer"] == 16
-    assert smoke.PATHS["model2"]["reram-fused"]["fused_mlp_mtiled_layer"] \
-        == 6
+    # K2 one launch per layer: 3 + 3 + 2 layers, two calls
+    assert smoke.PATHS["model2"]["reram-fused-mtiled"][
+        "fused_mlp_mtiled_layer"] == 16
+    # a served step at every batch bucket runs the Hopper choice
+    cfg = PAPER_MODELS["model2"]
+    progs = build_model_program(init_params(cfg, seed=0))
+    rows = [s.n_centers * s.n_neighbors for s in cfg.layers] + [1]
+    for batch, step in smoke.PATHS["model2"]["serve"].items():
+        want = {}
+        for prog, r in zip(progs["sa"] + [progs["head"]], rows):
+            c = counter[DEFAULT_POLICY.select_launch(prog, r,
+                                                     batch=batch).mode]
+            layer = "fused_mlp_layer" if c == "fused_mlp" else c + "_layer"
+            for key, n in ((c, 1), (layer, prog.n_layers),
+                           ("fused_mlp_combine", 1)):
+                want[key] = want.get(key, 0) + n
+        assert step == want, batch
 
 
 def test_k6_counts_and_reram_layer_shapes(smoke):
@@ -329,17 +366,21 @@ def test_oracle_plan_is_the_device_twins_plan(smoke):
 
 
 def test_served_path_counts_are_the_batched_half(smoke):
-    """One served step is one ``batched_forward``: half of what the
-    'reram-fused' path (a ``batched_forward`` and a ``forward``) counts,
-    one pre-pass per MLP call; the kernels the serve phase must see
-    launched are rows of the kernels line and counters of the port."""
+    """One served step is one ``batched_forward`` at its batch bucket: the
+    batch-1 and batch-8 steps together count what the 'reram-fused' path
+    (a ``forward`` and a batch-8 ``batched_forward``) counts, one pre-pass
+    per MLP call; the kernels the serve phase must see launched are rows
+    of the kernels line and counters of the port."""
     from repro_torch.kernels import launch_counts
     fused, serve = (smoke.PATHS["model2"]["reram-fused"],
                     smoke.PATHS["model2"]["serve"])
-    assert {k: 2 * n for k, n in serve.items()} == fused
-    assert serve["fused_mlp_combine"] == (serve["fused_mlp"]
-                                          + serve["fused_mlp_mtiled"]
-                                          + serve["fused_mlp_wstat"])
+    assert set(serve) == set(smoke.SERVE_BUCKETS["batch"])
+    assert {k: serve[1].get(k, 0) + serve[smoke.BATCH].get(k, 0)
+            for k in fused} == fused
+    for step in serve.values():
+        assert step["fused_mlp_combine"] == (step.get("fused_mlp", 0)
+                                             + step.get("fused_mlp_mtiled", 0)
+                                             + step.get("fused_mlp_wstat", 0))
     assert set(smoke.SERVE_KERNELS.values()) <= set(launch_counts())
     assert {"K5 aggregate_diff", "K6 reram_matmul_int"}.isdisjoint(
         smoke.SERVE_KERNELS)
@@ -365,3 +406,71 @@ def test_served_streams_are_the_configured_ones(smoke):
         buckets)
     assert min(sizes) >= 512
     assert [s[1] for s in streams.values()] == [False, False, True]
+
+
+def test_fit_launch_model_recovers_the_package_constants(smoke):
+    """Fed the cost model's own predictions at every MLP of the paper's
+    models (batch 1 and 8, K1, K2 and K3), the fit returns its constants:
+    the least-squares problem is the model's, and the memory term binds
+    at none of those block launches."""
+    from repro_torch import PAPER_MODELS
+    from repro_torch.core.policy import DEFAULT_POLICY
+    from repro_torch.kernels import launch_work
+    hw = DEFAULT_POLICY.hw
+    cycles_per_ms = hw.freq_ghz * 1e6
+    samples = []
+    for model in ("model0", "model1", "model2"):
+        cfg = PAPER_MODELS[model]
+        mlps = [(s.mlp, s.n_centers * s.n_neighbors) for s in cfg.layers]
+        mlps.append(((cfg.layers[-1].out_features, 256, 40), 1))
+        for widths, rows in mlps:
+            prog = _shape_program(widths)
+            for batch in (1, 8):
+                for mode in smoke.KERNEL_NAMES:
+                    samples.append((
+                        launch_work(prog, rows, mode, batch=batch,
+                                    sms=hw.sms),
+                        DEFAULT_POLICY.launch_cost(prog, rows, mode,
+                                                   batch=batch)
+                        / cycles_per_ms))
+    fit = smoke.fit_launch_model(samples, hw)
+    assert fit["block_overlap"] == pytest.approx(hw.block_overlap)
+    assert fit["rms_rel_err"] < 1e-9
+    for key in ("launch_cycles", "slab_cycles", "tile_cycles",
+                "requant_cycles"):
+        assert fit[key] == pytest.approx(getattr(hw, key), rel=1e-6), key
+
+
+def _shape_program(widths):
+    """A program of an MLP of ``widths`` as shapes only (the cost model
+    reads the widths, ``d_pad`` and the plane count)."""
+    from repro_torch.kernels import CrossbarProgram
+    d = -(-max(widths) // 128) * 128
+    n_layers = len(widths) - 1
+    return CrossbarProgram(
+        torch.zeros((), dtype=torch.int8).expand((n_layers, 4, d, d)),
+        torch.zeros((n_layers, d)), torch.ones((n_layers, 1)),
+        torch.ones((n_layers, d)), widths)
+
+
+def test_cpu_logits_on_card_features_feed_the_card_features(smoke):
+    """The helper runs the CPU model on the given clouds' layer-0 features
+    as computed where the clouds lie (here the CPU: the plain run), and
+    puts ``lift_features`` back."""
+    from repro_torch import compile_model
+    from repro_torch.core.workload import PointNetConfig, SALayerSpec
+    from repro_torch.models import pointnet2 as pn
+    cfg = PointNetConfig(name="tiny", n_points=64, layers=(
+        SALayerSpec(n_centers=24, n_neighbors=4, in_features=4,
+                    mlp=(4, 8, 8, 16)),
+        SALayerSpec(n_centers=8, n_neighbors=4, in_features=16,
+                    mlp=(16, 16, 16, 32))))
+    model = compile_model(pn.init_params(cfg, seed=0, n_classes=10), cfg,
+                          backend="reram-fused", schedule="pointer",
+                          device="cpu")
+    clouds = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(2, 64, 3)).astype(np.float32))
+    real = pn.lift_features
+    got = smoke._cpu_logits_on_card_features(model, clouds)
+    assert pn.lift_features is real
+    assert torch.equal(got, model.batched_forward(clouds))

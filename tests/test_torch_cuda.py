@@ -281,14 +281,16 @@ def _tiny():
                     mlp=(16, 16, 16, 32))))
 
 
-#: The kernel counter each backend's MLPs must reach on the tiny model.
-_COUNTER = {"reram-fused": "fused_mlp",
-            "reram-fused-mtiled": "fused_mlp_mtiled",
-            "reram-fused-wstat": "fused_mlp_wstat",
-            "reram": "reram_matmul_int"}
+#: The kernel calls each fused backend makes on the tiny model in one pass
+#: ('reram-fused' runs the Hopper choice: K1 at both SA layers, K3 at the
+#: head); 'reram' launches K6 once per layer.
+_CALLS = {"reram-fused": {"fused_mlp": 2, "fused_mlp_wstat": 1},
+          "reram-fused-mtiled": {"fused_mlp_mtiled": 3},
+          "reram-fused-wstat": {"fused_mlp_wstat": 3},
+          "reram": {}}
 
 
-@pytest.mark.parametrize("backend", sorted(_COUNTER))
+@pytest.mark.parametrize("backend", sorted(_CALLS))
 def test_model_on_card_counts_launches_and_matches_cpu(cuda, backend):
     cfg = _tiny()
     params = init_params(cfg, seed=0, n_classes=10)
@@ -307,9 +309,13 @@ def test_model_on_card_counts_launches_and_matches_cpu(cuda, backend):
     # one call per MLP and pass, or, for 'reram', one launch per layer
     n_layers = sum(len(s.mlp) - 1 for s in cfg.layers) + 2
     want_n = 2 * (n_layers if backend == "reram" else cfg.n_layers + 1)
-    assert {k: counts[k] for k in _COUNTER.values()} == {
-        k: want_n if k == _COUNTER[backend] else 0
-        for k in _COUNTER.values()}
+    counters = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
+                "reram_matmul_int")
+    want_calls = dict.fromkeys(counters, 0)
+    want_calls.update({k: 2 * n for k, n in _CALLS[backend].items()})
+    if backend == "reram":
+        want_calls["reram_matmul_int"] = want_n
+    assert {k: counts[k] for k in counters} == want_calls
     # K1, K2 and K3 run the s8 weight pre-pass once per MLP call, K6 once
     # per product
     assert counts["fused_mlp_combine"] == (
@@ -328,10 +334,10 @@ def test_model_on_card_counts_launches_and_matches_cpu(cuda, backend):
 
 
 def test_model2_shaped_launch_counts(cuda):
-    """model2 at full size, batch 2: 'reram-fused' runs SA-1 through K2,
-    SA-2 through K3 and the head through K1, as the dataflow choice says;
-    'reram' launches K6 once per layer and pass, and gives the same logits
-    (zero biases: the two paths compute one function)."""
+    """model2 at full size, batch 2 and 1: 'reram-fused' runs the Hopper
+    choice (``PlanPolicy.select_launch``): every MLP through K3; 'reram'
+    launches K6 once per layer and pass, and gives the same logits (zero
+    biases: the two paths compute one function)."""
     cfg = PAPER_MODELS["model2"]
     params = init_params(cfg, seed=0)
     clouds = np.random.default_rng(3).normal(size=(2, 1024, 3)).astype(
@@ -346,11 +352,10 @@ def test_model2_shaped_launch_counts(cuda):
     torch.cuda.synchronize()
     counts = launch_counts()
     assert (counts["fused_mlp"], counts["fused_mlp_mtiled"],
-            counts["fused_mlp_wstat"]) == (2, 2, 2)
-    # one pre-pass per K1, K2 or K3 call; K2 one launch per layer
+            counts["fused_mlp_wstat"]) == (0, 0, 6)
+    # one pre-pass per K1, K2 or K3 call; one launch per layer
     assert counts["fused_mlp_combine"] == 6
-    assert counts["fused_mlp_wstat_layer"] == 2 * 3
-    assert counts["fused_mlp_mtiled_layer"] == 2 * 3
+    assert counts["fused_mlp_wstat_layer"] == 2 * (3 + 3 + 2)
     assert counts["fps"] == 2 * cfg.n_layers
     assert torch.equal(one, logits[0])
     reset_launch_counts()
@@ -758,3 +763,145 @@ def test_served_replay_on_a_new_batch_of_the_same_shape(cuda):
     assert model.captures == captures
     for req, cloud in zip(reqs, clouds):
         assert torch.equal(req.result, model.forward(cloud)), req.id
+
+
+# ---------------------------------------------------------------------------
+# the cost model's launches, and the reliability path
+# ---------------------------------------------------------------------------
+
+def test_k2_first_launch_at_48_kb_in_a_fresh_process(cuda):
+    """K2 at a widest k_lim of 128 takes exactly 48 KB of dynamic shared
+    memory beside its 32 static bytes: a launch is refused unless the
+    kernel's limit was raised, which ``allow_smem`` now does on every call
+    (before, only above 48 KB — so the first such launch in a process
+    failed). A fresh process, so that no earlier launch raised it."""
+    import subprocess
+    import sys
+    root = pathlib.Path(__file__).resolve().parent.parent
+    code = (
+        "import numpy as np, torch\n"
+        "from repro_torch.kernels import build_program, fused_mlp\n"
+        "rng = np.random.default_rng(0)\n"
+        "prog = build_program([{'w': rng.normal(size=(k, n)).astype("
+        "np.float32), 'b': np.zeros(n, np.float32)} for k, n in "
+        "((128, 128), (128, 128), (128, 256))]).cuda()\n"
+        "x = torch.randn((1, 2048, 128), device='cuda')\n"
+        "x_p, sx = fused_mlp.prepare_input(x, prog)\n"
+        "got = fused_mlp.fused_mlp_mtiled_cuda(x_p, sx, prog, m_real=2048)\n"
+        "want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=2048)\n"
+        "assert torch.equal(got, want)\n"
+        "assert fused_mlp.LAUNCHES['mtiled'] == 1\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": str(root / "src")},
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("group", [16, 4])
+def test_fused_kernels_on_ecc_widened_programs_bitwise(cuda, group):
+    """K1, K2 and K3 on programs ECC widens (d_pad 256 -> 384/512 here,
+    parity cells inside n_lim under col_mask = 0), and with stuck-at
+    faults in dead rows and columns: equal to the plain version, and the
+    protected program's output equal to the unprotected one's."""
+    from repro_torch.reliability import EccConfig, FaultModel
+    rng = np.random.default_rng(4)
+    layers = _layers((130, 200, 70), rng)
+    plain = build_program(layers).to(cuda)
+    prot = build_program(layers, ecc=EccConfig(group)).to(cuda)
+    faulted = FaultModel(p_stuck0=0.02, p_stuck1=0.02, seed=3).apply(
+        build_program(layers, ecc=EccConfig(group))).to(cuda)
+    assert prot.d_pad > plain.d_pad
+    x = torch.from_numpy(rng.normal(size=(3, 257, 130))
+                         .astype(np.float32)).to(cuda)
+    outs = {}
+    for name, prog in (("plain", plain), ("prot", prot),
+                       ("faulted", faulted)):
+        x_p, sx = fused_mlp.prepare_input(x, prog)
+        want = fused_mlp.fused_mlp_plain(x_p, sx, prog, m_real=257)
+        for mode in ("whole", "mtiled", "wstat"):
+            got = fused_mlp.KERNEL_OF_MODE[mode](x_p, sx, prog, m_real=257)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (name, mode)
+        outs[name] = want
+    assert torch.equal(outs["prot"], outs["plain"])
+    assert not torch.equal(outs["faulted"], outs["plain"])
+
+
+def test_faulted_models_on_card_equal_cpu_and_replay(cuda):
+    """Faulted 'reram-fused' (raw and under ECC) and 'reram' models on the
+    card: the same programs as on the CPU (the draws are made there), the
+    captured call equal to the eager one, and the logits within the
+    card-vs-CPU tolerance with equal argmax."""
+    from repro_torch.reliability import EccConfig, FaultModel
+    cfg = _tiny()
+    params = init_params(cfg, seed=0, n_classes=10)
+    clouds = np.random.default_rng(1).normal(size=(3, 64, 3)).astype(
+        np.float32)
+    fm = FaultModel(p_stuck0=0.05, p_stuck1=0.05, sigma=0.2, seed=7)
+    for backend, ecc in (("reram-fused", None), ("reram-fused", EccConfig(4)),
+                         ("reram", None)):
+        kw = {"backend": backend, "schedule": "pointer", "fault_model": fm}
+        if ecc is not None:
+            kw["ecc"] = ecc
+        gpu = compile_model(params, cfg, **kw)
+        cpu = compile_model(params, cfg, device="cpu", **kw)
+        for (name, a), b in zip(gpu.backend.named_buffers(),
+                                cpu.backend.buffers()):
+            assert torch.equal(a.cpu(), b), name
+        got = gpu.batched_forward(clouds)
+        assert torch.equal(gpu.jit_batched_forward(clouds), got)
+        want = cpu.batched_forward(clouds)
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-2 * float(want.abs().max())
+        assert torch.equal(got.cpu().argmax(1), want.argmax(1))
+
+
+def test_select_intra_refuses_while_capturing(cuda):
+    """A multi-candidate policy cannot score orders inside a CUDA-graph
+    capture (the port's counterpart of a traced value); a precommitted one
+    answers from its single candidate."""
+    from repro_torch import PlanPolicy
+    from repro_torch.core.workload import PointNetWorkload
+    cfg = _tiny()
+    cloud = np.random.default_rng(1).normal(size=(64, 3))
+    wl = PointNetWorkload.build(cloud, cfg)
+    pre = PlanPolicy().precommit(wl)
+    pts = torch.zeros((64, 3), device=cuda)
+    probe = PointNetWorkload(config=cfg, points=[pts] * 3,
+                             centers=wl.centers, neighbors=wl.neighbors)
+    graph = torch.cuda.CUDAGraph()
+    answers, errors = [], []
+    with torch.cuda.graph(graph):
+        pts.add_(1.0)
+        answers.append(pre.select_intra(probe))
+        try:
+            PlanPolicy().select_intra(probe)
+        except TypeError as e:
+            errors.append(str(e))
+    assert answers == [pre.intra_candidates[0]]
+    assert errors and "precommit" in errors[0]
+
+
+def test_precommitted_policy_plans_on_card_like_pointer(cuda):
+    from repro_torch import PlanPolicy
+    cfg = _tiny()
+    params = init_params(cfg, seed=0, n_classes=10)
+    clouds = np.random.default_rng(1).normal(size=(3, 64, 3)).astype(
+        np.float32)
+    pre = PlanPolicy(intra_candidates=("greedy",))
+    model = compile_model(params, cfg, backend="reram-fused", policy=pre)
+    ref = compile_model(params, cfg, backend="reram-fused",
+                        schedule="pointer")
+    assert model.device_planning
+    reset_launch_counts()
+    got = model.batched_forward(clouds)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts["plan_greedy"] == 1 and counts["plan_coordinate"] == 1
+    assert torch.equal(got, ref.batched_forward(clouds))
+    assert torch.equal(model.jit_batched_forward(clouds), got)
+    host = compile_model(params, cfg, backend="reram-fused",
+                         policy=PlanPolicy())
+    with pytest.raises(TypeError, match="precommit"):
+        host.jit_batched_forward(clouds)

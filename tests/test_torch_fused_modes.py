@@ -53,7 +53,7 @@ def test_mode_choice_equals_jax(model):
         got = plan_fused_mlp(pt, rows)
         assert (got.mode, got.fits_budget, got.vmem_bytes) == (
             want.mode, want.fits_budget, want.vmem_bytes)
-        assert got.tpu_block_n == want.block_n
+        assert got.block_n == want.block_n
         modes.append(got.mode)
     if model == "model2":          # SA-1 panel-bound, SA-2 N-tiled, head
         assert modes == ["mtiled", "wstat", "whole"]
@@ -71,7 +71,7 @@ def test_nothing_fits_falls_back_to_mtiled():
         torch.zeros((1, d)), torch.ones((1, 1)), torch.ones((1, d)), (d, d))
     want, got = jplan(pj, 1024), plan_fused_mlp(pt, 1024)
     assert got.mode == want.mode == "mtiled"
-    assert got.tpu_block_n == want.block_n == 128
+    assert got.block_n == want.block_n == 128
     assert not got.fits_budget and not want.fits_budget
     assert got.vmem_bytes == want.vmem_bytes
 
@@ -86,7 +86,7 @@ def test_pinned_mode_equals_jax(mode):
     pt = build_program(layers)
     want, got = jplan(pj, 2048, mode=mode), plan_fused_mlp(pt, 2048,
                                                            mode=mode)
-    assert (got.mode, got.tpu_block_n, got.vmem_bytes) == (
+    assert (got.mode, got.block_n, got.vmem_bytes) == (
         want.mode, want.block_n, want.vmem_bytes)
 
 
