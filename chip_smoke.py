@@ -122,8 +122,25 @@ and batch size. Phases, each printing one JSON line:
    each batch bucket beside the bare captured call, the host's share of a
    served step, and a miss's plan build.
 
+8. contracts: ``repro_torch.verify_contracts(..., check_graph=True)`` on
+   every model and backend of phase 4, on the batch and on one cloud: one
+   gather launch per SA layer (the batched kind with the whole batch), one
+   fused call per MLP on the fused backends, no host round trip (the sync
+   debug mode of CUDA) and no float64 result in the call, every fused
+   launch within the shared memory a block may take, and the captured
+   call's replay holding the same gathers, MLP pre-passes, FPS, P1 and P2;
+   any violation raises;
+9. train: ``examples/train_pointnet_torch.py``'s ``main()`` on model0
+   unreduced (1024 points, batch 16, seed 0, 200 steps; 'float',
+   'baseline', FPS through K7): step 0's loss and gradients against the
+   port's CPU run on the same batch, K7 at 2 launches a step, every loss
+   finite, the last 20 steps' mean loss below the first 20's, the
+   checkpoint restored bit for bit; the median step time, the device's busy
+   share, and the forward/backward/optimizer split (``torch.profiler``).
+
 Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
-launches in the serve phase's runs), the ``nvidia-smi`` name and power
+launches in the serve phase's runs; ``train_launches``: K7's in the train
+phase's run), the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
 raises, so the exit code is not 0 and the last line is never printed. It
 needs a CUDA card and the repository's ``src/`` beside it.
@@ -2409,6 +2426,207 @@ def phase_serve(params2, cfg2, bare, smi) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# training and the launch contracts
+# ---------------------------------------------------------------------------
+
+#: The trainer's run on the card: model0 unreduced (1024 points), the
+#: reference's batch and step count, the checkpoint under a scratch dir.
+TRAIN_ARGS = {"points": 1024, "batch": 16, "steps": 200, "seed": SEED}
+#: Steps of the trainer's run left out of its median step time (warm-up:
+#: cuBLAS plans, the caching allocator).
+TRAIN_WARMUP = 10
+#: Calls of each training phase ``phase_train`` profiles.
+TRAIN_PROFILE_CALLS = 5
+
+
+def _trainer():
+    import importlib.util
+    path = ROOT / "examples" / "train_pointnet_torch.py"
+    spec = importlib.util.spec_from_file_location("train_pointnet_torch",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _first_batch(args: dict):
+    """The trainer's first batch: its dataset and its batch iterator."""
+    from repro_torch.data import PointCloudDataset
+    data = PointCloudDataset(n_points=args["points"], n_clouds=512,
+                             seed=args["seed"])
+    return next(data.batches(args["batch"], 1))
+
+
+def _step0(trainer, args: dict, device: str) -> tuple:
+    """Step 0's loss, accuracy and gradients (a list in the params tree's
+    leaf order) on ``device``: the trainer's weights and first batch."""
+    import repro_torch
+    from repro_torch.models.pointnet2 import init_params
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = trainer.train_config(args["points"])
+    params = tree_map(lambda t: t.to(device).requires_grad_(),
+                      init_params(cfg, seed=args["seed"]))
+    model = repro_torch.compile_model(params, cfg, device=device)
+    clouds, labels = _first_batch(args)
+    loss, acc = model.loss_fn(clouds, labels)
+    grads = torch.autograd.grad(loss, tree_leaves(params))
+    return (float(loss.detach()), float(acc),
+            [g.detach().cpu() for g in grads])
+
+
+def _train_split(trainer, out: dict, args: dict) -> dict:
+    """Where a training step's time goes, on the trained model and the
+    first batch: the forward (``loss_fn``), the backward
+    (``torch.autograd.grad``, each call on a graph of its own) and the
+    optimizer (``adamw_update``), each run alone :data:`TRAIN_PROFILE_CALLS`
+    times under ``torch.profiler`` (device time and launches per call) and
+    as many on the host clock after one more (:func:`_wall_ms`); and one
+    whole ``train_step`` profiled (its K7 launches counted there)."""
+    from repro_torch.optim import adamw_update, tree_leaves, tree_map
+    model, params, opt = out["model"], out["params"], out["opt"]
+    clouds, labels = (torch.from_numpy(a).cuda() for a in _first_batch(args))
+    leaves = tree_leaves(params)
+    n = TRAIN_PROFILE_CALLS
+
+    def forward():
+        return model.loss_fn(clouds, labels)[0]
+
+    graphs = iter([forward() for _ in range(2 * n + 1)])
+    grads = iter(torch.autograd.grad(forward(), leaves))
+    gtree = tree_map(lambda _: next(grads), params)
+    split = {}
+    for name, fn in (
+            ("forward", forward),
+            ("backward", lambda: torch.autograd.grad(next(graphs), leaves)),
+            ("optimizer", lambda: adamw_update(params, gtree, opt,
+                                               out["opt_config"]))):
+        rows = _device_rows(fn, calls=n)
+        split[name] = {
+            "device_ms": sum(r["device_ms"] for r in rows) / n,
+            "launches": sum(r["count"] for r in rows) / n,
+            "host_ms_median": statistics.median(_wall_ms(fn, n))}
+    step_rows = _device_rows(lambda: trainer.train_step(
+        model, params, opt, out["opt_config"], clouds, labels))
+    split["step"] = {
+        "device_ms": sum(r["device_ms"] for r in step_rows),
+        "launches": sum(r["count"] for r in step_rows),
+        "k7_launches": sum(r["count"] for r in step_rows
+                           if "fps_loop_kernel" in r["kernel"]
+                           or "fps_stream_kernel" in r["kernel"]),
+        "port_kernels": _port_rows(step_rows),
+        "top_kernels": step_rows[:10]}
+    return split
+
+
+def phase_train(smi: str) -> int:
+    """``examples/train_pointnet_torch.py``'s ``main()`` on the card: model0
+    unreduced at 1024 points, batch 16, seed 0, 200 steps. Checks step 0's
+    loss and gradients against the port's CPU run on the same batch (loss
+    within 1e-6 relative, accuracy equal, every gradient leaf within
+    1e-4 x max|g|: the gathers' backward is a scatter-add whose order on
+    the card is not fixed), K7 at 2 launches a step (counters reset just
+    before the run, read just after), every loss finite, the mean loss of
+    the last 20 steps below the first 20's, and the checkpoint restored
+    bit for bit. Prints the median step time (host clock, after
+    warm-up), the device's busy share, and the forward/backward/optimizer
+    split. Returns K7's launches in the run."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import tree_leaves
+    trainer = _trainer()
+    args = TRAIN_ARGS
+    t0 = time.perf_counter()
+    card = _step0(trainer, args, "cuda")
+    cpu = _step0(trainer, args, "cpu")
+    loss_rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    check(loss_rel <= 1e-6, f"train: step 0 loss card {card[0]} vs CPU "
+                            f"{cpu[0]} ({loss_rel} relative)")
+    check(card[1] == cpu[1], "train: step 0 accuracy card vs CPU")
+    grad_err = max(float((g - c).abs().max()) / float(c.abs().max())
+                   for g, c in zip(card[2], cpu[2]))
+    check(grad_err <= 1e-4, f"train: step 0 gradient card vs CPU "
+                            f"{grad_err} x max|g|")
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = ["--device", "cuda", "--ckpt", tmp]
+        for k, v in args.items():
+            argv += [f"--{k}", str(v)]
+        reset_launch_counts()
+        out = trainer.main(argv)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        hist = out["history"]
+        losses = [h["loss"] for h in hist]
+        check(len(hist) == args["steps"], "train: every step ran")
+        check(counts["fps"] == 2 * len(hist),
+              f"train: K7 launched {counts['fps']} times in "
+              f"{len(hist)} steps, expected 2 a step")
+        check(all(np.isfinite(losses)), "train: a loss is not finite")
+        first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+        check(last < first, f"train: mean loss of the last 20 steps "
+                            f"{last} not below the first 20's {first}")
+        tree = {"params": out["params"], "opt": out["opt"]}
+        restored, step, meta = restore_checkpoint(tmp, tree)
+        check(step == len(hist) and meta == {"arch": "pointnet2-model0"},
+              "train: checkpoint step and meta")
+        check(all(torch.equal(a.detach(), b) for a, b in
+                  zip(tree_leaves(tree), tree_leaves(restored))),
+              "train: checkpoint not restored bit for bit")
+    step_ms = [1e3 * h["seconds"] for h in hist[TRAIN_WARMUP:]]
+    step_median = statistics.median(step_ms)
+    split = _train_split(trainer, out, args)
+    emit({"phase": "train", "nvidia_smi": smi, "model": "model0",
+          **args, "loss_first20": first, "loss_last20": last,
+          "acc_last20": float(np.mean([h["acc"] for h in hist[-20:]])),
+          "step0": {"loss_card": card[0], "loss_cpu": cpu[0],
+                    "loss_rel_err": loss_rel, "acc": card[1],
+                    "grad_err_over_max": grad_err},
+          "step_ms_median": step_median, "step_ms_min": min(step_ms),
+          "step_ms_p90": float(np.percentile(step_ms, 90)),
+          "device_busy_share": split["step"]["device_ms"] / step_median,
+          "k7_launches": counts["fps"],
+          "k7_launches_per_step": counts["fps"] / len(hist),
+          "split": split, "stragglers": out["stragglers"],
+          "seconds": time.perf_counter() - t0})
+    return counts["fps"]
+
+
+def phase_contracts(params, cfgs, clouds_np, smi) -> None:
+    """``repro_torch.verify_contracts(..., check_graph=True)`` on every model
+    and backend of :data:`PATHS` (the 'pointer' schedule, planning on the
+    card), on the batch of 8 and on one cloud: the recorded call and the
+    captured one (one replay's kernels by ``torch.profiler``). Any
+    violation raises."""
+    import repro_torch
+    clouds = torch.from_numpy(clouds_np).cuda()
+    t0 = time.perf_counter()
+    rows = {}
+    for name, cfg in cfgs.items():
+        for backend in PATHS[name]:
+            if backend == "serve":
+                continue
+            model = repro_torch.compile_model(params[name], cfg,
+                                              backend=backend,
+                                              schedule="pointer")
+            for what, x in (("batch", clouds), ("cloud", clouds[0])):
+                report = repro_torch.verify_contracts(model, x,
+                                                      check_graph=True)
+                report.raise_if_violated()
+                info = report.info
+                rows[f"{name}/{backend}/{what}"] = {
+                    "gather_launches": info.gather_launches,
+                    "mlp_launches": info.mlp_launches,
+                    "launches": [l.name for l in info.launches],
+                    "graph_kernel_launches": report.graph["kernel_launches"],
+                    "smem_max": max((max(r["smem_bytes"], default=0)
+                                     for r in report.smem_rows.values()),
+                                    default=0)}
+    emit({"phase": "contracts", "nvidia_smi": smi, "ok": True,
+          "models": rows, "seconds": time.perf_counter() - t0})
+
+
 def phase_profile(name: str, model, host, clouds_np, smi) -> None:
     """Where one batch-8 ``batched_forward`` of ``model`` spends its time,
     in three modes: planning on the host (``host``; its host clock split
@@ -2527,6 +2745,8 @@ def main() -> int:
         phase_profile(name, models[name], host, clouds_np, smi)
     serve_counts = phase_serve(params["model2"], cfgs["model2"],
                                models["model2"], smi)
+    phase_contracts(params, cfgs, clouds_np, smi)
+    train_k7 = phase_train(smi)
     check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
           "a served kernel has no row")
     for k in kernels:
@@ -2535,6 +2755,8 @@ def main() -> int:
             k["serve_launches"] = serve_counts[SERVE_KERNELS[k["name"]]]
             check(k["serve_launches"] > 0,
                   f"{k['name']} never launched on the served path")
+        if k["name"] == "K7 fps":
+            k["train_launches"] = train_k7
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

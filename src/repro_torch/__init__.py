@@ -26,6 +26,14 @@ each bucket shape replays one captured CUDA graph.
 Hopper dataflow each fused MLP launches, the intra-layer order), and
 ``repro_torch.reliability`` injects ReRAM faults (:class:`FaultModel`)
 and protects the crossbar programs with ECC.
+
+Training runs on the 'float' backend under the 'baseline' schedule, as the
+reference's does: ``repro_torch.optim`` (AdamW, its schedule and
+clipping), ``repro_torch.checkpoint`` (the reference's checkpoint format)
+and ``repro_torch.launch.fault`` (preemption, stragglers, retries);
+``examples/train_pointnet_torch.py`` is the trainer. ``repro_torch.analysis``
+holds :func:`verify_contracts`, which checks a compiled model's launch
+contracts on one recorded call.
 """
 from repro_torch.core.energy import RooflineParams
 from repro_torch.core.policy import PlanPolicy
@@ -44,6 +52,7 @@ from repro_torch.models.backend import (Backend, CompiledModel,
                                         available_backends, compile_model,
                                         register_backend)
 from repro_torch import reliability
+from repro_torch.analysis import verify_contracts
 from repro_torch.reliability import FaultModel
 
 __all__ = [
@@ -55,5 +64,5 @@ __all__ = [
     "Servable", "ServingEngine", "ShapeBuckets", "VirtualClock",
     "available_backends", "build_plan", "cloud_content_key",
     "compile_model", "frame_fingerprint", "register_backend",
-    "reliability",
+    "reliability", "verify_contracts",
 ]

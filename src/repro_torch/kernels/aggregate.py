@@ -28,6 +28,7 @@ import functools
 import torch
 
 from . import _build
+from .record import launch_site
 
 __all__ = ["LAUNCHES", "aggregate_diff", "aggregate_diff_batched",
            "aggregate_diff_batched_plain", "aggregate_diff_cuda",
@@ -157,6 +158,7 @@ def _check_order(order, m: int, batch: int | None) -> None:
                          f"{m} centers")
 
 
+@launch_site("aggregate_diff")
 def aggregate_diff(features, nbr_idx, ctr_idx, order=None):
     """features (N, C); nbr_idx (M, K); ctr_idx (M,); order (M,) or None
     -> (M, K, C) with ``out[i, j] = features[nbr_idx[o, j]] -
@@ -177,6 +179,7 @@ def aggregate_diff(features, nbr_idx, ctr_idx, order=None):
     return out[0]
 
 
+@launch_site("aggregate_diff_batched")
 def aggregate_diff_batched(features, nbr_idx, ctr_idx, order=None):
     """features (B, N, C); nbr_idx (B, M, K); ctr_idx (B, M); order (B, M),
     (M,) or None -> (B, M, K, C), the whole batch in one launch."""

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import torch
 
 from . import _build
+from .record import launch_site
 
 __all__ = ["FPS_BLOCK_POINTS", "FPS_BLOCK_THREADS", "FPS_PER_THREAD",
            "FPS_REGS", "FPS_STREAM_REGS", "FPS_STREAM_THREADS", "FPS_TIERS",
@@ -261,6 +262,7 @@ def fps_update_cuda(points_t, centroid, dist):
     return out
 
 
+@launch_site("fps_update")
 def fps_update(points_t, centroid, dist):
     """points_t (3, N); centroid (3, 1); dist (1, N) -> relaxed dist
     (1, N)."""
@@ -337,6 +339,7 @@ def fps_batched_cuda(points, n_samples: int, start: int = 0, n_valid=None,
     return out
 
 
+@launch_site("fps_batched")
 def fps_batched(points, n_samples: int, start: int = 0, n_valid=None):
     """FPS over each cloud of ``points`` ``(B, N, 3)`` from row ``start``
     -> int64 ``(B, n_samples)``. ``n_valid`` (an int or a ``(B,)`` vector)

@@ -54,6 +54,7 @@ import functools
 import torch
 
 from . import _build
+from .record import launch_site
 from .program import (BLOCK_M, FUSED_MODES, MMA_BLOCK_K, MMA_BLOCK_N,
                       MMA_STRIPE_K, WSTAT_BLOCK_K, WSTAT_BLOCK_N,
                       CrossbarProgram, LaunchGeometry, _quantize, _scale,
@@ -399,6 +400,7 @@ KERNEL_OF_MODE = {"whole": fused_mlp_cuda, "tiled": fused_mlp_cuda,
                   "wstat": fused_mlp_wstat_cuda}
 
 
+@launch_site(lambda *a, mode="whole", **k: f"reram_mlp_fused_{mode}")
 def fused_mlp(x_p, sx, program: CrossbarProgram, *, m_real: int,
               final_relu: bool = True, mode: str = "whole"):
     """Dispatch: the plain version on CPU tensors, the kernel of dataflow

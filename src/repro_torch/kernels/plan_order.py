@@ -38,6 +38,7 @@ import functools
 import torch
 
 from . import _build
+from .record import launch_site
 
 __all__ = ["GREEDY_MAX_POINTS", "GREEDY_PER_THREAD", "GREEDY_THREADS",
            "LAUNCHES", "device_complete", "device_inverse",
@@ -156,6 +157,7 @@ def plan_greedy_cuda(points, start: int = 0):
     return out
 
 
+@launch_site("plan_greedy")
 def plan_greedy(points, start: int = 0):
     """The greedy nearest-neighbour order (paper Algorithm 1, lines 1-8) of
     each cloud of ``points`` ``(B, n, 3)`` from row ``start`` -> int32
@@ -303,6 +305,7 @@ def plan_coordinate_cuda(neighbors, last_order):
     return orders, inverses
 
 
+@launch_site("plan_coordinate", output=lambda r: r[0][0])
 def plan_coordinate(neighbors, last_order):
     """Paper Algorithm 1, lines 9-13, for a batch: ``neighbors[k-1]``
     ``(B, n_k, K_k)`` layer k's receptive fields into layer k-1 (k =

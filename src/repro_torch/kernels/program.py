@@ -67,6 +67,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from .record import capturing
 from .ref import combine_planes
 
 __all__ = [
@@ -136,9 +137,9 @@ def require_finite(x: torch.Tensor) -> None:
     a CUDA tensor): a single NaN poisons the ``max(|x|)`` quantization
     scale and silently zeroes the whole tensor. A call being captured into
     a CUDA graph cannot read its values back, so there the check is
-    skipped, as the reference's cannot raise on a traced value under
-    jit."""
-    if x.is_cuda and torch.cuda.is_current_stream_capturing():
+    skipped (and inside :func:`~.record.as_captured`), as the reference's
+    cannot raise on a traced value under jit."""
+    if capturing(x):
         return
     if not bool(torch.isfinite(x).all()):
         raise ValueError("quantize_tensor: input contains NaN/Inf — a "

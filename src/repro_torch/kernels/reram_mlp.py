@@ -31,6 +31,7 @@ import functools
 import torch
 
 from . import _build
+from .record import launch_site
 from .program import (BLOCK_M, MMA_BLOCK_K, MMA_BLOCK_N, MMA_STRIPE_K,
                       plan_reram)
 from .ref import combine_planes, ref_reram_matmul_int
@@ -138,6 +139,7 @@ def reram_matmul_int_cuda(x_int, planes, *, cell_bits: int = 2,
     return out
 
 
+@launch_site("reram_matmul_int")
 def reram_matmul_int(x_int, planes, *, cell_bits: int = 2,
                      weight_bits: int = 8):
     """``x_int`` ``(M, K)`` integer activations times ``planes``

@@ -125,6 +125,14 @@ class Backend(nn.Module):
     ``apply_mlp_batched`` treats axis 0 as a batch of independent clouds."""
 
     name = "?"
+    #: True where each MLP is one kernel call for the whole batch (the
+    #: fused backends): the verifier's ``mlp-launches`` contract holds
+    #: them to one launch per MLP, as the reference does.
+    batched_in_grid = False
+    #: True where the weights are the caller's tensors and a loss carries
+    #: gradients to them ('float'); False where they are buffers of their
+    #: own (the crossbar backends).
+    trainable = False
     #: :class:`~repro_torch.core.policy.PlanPolicy` stamped by
     #: ``compile_model`` (None without one); the fused backends consult it
     #: for their dataflow choices.
@@ -147,16 +155,24 @@ class Backend(nn.Module):
 
 
 class _FloatMLP(nn.Module):
-    """One float MLP's weights and biases, as buffers."""
+    """One float MLP's weights and biases, as buffers. With ``keep``, a
+    leaf that requires grad is the caller's tensor itself (float32), so a
+    loss carries gradients to it and an in-place update of it is what the
+    next call reads; every other leaf is copied."""
 
-    def __init__(self, layers):
+    def __init__(self, layers, keep: bool = False):
         super().__init__()
         self.n = len(layers)
         for i, lyr in enumerate(layers):
-            self.register_buffer(f"w{i}", torch.as_tensor(
-                lyr["w"], dtype=torch.float32).clone())
-            self.register_buffer(f"b{i}", torch.as_tensor(
-                lyr["b"], dtype=torch.float32).clone())
+            for part in ("w", "b"):
+                t = lyr[part]
+                if keep and isinstance(t, torch.Tensor) and t.requires_grad:
+                    if t.dtype != torch.float32:
+                        raise TypeError(f"a trained leaf must be float32; "
+                                        f"got {t.dtype}")
+                else:
+                    t = torch.as_tensor(t, dtype=torch.float32).clone()
+                self.register_buffer(f"{part}{i}", t)
 
     def layers(self) -> list[dict]:
         return [{"w": getattr(self, f"w{i}"), "b": getattr(self, f"b{i}")}
@@ -166,12 +182,17 @@ class _FloatMLP(nn.Module):
 @register_backend("float")
 class FloatBackend(Backend):
     """Plain float32 ``x @ w + b`` (``torch.matmul``; the JAX package's
-    float backend has no Pallas kernel either)."""
+    float backend has no Pallas kernel either). The weights that require
+    grad are the caller's tensors, not copies (:class:`_FloatMLP`), so
+    :meth:`CompiledModel.loss_fn` carries gradients to them."""
+
+    trainable = True
 
     def __init__(self, params, config):
         super().__init__(params, config)
-        self.sa = nn.ModuleList(_FloatMLP(m) for m in params["sa"])
-        self.head = _FloatMLP(params["head"])
+        keep = type(self).trainable
+        self.sa = nn.ModuleList(_FloatMLP(m, keep) for m in params["sa"])
+        self.head = _FloatMLP(params["head"], keep)
 
     def _mlp(self, key) -> _FloatMLP:
         return self.head if key == "head" else self.sa[key[1]]
@@ -200,7 +221,11 @@ class ReramPerLayerBackend(FloatBackend):
     as the reference keys them. The reference draws the same faults on
     every call, so each site's draws are made once, here, and kept as
     buffers: a call draws nothing, and a captured call replays the same
-    faults. The zero-fault model takes the ideal path bit for bit."""
+    faults. The zero-fault model takes the ideal path bit for bit. The
+    weights are copies, whatever requires grad: the loss carries no
+    gradient."""
+
+    trainable = False
 
     def __init__(self, params, config, *, fault_model=None):
         super().__init__(params, config)
@@ -293,6 +318,7 @@ class ReramFusedBackend(Backend):
 
     #: the dataflow this registry entry pins (None: chosen per shape)
     mode: str | None = None
+    batched_in_grid = True
 
     def __init__(self, params, config, *, program=None,
                  mode: str | None = None, ecc=None, fault_model=None):
@@ -752,10 +778,21 @@ class CompiledModel(nn.Module):
     def loss_fn(self, clouds, labels):
         """Mean negative log-likelihood and accuracy of
         :meth:`batched_forward` over a batch with int ``labels`` ``(B,)``,
-        as 0-d tensors. The port runs inference only: the weights are
-        buffers and the forward runs without autograd, so the loss carries
-        no gradient."""
-        logits = self.batched_forward(clouds)
+        as 0-d tensors.
+
+        On the 'float' backend under the 'baseline' schedule the loss is
+        differentiable with respect to the params tree the model was
+        compiled from, where its leaves require grad (they are the model's
+        weights, not copies): the batched path runs with autograd, the
+        geometry (FPS and kNN indices, the layer-0 features) carrying no
+        gradient. Elsewhere it carries none: the crossbar backends hold
+        quantized copies of the weights, and a planned schedule's gathers
+        run through K4/K5 on the card, which have no backward (the
+        reference trains 'float' under 'baseline' too)."""
+        if self._planned or not self.backend.trainable:
+            logits = self.batched_forward(clouds)
+        else:
+            logits = self._batched_in_grid(self._input(clouds))
         labels = torch.as_tensor(labels, dtype=torch.int64,
                                  device=logits.device)
         logp = torch.log_softmax(logits, dim=1)
@@ -1064,6 +1101,23 @@ class CompiledModel(nn.Module):
         return DevicePlan.lower(plans, sizes, device=pts_list[0].device)
 
 
+def _check_trained_leaves(params, dev: torch.device) -> None:
+    """A leaf that requires grad becomes the model's weight itself, so it
+    must already sit on the model's device: a copy made there would leave
+    the caller's in-place updates unseen."""
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    for mlp in (*params["sa"], params["head"]):
+        for lyr in mlp:
+            for t in lyr.values():
+                if isinstance(t, torch.Tensor) and t.requires_grad \
+                        and t.device != dev:
+                    raise ValueError(
+                        f"a parameter that requires grad is on {t.device}, "
+                        f"the model on {dev}; move the params tree to the "
+                        f"model's device before compile_model")
+
+
 def _refuse_unplanned(dplan) -> None:
     if dplan is not None:
         raise ValueError("dplan= was passed but this model's schedule is "
@@ -1203,6 +1257,8 @@ def compile_model(params: Params, config: PointNetConfig, *,
                 "policy=); baseline and prebuilt plans have no plan "
                 "construction left to lower")
         device_planning = False
+    if cls.trainable:
+        _check_trained_leaves(params, dev)
     be = cls(params, config, **backend_opts)
     be.policy = policy           # dataflow decisions consult the cost model
     model = CompiledModel(be, config, spec, planned, plan=plan,

@@ -202,7 +202,10 @@ def batched_forward(params: Params, config: PointNetConfig, clouds, *,
 def loss_fn(params: Params, config: PointNetConfig, clouds, labels, *,
             schedule=None, policy=None, device=None):
     """Mean negative log-likelihood and accuracy of the float
-    :func:`batched_forward` over ``labels``."""
+    :func:`batched_forward` over ``labels``. Under the 'baseline' schedule
+    it carries gradients to the leaves of ``params`` that require grad
+    (:meth:`~repro_torch.models.backend.CompiledModel.loss_fn`), which
+    must then sit on ``device``."""
     return _compiled(params, config, schedule, policy,
                      device).loss_fn(clouds, labels)
 

@@ -33,7 +33,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "repro_torch.models.backend, repro_torch.convert, "
             "repro_torch.launch, repro_torch.launch.serve, "
             "repro_torch.data, repro_torch.reliability, "
-            "repro_torch.core.policy, repro_torch.core.simulator\n"
+            "repro_torch.core.policy, repro_torch.core.simulator, "
+            "repro_torch.optim, repro_torch.checkpoint, "
+            "repro_torch.analysis, repro_torch.launch.fault\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"

@@ -474,3 +474,29 @@ def test_cpu_logits_on_card_features_feed_the_card_features(smoke):
     got = smoke._cpu_logits_on_card_features(model, clouds)
     assert pn.lift_features is real
     assert torch.equal(got, model.batched_forward(clouds))
+
+
+def test_train_phase_runs_the_trainers_model0_and_batch(smoke):
+    """The train phase's run is model0 unreduced at the reference's batch
+    and step count, and its step-0 check feeds the trainer's own first
+    batch to the trainer's own model."""
+    assert smoke.TRAIN_ARGS == {"points": 1024, "batch": 16, "steps": 200,
+                                "seed": 0}
+    trainer = smoke._trainer()
+    assert trainer.train_config(1024) is smoke_model0()
+    args = dict(smoke.TRAIN_ARGS, points=64, batch=2)
+    clouds, labels = smoke._first_batch(args)
+    assert clouds.shape == (2, 64, 3) and labels.shape == (2,)
+    from repro_torch.data import PointCloudDataset
+    again = next(PointCloudDataset(n_points=64, n_clouds=512,
+                                   seed=0).batches(2, 1))
+    assert np.array_equal(again[0], clouds)
+    loss, acc, grads = smoke._step0(trainer, args, "cpu")
+    assert np.isfinite(loss) and 0.0 <= acc <= 1.0
+    assert len(grads) == 16 and all(bool(torch.isfinite(g).all())
+                                    for g in grads)
+
+
+def smoke_model0():
+    import repro_torch
+    return repro_torch.PAPER_MODELS["model0"]

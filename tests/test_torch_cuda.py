@@ -905,3 +905,77 @@ def test_precommitted_policy_plans_on_card_like_pointer(cuda):
                          policy=PlanPolicy())
     with pytest.raises(TypeError, match="precommit"):
         host.jit_batched_forward(clouds)
+
+
+# ---------------------------------------------------------------------------
+# training and the launch-contract verifier on the card
+# ---------------------------------------------------------------------------
+
+def _tiny_cfg():
+    return PointNetConfig(name="tiny", n_points=64, layers=(
+        SALayerSpec(n_centers=24, n_neighbors=4, in_features=4,
+                    mlp=(4, 8, 8, 16)),
+        SALayerSpec(n_centers=8, n_neighbors=4, in_features=16,
+                    mlp=(16, 16, 16, 32))))
+
+
+@pytest.mark.parametrize("backend", ["float", "reram-fused", "reram"])
+def test_contracts_hold_on_the_card_eager_and_captured(cuda, backend):
+    from repro_torch import verify_contracts
+    cfg = _tiny_cfg()
+    model = compile_model(init_params(cfg, seed=0, n_classes=10), cfg,
+                          backend=backend, schedule="pointer")
+    clouds = torch.from_numpy(np.random.default_rng(1).normal(
+        size=(3, 64, 3)).astype(np.float32)).to(cuda)
+    for x in (clouds, clouds[0]):
+        report = verify_contracts(model, x, check_graph=True)
+        report.raise_if_violated()
+        assert report.graph["captured"]
+        assert report.info.gather_launches == cfg.n_layers
+        assert report.info.host_callbacks == ()
+
+
+def test_verifier_catches_a_sync_on_the_card(cuda):
+    from repro_torch import verify_contracts
+    cfg = _tiny_cfg()
+    model = compile_model(init_params(cfg, seed=0, n_classes=10), cfg,
+                          schedule="pointer")
+
+    class Chatty:
+        def __init__(self):
+            self.config, self.backend = model.config, model.backend
+            self.backend_name, self.schedule = model.backend_name, \
+                model.schedule
+            self.planned, self.device = model.planned, model.device
+
+        def forward(self, x):
+            y = model.forward(x)
+            return y * float(y.abs().max() > 0)
+
+    x = torch.zeros((64, 3), device=cuda).normal_()
+    report = verify_contracts(Chatty(), x)
+    assert any(v.contract == "host-callbacks" and "cuda-sync" in
+               (v.primitive or "") for v in report.violations)
+
+
+def test_float_gradients_on_the_card_match_the_cpu(cuda):
+    """The gathers' backward is a scatter-add, whose summation order on the
+    card is not fixed: gradients within 1e-4 x max|g| of the CPU's."""
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = _tiny_cfg()
+    rng = np.random.default_rng(2)
+    clouds = rng.normal(size=(4, 64, 3)).astype(np.float32)
+    labels = rng.integers(0, 10, 4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev).requires_grad_(),
+                          init_params(cfg, seed=0, n_classes=10))
+        model = compile_model(params, cfg, device=dev)
+        loss, acc = model.loss_fn(clouds, labels)
+        out[dev] = (float(loss.detach()), float(acc),
+                    [g.cpu() for g in torch.autograd.grad(
+                        loss, tree_leaves(params))])
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-6)
+    assert out["cuda"][1] == out["cpu"][1]
+    for g, c in zip(out["cuda"][2], out["cpu"][2]):
+        assert float((g - c).abs().max()) <= 1e-4 * float(c.abs().max())
