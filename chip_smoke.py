@@ -17,7 +17,7 @@ and batch size. Phases, each printing one JSON line:
    and convolutions;
 2. build: every CUDA kernel of the paths built from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
-   together);
+   together; P4's ``gather_backward.cu`` among them);
    dataflow (first, so that model0's MLPs are K2's first launches in the
    process, one of them at exactly 48 KB of dynamic shared memory): K1, K2
    and K3 at every MLP of model0, model1 and model2 at batch 1 and 8, each
@@ -132,15 +132,25 @@ and batch size. Phases, each printing one JSON line:
    any violation raises;
 9. train: ``examples/train_pointnet_torch.py``'s ``main()`` on model0
    unreduced (1024 points, batch 16, seed 0, 200 steps; 'float',
-   'baseline', FPS through K7): step 0's loss and gradients against the
-   port's CPU run on the same batch, K7 at 2 launches a step, every loss
-   finite, the last 20 steps' mean loss below the first 20's, the
-   checkpoint restored bit for bit; the median step time, the device's busy
-   share, and the forward/backward/optimizer split (``torch.profiler``).
+   'baseline', FPS through K7, the feature gathers' backward through P4),
+   its whole step captured into one CUDA graph and replayed, twice: step
+   0's loss and gradients against the port's CPU run on the same batch;
+   the two runs bit for bit equal (every loss and accuracy, every
+   parameter, moment and the step); every loss finite, the last 20 steps'
+   mean loss below the first 20's, each checkpoint restored bit for bit;
+   K7 and P4 at 2 launches a replayed step (``torch.profiler`` over one
+   replay; the counters see the two warm-ups and the capture); 5 captured
+   steps bit for bit the eager ones; P4 bit for bit against its plain
+   version at the step's two SA-2 gathers. Printed: the captured step's
+   median time, busy share and launches beside the eager step's, the eager
+   step with autograd's scatter-add backward in P4's place, and the eager
+   forward/backward/optimizer split (``torch.profiler``).
 
 Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
 launches in the serve phase's runs; ``train_launches``: K7's in the train
-phase's run), the ``nvidia-smi`` name and power
+phase's run, ``train_launches_per_replay`` its launches in one replayed
+step; P4's row, whose ``launches`` are its counter in the train phase's
+run), the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
 raises, so the exit code is not 0 and the last line is never printed. It
 needs a CUDA card and the repository's ``src/`` beside it.
@@ -905,7 +915,8 @@ MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
 
 #: The port's kernels by the names ``torch.profiler`` gives them.
 PORT_KERNELS = ("fused_mlp_", "wstat_", "combine_", "aggregate_diff",
-                "reram_matmul", "fps_", "greedy_kernel", "coordinate_kernel")
+                "reram_matmul", "fps_", "greedy_kernel", "coordinate_kernel",
+                "gather_rows_backward_kernel")
 
 #: Kernels a captured ``batched_forward`` under the 'pointer' schedule must
 #: replay: FPS, P1, P2 and the gather.
@@ -2438,6 +2449,10 @@ TRAIN_ARGS = {"points": 1024, "batch": 16, "steps": 200, "seed": SEED}
 TRAIN_WARMUP = 10
 #: Calls of each training phase ``phase_train`` profiles.
 TRAIN_PROFILE_CALLS = 5
+#: Steps compared bit for bit, captured against eager.
+TRAIN_COMPARE_STEPS = 5
+#: Eager steps timed beside the captured run (after :data:`TRAIN_WARMUP`).
+TRAIN_EAGER_STEPS = 50
 
 
 def _trainer():
@@ -2475,14 +2490,139 @@ def _step0(trainer, args: dict, device: str) -> tuple:
             [g.detach().cpu() for g in grads])
 
 
+def _argv(args: dict, ckpt: str) -> list:
+    argv = ["--device", "cuda", "--ckpt", ckpt]
+    for k, v in args.items():
+        argv += [f"--{k}", str(v)]
+    return argv
+
+
+def _trainer_run(trainer, args: dict) -> tuple[dict, dict]:
+    """The trainer's ``main()`` on the card (captured), its launch counts
+    (reset just before, read just after), and its checkpoint restored bit
+    for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.optim import tree_leaves
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launch_counts()
+        out = trainer.main(_argv(args, tmp))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        tree = {"params": out["params"], "opt": out["opt"]}
+        restored, step, meta = restore_checkpoint(tmp, tree)
+        check(step == len(out["history"])
+              and meta == {"arch": "pointnet2-model0"},
+              "train: checkpoint step and meta")
+        check(all(torch.equal(a.detach(), b) for a, b in
+                  zip(tree_leaves(tree), tree_leaves(restored))),
+              "train: checkpoint not restored bit for bit")
+    return out, counts
+
+
+def _state_leaves(run: dict) -> list:
+    from repro_torch.optim import tree_leaves
+    return [t.detach() for t in tree_leaves(run["params"])
+            + tree_leaves(run["opt"])]
+
+
+def _batches(run: dict, args: dict, n: int) -> list:
+    return [(torch.from_numpy(c).cuda(), torch.from_numpy(l).cuda())
+            for c, l in run["data"].batches(args["batch"], n)]
+
+
+def _eager_step(trainer, run: dict):
+    def step(clouds, labels):
+        return trainer.train_step(run["model"], run["params"], run["opt"],
+                                  run["opt_config"], clouds, labels)[1:]
+    return step
+
+
+def _captured_vs_eager(trainer, args: dict) -> dict:
+    """:data:`TRAIN_COMPARE_STEPS` steps from seed 0, captured
+    (``make_step``) and eager (``train_step``), on fresh states: every
+    loss, accuracy and state tensor (parameters, moments, step) bit for
+    bit."""
+    n = TRAIN_COMPARE_STEPS
+    out = {}
+    for mode in ("eager", "captured"):
+        run = trainer.setup(trainer.parse_args(_argv(args, "unused")))
+        step = (_eager_step(trainer, run) if mode == "eager" else
+                trainer.make_step(run["model"], run["params"], run["opt"],
+                                  run["opt_config"]))
+        out[mode] = ([tuple(float(v) for v in step(*b))
+                      for b in _batches(run, args, n)], _state_leaves(run))
+    check(out["captured"][0] == out["eager"][0],
+          f"train: {n} captured steps' losses differ from the eager ones: "
+          f"{out['captured'][0]} vs {out['eager'][0]}")
+    check(all(torch.equal(a, b) for a, b in zip(out["captured"][1],
+                                                  out["eager"][1])),
+          f"train: the state after {n} captured steps differs from the "
+          f"eager one")
+    return {"steps": n, "losses": [l for l, _ in out["eager"][0]],
+            "bitwise": True}
+
+
+def _scatter_gather_rows(x, idx):
+    """``gather_rows`` as it was before P4: ``take_along_dim`` with
+    autograd's own backward (a scatter-add in no fixed order on the
+    card). Only this script swaps it in, to time what P4 replaced."""
+    lead = x.shape[:-2]
+    flat = idx.reshape(*lead, -1).long()
+    out = torch.take_along_dim(x, flat[..., None], dim=-2)
+    return out.reshape(*idx.shape, x.shape[-1])
+
+
+def _eager_times(trainer, args: dict, gather=None) -> dict:
+    """Eager steps on the card from a fresh state, on the host clock (each
+    ended by reading the loss, as the trainer's loop ends a step):
+    :data:`TRAIN_EAGER_STEPS` after :data:`TRAIN_WARMUP`; and one more step
+    profiled. ``gather`` replaces ``pointnet2.gather_rows`` for the run."""
+    from repro_torch.models import pointnet2 as pn
+    real = pn.gather_rows
+    if gather is not None:
+        pn.gather_rows = gather
+    try:
+        run = trainer.setup(trainer.parse_args(_argv(args, "unused")))
+        step = _eager_step(trainer, run)
+        batches = _batches(run, args, TRAIN_WARMUP + TRAIN_EAGER_STEPS + 1)
+        ms = []
+        for i, b in enumerate(batches[:-1]):
+            t0 = time.perf_counter()
+            float(step(*b)[0])
+            if i >= TRAIN_WARMUP:
+                ms.append(1e3 * (time.perf_counter() - t0))
+        rows = _device_rows(lambda: step(*batches[-1]))
+    finally:
+        pn.gather_rows = real
+    med = statistics.median(ms)
+    device = sum(r["device_ms"] for r in rows)
+    return {"step_ms_median": med, "step_ms_min": min(ms),
+            "step_ms_p90": float(np.percentile(ms, 90)),
+            "device_ms": device, "device_busy_share": device / med,
+            "launches": sum(r["count"] for r in rows),
+            "k7_launches": _k7_count(rows), "p4_launches": _p4_count(rows)}
+
+
+def _k7_count(rows) -> int:
+    return sum(r["count"] for r in rows if "fps_loop_kernel" in r["kernel"]
+               or "fps_stream_kernel" in r["kernel"])
+
+
+def _p4_count(rows) -> int:
+    return sum(r["count"] for r in rows
+               if "gather_rows_backward_kernel" in r["kernel"])
+
+
 def _train_split(trainer, out: dict, args: dict) -> dict:
-    """Where a training step's time goes, on the trained model and the
-    first batch: the forward (``loss_fn``), the backward
+    """Where an eager training step's time goes, on the trained model and
+    the first batch: the forward (``loss_fn``), the backward
     (``torch.autograd.grad``, each call on a graph of its own) and the
     optimizer (``adamw_update``), each run alone :data:`TRAIN_PROFILE_CALLS`
     times under ``torch.profiler`` (device time and launches per call) and
-    as many on the host clock after one more (:func:`_wall_ms`); and one
-    whole ``train_step`` profiled (its K7 launches counted there)."""
+    as many on the host clock after one more (:func:`_wall_ms`)."""
     from repro_torch.optim import adamw_update, tree_leaves, tree_map
     model, params, opt = out["model"], out["params"], out["opt"]
     clouds, labels = (torch.from_numpy(a).cuda() for a in _first_batch(args))
@@ -2506,36 +2646,129 @@ def _train_split(trainer, out: dict, args: dict) -> dict:
             "device_ms": sum(r["device_ms"] for r in rows) / n,
             "launches": sum(r["count"] for r in rows) / n,
             "host_ms_median": statistics.median(_wall_ms(fn, n))}
-    step_rows = _device_rows(lambda: trainer.train_step(
-        model, params, opt, out["opt_config"], clouds, labels))
-    split["step"] = {
-        "device_ms": sum(r["device_ms"] for r in step_rows),
-        "launches": sum(r["count"] for r in step_rows),
-        "k7_launches": sum(r["count"] for r in step_rows
-                           if "fps_loop_kernel" in r["kernel"]
-                           or "fps_stream_kernel" in r["kernel"]),
-        "port_kernels": _port_rows(step_rows),
-        "top_kernels": step_rows[:10]}
     return split
 
 
-def phase_train(smi: str) -> int:
-    """``examples/train_pointnet_torch.py``'s ``main()`` on the card: model0
-    unreduced at 1024 points, batch 16, seed 0, 200 steps. Checks step 0's
-    loss and gradients against the port's CPU run on the same batch (loss
-    within 1e-6 relative, accuracy equal, every gradient leaf within
-    1e-4 x max|g|: the gathers' backward is a scatter-add whose order on
-    the card is not fixed), K7 at 2 launches a step (counters reset just
-    before the run, read just after), every loss finite, the mean loss of
-    the last 20 steps below the first 20's, and the checkpoint restored
-    bit for bit. Prints the median step time (host clock, after
-    warm-up), the device's busy share, and the forward/backward/optimizer
-    split. Returns K7's launches in the run."""
-    import tempfile
+def _p4_inputs(trainer, args: dict) -> list:
+    """P4's operands at the training path's two SA-2 gathers: the
+    geometry of the trainer's first batch (centres ``(B, 128)`` and
+    neighbours ``(B, 128, 16)`` into SA-1's 512 rows), and upstream
+    gradients of SA-1's output width drawn from the seed."""
+    from repro_torch.kernels.gather_backward import segments
+    from repro_torch.models import pointnet2 as pn
+    cfg = trainer.train_config(args["points"])
+    clouds, _ = _first_batch(args)
+    _, ctr, nbr = pn.geometry_pass(cfg, torch.from_numpy(clouds).cuda())
+    n_rows, c = cfg.layers[0].n_centers, cfg.layers[0].mlp[-1]
+    rng = np.random.default_rng(SEED)
+    cases = []
+    for name, idx in (("neighbours", nbr[2]), ("centres", ctr[2])):
+        flat = idx.reshape(idx.shape[0], -1)
+        g = torch.from_numpy(rng.normal(size=(flat.numel(), c)).astype(
+            np.float32)).cuda()
+        perm, starts = segments(flat, n_rows)
+        cases.append({"name": name, "idx": flat, "grad": g, "perm": perm,
+                      "starts": starts, "n_rows": n_rows})
+    return cases
 
-    from repro_torch.checkpoint import restore_checkpoint
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.optim import tree_leaves
+
+def _p4_bound(b: int, p: int, n_rows: int, c: int):
+    """Bytes and float32 additions of P4 over ``b`` clouds of ``p``
+    positions into ``n_rows`` rows of ``c``: the upstream gradient and the
+    int64 indices read once, the gradient rows written once; one addition
+    per gradient element."""
+    return 4 * b * p * c + 8 * b * p + 4 * b * n_rows * c, b * p * c
+
+
+def _p4_row(cases, train_launches: int, per_replay: int,
+            eager_per_step: int) -> dict:
+    """P4 at the training path's two SA-2 gathers: the kernel bit for bit
+    against its plain version on the same operands, and the entry point's
+    time (stable sort, segment search and kernel), the kernel's alone,
+    the plain version's and ``torch.index_add`` (the scatter-add P4
+    replaces, in no fixed order) beside the bound."""
+    from repro_torch.kernels.gather_backward import (
+        gather_rows_backward, gather_rows_backward_cuda,
+        gather_rows_backward_plain)
+    tot = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+           "device_ms": 0.0, "bytes": 0, "ops": 0}
+    err, per = 0.0, {}
+    for case in cases:
+        g, perm, starts, idx = (case["grad"], case["perm"], case["starts"],
+                                case["idx"])
+        got = gather_rows_backward_cuda(g, perm, starts)
+        want = gather_rows_backward_plain(g, perm, starts)
+        torch.cuda.synchronize()
+        e = float((got - want).abs().max())
+        check(torch.equal(got, want), f"P4 {case['name']}: kernel differs "
+                                      f"from its plain version by {e}")
+        err = max(err, e)
+        b, p = idx.shape
+        n_rows = case["n_rows"]
+        c = g.shape[1]
+        grad3 = g.view(b, p, c)
+        keys = (idx + n_rows * torch.arange(b, device=idx.device)[:, None]
+                ).reshape(-1)
+        zeros = torch.zeros((b * n_rows, c), device=g.device)
+        row = {"shape": [b, p, n_rows, c],
+               "ms": cuda_ms(lambda: gather_rows_backward(grad3, idx,
+                                                          n_rows)),
+               "kernel_ms": cuda_ms(lambda: gather_rows_backward_cuda(
+                   g, perm, starts)),
+               "plain_ms": cuda_ms(lambda: gather_rows_backward_plain(
+                   g, perm, starts), iters=3, warmup=1),
+               "library_ms": cuda_ms(lambda: torch.index_add(zeros, 0, keys,
+                                                             g)),
+               "device_ms": _device_ms(lambda: gather_rows_backward(
+                   grad3, idx, n_rows)),
+               "max_segment": int((starts[1:] - starts[:-1]).max())}
+        nbytes, ops = _p4_bound(b, p, n_rows, c)
+        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, FP32_OPS_PER_S)
+        per[case["name"]] = row
+        for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
+                    "device_ms"):
+            tot[key] += row[key]
+        tot["bytes"] += nbytes
+        tot["ops"] += ops
+    bms, bby = bound(tot["bytes"], tot["ops"], FP32_OPS_PER_S)
+    return {
+        "name": "P4 gather_rows_backward", "route": "cuda",
+        "source": "src/repro_torch/csrc/gather_backward.cu",
+        "replaces": "src/repro/models/pointnet2.py:209 (the gradient of "
+                    "features[nbr], an XLA scatter-add; no pallas_call) - "
+                    "in the port autograd's scatter-add backward of "
+                    "torch.take_along_dim",
+        "launches": train_launches, "max_abs_err": err,
+        "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": bms,
+        "bound_by": bby, "library_ms": tot["library_ms"],
+        "library_call": "torch.index_add into zeros (a scatter-add whose "
+                        "order on the card is not fixed)",
+        "work": "the backward of the two SA-2 feature gathers of a model0 "
+                "training step, batch 16 (1024 points)",
+        "kernel_ms": tot["kernel_ms"], "device_ms": tot["device_ms"],
+        "launches_per_replay": per_replay,
+        "eager_launches_per_step": eager_per_step, "per_gather": per}
+
+
+def phase_train(smi: str) -> dict:
+    """``examples/train_pointnet_torch.py``'s ``main()`` on the card, its
+    step captured into one CUDA graph and replayed: model0 unreduced at
+    1024 points, batch 16, seed 0, 200 steps, twice. Checks step 0's loss
+    and gradients against the port's CPU run on the same batch (loss
+    within 1e-6 relative, accuracy equal, every gradient leaf within
+    1e-4 x max|g|); the two runs bit for bit equal (every loss and
+    accuracy, every parameter, moment and the step); every loss finite and
+    the mean of the last 20 below the first 20's; each checkpoint restored
+    bit for bit; K7 and P4 at 2 launches a replayed step
+    (``torch.profiler`` over one replay: a replay moves no counter, so the
+    counters, reset just before a run and read just after, see the two
+    warm-ups and the capture: 6 each); :data:`TRAIN_COMPARE_STEPS`
+    captured steps bit for bit the eager ones. Prints the captured step's
+    median time (host clock, after warm-up), busy share and launches beside
+    the eager step's, the eager step with autograd's scatter-add backward
+    in P4's place, and the eager forward/backward/optimizer split. Returns
+    P4's kernel row and K7's launches in the run."""
+    from repro_torch.models.backend import CudaGraphCall
     trainer = _trainer()
     args = TRAIN_ARGS
     t0 = time.perf_counter()
@@ -2549,48 +2782,68 @@ def phase_train(smi: str) -> int:
                    for g, c in zip(card[2], cpu[2]))
     check(grad_err <= 1e-4, f"train: step 0 gradient card vs CPU "
                             f"{grad_err} x max|g|")
-    with tempfile.TemporaryDirectory() as tmp:
-        argv = ["--device", "cuda", "--ckpt", tmp]
-        for k, v in args.items():
-            argv += [f"--{k}", str(v)]
-        reset_launch_counts()
-        out = trainer.main(argv)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        hist = out["history"]
-        losses = [h["loss"] for h in hist]
-        check(len(hist) == args["steps"], "train: every step ran")
-        check(counts["fps"] == 2 * len(hist),
-              f"train: K7 launched {counts['fps']} times in "
-              f"{len(hist)} steps, expected 2 a step")
-        check(all(np.isfinite(losses)), "train: a loss is not finite")
-        first, last = np.mean(losses[:20]), np.mean(losses[-20:])
-        check(last < first, f"train: mean loss of the last 20 steps "
-                            f"{last} not below the first 20's {first}")
-        tree = {"params": out["params"], "opt": out["opt"]}
-        restored, step, meta = restore_checkpoint(tmp, tree)
-        check(step == len(hist) and meta == {"arch": "pointnet2-model0"},
-              "train: checkpoint step and meta")
-        check(all(torch.equal(a.detach(), b) for a, b in
-                  zip(tree_leaves(tree), tree_leaves(restored))),
-              "train: checkpoint not restored bit for bit")
+    out, counts = _trainer_run(trainer, args)
+    again, _ = _trainer_run(trainer, args)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    check(len(hist) == args["steps"], "train: every step ran")
+    captures = 2 * (CudaGraphCall.WARMUP + 1)
+    for name in ("fps", "gather_rows_backward"):
+        check(counts[name] == captures,
+              f"train: {name} counted {counts[name]} launches, expected "
+              f"{captures} (2 a call, two warm-ups and the capture)")
+    check(all(np.isfinite(losses)), "train: a loss is not finite")
+    first, last = np.mean(losses[:20]), np.mean(losses[-20:])
+    check(last < first, f"train: mean loss of the last 20 steps "
+                        f"{last} not below the first 20's {first}")
+    check([(h["loss"], h["acc"]) for h in hist]
+          == [(h["loss"], h["acc"]) for h in again["history"]],
+          "train: two runs from seed 0 part (losses or accuracies differ)")
+    check(all(torch.equal(a, b) for a, b in zip(_state_leaves(out),
+                                                _state_leaves(again))),
+          "train: two runs from seed 0 end in different states")
     step_ms = [1e3 * h["seconds"] for h in hist[TRAIN_WARMUP:]]
     step_median = statistics.median(step_ms)
+    clouds, labels = (torch.from_numpy(a).cuda() for a in _first_batch(args))
+    replay = _device_rows(lambda: out["step"](clouds, labels))
+    k7, p4 = _k7_count(replay), _p4_count(replay)
+    check(k7 == 2 and p4 == 2, f"train: a replayed step launched K7 {k7} "
+                               f"and P4 {p4} times, expected 2 each")
+    compare = _captured_vs_eager(trainer, args)
+    eager = _eager_times(trainer, args)
+    check(eager["k7_launches"] == 2 and eager["p4_launches"] == 2,
+          "train: an eager step launches K7 and P4 twice each")
+    scatter = _eager_times(trainer, args, gather=_scatter_gather_rows)
+    device = sum(r["device_ms"] for r in replay)
+    captured = {"step_ms_median": step_median, "step_ms_min": min(step_ms),
+                "step_ms_p90": float(np.percentile(step_ms, 90)),
+                "device_ms": device, "device_busy_share": device / step_median,
+                "launches": sum(r["count"] for r in replay),
+                "k7_launches": k7, "p4_launches": p4,
+                "port_kernels": _port_rows(replay),
+                "top_kernels": replay[:10]}
     split = _train_split(trainer, out, args)
+    p4_row = _p4_row(_p4_inputs(trainer, args), counts["gather_rows_backward"],
+                     p4, eager["p4_launches"])
     emit({"phase": "train", "nvidia_smi": smi, "model": "model0",
           **args, "loss_first20": first, "loss_last20": last,
+          "loss_final": losses[-1],
           "acc_last20": float(np.mean([h["acc"] for h in hist[-20:]])),
+          "runs_bitwise_equal": 2,
           "step0": {"loss_card": card[0], "loss_cpu": cpu[0],
                     "loss_rel_err": loss_rel, "acc": card[1],
                     "grad_err_over_max": grad_err},
-          "step_ms_median": step_median, "step_ms_min": min(step_ms),
-          "step_ms_p90": float(np.percentile(step_ms, 90)),
-          "device_busy_share": split["step"]["device_ms"] / step_median,
-          "k7_launches": counts["fps"],
-          "k7_launches_per_step": counts["fps"] / len(hist),
+          "captured": captured, "eager": eager,
+          "eager_scatter_add": scatter,
+          "p4_adds_ms": {
+              "host": eager["step_ms_median"] - scatter["step_ms_median"],
+              "device": eager["device_ms"] - scatter["device_ms"]},
+          "captured_vs_eager": compare,
+          "counters": {k: counts[k] for k in ("fps", "gather_rows_backward")},
           "split": split, "stragglers": out["stragglers"],
           "seconds": time.perf_counter() - t0})
-    return counts["fps"]
+    return {"p4": p4_row, "k7_launches": counts["fps"],
+            "k7_launches_per_replay": k7}
 
 
 def phase_contracts(params, cfgs, clouds_np, smi) -> None:
@@ -2746,7 +2999,8 @@ def main() -> int:
     serve_counts = phase_serve(params["model2"], cfgs["model2"],
                                models["model2"], smi)
     phase_contracts(params, cfgs, clouds_np, smi)
-    train_k7 = phase_train(smi)
+    train = phase_train(smi)
+    kernels.append(train["p4"])
     check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
           "a served kernel has no row")
     for k in kernels:
@@ -2756,7 +3010,8 @@ def main() -> int:
             check(k["serve_launches"] > 0,
                   f"{k['name']} never launched on the served path")
         if k["name"] == "K7 fps":
-            k["train_launches"] = train_k7
+            k["train_launches"] = train["k7_launches"]
+            k["train_launches_per_replay"] = train["k7_launches_per_replay"]
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -23,6 +23,9 @@
                   relaxation step (``fps_update``), and the whole sampling
                   loop in one launch (``fps_batched``; ``ops.fps`` is one
                   cloud)
+- ``gather_backward``: P4, the feature gather's backward as a fixed-order
+                  segment sum (``csrc/gather_backward.cu``): training on
+                  the card is reproducible
 - ``ops``       : ``reram_linear``, ``fps``, ``count_dma_elisions``
 - ``_build``    : nvcc build at first use + ctypes binding
 
@@ -30,10 +33,11 @@ Every wrapper runs its plain torch version on CPU tensors and launches its
 kernel on CUDA tensors; :func:`launch_counts` reads the kernel launch
 counters, :func:`reset_launch_counts` zeroes them.
 """
-from . import (aggregate, fps_update as _fps_update, fused_mlp, plan_order,
-               reram_mlp)
+from . import (aggregate, fps_update as _fps_update, fused_mlp,
+               gather_backward, plan_order, reram_mlp)
 from .aggregate import aggregate_diff, aggregate_diff_batched
 from .fps_update import fps_batched, fps_update
+from .gather_backward import gather_rows_backward
 from .fused_mlp import reram_mlp_fused, reram_mlp_fused_batched
 from .ops import count_dma_elisions, fps, reram_linear
 from .plan_order import plan_coordinate, plan_greedy
@@ -50,7 +54,8 @@ __all__ = [
     "LaunchWork",
     "aggregate_diff", "aggregate_diff_batched", "build_program",
     "combine_planes", "count_dma_elisions", "encode_planes", "fps",
-    "fps_batched", "fps_update", "fused_vmem_bytes", "launch_bytes",
+    "fps_batched", "fps_update", "fused_vmem_bytes", "gather_rows_backward",
+    "launch_bytes",
     "launch_count", "launch_counts", "launch_work",
     "plan_coordinate", "plan_fused_mlp", "plan_greedy", "plan_launch",
     "quantize_tensor", "ref_fps_update",
@@ -60,7 +65,7 @@ __all__ = [
 
 #: The CUDA sources of the kernels (``csrc/<name>.cu``).
 KERNEL_SOURCES = ("fused_mlp", "fused_mlp_mtiled", "fused_mlp_wstat",
-                  "reram_mlp", "aggregate", "fps", "plan")
+                  "reram_mlp", "aggregate", "fps", "plan", "gather_backward")
 
 
 def launch_counts() -> dict[str, int]:
@@ -68,8 +73,9 @@ def launch_counts() -> dict[str, int]:
     kernel its MLP calls and its layers, the s8 weight pre-pass of K1, K2
     and K3 (``fused_mlp_combine``), the gathers' launches, K6's products
     and its pre-pass (``reram_combine``), K7's (``fps_update`` the
-    single steps, ``fps`` the whole loops), and P1's and P2's
-    (``plan_greedy``, ``plan_coordinate``)."""
+    single steps, ``fps`` the whole loops), P1's and P2's
+    (``plan_greedy``, ``plan_coordinate``) and P4's
+    (``gather_rows_backward``)."""
     f = fused_mlp.LAUNCHES
     return {"fused_mlp": f["mlp"], "fused_mlp_layer": f["layer"],
             "fused_mlp_mtiled": f["mtiled"],
@@ -85,12 +91,14 @@ def launch_counts() -> dict[str, int]:
             "fps_update": _fps_update.LAUNCHES["fps_update"],
             "fps": _fps_update.LAUNCHES["fps"],
             "plan_greedy": plan_order.LAUNCHES["plan_greedy"],
-            "plan_coordinate": plan_order.LAUNCHES["plan_coordinate"]}
+            "plan_coordinate": plan_order.LAUNCHES["plan_coordinate"],
+            "gather_rows_backward":
+                gather_backward.LAUNCHES["gather_rows_backward"]}
 
 
 def reset_launch_counts() -> None:
     for counts in (fused_mlp.LAUNCHES, aggregate.LAUNCHES,
                    reram_mlp.LAUNCHES, _fps_update.LAUNCHES,
-                   plan_order.LAUNCHES):
+                   plan_order.LAUNCHES, gather_backward.LAUNCHES):
         for key in counts:
             counts[key] = 0

@@ -17,7 +17,9 @@ multiplies by its reciprocal instead, an ulp off the reference.
 :func:`adamw_update` updates the parameters and moments in place, under
 ``torch.no_grad()`` (so a compiled model that holds the parameter tensors
 reads the new values on its next call), and returns ``(params, state,
-{"grad_norm", "lr"})`` as the reference does.
+{"grad_norm", "lr"})`` as the reference does; ``step_in_place=True``
+advances the step counter in place too, which a step captured into a CUDA
+graph needs.
 """
 from __future__ import annotations
 
@@ -165,11 +167,16 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state: dict, cfg: AdamWConfig):
+def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
+                 step_in_place: bool = False):
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``. float32
     math; the parameters keep their dtype and the moments
-    ``moment_dtype``, both updated in place."""
-    step = state["step"] + 1
+    ``moment_dtype``, both updated in place. The returned state's
+    ``step`` is a new tensor, the reference's ``step + 1``; with
+    ``step_in_place`` it is ``state["step"]`` itself, advanced in place,
+    as a captured step needs (a replay reads the state's own tensors, so a
+    new one would leave the next replay at the same step)."""
+    step = state["step"].add_(1) if step_in_place else state["step"] + 1
     lr = warmup_cosine(cfg, step)
     grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
     c = lambda v: _f32(v, lr)                               # noqa: E731

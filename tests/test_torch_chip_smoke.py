@@ -500,3 +500,43 @@ def test_train_phase_runs_the_trainers_model0_and_batch(smoke):
 def smoke_model0():
     import repro_torch
     return repro_torch.PAPER_MODELS["model0"]
+
+
+def test_p4_bound_counts_gradient_indices_and_output(smoke):
+    """P4's bound at the training path's SA-2 neighbour gather: the
+    upstream gradient and the int64 indices read once, the gradient rows
+    written once, one float32 addition per gradient element."""
+    nbytes, ops = smoke._p4_bound(16, 2048, 512, 128)
+    assert nbytes == 4 * 16 * 2048 * 128 + 8 * 16 * 2048 + 4 * 16 * 512 * 128
+    assert ops == 16 * 2048 * 128
+    assert smoke.bound(nbytes, ops, smoke.FP32_OPS_PER_S)[1] == "bytes"
+
+
+def test_scatter_gather_swap_computes_the_same_gradient(smoke):
+    """The gather the train phase swaps in to time what P4 replaced gives
+    ``gather_rows``' values and, on the CPU, its gradient bit for bit."""
+    from repro_torch.models import pointnet2 as pn
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.normal(size=(2, 9, 4)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 3, (2, 5, 3)))
+    g = torch.from_numpy(rng.normal(size=(2, 5, 3, 4)).astype(np.float32))
+    grads = []
+    for fn in (pn.gather_rows, smoke._scatter_gather_rows):
+        xt = x.clone().requires_grad_()
+        out = fn(xt, idx)
+        grads.append((out.detach(), torch.autograd.grad(out, xt, g)[0]))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+
+
+def test_train_phase_counts_kernels_by_their_profiled_names(smoke):
+    rows = [{"kernel": "void (anonymous namespace)::fps_loop_kernel<256, 4>",
+             "count": 1, "device_ms": 0.1},
+            {"kernel": "void (anonymous namespace)::fps_stream_kernel<8>",
+             "count": 1, "device_ms": 0.1},
+            {"kernel": "(anonymous namespace)::gather_rows_backward_kernel(",
+             "count": 2, "device_ms": 0.01},
+            {"kernel": "at::native::scatter_gather_elementwise_kernel",
+             "count": 2, "device_ms": 0.01}]
+    assert smoke._k7_count(rows) == 2 and smoke._p4_count(rows) == 2
+    assert "gather_rows_backward_kernel" in smoke.PORT_KERNELS
