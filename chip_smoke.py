@@ -14,7 +14,7 @@ launches the Hopper dataflow choice (``PlanPolicy.select_launch``) per MLP
 and batch size. Phases, each printing one JSON line:
 
 1. device: the card's name and power limit; TF32 off for float32 matmuls
-   and convolutions;
+   and convolutions, and bf16 GEMMs reducing in float32;
 2. build: every CUDA kernel of the paths built from
    ``src/repro_torch/csrc`` (one ``nvcc`` per source, all started
    together; P4's ``gather_backward.cu`` among them);
@@ -145,6 +145,23 @@ and batch size. Phases, each printing one JSON line:
    median time, busy share and launches beside the eager step's, the eager
    step with autograd's scatter-add backward in P4's place, and the eager
    forward/backward/optimizer split (``torch.profiler``).
+10. lm: the LM stack's serving path (no hand kernel: the reference's LM
+   reaches no ``pallas_call``) on qwen1.5-0.5b at its published width and
+   depth in bf16, the port's own weights from seed 0: ``generate`` on 4
+   prompts of 1000 tokens with 64 new, greedy, through ``ServingEngine``,
+   ``LMServable`` and the prefill and decode step captured as CUDA graphs;
+   then one prompt of 2048 tokens. Prefill's logits and each teacher-forced
+   decode step's against ``forward``'s within ``LM_BF16_BOUND`` of the
+   largest logit, argmax equal where the top-2 gap exceeds twice that; 3
+   captured decode steps bit for bit the eager ``decode_step`` on a copy of
+   the cache; a second ``generate`` the same tokens with no new capture;
+   the model in float32 against the port's CPU run on a 64-token prompt,
+   and ``reduced()`` of every dense, audio and vlm config (vlm's gate
+   non-zero) against ``forward`` and the CPU, within ``LM_F32_BOUND``.
+   Printed: the prefill's host-clock and device time beside its operations
+   bound, the decode step captured and eager, tokens/s at batch 4, one
+   replayed step's device time, busy share and launches beside its bytes
+   bound.
 
 Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
 launches in the serve phase's runs; ``train_launches``: K7's in the train
@@ -239,12 +256,17 @@ def make_clouds(n_points: int, batch: int, seed: int) -> np.ndarray:
 def phase_device(smi: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in float32, as XLA's do (the lm phase)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     info = {"phase": "device", "nvidia_smi": smi,
             "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count(),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+            "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32,
+            "matmul_allow_bf16_reduced_precision_reduction":
+                torch.backends.cuda.matmul
+                .allow_bf16_reduced_precision_reduction}
     emit(info)
     return info
 
@@ -2846,6 +2868,372 @@ def phase_train(smi: str) -> dict:
             "k7_launches_per_replay": k7}
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path
+# ---------------------------------------------------------------------------
+
+#: the lm phase's model: qwen1.5-0.5b at its published width and depth,
+#: bf16, the port's own random weights from SEED
+LM_ARCH = "qwen1.5-0.5b"
+#: ``ArchConfig.n_params()`` of the published qwen1.5-0.5b
+LM_PARAMS = 463_863_808
+LM_BATCH = 4
+#: not a multiple of q_chunk 512: the padded query chunk runs 2 blocks
+#: (kv_chunk clamps to the prompt, so the keys are not padded here)
+LM_PROMPT = 1000
+LM_NEW = 64
+#: 4 query chunks by 2 key chunks, no padding
+LM_LONG_PROMPT = 2048
+LM_LONG_NEW = 8
+LM_F32_PROMPT = 64
+LM_F32_NEW = 4
+#: captured decode steps held bit for bit against eager ones
+LM_BITWISE_STEPS = 3
+#: decode steps timed back to back (host clock, one synchronize)
+LM_TIMED_STEPS = 20
+#: bf16 logits of the card (prefill, teacher-forced decode) against
+#: ``forward``'s, as a fraction of the largest |logit| of the rows compared
+LM_BF16_BOUND = 0.04
+#: float32 logits against the port's CPU run, and prefill/decode against
+#: ``forward``, as a fraction of the largest |logit|
+LM_F32_BOUND = 1e-4
+#: vlm's cross-attention gate on the card's reduced run (``tanh(0)`` at
+#: init would hide the cross-attention)
+LM_GATE_X = 0.5
+#: H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
+BF16_OPS_PER_S = 989e12
+
+
+def lm_decode_bytes(cfg, batch: int, positions: int) -> int:
+    """Bytes one decode step must move at least: every weight read once
+    (the tied embedding once, for the logits) and ``positions`` cached rows
+    of every layer's keys and values for each of ``batch`` sequences."""
+    esize = torch.empty((), dtype=cfg.jdtype).element_size()
+    per_position = cfg.n_layers * 2 * cfg.n_kv_heads * cfg.head_dim * esize
+    return cfg.n_params() * esize + batch * positions * per_position
+
+
+def lm_prefill_flops(cfg, batch: int, seq: int) -> int:
+    """Operations (2 a multiply-add) a prefill of ``batch`` x ``seq`` must
+    do: every block weight once a token, the LM head for the last position
+    only (the port's prefill computes no other logits), and causal
+    attention's QK and PV over the position pairs i >= j."""
+    heads = 1 if cfg.tie_embeddings else 2
+    blocks = cfg.n_params() - heads * cfg.vocab_size * cfg.d_model
+    pairs = seq * (seq + 1) // 2
+    attention = 2 * 2 * cfg.n_layers * batch * cfg.n_heads \
+        * cfg.head_dim * pairs
+    return (2 * blocks * batch * seq + 2 * cfg.vocab_size * cfg.d_model
+            * batch + attention)
+
+
+def lm_prompts(cfg, batch: int, seq: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (batch, seq)).astype(np.int32)
+
+
+def _to_cpu(tree):
+    from repro_torch.optim import tree_map
+    return tree_map(lambda t: t.cpu(), tree)
+
+
+def _lm_compare(pairs, bound: float, what: str) -> dict:
+    """Each (logits, reference) pair within ``bound`` x max|reference| of
+    all the pairs; argmax equal wherever the reference's top-2 gap exceeds
+    twice that."""
+    scale = max(float(r.float().abs().max()) for _, r in pairs)
+    err = max(float((a.float() - r.float()).abs().max()) for a, r in pairs)
+    checked = equal = 0
+    for a, r in pairs:
+        top2 = r.float().topk(2, dim=-1).values
+        sure = (top2[..., 0] - top2[..., 1]) > 2 * bound * scale
+        same = a.float().argmax(-1) == r.float().argmax(-1)
+        checked += int(sure.sum())
+        equal += int((same & sure).sum())
+    check(err <= bound * scale, f"lm: {what}: logits {err} off, bound "
+                                f"{bound} x {scale}")
+    check(equal == checked, f"lm: {what}: argmax differs in "
+                            f"{checked - equal} of {checked} rows")
+    return {"err_over_max": err / scale, "max_abs_logit": scale,
+            "rows_argmax_checked": checked}
+
+
+def _lm_replay(sess, prompts, tokens):
+    """The session's captured prefill and decode steps over ``prompts``
+    then ``tokens`` (teacher-forced): the prefill's logits and each step's."""
+    s, n = prompts.shape[1], tokens.shape[1] - prompts.shape[1]
+    positions = torch.arange(s, s + n, dtype=torch.int32, device="cuda")
+    last, cache = sess.prefill(prompts)
+    steps = []
+    for i in range(n - 1):
+        lg, cache = sess.decode(cache, tokens[:, s + i:s + i + 1],
+                                positions[i])
+        steps.append(lg)
+    return last, steps
+
+
+def _lm_against_forward(params, cfg, sess, prompts, out, bound, what):
+    """Prefill's logits and each teacher-forced decode step's against
+    ``forward`` over the prompt and the generated tokens; the replay's
+    argmaxes are the generated tokens."""
+    from repro_torch.models import lm
+    s = prompts.shape[1]
+    last, steps = _lm_replay(sess, prompts, out)
+    with torch.inference_mode():
+        full, _ = lm.forward(params, cfg, out)
+    check(torch.equal(last.argmax(-1).int(), out[:, s])
+          and all(torch.equal(lg.argmax(-1).int(), out[:, s + 1 + i])
+                  for i, lg in enumerate(steps)),
+          f"lm: {what}: the replayed steps' argmaxes are not the "
+          f"generated tokens")
+    res = {"prefill": _lm_compare([(last, full[:, s - 1])], bound,
+                                  f"{what} prefill vs forward"),
+           "decode": _lm_compare([(lg, full[:, s + i])
+                                  for i, lg in enumerate(steps)], bound,
+                                 f"{what} decode vs forward")}
+    del full
+    return res
+
+
+def _lm_captured_vs_eager(params, cfg, sess, tokens, s: int) -> int:
+    """:data:`LM_BITWISE_STEPS` captured decode steps against
+    ``decode_step`` run eagerly on a copy of the same cache: logits and
+    caches bit for bit."""
+    from repro_torch.models import lm
+    sess.prefill(tokens[:, :s])
+    with torch.inference_mode():
+        eager_cache = {k: v.clone() for k, v in sess.cache.items()}
+        positions = torch.arange(s, s + LM_BITWISE_STEPS, dtype=torch.int32,
+                                 device="cuda")
+        for i in range(LM_BITWISE_STEPS):
+            ids1 = tokens[:, s + i:s + i + 1]
+            got, _ = sess.decode(sess.cache, ids1, positions[i])
+            want, _ = lm.decode_step(params, cfg, eager_cache, ids1,
+                                     positions[i])
+            check(torch.equal(got, want),
+                  f"lm: captured decode step {i} differs from eager")
+        check(all(torch.equal(sess.cache[k], eager_cache[k])
+                  for k in eager_cache),
+              "lm: the captured steps' cache differs from eager's")
+    return LM_BITWISE_STEPS
+
+
+def _lm_times(params, cfg, sess, prompts, tokens) -> dict:
+    """Prefill (captured; host clock and device time), the decode step
+    captured and eager (back to back, one synchronize), the replayed
+    step's device time, busy share and launches."""
+    from repro_torch.models import lm
+    s = prompts.shape[1]
+    ids1 = tokens[:, s:s + 1]
+    pos = torch.tensor(s, dtype=torch.int32, device="cuda")
+    prefill_wall = _wall_ms(lambda: sess.prefill(prompts))
+    prefill_rows = _device_rows(lambda: sess.prefill(prompts))
+
+    def steps(step):
+        def run():
+            for _ in range(LM_TIMED_STEPS):
+                step().argmax(-1)
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / LM_TIMED_STEPS
+
+    captured = steps(lambda: sess.decode(sess.cache, ids1, pos)[0])
+    with torch.inference_mode():
+        cache = {k: v.clone() for k, v in sess.cache.items()}
+        eager = steps(lambda: lm.decode_step(params, cfg, cache, ids1,
+                                             pos)[0])
+    del cache
+    step_rows = _device_rows(lambda: sess.decode(sess.cache, ids1, pos))
+    step_device = sum(r["device_ms"] for r in step_rows)
+    prefill_device = sum(r["device_ms"] for r in prefill_rows)
+    return {"prefill": {"host_ms_median": statistics.median(prefill_wall),
+                        "host_ms": prefill_wall,
+                        "device_ms": prefill_device,
+                        "launches": sum(r["count"] for r in prefill_rows),
+                        "top_kernels": prefill_rows[:8]},
+            "decode": {"captured_ms_per_step": captured,
+                       "eager_ms_per_step": eager,
+                       "tokens_per_s": prompts.shape[0] / captured * 1e3,
+                       "device_ms_per_step": step_device,
+                       "busy_share": step_device / captured,
+                       "launches_per_step": sum(r["count"]
+                                                for r in step_rows),
+                       "top_kernels": step_rows[:8]}}
+
+
+def _lm_float32_vs_cpu() -> dict:
+    """qwen1.5-0.5b in float32 on the card against the port's CPU run on
+    one :data:`LM_F32_PROMPT`-token prompt: forward's logits, prefill's and
+    :data:`LM_F32_NEW` - 1 teacher-forced decode steps'."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(LM_ARCH), dtype="float32")
+    params = lm.init(SEED, cfg)
+    host = _to_cpu(params)
+    prompt = torch.from_numpy(lm_prompts(cfg, 1, LM_F32_PROMPT, SEED + 1))
+    out, _ = serve.generate(params, cfg, prompt, max_new_tokens=LM_F32_NEW)
+    sess = serve._session(params, cfg, 1, LM_F32_PROMPT + LM_F32_NEW)
+    last, steps = _lm_replay(sess, prompt.cuda(), out)
+    tokens = out.cpu()
+    with torch.inference_mode():
+        full_card, _ = lm.forward(params, cfg, prompt.cuda())
+        full_cpu, _ = lm.forward(host, cfg, prompt)
+        last_cpu, cache = lm.prefill(host, cfg, prompt,
+                                     max_seq=LM_F32_PROMPT + LM_F32_NEW)
+        steps_cpu = []
+        for i in range(LM_F32_NEW - 1):
+            lg, cache = lm.decode_step(
+                host, cfg, cache, tokens[:, LM_F32_PROMPT + i:
+                                         LM_F32_PROMPT + i + 1],
+                LM_F32_PROMPT + i)
+            steps_cpu.append(lg)
+    res = {"forward": _lm_compare([(full_card.cpu(), full_cpu)],
+                                  LM_F32_BOUND, "float32 forward card vs "
+                                                "CPU"),
+           "prefill_decode": _lm_compare(
+               [(a.cpu(), b) for a, b in zip([last] + steps,
+                                             [last_cpu] + steps_cpu)],
+               LM_F32_BOUND, "float32 prefill/decode card vs CPU")}
+    del params, host, sess
+    serve.clear_lm_captures()
+    return res
+
+
+def _lm_reduced() -> dict:
+    """``reduced()`` of every dense, audio and vlm config on the card (the
+    port's weights from SEED, vlm's gate at :data:`LM_GATE_X`): prefill and
+    3 decode steps against ``forward``, and all three against the port's
+    CPU run on the same weights and inputs."""
+    from repro_torch.configs import dummy_inputs, get_config, list_archs
+    from repro_torch.models import lm
+    out = {}
+    s, extra = 32, 3
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        if cfg.family not in lm.FAMILIES:
+            continue
+        params = lm.init(SEED, cfg)
+        if cfg.family == "vlm":
+            params["crossed"]["gate_x"].fill_(LM_GATE_X)
+        runs = {}
+        for dev, p in (("cuda", params), ("cpu", _to_cpu(params))):
+            ins = dummy_inputs(cfg, "prefill", batch=2, seq=s + extra,
+                               seed=5, device=dev)
+            seq = ins.get("ids", ins.get("embeds"))
+            img = ins.get("image_embeds")
+            with torch.inference_mode():
+                if cfg.family == "audio":
+                    full, _ = lm.forward(p, cfg, embeds=seq)
+                    last, cache = lm.prefill(p, cfg, embeds=seq[:, :s],
+                                             max_seq=s + extra)
+                else:
+                    full, _ = lm.forward(p, cfg, seq, image_embeds=img)
+                    last, cache = lm.prefill(p, cfg, seq[:, :s],
+                                             image_embeds=img,
+                                             max_seq=s + extra)
+                steps = []
+                for t in range(extra):
+                    nxt = seq[:, s + t:s + t + 1]
+                    kw = ({"embeds1": nxt} if cfg.family == "audio"
+                          else {"ids1": nxt})
+                    lg, cache = lm.decode_step(p, cfg, cache, pos=s + t,
+                                               **kw)
+                    steps.append(lg)
+            runs[dev] = (full, last, steps)
+        full, last, steps = runs["cuda"]
+        cpu = runs["cpu"]
+        out[arch] = {
+            "vs_forward": _lm_compare(
+                [(last, full[:, s - 1])] + [(lg, full[:, s + t])
+                                            for t, lg in enumerate(steps)],
+                LM_F32_BOUND, f"{cfg.name} prefill/decode vs forward"),
+            "vs_cpu": _lm_compare(
+                [(a.cpu(), b) for a, b in zip([full, last] + steps,
+                                              [cpu[0], cpu[1]] + cpu[2])],
+                LM_F32_BOUND, f"{cfg.name} card vs CPU")}
+    return out
+
+
+def phase_lm(smi: str) -> dict:
+    """The LM stack's serving path on the card: qwen1.5-0.5b at its
+    published width and depth in bf16 (the port's own weights from SEED),
+    ``generate`` on :data:`LM_BATCH` prompts of :data:`LM_PROMPT` tokens
+    with :data:`LM_NEW` new ones, greedy, through ``ServingEngine``,
+    ``LMServable`` and the captured prefill and decode step; then one
+    prompt of :data:`LM_LONG_PROMPT`. Checks (each raises): prefill's and
+    each teacher-forced decode step's logits against ``forward``'s within
+    :data:`LM_BF16_BOUND`, argmax equal where the top-2 gap exceeds twice
+    it; :data:`LM_BITWISE_STEPS` captured steps bit for bit the eager
+    ones; a second ``generate`` the same tokens with no new capture; the
+    float32 model against the port's CPU run and every reduced dense,
+    audio and vlm config against ``forward`` and the CPU within
+    :data:`LM_F32_BOUND`. Prints the prefill's and the decode step's
+    times beside their bounds, with the card's name and power limit."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cfg = get_config(LM_ARCH)
+    check(cfg.n_params() == LM_PARAMS and cfg.dtype == "bfloat16",
+          "lm: the config is not the published qwen1.5-0.5b")
+    params = lm.init(SEED, cfg)
+    prompts = torch.from_numpy(lm_prompts(cfg, LM_BATCH, LM_PROMPT, SEED))
+    before = serve.lm_capture_counts()
+    out, first = serve.generate(params, cfg, prompts, max_new_tokens=LM_NEW)
+    captured = serve.lm_capture_counts()
+    check(captured["prefill"] == before["prefill"] + 1
+          and captured["step"] == before["step"] + 1,
+          f"lm: generate captured {captured}, expected one prefill and one "
+          f"step more than {before}")
+    again, second = serve.generate(params, cfg, prompts,
+                                   max_new_tokens=LM_NEW)
+    check(torch.equal(out, again), "lm: a second generate gave other tokens")
+    check(serve.lm_capture_counts() == captured,
+          "lm: a second generate captured again")
+    check(out.shape == (LM_BATCH, LM_PROMPT + LM_NEW)
+          and torch.equal(out[:, :LM_PROMPT].cpu(), prompts),
+          "lm: generate's rows are not prompt + new tokens")
+    sess = serve._session(params, cfg, LM_BATCH, LM_PROMPT + LM_NEW)
+    dev_prompts = prompts.cuda()
+    checks = {"main": _lm_against_forward(params, cfg, sess, dev_prompts,
+                                          out, LM_BF16_BOUND, "main")}
+    checks["captured_bitwise_steps"] = _lm_captured_vs_eager(
+        params, cfg, sess, out, LM_PROMPT)
+    times = _lm_times(params, cfg, sess, dev_prompts, out)
+    long_prompt = torch.from_numpy(lm_prompts(cfg, 1, LM_LONG_PROMPT,
+                                              SEED + 2))
+    long_out, _ = serve.generate(params, cfg, long_prompt,
+                                 max_new_tokens=LM_LONG_NEW)
+    long_sess = serve._session(params, cfg, 1, LM_LONG_PROMPT + LM_LONG_NEW)
+    checks["long"] = _lm_against_forward(params, cfg, long_sess,
+                                         long_prompt.cuda(), long_out,
+                                         LM_BF16_BOUND, "long prompt")
+    del params, sess, long_sess
+    serve.clear_lm_captures()
+    checks["float32_vs_cpu"] = _lm_float32_vs_cpu()
+    checks["reduced"] = _lm_reduced()
+    positions = LM_PROMPT + LM_NEW
+    decode_bytes = lm_decode_bytes(cfg, LM_BATCH, positions)
+    prefill_flops = lm_prefill_flops(cfg, LM_BATCH, LM_PROMPT)
+    bounds = {"decode_bytes": decode_bytes, "decode_positions": positions,
+              "decode_ms": 1e3 * decode_bytes / HBM_BYTES_PER_S,
+              "prefill_flops": prefill_flops,
+              "prefill_ms": 1e3 * prefill_flops / BF16_OPS_PER_S}
+    emit({"phase": "lm", "nvidia_smi": smi, "arch": LM_ARCH,
+          "n_params": cfg.n_params(), "dtype": cfg.dtype,
+          "batch": LM_BATCH, "prompt": LM_PROMPT, "new": LM_NEW,
+          "generate": {"first": first, "second": second},
+          **times, "bounds": bounds,
+          "captures": captured, "checks": checks,
+          "seconds": time.perf_counter() - t0})
+    return {"bounds": bounds, **times}
+
+
 def phase_contracts(params, cfgs, clouds_np, smi) -> None:
     """``repro_torch.verify_contracts(..., check_graph=True)`` on every model
     and backend of :data:`PATHS` (the 'pointer' schedule, planning on the
@@ -3001,6 +3389,7 @@ def main() -> int:
     phase_contracts(params, cfgs, clouds_np, smi)
     train = phase_train(smi)
     kernels.append(train["p4"])
+    phase_lm(smi)
     check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
           "a served kernel has no row")
     for k in kernels:

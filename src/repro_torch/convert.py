@@ -1,16 +1,17 @@
-"""Weights from the JAX package's parameter layout into the port's.
+"""Weights from the JAX package's parameter layouts into the port's.
 
 The JAX package's ``init_params`` returns a pytree
-``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of device arrays. Pulled to
-NumPy (``np.asarray`` on each leaf, or ``jax.device_get`` on the tree), it
-becomes the port's parameters here, so both packages run the same weights.
+``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of device arrays, and its
+``lm.init`` a tree of dicts of arrays. Pulled to NumPy (``np.asarray`` on
+each leaf, or ``jax.device_get`` on the tree), each becomes the port's
+parameters here, so both packages run the same weights.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy"]
+__all__ = ["lm_params_from_numpy", "params_from_numpy"]
 
 
 def _layer(lyr) -> dict:
@@ -23,3 +24,24 @@ def params_from_numpy(params) -> dict:
     the same layout of CPU float32 tensors (copies)."""
     return {"sa": [[_layer(l) for l in mlp] for mlp in params["sa"]],
             "head": [_layer(l) for l in params["head"]]}
+
+
+def _lm_leaf(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        # an ml_dtypes array, which torch.from_numpy refuses: its bits,
+        # viewed as bfloat16 again on the torch side (bit for bit)
+        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def lm_params_from_numpy(tree, cfg, device=None) -> dict:
+    """The JAX package's ``lm.init`` tree, pulled to NumPy, as the port's
+    LM params (``repro_torch.models.lm``): the same dicts, leaf for leaf, at
+    the config's dtype, on ``device`` (the card unless ``device="cpu"``)."""
+    from repro_torch.models.backend import resolve_device
+    from repro_torch.optim.optimizer import tree_map
+    dev = resolve_device(device)
+    return tree_map(lambda a: _lm_leaf(a, cfg.jdtype, dev), tree)

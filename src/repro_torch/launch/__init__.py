@@ -1,5 +1,6 @@
-"""Launch-side tiers of the port: the point-cloud serving engine
-(``serve``), the counterpart of ``repro.launch``'s point-cloud half.
+"""Launch-side tiers of the port: the serving engine (``serve``) over
+point clouds and LMs, the counterpart of ``repro.launch.serve``, and
+preemption and retries (``fault``).
 
 >>> import numpy as np
 >>> import repro_torch
@@ -25,14 +26,16 @@
 [1, 0]
 """
 from repro_torch.launch.serve import (EDFScheduler, FIFOScheduler,
-                                      PointCloudServable, Request,
-                                      SCHEDULERS, Scheduler, Servable,
-                                      ServingEngine, ShapeBuckets,
-                                      VirtualClock)
+                                      LMServable, PointCloudServable,
+                                      Request, SCHEDULERS, Scheduler,
+                                      Servable, ServingEngine, ShapeBuckets,
+                                      VirtualClock, generate,
+                                      make_serve_step)
 
 __all__ = [
     "EDFScheduler",
     "FIFOScheduler",
+    "LMServable",
     "PointCloudServable",
     "Request",
     "SCHEDULERS",
@@ -41,4 +44,6 @@ __all__ = [
     "ServingEngine",
     "ShapeBuckets",
     "VirtualClock",
+    "generate",
+    "make_serve_step",
 ]

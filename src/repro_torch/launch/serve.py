@@ -1,7 +1,7 @@
-"""The point-cloud serving tier: one engine over a ``CompiledModel``.
+"""The serving tier: one engine over a ``CompiledModel`` or an LM.
 
-The port's copy of the point-cloud half of ``repro.launch.serve``, with the
-same classes, rules and counters:
+The port's copy of ``repro.launch.serve``, with the same classes, rules and
+counters:
 
   ``ServingEngine``       — a request queue and continuous batching behind
                             a pluggable :class:`Scheduler`: each step asks
@@ -22,6 +22,15 @@ same classes, rules and counters:
                             replayed after, on the CPU an eager call. Each
                             served row is bitwise equal to ``forward`` on
                             the bare request (crossbar backends).
+  ``LMServable``          — the LM adapter (``models/lm.py``): prompts
+                            bucketed on their length, one prefill and a
+                            decode step a token. On the card the prefill is
+                            captured once per (config, batch, prompt length,
+                            capacity) and the decode step once per (config,
+                            batch, capacity) as CUDA graphs over one KV
+                            cache written in place; on the CPU both run
+                            eagerly. ``generate`` is its thin client, with
+                            the reference's signature and stats keys.
 
 Results stay on the model's device, one logits row per request. The
 service time ``serve_stream`` measures ends after the card has finished
@@ -39,20 +48,29 @@ from typing import Any, Callable, Iterable
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.schedule import (DevicePlan, FrameTracker, PlanCache,
                                        cloud_content_key, host_array)
+from repro_torch.models import lm
+from repro_torch.models.backend import CudaGraphCall, resolve_device
+from repro_torch.optim.optimizer import tree_leaves
 
 __all__ = [
     "ShapeBuckets",
     "Request",
     "Servable",
     "PointCloudServable",
+    "LMServable",
     "Scheduler",
     "FIFOScheduler",
     "EDFScheduler",
     "SCHEDULERS",
     "VirtualClock",
     "ServingEngine",
+    "make_serve_step",
+    "generate",
+    "lm_capture_counts",
+    "clear_lm_captures",
 ]
 
 
@@ -464,6 +482,216 @@ class PointCloudServable(Servable):
 
 
 # ---------------------------------------------------------------------------
+# LMs: prefill + sampled decode as a servable
+# ---------------------------------------------------------------------------
+
+class _LMSession:
+    """The captured serving calls of one (config, batch, capacity) over one
+    set of weights, on the card: a KV cache allocated at capacity, one
+    prefill graph per prompt length writing into it, and one decode-step
+    graph reading and writing it in place. The cache is both graphs'
+    ``state``: what their warm-ups write is undone. ``pos`` enters the step
+    as a device int32 scalar copied into the graph's buffer, so no replay
+    reads anything on the host. A session holds its weights (the graphs
+    read them where they lie). Its calls run under
+    ``torch.inference_mode()``, whoever calls them."""
+
+    @torch.inference_mode()
+    def __init__(self, params, cfg, batch: int, max_seq: int, device):
+        self.params = params
+        self.cfg = cfg
+        self.max_seq = max_seq
+        self.serve_step = make_serve_step(cfg)
+        self.cache = lm.init_cache(cfg, batch, max_seq, device=device)
+        self.prefills: dict[int, CudaGraphCall] = {}
+        self.step: CudaGraphCall | None = None
+
+    def _prefill_fn(self, ids, image_embeds):
+        logits, _ = lm.prefill(self.params, self.cfg, ids,
+                               image_embeds=image_embeds,
+                               max_seq=self.max_seq, cache=self.cache)
+        return logits
+
+    def _step_fn(self, ids1, pos):
+        logits, _ = self.serve_step(self.params, self.cache, ids1, pos)
+        return logits
+
+    @torch.inference_mode()
+    def prefill(self, ids, image_embeds=None):
+        s = ids.shape[1]
+        if s not in self.prefills:
+            self.prefills[s] = CudaGraphCall(
+                self._prefill_fn, (ids, image_embeds),
+                state=tree_leaves(self.cache))
+        return self.prefills[s](ids, image_embeds), self.cache
+
+    @torch.inference_mode()
+    def decode(self, cache, ids1, pos):
+        if cache is not self.cache:
+            for dst, src in zip(tree_leaves(self.cache), tree_leaves(cache)):
+                dst.copy_(src)
+        if self.step is None:
+            self.step = CudaGraphCall(self._step_fn, (ids1, pos),
+                                      state=tree_leaves(self.cache))
+        return self.step(ids1, pos), self.cache
+
+
+#: captured LM sessions: (config, batch, capacity, the weights' addresses)
+#: -> :class:`_LMSession`. Module-level, as the reference's jit caches are,
+#: so that repeated ``generate`` calls replay instead of capturing again.
+_SESSIONS: dict = {}
+
+
+def _session(params, cfg, batch: int, max_seq: int) -> _LMSession:
+    leaves = tree_leaves(params)
+    key = (cfg, int(batch), int(max_seq),
+           tuple(t.data_ptr() for t in leaves))
+    if key not in _SESSIONS:
+        _SESSIONS[key] = _LMSession(params, cfg, batch, max_seq,
+                                    leaves[0].device)
+    return _SESSIONS[key]
+
+
+def lm_capture_counts() -> dict:
+    """How many LM graphs this process has captured: ``{"prefill": n,
+    "step": n, "sessions": n}``."""
+    return {"prefill": sum(len(s.prefills) for s in _SESSIONS.values()),
+            "step": sum(s.step is not None for s in _SESSIONS.values()),
+            "sessions": len(_SESSIONS)}
+
+
+def clear_lm_captures() -> None:
+    """Drop every captured LM session (its graphs, cache and weights)."""
+    _SESSIONS.clear()
+
+
+def _jit_prefill(params, cfg: ArchConfig, batch: int, max_seq: int):
+    """``(ids, image_embeds) -> (last logits, cache)``: on the card the
+    session's captured prefill for the prompt length, on the CPU
+    ``lm.prefill``."""
+    if _device_of(params).type == "cuda":
+        return _session(params, cfg, batch, max_seq).prefill
+    return lambda ids, image_embeds=None: lm.prefill(
+        params, cfg, ids, image_embeds=image_embeds, max_seq=max_seq)
+
+
+def _jit_step(params, cfg: ArchConfig, batch: int, max_seq: int):
+    """``(cache, ids1, pos) -> (logits, cache)``: on the card the session's
+    captured decode step, on the CPU ``lm.decode_step``."""
+    if _device_of(params).type == "cuda":
+        return _session(params, cfg, batch, max_seq).decode
+    step = make_serve_step(cfg)
+    return lambda cache, ids1, pos: step(params, cache, ids1, pos)
+
+
+def _device_of(params) -> torch.device:
+    return tree_leaves(params)[0].device
+
+
+def make_serve_step(cfg: ArchConfig):
+    def serve_step(params, cache, ids1, pos, *, image_embeds=None,
+                   embeds1=None):
+        return lm.decode_step(params, cfg, cache, ids1=ids1, pos=pos,
+                              embeds1=embeds1, image_embeds=image_embeds)
+    return serve_step
+
+
+def _generator(key, device) -> torch.Generator:
+    if isinstance(key, torch.Generator):
+        return key
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0 if key is None else int(key))
+    return gen
+
+
+class LMServable(Servable):
+    """The LM ``generate`` path as a servable: payloads are 1-D int32
+    prompts, bucketed on exact length (same-length prompts batch; decode
+    state is per batch, so there is no cross-length padding). ``run_batch``
+    stacks the batch, runs one prefill and ``max_new_tokens - 1`` decode
+    steps — on the card replays of the captured graphs — and returns the
+    full (prompt + generated) row per request, on the weights' device.
+    Timing accumulates on the instance, on the injectable ``clock``, each
+    phase ending after the card has finished it.
+
+    Greedy sampling (``temperature <= 0``) is ``argmax``, ties to the lower
+    index, as the reference's. Above 0 the port samples from ``key``, a
+    ``torch.Generator`` on the weights' device or an int seed (0 when
+    None): other draws than the reference's ``jax.random.categorical``.
+    The weights must lie on ``device`` (the card unless ``device="cpu"``).
+    The serving path runs under ``torch.inference_mode()``."""
+
+    def __init__(self, params, cfg: ArchConfig, *, max_new_tokens: int = 32,
+                 temperature: float = 0.0, key=None, image_embeds=None,
+                 max_batch: int = 8, clock=None, device=None):
+        dev = resolve_device(device)
+        if _device_of(params).type != dev.type:
+            raise ValueError(f"the weights lie on {_device_of(params)}, "
+                             f"not on {dev}")
+        self.params = params
+        self.cfg = cfg
+        self.clock = clock if clock is not None else time
+        self.max_new_tokens = int(max_new_tokens)
+        self.temperature = float(temperature)
+        self.generator = _generator(key, _device_of(params))
+        self.image_embeds = image_embeds
+        self.max_batch = int(max_batch)
+        self.requests = 0
+        self.batches = 0
+        self.prefill_s = 0.0
+        self.decode_s = 0.0
+        self.tokens = 0
+
+    def bucket_of(self, payload) -> tuple:
+        shape = (payload.shape if isinstance(payload, torch.Tensor)
+                 else np.asarray(payload).shape)
+        return ("lm", int(shape[-1]))
+
+    def _sample(self, logits):
+        if self.temperature <= 0.0:
+            return logits.argmax(dim=-1).to(torch.int32)
+        probs = torch.softmax(logits.float() / self.temperature, dim=-1)
+        return torch.multinomial(probs, 1, generator=self.generator
+                                 )[:, 0].to(torch.int32)
+
+    @torch.inference_mode()
+    def run_batch(self, payloads: list) -> list:
+        dev = _device_of(self.params)
+        prompts = torch.stack([torch.as_tensor(p, dtype=torch.int32,
+                                               device=dev)
+                               for p in payloads])
+        b, s = prompts.shape
+        max_seq = s + self.max_new_tokens
+        # decode positions on the device, made once: each step copies one
+        # into the captured step's buffer without a host round trip
+        positions = torch.arange(s, max_seq, dtype=torch.int32, device=dev)
+        t0 = self.clock.monotonic()
+        logits, cache = _jit_prefill(self.params, self.cfg, b, max_seq)(
+            prompts, self.image_embeds)
+        _synchronize([logits])
+        t1 = self.clock.monotonic()
+        step = _jit_step(self.params, self.cfg, b, max_seq)
+        toks = [self._sample(logits)]
+        for i in range(self.max_new_tokens - 1):
+            lg, cache = step(cache, toks[-1][:, None], positions[i])
+            toks.append(self._sample(lg))
+        _synchronize(toks[-1:])
+        t2 = self.clock.monotonic()
+        self.prefill_s += t1 - t0
+        self.decode_s += t2 - t1
+        self.tokens += b * self.max_new_tokens
+        self.requests += b
+        self.batches += 1
+        return list(torch.cat([prompts, torch.stack(toks, dim=1)], dim=1))
+
+    def stats(self) -> dict:
+        return {"requests": self.requests, "batches": self.batches,
+                "prefill_s": self.prefill_s, "decode_s": self.decode_s,
+                "decode_tok_per_s":
+                    self.tokens / max(self.decode_s, 1e-9)}
+
+
+# ---------------------------------------------------------------------------
 # the engine
 # ---------------------------------------------------------------------------
 
@@ -649,3 +877,39 @@ class ServingEngine:
              "scheduler": self.scheduler.name}
         s.update(self.servable.stats())
         return s
+
+
+# ---------------------------------------------------------------------------
+# the LM entry point, a thin engine client
+# ---------------------------------------------------------------------------
+
+def generate(params, cfg: ArchConfig, prompts, *, max_new_tokens: int = 32,
+             temperature: float = 0.0, key=None, image_embeds=None,
+             verbose: bool = False, device=None):
+    """prompts (B, S) int32 -> ((B, S + max_new_tokens) on the weights'
+    device, timing stats).
+
+    The reference's signature and stats keys (``device`` added: the card
+    unless ``device="cpu"``); the work flows through :class:`ServingEngine`
+    and :class:`LMServable`, so on the card a second call with the same
+    config, batch, lengths and weights replays the graphs the first
+    captured."""
+    prompts = (prompts if isinstance(prompts, torch.Tensor)
+               else torch.as_tensor(np.asarray(prompts)))
+    b, s = prompts.shape
+    servable = LMServable(params, cfg, max_new_tokens=max_new_tokens,
+                          temperature=temperature, key=key,
+                          image_embeds=image_embeds, max_batch=b,
+                          device=device)
+    engine = ServingEngine(servable)
+    reqs = [engine.submit(prompts[i]) for i in range(b)]
+    engine.drain()
+    out = torch.stack([r.result for r in reqs])
+    st = servable.stats()
+    stats = {"prefill_s": st["prefill_s"],
+             "decode_tok_per_s": st["decode_tok_per_s"],
+             "decode_s": st["decode_s"]}
+    if verbose:
+        print(f"[serve] prefill {stats['prefill_s']*1e3:.1f} ms, "
+              f"{stats['decode_tok_per_s']:.1f} tok/s")
+    return out, stats

@@ -17,7 +17,7 @@ from repro_torch.models.pointnet2 import init_params               # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "examples").glob("*_torch.py"))
 
 
 def _tiny():
@@ -35,7 +35,10 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "repro_torch.data, repro_torch.reliability, "
             "repro_torch.core.policy, repro_torch.core.simulator, "
             "repro_torch.optim, repro_torch.checkpoint, "
-            "repro_torch.analysis, repro_torch.launch.fault\n"
+            "repro_torch.analysis, repro_torch.launch.fault, "
+            "repro_torch.configs, repro_torch.models.lm, "
+            "repro_torch.models.attention, repro_torch.models.layers, "
+            "repro_torch.data.tokens\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"

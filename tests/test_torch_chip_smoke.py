@@ -540,3 +540,65 @@ def test_train_phase_counts_kernels_by_their_profiled_names(smoke):
              "count": 2, "device_ms": 0.01}]
     assert smoke._k7_count(rows) == 2 and smoke._p4_count(rows) == 2
     assert "gather_rows_backward_kernel" in smoke.PORT_KERNELS
+
+
+# ---------------------------------------------------------------------------
+# the lm phase
+# ---------------------------------------------------------------------------
+
+def test_lm_phase_runs_the_published_qwen(smoke):
+    from repro_torch.configs import get_config
+    cfg = get_config(smoke.LM_ARCH)
+    assert smoke.LM_ARCH == "qwen1.5-0.5b"
+    assert cfg.n_params() == smoke.LM_PARAMS == 463_863_808
+    assert (cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+            cfg.d_ff, cfg.vocab_size) == (24, 1024, 16, 16, 2816, 151936)
+    assert cfg.qkv_bias and cfg.tie_embeddings and cfg.rope_theta == 1e6
+    assert cfg.dtype == "bfloat16" and cfg.tp == 1
+    assert (smoke.LM_BATCH, smoke.LM_PROMPT, smoke.LM_NEW) == (4, 1000, 64)
+    # the prompt pads the last query chunk; the long one pads nothing
+    assert smoke.LM_PROMPT % cfg.q_chunk and smoke.LM_PROMPT < cfg.kv_chunk
+    assert smoke.LM_LONG_PROMPT % cfg.q_chunk == 0
+    assert smoke.LM_LONG_PROMPT // cfg.kv_chunk == 2
+
+
+def test_lm_decode_bytes_bound_by_hand(smoke):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-0.5b")
+    # 24 layers x (k, v) x 16 heads x 64 x 2 bytes a cached position
+    per_position = 24 * 2 * 16 * 64 * 2
+    assert per_position == 98_304
+    nbytes = smoke.lm_decode_bytes(cfg, 4, 1064)
+    assert nbytes == 463_863_808 * 2 + 4 * 1064 * 98_304 == 1_346_109_440
+    ms, by = smoke.bound(nbytes, 0.0, smoke.BF16_OPS_PER_S)
+    assert by == "bytes" and ms == pytest.approx(0.40182, abs=1e-5)
+
+
+def test_lm_prefill_flops_bound_by_hand(smoke):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-0.5b")
+    embed = 151_936 * 1024
+    blocks = 463_863_808 - embed            # tied: one embedding matrix
+    assert blocks == 308_281_344
+    attention = 4 * 24 * 4 * 16 * 64 * (1000 * 1001 // 2)
+    want = 2 * blocks * 4000 + 2 * embed * 4 + attention
+    assert smoke.lm_prefill_flops(cfg, 4, 1000) == want == 2_664_300_019_712
+    assert want / smoke.BF16_OPS_PER_S * 1e3 == pytest.approx(2.6939, 1e-4)
+    # untied heads: the embedding is no product, the head one a sequence
+    mistral = get_config("mistral-nemo-12b")
+    v_d = mistral.vocab_size * mistral.d_model
+    assert smoke.lm_prefill_flops(mistral, 1, 1) == \
+        2 * (mistral.n_params() - 2 * v_d) + 2 * v_d \
+        + 4 * 40 * 32 * 128
+
+
+def test_lm_compare_holds_the_bound_and_the_sure_argmaxes(smoke):
+    ref = torch.tensor([[0.0, 1.0, 0.2], [0.5, 0.49, 0.0]])
+    ok = ref + torch.tensor([[0.01, -0.01, 0.0], [-0.02, 0.02, 0.0]])
+    res = smoke._lm_compare([(ok, ref)], 0.05, "ok")
+    # row 1's gap (0.01) is under twice the bound: its flipped argmax is
+    # not held; row 0's is
+    assert res["rows_argmax_checked"] == 1
+    assert res["err_over_max"] == pytest.approx(0.02)
+    with pytest.raises(RuntimeError, match="logits"):
+        smoke._lm_compare([(ref + 0.1, ref)], 0.05, "off")
