@@ -31,16 +31,21 @@ def _lm_leaf(a, dtype: torch.dtype, device) -> torch.Tensor:
     if a.dtype.name == "bfloat16":
         # an ml_dtypes array, which torch.from_numpy refuses: its bits,
         # viewed as bfloat16 again on the torch side (bit for bit)
-        t = torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
-    else:
-        t = torch.from_numpy(a.copy())
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device=device)
+    t = torch.from_numpy(a.copy())
+    if a.dtype == np.float32:
+        return t.to(device=device)
     return t.to(device=device, dtype=dtype)
 
 
 def lm_params_from_numpy(tree, cfg, device=None) -> dict:
     """The JAX package's ``lm.init`` tree, pulled to NumPy, as the port's
-    LM params (``repro_torch.models.lm``): the same dicts, leaf for leaf, at
-    the config's dtype, on ``device`` (the card unless ``device="cpu"``)."""
+    LM params (``repro_torch.models.lm``): the same dicts, leaf for leaf, on
+    ``device`` (the card unless ``device="cpu"``). A bfloat16 or float32
+    leaf keeps its dtype, as the reference holds it: a bf16 model keeps
+    its router, decays and RWKV ``u`` in float32. Any other leaf (a NumPy
+    float64, say) takes the config's dtype."""
     from repro_torch.models.backend import resolve_device
     from repro_torch.optim.optimizer import tree_map
     dev = resolve_device(device)

@@ -27,8 +27,9 @@ counters:
                             decode step a token. On the card the prefill is
                             captured once per (config, batch, prompt length,
                             capacity) and the decode step once per (config,
-                            batch, capacity) as CUDA graphs over one KV
-                            cache written in place; on the CPU both run
+                            batch, capacity) as CUDA graphs over one decode
+                            cache (KV rows, SSM and RWKV states) written in
+                            place, every family; on the CPU both run
                             eagerly. ``generate`` is its thin client, with
                             the reference's signature and stats keys.
 
@@ -487,22 +488,29 @@ class PointCloudServable(Servable):
 
 class _LMSession:
     """The captured serving calls of one (config, batch, capacity) over one
-    set of weights, on the card: a KV cache allocated at capacity, one
-    prefill graph per prompt length writing into it, and one decode-step
-    graph reading and writing it in place. The cache is both graphs'
-    ``state``: what their warm-ups write is undone. ``pos`` enters the step
-    as a device int32 scalar copied into the graph's buffer, so no replay
-    reads anything on the host. A session holds its weights (the graphs
-    read them where they lie). Its calls run under
-    ``torch.inference_mode()``, whoever calls them."""
+    set of weights, on the card: a decode cache allocated at capacity (KV
+    rows, and the SSM, conv and RWKV states), one prefill graph per prompt
+    length writing into it, and one decode-step graph reading and writing
+    it in place. The cache is both graphs' ``state``: what their warm-ups
+    write to any of its leaves is undone. ``pos`` enters the step as a
+    device int32 scalar copied into the graph's buffer, so no replay reads
+    anything on the host. A session holds its weights (the graphs read them
+    where they lie). Its calls run under ``torch.inference_mode()``,
+    whoever calls them.
+
+    The hybrid's KV cache holds ``lm.kv_rows(cfg, capacity)`` rows (the
+    capacity rounded up to the Mamba chunk): a prompt of any length up to
+    the capacity keeps its padded keys, as the reference's ``prefill``
+    does. Decode masks the rows past ``pos``, so the extra rows are never
+    read."""
 
     @torch.inference_mode()
     def __init__(self, params, cfg, batch: int, max_seq: int, device):
         self.params = params
         self.cfg = cfg
-        self.max_seq = max_seq
+        self.max_seq = lm.kv_rows(cfg, max_seq)
         self.serve_step = make_serve_step(cfg)
-        self.cache = lm.init_cache(cfg, batch, max_seq, device=device)
+        self.cache = lm.init_cache(cfg, batch, self.max_seq, device=device)
         self.prefills: dict[int, CudaGraphCall] = {}
         self.step: CudaGraphCall | None = None
 

@@ -1,27 +1,40 @@
-"""The LM stack's dense, audio and vlm families in PyTorch: the port's
-counterpart of those paths of the JAX package's ``models/lm.py``.
+"""The LM stack in PyTorch: the port's counterpart of the JAX package's
+``models/lm.py``, every family.
 
 Families (``cfg.family``):
   dense  — GQA transformer (qwen1.5-*, deepseek-7b, mistral-nemo-12b)
+  moe    — GQA attention + sort-based MoE FFN (llama4-scout, grok-1)
   audio  — decoder over EnCodec frame embeddings (musicgen-large; LN+GELU)
   vlm    — dense + gated cross-attention to image embeddings every
            ``cross_attn_interval`` layers (llama-3.2-vision-11b)
-The moe, hybrid and ssm families raise ``NotImplementedError`` (ROADMAP
-item 16b).
+  hybrid — Mamba2 backbone + one *shared* attention block applied after
+           every ``attn_interval`` Mamba layers (zamba2-7b)
+  ssm    — RWKV6 time-mix + channel-mix (rwkv6-3b)
 
 The params tree has the reference's layout, shapes and dtypes: plain
 dicts of tensors, layer leaves stacked on a leading axis (vlm's ``plain``
-stacked ``(g, interval - 1, ...)``), so ``convert.lm_params_from_numpy``
-carries the reference's weights over leaf for leaf. The stacked layers run
-as a Python loop, where the reference scans. Three entry points, as the
-reference's: ``forward`` (logits over a sequence), ``prefill`` (the
-prompt's last logits and a decode cache) and ``decode_step`` (one token).
+and the hybrid's ``mamba`` stacked ``(groups, per group, ...)``), so
+``convert.lm_params_from_numpy`` carries the reference's weights over leaf
+for leaf. The stacked layers run as a Python loop, where the reference
+scans. Three entry points, as the reference's: ``forward`` (logits over a
+sequence), ``prefill`` (the prompt's last logits and a decode cache) and
+``decode_step`` (one token).
 
-The decode cache is allocated at capacity and written in place at ``pos``
-(``index_copy_`` with a device index, so a captured step never reads
-``pos`` on the host); ``decode_step`` returns the same dict it was given.
-``prefill`` writes the prompt's keys and values into the first rows of a
-zeroed cache: bitwise the reference's padded cache. TP head layouts
+The decode cache is allocated at capacity and written in place: keys and
+values at ``pos`` (``index_copy_`` with a device index, so a captured step
+never reads ``pos`` on the host), the SSM, conv and RWKV states and the
+token-shift rows with ``copy_``; ``decode_step`` returns the same dict it
+was given. ``prefill`` writes the prompt's keys and values into the first
+rows of a zeroed cache: bitwise the reference's padded cache.
+
+The state-space families follow the reference where it departs from
+``forward``: ``forward`` pads the sequence to a multiple of the chunk
+(``rwkv.CHUNK``, ``ssm.CHUNK``) before the scan, and ``prefill`` keeps the
+states after the pad tokens (rwkv also the pad position's token-shift
+rows) and, for the hybrid, the pad tokens' keys and values: its KV cache
+holds ``max(capacity, ceil(S / 32) · 32)`` rows. So after a prompt off the
+chunk, decode continues the padded sequence, not ``forward``; on the
+chunk it continues ``forward``. TP head layouts
 (``cfg.tp > 1``) wait for the distributed slice (ROADMAP item 17) and
 raise; so do the sharding constraints, which are identities here, and
 ``remat``, a training matter, is ignored.
@@ -31,30 +44,31 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.models import rwkv as rk
+from repro_torch.models import ssm
 from repro_torch.models.attention import (chunked_attention,
                                           decode_attention, rope_tables,
                                           rotate)
 from repro_torch.models.backend import resolve_device
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
                                        linear, mlp_apply, mlp_init, rms_norm)
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.optim.optimizer import tree_map
 
 __all__ = ["FAMILIES", "init", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "block_apply", "block_decode",
-           "cross_attn", "project_image_kv"]
+           "cross_attn", "project_image_kv", "kv_rows", "mamba_block_init",
+           "rwkv_block_init"]
 
 Params = Any
 
-#: the families this slice of the port runs
-FAMILIES = ("dense", "audio", "vlm")
+#: the families the port runs: all of the reference's
+FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm")
 
 
 def _check(cfg) -> None:
-    if cfg.family in ("moe", "hybrid", "ssm"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP item 16b); the port runs {', '.join(FAMILIES)}")
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
     if cfg.tp > 1:
@@ -82,9 +96,17 @@ def _norm_init(cfg, device, d=None):
     return p
 
 
-def _stack(trees: list):
-    """Leaves of equal-structure trees stacked on a new leading axis."""
-    return tree_map(lambda *leaves: torch.stack(leaves), *trees)
+def _stacked(n: int, make):
+    """``make()`` called ``n`` times, its trees' leaves stacked on a new
+    leading axis, one layer at a time (the peak is the stack and one layer,
+    not twice the stack). ``n`` = 0 gives leading axes of 0, as the
+    reference's ``vmap`` over no keys."""
+    first = make()
+    out = tree_map(lambda t: t.new_empty((n,) + tuple(t.shape)), first)
+    for i in range(n):
+        layer = first if i == 0 else make()
+        tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
+    return out
 
 
 def _layer(tree, i: int):
@@ -184,14 +206,29 @@ def project_image_kv(p_cross, cfg, image_embeds):
 # ---------------------------------------------------------------------------
 
 def block_init(gen, cfg, *, cross: bool = False):
-    p = {"attn": attn_init(gen, cfg), "ln2": _norm_init(cfg, gen.device),
-         "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.jdtype,
-                         kind=cfg.mlp_kind)}
+    p = {"attn": attn_init(gen, cfg), "ln2": _norm_init(cfg, gen.device)}
+    if cfg.family == "moe":
+        p["moe"] = moe_init(gen, cfg.d_model, cfg.d_ff, cfg.n_experts,
+                            cfg.jdtype)
+    else:
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.jdtype,
+                            kind=cfg.mlp_kind)
     if cross:
         p["xattn"] = attn_init(gen, cfg, cross=True)
         p["ln_x"] = _norm_init(cfg, gen.device)
         p["gate_x"] = torch.zeros((1,), dtype=cfg.jdtype, device=gen.device)
     return p
+
+
+def _ffn(p, cfg, x):
+    if cfg.family == "moe":
+        b, s, d = x.shape
+        y = moe_apply(p["moe"], x.reshape(b * s, d),
+                      top_k=cfg.experts_per_token,
+                      capacity_factor=cfg.capacity_factor,
+                      shard_axes=cfg.batch_axes, groups=cfg.dp_shards)
+        return y.reshape(b, s, d)
+    return mlp_apply(p["mlp"], x, cfg.mlp_kind)
 
 
 def block_apply(p, cfg, x, positions, img_kv=None, rope=None):
@@ -201,7 +238,7 @@ def block_apply(p, cfg, x, positions, img_kv=None, rope=None):
     if img_kv is not None and "xattn" in p:
         hx = cross_attn(p["xattn"], cfg, _norm(p["ln_x"], x, cfg), img_kv)
         x = x + torch.tanh(p["gate_x"]) * hx
-    x = x + mlp_apply(p["mlp"], _norm(p["ln2"], x, cfg), cfg.mlp_kind)
+    x = x + _ffn(p, cfg, _norm(p["ln2"], x, cfg))
     return x, kv
 
 
@@ -214,8 +251,51 @@ def block_decode(p, cfg, x1, k_cache, v_cache, pos, img_kv=None,
     if img_kv is not None and "xattn" in p:
         hx = cross_attn(p["xattn"], cfg, _norm(p["ln_x"], x1, cfg), img_kv)
         x1 = x1 + torch.tanh(p["gate_x"]) * hx
-    x1 = x1 + mlp_apply(p["mlp"], _norm(p["ln2"], x1, cfg), cfg.mlp_kind)
+    x1 = x1 + _ffn(p, cfg, _norm(p["ln2"], x1, cfg))
     return x1, (k_cache, v_cache)
+
+
+# --- hybrid (zamba2): mamba blocks + shared attention block; ssm (rwkv6) ---
+
+def mamba_block_init(gen, cfg):
+    return {"ln": _norm_init(cfg, gen.device),
+            "mamba": ssm.mamba_init(gen, cfg.d_model, cfg.ssm_state,
+                                    cfg.jdtype)}
+
+
+def rwkv_block_init(gen, cfg):
+    p = rk.rwkv_init(gen, cfg.d_model, cfg.head_size, cfg.d_ff, cfg.jdtype)
+    p["ln1"] = _norm_init(cfg, gen.device)
+    p["ln2"] = _norm_init(cfg, gen.device)
+    return p
+
+
+def _mamba_layer(blk, cfg, h, state=None, conv=None):
+    """One Mamba block over ``h``: prefill (no state) or one decode step;
+    -> (h + y, the state, the conv state)."""
+    x = _norm(blk["ln"], h, cfg)
+    if state is None:
+        y, st, cv = ssm.mamba_forward(blk["mamba"], x,
+                                      ssm_state=cfg.ssm_state)
+    else:
+        y, st, cv = ssm.mamba_decode_step(blk["mamba"], x, state, conv,
+                                          ssm_state=cfg.ssm_state)
+    return h + y, st, cv
+
+
+def _rwkv_layer(blk, cfg, h, state=None, last_t=None, last_c=None):
+    """One RWKV block over ``h``: prefill (no state) or one decode step;
+    -> (h, the state, the time-mix and channel-mix shift rows)."""
+    x = _norm(blk["ln1"], h, cfg)
+    if state is None:
+        y, st, lt = rk.rwkv_time_mix(blk["time"], x, head_size=cfg.head_size)
+    else:
+        y, st, lt = rk.rwkv_time_mix_step(blk["time"], x, state, last_t,
+                                          head_size=cfg.head_size)
+    h = h + y
+    y2, lc = rk.rwkv_channel_mix(blk["channel"], _norm(blk["ln2"], h, cfg),
+                                 last_x=last_c)
+    return h + y2, st, lt, lc
 
 
 # ---------------------------------------------------------------------------
@@ -238,21 +318,27 @@ def init(seed: int, cfg, *, device=None) -> Params:
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                   cfg.jdtype)
-    if cfg.family in ("dense", "audio"):
-        p["blocks"] = _stack([block_init(gen, cfg)
-                              for _ in range(cfg.n_layers)])
-    else:
+    fam = cfg.family
+    if fam in ("dense", "moe", "audio"):
+        p["blocks"] = _stacked(cfg.n_layers, lambda: block_init(gen, cfg))
+    elif fam == "vlm":
         g, r = divmod(cfg.n_layers, cfg.cross_attn_interval)
         if r:
             raise ValueError("vlm n_layers must divide cross_attn_interval")
-        p["plain"] = _stack([
-            _stack([block_init(gen, cfg)
-                    for _ in range(cfg.cross_attn_interval - 1)])
-            for _ in range(g)])
-        p["crossed"] = _stack([block_init(gen, cfg, cross=True)
-                               for _ in range(g)])
+        p["plain"] = _stacked(g, lambda: _stacked(
+            cfg.cross_attn_interval - 1, lambda: block_init(gen, cfg)))
+        p["crossed"] = _stacked(g, lambda: block_init(gen, cfg, cross=True))
         p["img_proj"] = dense_init(gen, cfg.d_image, cfg.d_image,
                                    cfg.jdtype)
+    elif fam == "hybrid":
+        n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
+        p["mamba"] = _stacked(n_super, lambda: _stacked(
+            cfg.attn_interval, lambda: mamba_block_init(gen, cfg)))
+        p["mamba_trail"] = _stacked(trail,
+                                    lambda: mamba_block_init(gen, cfg))
+        p["shared_attn"] = block_init(gen, cfg)     # ONE shared block
+    else:
+        p["blocks"] = _stacked(cfg.n_layers, lambda: rwkv_block_init(gen, cfg))
     return p
 
 
@@ -269,15 +355,36 @@ def _embed_in(p, cfg, ids=None, embeds=None):
     return w.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
 
 
+def _pad_to(x, chunk: int):
+    """x (B, S, D) zero-padded on S to a multiple of ``chunk``, as the
+    reference's state-space ``forward`` pads it."""
+    pad = (-x.shape[1]) % chunk
+    return F.pad(x, (0, 0, 0, pad)) if pad else x
+
+
+def kv_rows(cfg, seq: int) -> int:
+    """Key/value rows the reference's ``forward`` collects for ``seq``
+    tokens: the hybrid's shared attention runs over the sequence padded to
+    ``ssm.CHUNK``; every other family over ``seq``."""
+    if cfg.family == "hybrid":
+        return -(-seq // ssm.CHUNK) * ssm.CHUNK
+    return seq
+
+
 def _run(p, cfg, x, image_embeds=None, store=None):
     """The blocks over embedded inputs ``x`` (B, S, D): the final hidden
-    state. With ``store`` (a cache of capacity >= S) each layer's keys and
-    values are written into its first S rows, and vlm's image keys and
-    values into ``img_k``/``img_v``."""
+    state. With ``store`` (a cache with at least ``kv_rows(cfg, S)`` rows)
+    each layer's keys and values are written into its first rows, vlm's
+    image keys and values into ``img_k``/``img_v``, and the state-space
+    families' states into theirs."""
+    if cfg.family == "hybrid":
+        return _run_hybrid(p, cfg, x, store)
+    if cfg.family == "ssm":
+        return _run_rwkv(p, cfg, x, store)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
-    if cfg.family in ("dense", "audio"):
+    if cfg.family in ("dense", "moe", "audio"):
         for i in range(cfg.n_layers):
             x, (k, v) = block_apply(_layer(p["blocks"], i), cfg, x,
                                     positions, rope=rope)
@@ -306,13 +413,55 @@ def _run(p, cfg, x, image_embeds=None, store=None):
     return x
 
 
+def _run_hybrid(p, cfg, x, store):
+    s = x.shape[1]
+    h = _pad_to(x, ssm.CHUNK)
+    sp = h.shape[1]
+    positions = torch.arange(sp, dtype=torch.int32, device=x.device)
+    rope = _rope(cfg, positions, cfg.jdtype)
+    n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
+    for gi in range(n_super):
+        group = _layer(p["mamba"], gi)
+        for j in range(cfg.attn_interval):
+            h, st, cv = _mamba_layer(_layer(group, j), cfg, h)
+            if store is not None:
+                store["ssm"][gi, j].copy_(st)
+                store["conv"][gi, j].copy_(cv)
+        h, (k, v) = block_apply(p["shared_attn"], cfg, h, positions,
+                                rope=rope)
+        if store is not None:
+            store["k"][gi, :, :sp] = k
+            store["v"][gi, :, :sp] = v
+    for t in range(trail):
+        h, st, cv = _mamba_layer(_layer(p["mamba_trail"], t), cfg, h)
+        if store is not None:
+            store["ssm_trail"][t].copy_(st)
+            store["conv_trail"][t].copy_(cv)
+    return h[:, :s]
+
+
+def _run_rwkv(p, cfg, x, store):
+    s = x.shape[1]
+    h = _pad_to(x, rk.CHUNK)
+    for i in range(cfg.n_layers):
+        h, st, lt, lc = _rwkv_layer(_layer(p["blocks"], i), cfg, h)
+        if store is not None:
+            store["state"][i].copy_(st)
+            store["last_t"][i].copy_(lt)
+            store["last_c"][i].copy_(lc)
+    return h[:, :s]
+
+
 def forward(p, cfg, ids=None, *, embeds=None, image_embeds=None,
             collect_cache: bool = False):
     """-> (logits (B,S,V), cache | None). The collected cache holds every
-    layer's keys and values over the sequence, as the reference's."""
+    layer's keys and values over the sequence (the hybrid's over the
+    padded sequence) and the state-space families' final states, as the
+    reference's."""
     _check(cfg)
     x = _embed_in(p, cfg, ids, embeds)
-    store = (init_cache(cfg, x.shape[0], x.shape[1], device=x.device)
+    store = (init_cache(cfg, x.shape[0], kv_rows(cfg, x.shape[1]),
+                        device=x.device)
              if collect_cache else None)
     x = _run(p, cfg, x, image_embeds, store)
     if store is not None and cfg.family == "vlm":
@@ -342,42 +491,96 @@ def _cache_device(device) -> torch.device:
 def init_cache(cfg, batch: int, max_seq: int, dtype=None, *,
                device=None) -> Params:
     """Empty decode cache sized for ``max_seq`` context, on ``device`` (the
-    card unless ``device="cpu"``; ``"meta"`` for shapes only)."""
+    card unless ``device="cpu"``; ``"meta"`` for shapes only). The SSM and
+    RWKV states are float32, as the reference's."""
     _check(cfg)
     dev = _cache_device(device)
     dt = dtype or cfg.jdtype
+    fam = cfg.family
     dh, hkv = cfg.head_dim, cfg.n_kv_heads
-    zeros = lambda shape: torch.zeros(shape, dtype=dt, device=dev)
-    if cfg.family in ("dense", "audio"):
+    zeros = lambda shape, dtype=dt: torch.zeros(shape, dtype=dtype,
+                                                device=dev)
+    if fam in ("dense", "moe", "audio"):
         shape = (cfg.n_layers, batch, max_seq, hkv, dh)
         return {"k": zeros(shape), "v": zeros(shape)}
-    g = cfg.n_layers // cfg.cross_attn_interval
-    sp = (g, cfg.cross_attn_interval - 1, batch, max_seq, hkv, dh)
-    sc = (g, batch, max_seq, hkv, dh)
-    si = (g, batch, cfg.n_image_tokens, hkv, dh)
-    return {"k_plain": zeros(sp), "v_plain": zeros(sp),
-            "k_cross": zeros(sc), "v_cross": zeros(sc),
-            "img_k": zeros(si), "img_v": zeros(si)}
+    if fam == "vlm":
+        g = cfg.n_layers // cfg.cross_attn_interval
+        sp = (g, cfg.cross_attn_interval - 1, batch, max_seq, hkv, dh)
+        sc = (g, batch, max_seq, hkv, dh)
+        si = (g, batch, cfg.n_image_tokens, hkv, dh)
+        return {"k_plain": zeros(sp), "v_plain": zeros(sp),
+                "k_cross": zeros(sc), "v_cross": zeros(sc),
+                "img_k": zeros(si), "img_v": zeros(si)}
+    f32 = torch.float32
+    if fam == "hybrid":
+        n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
+        h = 2 * cfg.d_model // 64
+        cchan = 2 * cfg.d_model + 2 * cfg.ssm_state
+        kv = (n_super, batch, max_seq, hkv, dh)
+        return {
+            "ssm": zeros((n_super, cfg.attn_interval, batch, h, 64,
+                          cfg.ssm_state), f32),
+            "conv": zeros((n_super, cfg.attn_interval, batch,
+                           ssm.CONV_K - 1, cchan)),
+            "ssm_trail": zeros((trail, batch, h, 64, cfg.ssm_state), f32),
+            "conv_trail": zeros((trail, batch, ssm.CONV_K - 1, cchan)),
+            "k": zeros(kv), "v": zeros(kv),
+        }
+    h = cfg.d_model // cfg.head_size
+    return {"state": zeros((cfg.n_layers, batch, h, cfg.head_size,
+                            cfg.head_size), f32),
+            "last_t": zeros((cfg.n_layers, batch, 1, cfg.d_model)),
+            "last_c": zeros((cfg.n_layers, batch, 1, cfg.d_model))}
 
 
 def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
                 image_embeds=None):
     """One serving step: ids1 (B, 1) int32 (or ``embeds1`` (B, 1, D) for the
     audio frontend stub), ``pos`` the new token's position (an int or a 0-d
-    int32 tensor). -> (logits (B, V), cache), the cache written in place.
-    ``image_embeds`` is accepted for the reference's signature and not read:
-    the image keys and values are in the cache since ``prefill`` (the
-    reference projects ``image_embeds`` here into a value nothing reads)."""
+    int32 tensor; the RWKV family reads none). -> (logits (B, V), cache),
+    the cache written in place. ``image_embeds`` is accepted for the
+    reference's signature and not read: the image keys and values are in
+    the cache since ``prefill`` (the reference projects ``image_embeds``
+    here into a value nothing reads)."""
     _check(cfg)
     x = _embed_in(p, cfg, ids1, embeds1)
+    fam = cfg.family
+    if fam == "ssm":
+        for i in range(cfg.n_layers):
+            x, st, lt, lc = _rwkv_layer(
+                _layer(p["blocks"], i), cfg, x, cache["state"][i],
+                cache["last_t"][i], cache["last_c"][i])
+            cache["state"][i].copy_(st)
+            cache["last_t"][i].copy_(lt)
+            cache["last_c"][i].copy_(lc)
+        return _logits(p, cfg, x)[:, 0], cache
     # one conversion a step: index_copy_ wants an int64 index
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     rope = _rope(cfg, pos.reshape(1), cfg.jdtype)
-    if cfg.family in ("dense", "audio"):
+    if fam in ("dense", "moe", "audio"):
         for i in range(cfg.n_layers):
             x, _ = block_decode(_layer(p["blocks"], i), cfg, x,
                                 cache["k"][i], cache["v"][i], pos,
                                 rope=rope)
+        return _logits(p, cfg, x)[:, 0], cache
+    if fam == "hybrid":
+        n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
+
+        def mamba(blk, state, conv, h):
+            h, st, cv = _mamba_layer(blk, cfg, h, state, conv)
+            state.copy_(st)
+            conv.copy_(cv)
+            return h
+        for gi in range(n_super):
+            group = _layer(p["mamba"], gi)
+            for j in range(cfg.attn_interval):
+                x = mamba(_layer(group, j), cache["ssm"][gi, j],
+                          cache["conv"][gi, j], x)
+            x, _ = block_decode(p["shared_attn"], cfg, x, cache["k"][gi],
+                                cache["v"][gi], pos, rope=rope)
+        for t in range(trail):
+            x = mamba(_layer(p["mamba_trail"], t), cache["ssm_trail"][t],
+                      cache["conv_trail"][t], x)
         return _logits(p, cfg, x)[:, 0], cache
     for gi in range(cfg.n_layers // cfg.cross_attn_interval):
         plain = _layer(p["plain"], gi)
@@ -395,22 +598,25 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
 def prefill(p, cfg, ids=None, *, embeds=None, image_embeds=None,
             max_seq: int | None = None, cache=None):
     """Run the prompt, return (last-token logits (B,V), decode cache). The
-    cache's capacity is the prompt length unless ``max_seq`` extends it; its
-    rows past the prompt are zero. ``cache``, if given (a cache of that
-    capacity, e.g. a captured step's), is written in place instead of a
-    new one. Only the last position's logits are computed."""
+    cache's capacity is the prompt length unless ``max_seq`` extends it
+    (the hybrid's is at least ``kv_rows(cfg, S)``: the padded prompt's keys
+    and values are kept, as the reference keeps them); its rows past
+    those are zero. ``cache``, if given (a cache of that capacity, e.g. a
+    captured step's), is written in place instead of a new one. Only the
+    last position's logits are computed."""
     _check(cfg)
     x = _embed_in(p, cfg, ids, embeds)
     b, s = x.shape[:2]
-    cap = max(max_seq or s, s)
+    rows = kv_rows(cfg, s)
+    cap = max(max_seq or s, rows)
     if cache is None:
         cache = init_cache(cfg, b, cap, device=x.device)
     else:
         for key, t in cache.items():
-            if key.startswith(("k", "v")):
+            if key in ("k", "v") or key.startswith(("k_", "v_")):
                 if t.shape[-3] != cap:
                     raise ValueError(f"cache {key!r} holds {t.shape[-3]} "
                                      f"positions; this prefill needs {cap}")
-                t[..., s:, :, :].zero_()
+                t[..., rows:, :, :].zero_()
     x = _run(p, cfg, x, image_embeds, cache)
     return _logits(p, cfg, x[:, -1:])[:, 0], cache

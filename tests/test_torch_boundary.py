@@ -38,7 +38,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
             "repro_torch.analysis, repro_torch.launch.fault, "
             "repro_torch.configs, repro_torch.models.lm, "
             "repro_torch.models.attention, repro_torch.models.layers, "
-            "repro_torch.data.tokens\n"
+            "repro_torch.data.tokens, repro_torch.models.moe, "
+            "repro_torch.models.rwkv, repro_torch.models.ssm\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'jaxlib')) or m == 'repro' "
             "or m.startswith('repro.'))\n"

@@ -4,6 +4,7 @@ The script's device phases need a CUDA card; what can be held on the CPU
 is the least-time bound it reports beside each kernel time, the byte and
 operation counts behind it, and that it exits non-zero, printing no
 result, where no card exists."""
+import dataclasses
 import importlib.util
 import pathlib
 import re
@@ -203,6 +204,25 @@ def test_exits_nonzero_without_a_card(smoke, capsys):
         pytest.skip("a card is present; the script runs for real there")
     assert smoke.main() != 0
     assert '"ok"' not in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("argv", [["--profiler-loss"], ["--other"]])
+def test_modes_exit_nonzero_without_a_card(smoke, capsys, argv):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; the script runs for real there")
+    assert smoke.main(argv) != 0
+    assert "profiler_loss" not in capsys.readouterr().out
+
+
+def test_profiles_settle_before_the_profiled_calls(smoke):
+    """Each profiling session waits ``PROFILE_SETTLE_S`` (more than the
+    5 ms after which no launch was lost) before its calls."""
+    import inspect
+    assert smoke.PROFILE_SETTLE_S >= 0.005
+    assert inspect.signature(smoke._device_rows).parameters[
+        "settle"].default == smoke.PROFILE_SETTLE_S
+    from repro_torch.analysis import trace
+    assert trace.PROFILE_SETTLE_S == smoke.PROFILE_SETTLE_S
 
 
 @pytest.mark.parametrize("n", [1024, 1000, 600, 512, 5])
@@ -602,3 +622,173 @@ def test_lm_compare_holds_the_bound_and_the_sure_argmaxes(smoke):
     assert res["err_over_max"] == pytest.approx(0.02)
     with pytest.raises(RuntimeError, match="logits"):
         smoke._lm_compare([(ref + 0.1, ref)], 0.05, "off")
+
+
+# ---------------------------------------------------------------------------
+# the lm_families phase
+# ---------------------------------------------------------------------------
+
+def test_lm_families_run_the_published_widths(smoke):
+    from repro_torch.configs import get_config
+    runs = {arch: (layers, n) for arch, layers, n in smoke.LM_FAMILY_RUNS}
+    assert sorted(runs) == ["llama4-scout-17b-a16e", "rwkv6-3b",
+                            "zamba2-7b"]
+    for arch, (layers, n) in runs.items():
+        cfg = get_config(arch)
+        assert cfg.dtype == "bfloat16" and cfg.tp == 1
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        assert cfg.n_params() == n, arch
+    # only llama4-scout is cut, and only in depth
+    assert runs["rwkv6-3b"][0] is None and runs["zamba2-7b"][0] is None
+    assert runs["llama4-scout-17b-a16e"][0] == 8
+    scout = get_config("llama4-scout-17b-a16e")
+    assert (scout.d_model, scout.n_heads, scout.n_kv_heads, scout.d_ff,
+            scout.n_experts, scout.experts_per_token, scout.vocab_size) == \
+        (5120, 40, 8, 8192, 16, 1, 202048)
+    assert scout.n_params() * 2 > 80e9           # the 48 layers: 203 GB
+    # the check's prompts sit on both state-space chunks
+    from repro_torch.models import rwkv, ssm
+    assert smoke.LM_CHUNK_PROMPT % rwkv.CHUNK == 0
+    assert smoke.LM_CHUNK_PROMPT % ssm.CHUNK == 0
+    assert smoke.LM_PROMPT % ssm.CHUNK and smoke.LM_PROMPT % rwkv.CHUNK
+    assert set(smoke.LM_FAMILY_BF16_BOUND) == {"moe", "ssm", "hybrid"}
+
+
+def test_lm_decode_bytes_per_family_by_hand(smoke):
+    from repro_torch.configs import get_config
+    # rwkv6 reduced: float32, 2 layers, d 64, 4 heads of 16; no KV cache,
+    # each layer's 4 x 16 x 16 float32 state and two 64-wide shift rows
+    # read and written once a sequence
+    rwkv = get_config("rwkv6-3b").reduced()
+    assert rwkv.n_params() == 2 * (6 * 64 * 64 + 2 * 64 * 128) \
+        + 2 * 512 * 64 == 147_456
+    state = 4 * 16 * 16 * 4 + 2 * 64 * 4
+    assert smoke.lm_decode_bytes(rwkv, 2, 10) == \
+        147_456 * 4 + 2 * 2 * 2 * state == 626_688
+    # zamba2 reduced: 5 Mamba layers (d_inner 128, 2 heads of 64, state
+    # 16, conv over 128 + 32 channels), the shared block applied twice
+    zamba = get_config("zamba2-7b").reduced()
+    mamba = 64 * (256 + 32 + 2) + 128 * 64 + 4 * (128 + 32)
+    shared = 4 * 64 * 64 + 3 * 64 * 128
+    assert zamba.n_params() == 2 * 512 * 64 + 5 * mamba + shared == 243_456
+    state = 2 * 64 * 16 * 4 + 3 * (128 + 32) * 4
+    kv_row = 2 * 4 * 16 * 4
+    assert smoke.lm_decode_bytes(zamba, 2, 10) == \
+        243_456 * 4 + 2 * 10 * 2 * kv_row + 2 * 5 * 2 * state
+    # llama4-scout reduced: 2 layers of 4 experts; only 3 of the 8 expert
+    # weight sets are routed to
+    scout = get_config("llama4-scout-17b-a16e").reduced()
+    expert = 3 * 64 * 128
+    kv_row = 2 * 2 * 16 * 4
+    assert smoke.lm_decode_bytes(scout, 2, 10, routed_experts=3) == \
+        (scout.n_params() - 5 * expert) * 4 + 2 * 10 * 2 * kv_row
+    assert smoke.lm_decode_bytes(scout, 2, 10, routed_experts=8) == \
+        scout.n_params() * 4 + 2 * 10 * 2 * kv_row
+    with pytest.raises(ValueError, match="routed"):
+        smoke.lm_decode_bytes(scout, 2, 10)
+
+
+def test_lm_prefill_flops_per_family_by_hand(smoke):
+    from repro_torch.configs import get_config
+    pairs = 10 * 11 // 2
+    head = 2 * 512 * 64 * 2                  # the last position's logits
+    # rwkv: the block weights once a token, no attention
+    rwkv = get_config("rwkv6-3b").reduced()
+    assert smoke.lm_prefill_flops(rwkv, 2, 10) == \
+        2 * (147_456 - 2 * 512 * 64) * 20 + head
+    # zamba2: the shared block's weights once per application, attention
+    # over the 2 applications
+    zamba = get_config("zamba2-7b").reduced()
+    shared = 4 * 64 * 64 + 3 * 64 * 128
+    blocks = 243_456 - 2 * 512 * 64 + shared
+    assert smoke.lm_prefill_flops(zamba, 2, 10) == \
+        2 * blocks * 20 + head + 4 * 2 * 2 * 4 * 16 * pairs
+    # llama4-scout: only the routed expert of each layer
+    scout = get_config("llama4-scout-17b-a16e").reduced()
+    assert scout.n_active_params() == scout.n_params() - 2 * 3 * 3 * 64 * 128
+    assert smoke.lm_prefill_flops(scout, 2, 10) == \
+        2 * (scout.n_active_params() - 2 * 512 * 64) * 20 + head \
+        + 4 * 2 * 2 * 4 * 16 * pairs
+
+
+def test_route_flips_hold_each_rows_first_difference(smoke):
+    """Forward routes 2 rows x 4 positions through 2 layers (top-1); the
+    serving path's step at position 2 differs in row 1 at both layers (the
+    second follows from the first) and in row 0 at layer 1; a row no
+    longer held is not reported."""
+    logits = torch.tensor([[3.0, 1.0], [1.0, 2.0], [2.0, 1.9], [0.0, 1.0],
+                           [1.0, 3.0], [2.0, 1.0], [1.0, 1.2], [4.0, 0.0]])
+    fwd = [{"top_idx": logits.argmax(-1, keepdim=True), "logits": logits}
+           for _ in range(2)]
+    step = [{"top_idx": torch.tensor([[0], [0]])},
+            {"top_idx": torch.tensor([[1], [0]])}]
+    flips = smoke._route_flips(step, fwd, 2, 2, 1,
+                               torch.tensor([True, True]))
+    assert sorted(flips, key=lambda f: f["row"]) == [
+        {"row": 0, "position": 2, "layer": 1, "last_layer": True,
+         "margin": pytest.approx(0.1), "max_abs_router_logit": 4.0},
+        {"row": 1, "position": 2, "layer": 0, "last_layer": False,
+         "margin": pytest.approx(0.2), "max_abs_router_logit": 4.0}]
+    flips = smoke._route_flips(step, fwd, 2, 2, 1,
+                               torch.tensor([False, True]))
+    assert [(f["row"], f["layer"]) for f in flips] == [(1, 0)]
+    agree = [{"top_idx": torch.tensor([[0], [1]])}] * 2
+    assert smoke._route_flips(agree, fwd, 2, 2, 1,
+                              torch.tensor([True, True])) == []
+
+
+def test_route_flips_report_every_last_layer_difference(smoke):
+    """A row whose choices differ only at the last layer (here at two of
+    its four prompt positions) has each difference reported: each changes
+    its own position's logits only, and each must be a near tie."""
+    logits = torch.tensor([[3.0, 1.0], [1.0, 1.1], [2.0, 1.0], [1.0, 1.05]])
+    fwd = [{"top_idx": logits.argmax(-1, keepdim=True), "logits": logits}
+           for _ in range(2)]
+    prefill = [{"top_idx": logits.argmax(-1, keepdim=True)},
+               {"top_idx": torch.tensor([[0], [0], [0], [0]])}]
+    flips = smoke._route_flips(prefill, fwd, 0, 1, 1, torch.tensor([True]))
+    assert [(f["position"], f["layer"], f["last_layer"]) for f in flips] \
+        == [(1, 1, True), (3, 1, True)]
+    assert [f["margin"] for f in flips] == pytest.approx([0.1, 0.05])
+
+
+def test_record_routes_wraps_route_local_for_the_block(smoke):
+    from repro_torch.models import moe
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(gen, 16, 32, 4, torch.float32)
+    x = torch.randn(8, 16, generator=gen)
+    real = moe._route_local
+    with smoke.record_routes() as rec:
+        y = moe.moe_apply(p, x, top_k=2, capacity_factor=1.25)
+    assert moe._route_local is real
+    assert torch.equal(y, moe.moe_apply(p, x, top_k=2, capacity_factor=1.25))
+    assert len(rec) == 1 and rec[0]["cap"] == moe.capacity(1.25, 8, 2, 4)
+    assert rec[0]["logits"].shape == (8, 4)
+    assert rec[0]["top_idx"].shape == (8, 2) and rec[0]["keep"].shape == (16,)
+    moe.moe_apply(p, x, top_k=2)
+    assert len(rec) == 1
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "rwkv6-3b",
+                                  "zamba2-7b"])
+def test_eager_against_forward_compares_every_token_step(smoke, arch):
+    """The eager prefill and teacher-forced steps of a reduced config in
+    float32 on the CPU (moe dropless), on a prompt on both chunks: no
+    expert choice differs from ``forward``'s, every token-step is
+    compared, and all within ``LM_F32_BOUND``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config(arch).reduced()
+    if cfg.family == "moe":
+        cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    params = lm.init(0, cfg, device="cpu")
+    tokens = torch.from_numpy(smoke.lm_prompts(cfg, 2, 36, 3))
+    run = smoke._eager_against_forward(params, cfg, tokens, 32,
+                                       smoke.LM_ROUTE_TIE, arch)
+    assert run["flips"] == []
+    assert run["rows_compared_per_step"] == [2, 2, 2]
+    assert run["token_steps_compared"] == [6, 6]
+    pairs = run["prefill"] + run["steps"]
+    assert len(pairs) == 4 and all(p is not None for p in pairs)
+    smoke._lm_compare(pairs, smoke.LM_F32_BOUND, arch)

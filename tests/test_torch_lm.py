@@ -427,18 +427,8 @@ def test_token_stream_is_the_reference_stream():
 
 
 # ---------------------------------------------------------------------------
-# what the slice refuses
+# what the port refuses
 # ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize("arch", [a for a in sorted(ARCHS)
-                                  if a not in PORTED])
-def test_unported_families_raise_naming_16b(arch):
-    cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match="16b"):
-        lm.init(0, cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="16b"):
-        lm.init_cache(cfg, 1, 8, device="cpu")
-
 
 def test_tensor_parallel_layouts_wait_for_the_mesh():
     cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(), tp=2)

@@ -5,16 +5,17 @@ decode step) and ``examples/serve_lm_torch.py``.
 On the CPU: greedy ``generate`` token for token against the JAX package's
 ``repro.launch.serve.generate`` on the same weights (the reference's
 ``lm.init`` through ``lm_params_from_numpy``) at ``reduced()`` of
-qwen1.5-0.5b, mistral-nemo-12b, musicgen-large and llama-3.2-vision-11b
-(its cross-attention gate non-zero); the servable's buckets and stats
+qwen1.5-0.5b, mistral-nemo-12b, musicgen-large, llama-3.2-vision-11b (its
+cross-attention gate non-zero), grok-1, llama4-scout, rwkv6 and zamba2
+(the prompt of 9 tokens is off both state-space chunks); the servable's buckets and stats
 against the reference servable's under a ``VirtualClock``; the request-at-
 a-time engine path; sampling above temperature 0 from an explicit
 generator; the example.
 
-On the card (``cuda`` marker; skipped here): one capture per (config,
-batch, capacity) for the decode step and per prompt length for the
-prefill, none added by a second call; the captured steps bit for bit the
-eager ``decode_step``; the cache restored after the warm-ups. JAX is
+On the card (``cuda`` marker; skipped here), per family: one capture per
+(config, batch, capacity) for the decode step and per prompt length for
+the prefill, none added by a second call; the captured steps bit for bit
+the eager ``decode_step``; every cache leaf restored after the warm-ups. JAX is
 imported inside the fixtures, so the ``cuda`` cases run where there is
 none.
 """
@@ -36,8 +37,12 @@ from repro_torch.launch.serve import (LMServable, ServingEngine,    # noqa: E402
 from repro_torch.models import lm                                   # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-ARCHS4 = ["qwen1.5-0.5b", "mistral-nemo-12b", "musicgen-large",
-          "llama-3.2-vision-11b"]
+ARCHS = ["qwen1.5-0.5b", "mistral-nemo-12b", "musicgen-large",
+         "llama-3.2-vision-11b", "grok-1-314b", "llama4-scout-17b-a16e",
+         "rwkv6-3b", "zamba2-7b"]
+#: one arch of each family, for the card's cases
+FAMILY_ARCHS = ["qwen1.5-0.5b", "llama-3.2-vision-11b", "grok-1-314b",
+                "llama4-scout-17b-a16e", "rwkv6-3b", "zamba2-7b"]
 GATE_X = 0.5
 B, S, NEW = 2, 9, 5
 
@@ -64,7 +69,7 @@ def ref():
     from repro.launch import serve as ref_serve
     from repro.models import lm as ref_lm
     out = {}
-    for arch in ARCHS4:
+    for arch in ARCHS:
         cfg = ref_get_config(arch).reduced()
         tree = jax.device_get(jax.jit(lambda k: ref_lm.init(k, cfg))(
             jax.random.PRNGKey(0)))
@@ -106,7 +111,7 @@ def _bucket_stream(engine, asarray):
     return steps
 
 
-@pytest.mark.parametrize("arch", ARCHS4)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generate_matches_reference_token_for_token(ref, arch):
     cfg, params = _port(ref, arch)
     img = _image(cfg)
@@ -189,14 +194,18 @@ def test_servable_wants_its_weights_on_its_device():
             LMServable(params, cfg)
 
 
-def test_example_serves_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama-3.2-vision-11b",
+                                  "llama4-scout-17b-a16e", "rwkv6-3b",
+                                  "zamba2-7b"])
+def test_example_serves_on_the_cpu(capsys, arch):
     sys.path.insert(0, str(ROOT / "examples"))
     try:
         import serve_lm_torch
     finally:
         sys.path.remove(str(ROOT / "examples"))
     out, stats = serve_lm_torch.main(["--device", "cpu", "--batch", "2",
-                                      "--prompt-len", "8", "--new", "4"])
+                                      "--prompt-len", "8", "--new", "4",
+                                      "--arch", arch])
     assert out.shape == (2, 12) and stats["decode_tok_per_s"] > 0
     assert "generated token ids" in capsys.readouterr().out
 
@@ -213,28 +222,35 @@ def cuda():
 
 
 @pytest.mark.cuda
-def test_one_capture_per_config_batch_and_capacity(cuda):
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(),
-                              name="capture-count-test")
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_one_capture_per_config_batch_and_capacity(cuda, arch):
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              name=f"capture-count-test-{arch}")
     params = lm.init(0, cfg)
+    if cfg.family == "vlm":
+        params["crossed"]["gate_x"].fill_(GATE_X)
     prompts = torch.from_numpy(_prompts(cfg))
+    img = _image(cfg)
+    img = None if img is None else torch.from_numpy(img)
+    kw = {"image_embeds": None if img is None else img.to(cuda)}
     serve.clear_lm_captures()
-    out, _ = generate(params, cfg, prompts, max_new_tokens=4)
+    out, _ = generate(params, cfg, prompts, max_new_tokens=4, **kw)
     assert serve.lm_capture_counts() == {"prefill": 1, "step": 1,
                                          "sessions": 1}
-    again, _ = generate(params, cfg, prompts, max_new_tokens=4)
+    again, _ = generate(params, cfg, prompts, max_new_tokens=4, **kw)
     assert torch.equal(out, again)
     assert serve.lm_capture_counts()["step"] == 1
     # another capacity is another session; another prompt length of the
     # same capacity another prefill in the same session
-    generate(params, cfg, prompts, max_new_tokens=6)
-    generate(params, cfg, prompts[:, :7], max_new_tokens=6)
+    generate(params, cfg, prompts, max_new_tokens=6, **kw)
+    generate(params, cfg, prompts[:, :7], max_new_tokens=6, **kw)
     assert serve.lm_capture_counts() == {"prefill": 3, "step": 2,
                                          "sessions": 2}
     with torch.inference_mode():
         cpu = generate(lm_params_from_numpy(
             {k: v for k, v in _numpy_tree(params).items()}, cfg,
-            device="cpu"), cfg, prompts, max_new_tokens=4, device="cpu")[0]
+            device="cpu"), cfg, prompts, max_new_tokens=4, device="cpu",
+            image_embeds=img)[0]
     assert torch.equal(out.cpu(), cpu)
     serve.clear_lm_captures()
 
@@ -246,7 +262,7 @@ def _numpy_tree(tree):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
 def test_captured_steps_are_the_eager_steps_bitwise(cuda, arch):
     cfg = get_config(arch).reduced()
     params = lm.init(0, cfg)
