@@ -190,12 +190,40 @@ and batch size. Phases, each printing one JSON line:
    ``lm_decode_bytes`` with the timed step's routed experts counted on
    the card): the prefill's and the decode step's times, device time,
    busy share and launches, and the peak of allocated memory.
+12. lm_train: LM training (``repro_torch.launch.train``; no hand kernel
+   but P4, the embedding's and the MoE dispatch's gradient). (a)
+   ``run_training`` on qwen1.5-0.5b at published width and depth, bf16,
+   float32 moments, the port's weights from seed 0, 2 x 4096 tokens of one
+   repeated ``TokenStream`` batch (seed 0), 20 steps: two eager warm-ups,
+   then one CUDA graph a step; every loss finite, the last below step 0's;
+   two runs bit for bit (every metric, every leaf); 7 eager steps bit for
+   bit the first 7 through ``make_train_step``; P4 counted 3 times in a
+   run (its warm-ups and the capture: 1 a step) and once in a replay
+   (``torch.profiler``). (b) qwen1.5-0.5b at published width, 2 of 24
+   layers, float32, 2 x 256: the loss within 1e-6 relative and every
+   gradient leaf within 1e-4 x max|g| of the port's CPU run. (c) every
+   config at ``reduced()``, float32: the same against the CPU (moe's
+   expert choices equal; rwkv6, at its float32 conditioning's limit, held
+   to the float64 gradient instead), and 4 captured steps bit for bit the
+   eager ones, twice. (d) bf16, 2 x 1024: rwkv6-3b at 4 of 32 layers,
+   zamba2-7b at one ``attn_interval`` group (6 Mamba2 layers and the
+   shared block), llama4-scout at 1 of 48 (bf16 moments: ``LM_TRAIN_WIDE``
+   says why): 4 captured steps bit for bit the eager ones, twice, P4 per
+   replay as ``PATHS["lm_train"]``. Printed: the step's host clock
+   (median, min, p90) captured and eager, device time, busy share,
+   launches and peak memory beside the bound (``lm_train_flops``: 6 x
+   parameters x tokens of bf16 GEMMs at 989 TFLOP/s, attention's products
+   over the chunk pairs the causal mask leaves apart: those of bf16
+   operands at 989, those of a float32 operand at 67 TFLOP/s); P4 at the embedding's gradient against
+   its plain version, with its times beside ``index_add_`` and its bound.
 
 Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
 launches in the serve phase's runs; ``train_launches``: K7's in the train
 phase's run, ``train_launches_per_replay`` its launches in one replayed
 step; P4's row, whose ``launches`` are its counter in the train phase's
-run), the ``nvidia-smi`` name and power
+run, ``lm_train_launches`` and ``lm_train_launches_per_replay`` its
+counts in the lm_train phase's full-width run, ``lm_embedding`` its times
+there), the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
 raises, so the exit code is not 0 and the last line is never printed. It
 needs a CUDA card and the repository's ``src/`` beside it.
@@ -203,6 +231,7 @@ needs a CUDA card and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import pathlib
 import statistics
@@ -958,6 +987,14 @@ PATHS = {
                                "fused_mlp_wstat": 2,
                                "fused_mlp_wstat_layer": 4,
                                "fused_mlp_combine": 6}, "float": {}},
+    # LM training (phase ``lm_train``): P4 launches in one training step of
+    # each config it runs at published width: the embedding's gradient,
+    # and per MoE layer the dispatch's three row gathers (llama4-scout at
+    # 1 layer); a run counts them in its two eager warm-ups and the capture
+    "lm_train": {"qwen1.5-0.5b": {"gather_rows_backward": 1},
+                 "rwkv6-3b": {"gather_rows_backward": 1},
+                 "zamba2-7b": {"gather_rows_backward": 1},
+                 "llama4-scout-17b-a16e": {"gather_rows_backward": 4}},
 }
 MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
                 "fused_mlp_mtiled_layer", "fused_mlp_wstat",
@@ -3743,6 +3780,492 @@ def phase_lm_families(smi: str) -> dict:
             for arch, layers, n in LM_FAMILY_RUNS}
 
 
+# ---------------------------------------------------------------------------
+# LM training
+# ---------------------------------------------------------------------------
+
+#: (a) the full-width run: qwen1.5-0.5b at published width and depth, bf16,
+#: float32 moments, 2 sequences of the config's train_4k length, the
+#: port's weights from SEED, one repeated ``TokenStream`` batch (seed SEED)
+LM_TRAIN_BATCH = 2
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_STEPS = 20
+#: steps held bit for bit, eager against captured: the capture's two eager
+#: warm-up steps and 5 replays
+LM_TRAIN_COMPARE = 7
+#: (b) gradients at published width against the CPU: qwen1.5-0.5b with
+#: 2 of 24 layers, float32, 2 x 256 tokens
+LM_TRAIN_GRAD_LAYERS = 2
+LM_TRAIN_GRAD_SEQ = 256
+#: (c) every config at ``reduced()``, float32: the CPU tests' inputs
+#: (``dummy_inputs`` seed 5, 2 x 36), 4 steps (2 eager warm-ups, the
+#: capture's replay and one more)
+LM_TRAIN_REDUCED_SEQ = 36
+LM_TRAIN_REDUCED_STEPS = 4
+#: (d) the scans' and the dispatch's backward at published width, bf16,
+#: 2 x 1024: (arch, fields replaced, moment dtype, ``n_params()``).
+#: zamba2-7b keeps one ``attn_interval`` group (6 Mamba2 layers and the
+#: shared block); llama4-scout one of its 48 layers, with bf16 moments:
+#: its state (4.15 B parameters, their bf16 gradients and moments, 33 GB)
+#: and the captured step's pool share one 80 GB card with what the earlier
+#: phases leave. Two layers (6.22 B parameters, 50 GB of state) fit in a
+#: process of their own (54.5 GB allocated at the peak, 83.6 GB reserved,
+#: on an H100 80GB HBM3 at 700 W) but ran out of memory here, the cache
+#: holding 17.6-17.8 GiB in free blocks too small for a 2.5-5 GiB request
+LM_TRAIN_WIDE = (("rwkv6-3b", {"n_layers": 4}, "float32", 676_331_520),
+                 ("zamba2-7b", {"n_layers": 6}, "float32", 902_654_976),
+                 ("llama4-scout-17b-a16e", {"n_layers": 1}, "bfloat16",
+                  4_145_233_920))
+LM_TRAIN_WIDE_SEQ = 1024
+#: captured steps of each (d) run: 2 eager warm-ups, the capture's replay,
+#: then one replay timed
+LM_TRAIN_WIDE_STEPS = 4
+
+
+def _padded(n: int, chunk: int) -> int:
+    return -(-n // chunk) * chunk
+
+
+def _causal_chunk_pairs(seq: int, qc: int, kc: int) -> int:
+    """Query and key chunk pairs of a causal mask over ``seq`` tokens that
+    hold a query at or after a key: the pairs that need computing."""
+    return sum(1 for i in range(-(-seq // qc)) for j in range(-(-seq // kc))
+               if j * kc <= min((i + 1) * qc, seq) - 1)
+
+
+def lm_train_flops(cfg, batch: int, seq: int) -> dict:
+    """Operations (2 a multiply-add) of one training step: the bf16 GEMMs
+    as 6 x (active) parameters x tokens, and, listed apart, attention's
+    products over the chunk pairs the causal mask leaves (whole chunks),
+    once per attention application (the hybrid's shared block once per
+    group; the sequence first padded to the Mamba2 chunk there): the four
+    with bf16 operands (the forward's QK and PV, the backward's recomputed
+    QK and dP; float32 accumulation, at the bf16 tensor-core rate) and the
+    three with a float32 operand (dV from float32 probabilities, dQ and dK
+    from float32 ``ds``; at float32's rate)."""
+    from repro_torch.models import ssm
+    s = _padded(seq, ssm.CHUNK) if cfg.family == "hybrid" else seq
+    qc, kc = min(cfg.q_chunk, s), min(cfg.kv_chunk, s)
+    product = 2 * batch * cfg.n_heads * qc * kc * cfg.head_dim \
+        * _causal_chunk_pairs(s, qc, kc) * _attention_applications(cfg)
+    gemm = 6 * cfg.n_active_params() * batch * seq
+    ms = {"gemm_ms": 1e3 * gemm / BF16_OPS_PER_S,
+          "attention_bf16_ms": 1e3 * 4 * product / BF16_OPS_PER_S,
+          "attention_f32_ms": 1e3 * 3 * product / FP32_OPS_PER_S}
+    return {"gemm_flops": gemm, "attention_bf16_flops": 4 * product,
+            "attention_f32_flops": 3 * product, **ms,
+            "step_ms": sum(ms.values())}
+
+
+def _token_batch(cfg, batch: int, seq: int, step: int = 0) -> dict:
+    from repro_torch.data import TokenStream
+    ids, labels = TokenStream(cfg.vocab_size, seq, batch,
+                              seed=SEED).batch(step)
+    return {"ids": torch.from_numpy(ids).cuda(),
+            "labels": torch.from_numpy(labels).cuda()}
+
+
+def _leaves_equal(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _train_steps(cfg, opt, batch: dict, n: int, captured: bool):
+    """``n`` steps from a fresh seeded state on the card, each ended by
+    reading its loss: captured (``make_train_step``: two eager warm-ups,
+    the capture, replays) or eager (the step itself). -> (losses, the
+    state, the step, host-clock ms per step)."""
+    from repro_torch.launch import train
+    state = train.init_train_state(SEED, cfg, opt, device="cuda")
+    step = train.make_train_step(cfg, opt)
+    args = tuple(batch.get(k) for k in train.BATCH_KEYS)
+    losses, ms = [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        if captured:
+            loss = step(state, batch)[1]["loss"]
+        else:
+            loss = train._step(cfg, opt, False, state, *args)[0]
+        losses.append(float(loss))
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return losses, state, step, ms
+
+
+def _host_stats(ms) -> dict:
+    return {"step_ms_median": statistics.median(ms), "step_ms_min": min(ms),
+            "step_ms_p90": float(np.percentile(ms, 90))}
+
+
+def _lm_train_full(smi: str) -> dict:
+    """(a): ``run_training`` twice from the port's seed-0 weights,
+    :data:`LM_TRAIN_STEPS` steps on one repeated batch, the launch counters
+    reset just before each run and read just after; then
+    :data:`LM_TRAIN_COMPARE` eager steps against as many through
+    ``make_train_step``; one replay profiled."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import TrainLoopConfig, run_training, train
+    from repro_torch.models.backend import CudaGraphCall
+    from repro_torch.optim import AdamWConfig
+    cfg = get_config(LM_ARCH)
+    check(cfg.n_params() == LM_PARAMS and cfg.dtype == "bfloat16",
+          "lm_train: the config is not the published qwen1.5-0.5b")
+    batch = _token_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)
+    runs = []
+    for _ in range(2):
+        stamps = []
+
+        def data(step):
+            stamps.append(time.perf_counter())
+            return batch
+        torch.cuda.reset_peak_memory_stats()
+        with tempfile.TemporaryDirectory() as tmp:
+            reset_launch_counts()
+            hist, state, watchdog = run_training(
+                cfg, TrainLoopConfig(steps=LM_TRAIN_STEPS,
+                                     batch_size=LM_TRAIN_BATCH,
+                                     seq_len=LM_TRAIN_SEQ, log_every=1000,
+                                     ckpt_every=10 ** 9, ckpt_dir=tmp),
+                data=data, verbose=False, device="cuda")
+            torch.cuda.synchronize()
+            stamps.append(time.perf_counter())
+            counts = launch_counts()
+        runs.append({"hist": hist, "leaves": train.state_leaves(state),
+                     "p4": counts["gather_rows_backward"],
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "ms": [1e3 * (b - a) for a, b in
+                            zip(stamps, stamps[1:])],
+                     "stragglers": len(watchdog.flagged_steps)})
+        del state
+        torch.cuda.empty_cache()
+    a, b = runs
+    losses = [h["loss"] for h in a["hist"]]
+    check(len(losses) == LM_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"lm_train: a loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"lm_train: the loss after "
+          f"{LM_TRAIN_STEPS} steps on one batch, {losses[-1]}, is not below "
+          f"step 0's {losses[0]}")
+    check(a["hist"] == b["hist"], "lm_train: two runs from seed 0 part "
+                                  "(the metrics differ)")
+    check(_leaves_equal(a["leaves"], b["leaves"]),
+          "lm_train: two runs from seed 0 end in different states")
+    warm = CudaGraphCall.WARMUP
+    per_step = PATHS["lm_train"][LM_ARCH]["gather_rows_backward"]
+    check(a["p4"] == (warm + 1) * per_step,
+          f"lm_train: P4 counted {a['p4']} launches in the run, expected "
+          f"{(warm + 1) * per_step} (the eager warm-ups and the capture)")
+    del runs, b
+    a.pop("leaves")
+    torch.cuda.empty_cache()
+    opt = AdamWConfig(total_steps=LM_TRAIN_STEPS, warmup_steps=1)
+    n = LM_TRAIN_COMPARE
+    # one state on the card at a time: the captured graph's pool holds
+    # the whole step's activations
+    e_loss, e_state, _, e_ms = _train_steps(cfg, opt, batch, n, False)
+    e_leaves = [t.cpu() for t in train.state_leaves(e_state)]
+    del e_state
+    torch.cuda.empty_cache()
+    c_loss, c_state, step, _ = _train_steps(cfg, opt, batch, n, True)
+    check(c_loss == e_loss == losses[:n],
+          f"lm_train: captured steps' losses {c_loss} differ from the eager "
+          f"ones {e_loss} or the run's {losses[:n]}")
+    check(_leaves_equal([t.cpu() for t in train.state_leaves(c_state)],
+                        e_leaves),
+          f"lm_train: the state after {n} captured steps differs from the "
+          f"eager one")
+    del e_leaves
+    replay = _device_rows(lambda: step(c_state, batch))
+    del c_state, step
+    torch.cuda.empty_cache()
+    p4 = _p4_count(replay)
+    check(p4 == per_step, f"lm_train: a replayed step launched P4 {p4} "
+                          f"times, expected {per_step}")
+    cap_ms = a["ms"][warm + 1:]          # the replays
+    device = sum(r["device_ms"] for r in replay)
+    return {"arch": LM_ARCH, "n_params": cfg.n_params(), "dtype": cfg.dtype,
+            "moments": "float32", "batch": LM_TRAIN_BATCH,
+            "seq": LM_TRAIN_SEQ, "steps": LM_TRAIN_STEPS, "losses": losses,
+            "runs_bitwise_equal": 2, "captured_vs_eager_bitwise_steps": n,
+            "eager_warmup_and_capture_ms": a["ms"][:warm + 1],
+            "captured": {**_host_stats(cap_ms), "device_ms": device,
+                         "device_busy_share":
+                             device / statistics.median(cap_ms),
+                         "launches": sum(r["count"] for r in replay),
+                         "p4_launches": p4, "top_kernels": replay[:12]},
+            "eager": _host_stats(e_ms[warm:]),
+            "p4_launches_in_run": a["p4"],
+            "max_memory_allocated_gb": a["peak_gb"],
+            "stragglers": a["stragglers"],
+            "bound": lm_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)}
+
+
+def _loss_and_grads(params, cfg, ins: dict):
+    """The port's loss and gradient leaves on ``params``' device, the
+    expert choices of each MoE call recorded."""
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves, tree_map
+    params = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    with record_routes() as routes:
+        loss, _ = lm.loss_fn(params, cfg, ins.get("ids"), ins["labels"],
+                             embeds=ins.get("embeds"),
+                             image_embeds=ins.get("image_embeds"))
+    grads = torch.autograd.grad(loss, tree_leaves(params),
+                                materialize_grads=True)
+    return float(loss.detach()), [g.cpu() for g in grads], routes
+
+
+def _grad_err(got: list, want: list) -> float:
+    """The largest per-leaf max |got - want| over max |want|."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        scale = float(w.abs().max())
+        err = float((g.double() - w.double()).abs().max())
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def _against_cpu(cfg, params, ins: dict, what: str) -> dict:
+    """Loss and every gradient leaf on the card against the port's CPU run
+    on the same weights and inputs: the loss within 1e-6 relative, each
+    leaf within 1e-4 x its max |g|; for moe the expert choices first. RWKV6
+    in float32 sits at its conditioning's limit there (``tests/
+    test_torch_lm_train.py``: the reference's own float32 gradient lies
+    2.3e-4 x max|g| from its float64 one), so the ssm family's card
+    gradient is held within 1e-4 x max|g| of the CPU's on float64 weights
+    (the tests hold that one within 1e-10 of the reference's float64
+    gradient)."""
+    import dataclasses
+
+    from repro_torch.optim import tree_map
+    cpu_params = tree_map(lambda t: t.detach().cpu(), params)
+    cpu_ins = {k: v.cpu() for k, v in ins.items()}
+    card = _loss_and_grads(params, cfg, ins)
+    cpu = _loss_and_grads(cpu_params, cfg, cpu_ins)
+    rel = abs(card[0] - cpu[0]) / abs(cpu[0])
+    check(rel <= 1e-6, f"lm_train: {what}: loss card {card[0]} vs CPU "
+                       f"{cpu[0]} ({rel} relative)")
+    out = {"loss": card[0], "loss_rel_err": rel,
+           "grad_err_over_max": _grad_err(card[1], cpu[1])}
+    if cfg.family == "moe":
+        out["routes"] = _route_agreement(card[2], cpu[2],
+                                         f"{what} expert choices")
+        check(not out["routes"]["near_ties"],
+              f"lm_train: {what}: expert choices differ on the card")
+    if cfg.family == "ssm":
+        exact = _loss_and_grads(
+            tree_map(lambda t: t.double(), cpu_params),
+            dataclasses.replace(cfg, dtype="float64"), cpu_ins)[1]
+        out["grad_err_vs_float64"] = _grad_err(card[1], exact)
+        out["cpu_grad_err_vs_float64"] = _grad_err(cpu[1], exact)
+        check(out["grad_err_vs_float64"] <= 1e-4,
+              f"lm_train: {what}: card gradient {out['grad_err_vs_float64']}"
+              f" x max|g| from the float64 one")
+    else:
+        check(out["grad_err_over_max"] <= 1e-4,
+              f"lm_train: {what}: gradient card vs CPU "
+              f"{out['grad_err_over_max']} x max|g|")
+    return out
+
+
+def _lm_train_grads(smi: str) -> dict:
+    """(b): qwen1.5-0.5b at published width, 2 of 24 layers, float32,
+    2 x 256 tokens, the port's seed-0 weights: loss and gradients on the
+    card against the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=LM_TRAIN_GRAD_LAYERS, dtype="float32")
+    params = lm.init(SEED, cfg, device="cpu")
+    ins = _token_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_GRAD_SEQ)
+    out = _against_cpu(cfg, _to_cuda(params), ins, f"{LM_ARCH} {LM_TRAIN_GRAD_LAYERS} "
+                                       f"layers float32")
+    return {"arch": LM_ARCH, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+            "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_GRAD_SEQ, **out}
+
+
+def _to_cuda(tree):
+    from repro_torch.optim import tree_map
+    return tree_map(lambda t: t.cuda(), tree)
+
+
+def _captured_twice(cfg, opt, batch: dict, n: int, what: str):
+    """``n`` eager steps, then ``n`` captured twice, each from a fresh
+    seeded state: every loss, and every leaf after them, bit for bit (the
+    run before held on the host, one at a time). -> (the captured losses
+    and step times, the last run's state and step)."""
+    from repro_torch.launch.train import state_leaves
+    held = None          # the run before: its losses and leaves, on the host
+    for run, captured in enumerate((False, True, True)):
+        losses, state, step, ms = _train_steps(cfg, opt, batch, n, captured)
+        leaves = state_leaves(state)
+        if held is not None:
+            check(losses == held[0] and len(leaves) == len(held[1])
+                  and all(torch.equal(h, t.cpu())
+                          for h, t in zip(held[1], leaves)),
+                  f"lm_train: {what}: " + (
+                      f"{n} captured steps differ from the eager ones"
+                      if run == 1 else "two captured runs part"))
+        if run == 1:
+            captured_ms = ms
+        if run < 2:
+            held = None
+            held = (losses, [t.cpu() for t in leaves])
+            del leaves, state, step
+            torch.cuda.empty_cache()
+    return {"losses": losses, "captured_ms": captured_ms}, state, step
+
+
+def _lm_train_reduced(smi: str) -> dict:
+    """(c): every config at ``reduced()``, float32, the port's seed-0
+    weights (vlm's gate at :data:`LM_GATE_X`): loss and gradients against
+    the CPU (moe's expert choices equal), then captured steps bit for bit
+    the eager ones, twice."""
+    from repro_torch.configs import dummy_inputs, get_config, list_archs
+    from repro_torch.models import lm
+    from repro_torch.optim import AdamWConfig
+    opt = AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch).reduced()
+        params = lm.init(SEED, cfg, device="cpu")
+        if cfg.family == "vlm":
+            params["crossed"]["gate_x"].fill_(LM_GATE_X)
+        ins = dummy_inputs(cfg, "train", LM_TRAIN_BATCH,
+                           LM_TRAIN_REDUCED_SEQ, seed=5, device="cuda")
+        res = _against_cpu(cfg, _to_cuda(params), ins, cfg.name)
+        runs, _, _ = _captured_twice(cfg, opt, ins, LM_TRAIN_REDUCED_STEPS,
+                                     cfg.name)
+        out[arch] = {**res, "losses": runs["losses"]}
+    return out
+
+
+def _lm_train_wide(smi: str) -> dict:
+    """(d): the wide configs of :data:`LM_TRAIN_WIDE`, one at a time, bf16,
+    2 x 1024 tokens of ``TokenStream``: eager steps, captured twice, bit
+    for bit; the replays' host clock, one more replay profiled (device
+    time, launches, P4's), and the peak of allocated memory."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.backend import CudaGraphCall
+    from repro_torch.optim import AdamWConfig
+    out = {}
+    for arch, over, moments, n_params in LM_TRAIN_WIDE:
+        t0 = time.perf_counter()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_allocated() / 1e9
+        cfg = dataclasses.replace(get_config(arch), **over)
+        check(cfg.n_params() == n_params and cfg.dtype == "bfloat16",
+              f"lm_train: {arch} is not the config this phase runs")
+        torch.cuda.reset_peak_memory_stats()
+        opt = AdamWConfig(total_steps=LM_TRAIN_WIDE_STEPS, warmup_steps=1,
+                          moment_dtype=moments)
+        batch = _token_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_WIDE_SEQ)
+        runs, state, step = _captured_twice(cfg, opt, batch,
+                                            LM_TRAIN_WIDE_STEPS, arch)
+        check(all(np.isfinite(runs["losses"])),
+              f"lm_train: {arch}: a loss is not finite")
+        replay = _device_rows(lambda: step(state, batch))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        del state, step
+        torch.cuda.empty_cache()
+        p4 = _p4_count(replay)
+        want = PATHS["lm_train"][arch]["gather_rows_backward"]
+        check(p4 == want, f"lm_train: {arch}: a replayed step launched P4 "
+                          f"{p4} times, expected {want}")
+        replays = runs["captured_ms"][CudaGraphCall.WARMUP + 1:]
+        device = sum(r["device_ms"] for r in replay)
+        out[arch] = {"nvidia_smi": smi, "family": cfg.family,
+                     "n_layers": cfg.n_layers,
+                     "published_layers": get_config(arch).n_layers,
+                     "n_params": n_params, "moments": moments,
+                     "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_WIDE_SEQ,
+                     "losses": runs["losses"], "runs_bitwise_equal": 2,
+                     "captured_vs_eager_bitwise_steps": LM_TRAIN_WIDE_STEPS,
+                     "captured": {**_host_stats(replays), "device_ms": device,
+                                  "device_busy_share":
+                                      device / statistics.median(replays),
+                                  "launches": sum(r["count"]
+                                                  for r in replay),
+                                  "p4_launches": p4,
+                                  "top_kernels": replay[:8]},
+                     "max_memory_allocated_gb": peak,
+                     "allocated_before_gb": before,
+                     "bound": lm_train_flops(cfg, LM_TRAIN_BATCH,
+                                             LM_TRAIN_WIDE_SEQ),
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def _p4_lm_row(smi: str) -> dict:
+    """P4 at the full-width run's embedding gradient: (2 x 4096, 1024)
+    float32 rows of the step's ``TokenStream`` batch into qwen's 151936
+    vocabulary rows, bit for bit against its plain version; the entry
+    point's time (sort, search, kernel), the kernel's alone, the plain
+    version's and ``index_add_`` (the scatter-add of ``index_select``'s
+    backward, in no fixed order) beside the bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather_backward import (
+        gather_rows_backward, gather_rows_backward_cuda,
+        gather_rows_backward_plain, segments)
+    cfg = get_config(LM_ARCH)
+    ids = _token_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)["ids"]
+    flat = ids.reshape(1, -1).long()
+    rng = np.random.default_rng(SEED)
+    g = torch.from_numpy(rng.normal(size=(flat.numel(), cfg.d_model)).astype(
+        np.float32)).cuda()
+    perm, starts = segments(flat, cfg.vocab_size)
+    got = gather_rows_backward_cuda(g, perm, starts)
+    want = gather_rows_backward_plain(g, perm, starts)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(torch.equal(got, want), f"P4 lm embedding: kernel differs from "
+                                  f"its plain version by {err}")
+    zeros = torch.zeros((cfg.vocab_size, cfg.d_model), device="cuda")
+    keys = flat.reshape(-1)
+    nbytes, ops = _p4_bound(1, flat.shape[1], cfg.vocab_size, cfg.d_model)
+    bms, bby = bound(nbytes, ops, FP32_OPS_PER_S)
+    return {"shape": [1, flat.shape[1], cfg.vocab_size, cfg.d_model],
+            "max_abs_err": err,
+            "ms": cuda_ms(lambda: gather_rows_backward(g[None], flat,
+                                                       cfg.vocab_size)),
+            "kernel_ms": cuda_ms(lambda: gather_rows_backward_cuda(
+                g, perm, starts)),
+            "plain_ms": cuda_ms(lambda: gather_rows_backward_plain(
+                g, perm, starts), iters=2, warmup=1),
+            "library_ms": cuda_ms(lambda: torch.index_add(zeros, 0, keys,
+                                                          g)),
+            "bound_ms": bms, "bound_by": bby,
+            "max_segment": int((starts[1:] - starts[:-1]).max())}
+
+
+def phase_lm_train(smi: str) -> dict:
+    """LM training on the card (module docstring, 12): (a) the full-width
+    run, (b) its gradients against the CPU, (c) every reduced config, (d)
+    the wide families; P4 at the embedding's gradient. Returns P4's
+    launches in (a)'s run and in one replay, and its row there."""
+    t0 = time.perf_counter()
+    res = {}
+    for part, fn in (("full", _lm_train_full), ("grads_vs_cpu",
+                                                _lm_train_grads),
+                     ("reduced", _lm_train_reduced), ("wide", _lm_train_wide),
+                     ("p4_embedding", _p4_lm_row)):
+        t1 = time.perf_counter()
+        res[part] = fn(smi)
+        emit({"phase": "lm_train", "part": part, "nvidia_smi": smi,
+              **res[part], "seconds": time.perf_counter() - t1})
+    emit({"phase": "lm_train", "nvidia_smi": smi,
+          "seconds": time.perf_counter() - t0})
+    full = res["full"]
+    return {"p4_launches": full["p4_launches_in_run"],
+            "p4_launches_per_replay": full["captured"]["p4_launches"],
+            "p4_embedding": res["p4_embedding"]}
+
+
 def phase_contracts(params, cfgs, clouds_np, smi) -> None:
     """``repro_torch.verify_contracts(..., check_graph=True)`` on every model
     and backend of :data:`PATHS` (the 'pointer' schedule, planning on the
@@ -3929,7 +4452,8 @@ def main(argv=None) -> int:
     smi = smi_line()
     info = phase_device(smi)
     phase_build()
-    cfgs = {m: repro_torch.PAPER_MODELS[m] for m in PATHS}
+    cfgs = {m: repro_torch.PAPER_MODELS[m] for m in PATHS
+            if m in repro_torch.PAPER_MODELS}
     params = {m: init_params(cfg, seed=SEED) for m, cfg in cfgs.items()}
     clouds_np = make_clouds(1024, BATCH, SEED)
     # first, so that model0's MLPs are K2's first launches in the process
@@ -3966,6 +4490,7 @@ def main(argv=None) -> int:
     kernels.append(train["p4"])
     phase_lm(smi)
     phase_lm_families(smi)
+    lm_train = phase_lm_train(smi)
     check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
           "a served kernel has no row")
     for k in kernels:
@@ -3977,6 +4502,11 @@ def main(argv=None) -> int:
         if k["name"] == "K7 fps":
             k["train_launches"] = train["k7_launches"]
             k["train_launches_per_replay"] = train["k7_launches_per_replay"]
+        if k["name"] == "P4 gather_rows_backward":
+            k["lm_train_launches"] = lm_train["p4_launches"]
+            k["lm_train_launches_per_replay"] = \
+                lm_train["p4_launches_per_replay"]
+            k["lm_embedding"] = lm_train["p4_embedding"]
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

@@ -36,8 +36,7 @@ from repro_torch import PAPER_MODELS, compile_model
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.data import PointCloudDataset
 from repro_torch.launch.fault import GracefulShutdown, StragglerWatchdog
-from repro_torch.models.backend import (CudaGraphCall, graph_key,
-                                        resolve_device)
+from repro_torch.models.backend import StepGraphs, resolve_device
 from repro_torch.models.pointnet2 import init_params
 from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
                                tree_leaves, tree_map)
@@ -69,28 +68,19 @@ def train_step(model, params, opt, opt_cfg, clouds, labels):
 
 def make_step(model, params, opt, opt_cfg):
     """:func:`train_step` as the loop calls it, ``(clouds, labels) ->
-    (loss, acc)``. On the card each batch shape's first call captures the
-    whole step into one CUDA graph (:class:`CudaGraphCall`, warmed up with
-    the parameters, moments and step counter restored after, so the first
-    replay is step 0) and every call replays it, reading and updating the
-    live ``params`` and ``opt`` tensors in place; on the CPU it runs
-    eagerly."""
+    (loss, acc)``. On the card each batch shape's first two calls run as
+    eager steps (the capture's warm-ups), the third captures the whole step
+    into one CUDA graph and every call from then on replays it, reading and
+    updating the live ``params`` and ``opt`` tensors in place
+    (:class:`StepGraphs`); on the CPU it runs eagerly."""
     def step(clouds, labels):
         _, loss, acc = train_step(model, params, opt, opt_cfg, clouds,
                                   labels)
         return loss, acc
 
-    if model.device.type != "cuda":
-        return step
     state = tree_leaves(params) + tree_leaves(opt)
-    graphs = {}
-
-    def replay(clouds, labels):
-        key = graph_key(step, (clouds, labels))
-        if key not in graphs:
-            graphs[key] = CudaGraphCall(step, (clouds, labels), state=state)
-        return graphs[key](clouds, labels)
-    return replay
+    graphs = StepGraphs()
+    return lambda clouds, labels: graphs(step, state, (clouds, labels))
 
 
 def parse_args(argv=None):

@@ -25,7 +25,8 @@ Rules are registry entries: add one with :func:`register_rule` and
 - ``host-sync``: ``.item()``, ``.tolist()``, ``.cpu()``, ``.numpy()``,
   ``torch.cuda.synchronize`` and ``numpy.asarray``/``numpy.array`` of a
   value inside a function reachable from a capture site of the port: a
-  function handed to ``CudaGraphCall(...)`` or ``self._replay(...)``, the
+  function handed to ``CudaGraphCall(...)``, ``self._replay(...)`` or a
+  ``StepGraphs()`` instance (``graphs = StepGraphs(); graphs(f, ...)``), the
   body of a ``with torch.cuda.graph(...)``, a ``jit_*`` or ``eval_step``
   method, or a kernel entry point (decorated with ``launch_site``). The
   reference roots it at ``jax.jit``/``vmap``/``pmap``/``make_jaxpr``,
@@ -389,15 +390,22 @@ def _graph_blocks(mod: Module) -> list[tuple[str, list[ast.stmt]]]:
 def _capture_roots(mod: Module, defs: dict[str, list[ast.AST]],
                    blocks) -> set[str]:
     """The functions a CUDA graph captures or a kernel launch runs: handed
-    to ``CudaGraphCall(...)`` or ``self._replay(...)``, called in a
-    ``with torch.cuda.graph(...)`` body, named ``jit_*`` or ``eval_step``,
-    or decorated with ``launch_site``."""
+    to ``CudaGraphCall(...)``, ``self._replay(...)`` or a name bound to a
+    ``StepGraphs()`` instance, called in a ``with torch.cuda.graph(...)``
+    body, named ``jit_*`` or ``eval_step``, or decorated with
+    ``launch_site``."""
     roots: set[str] = set()
+    steppers = {t.id for node in ast.walk(mod.tree)
+                if isinstance(node, ast.Assign)
+                and isinstance(node.value, ast.Call)
+                and _simple_name(node.value.func) == "StepGraphs"
+                for t in node.targets if isinstance(t, ast.Name)}
     for call in mod.calls():
         func = call.func
         handed = (_simple_name(func) == "CudaGraphCall"
                   or (isinstance(func, ast.Attribute)
-                      and func.attr == "_replay"))
+                      and func.attr == "_replay")
+                  or (isinstance(func, ast.Name) and func.id in steppers))
         if handed and call.args:
             name = _callable_name(call.args[0], mod)
             if name is not None:

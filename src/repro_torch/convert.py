@@ -1,17 +1,20 @@
 """Weights from the JAX package's parameter layouts into the port's.
 
 The JAX package's ``init_params`` returns a pytree
-``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of device arrays, and its
-``lm.init`` a tree of dicts of arrays. Pulled to NumPy (``np.asarray`` on
-each leaf, or ``jax.device_get`` on the tree), each becomes the port's
-parameters here, so both packages run the same weights.
+``{"sa": [[{"w", "b"}, …], …], "head": […]}`` of device arrays, its
+``lm.init`` a tree of dicts of arrays, and its ``launch.train.
+init_train_state`` the LM's parameters beside AdamW's state. Pulled to
+NumPy (``np.asarray`` on each leaf, or ``jax.device_get`` on the tree),
+each becomes the port's here, so both packages run (and train) the same
+weights.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["lm_params_from_numpy", "params_from_numpy"]
+__all__ = ["lm_params_from_numpy", "params_from_numpy",
+           "train_state_from_numpy"]
 
 
 def _layer(lyr) -> dict:
@@ -50,3 +53,30 @@ def lm_params_from_numpy(tree, cfg, device=None) -> dict:
     from repro_torch.optim.optimizer import tree_map
     dev = resolve_device(device)
     return tree_map(lambda a: _lm_leaf(a, cfg.jdtype, dev), tree)
+
+
+def train_state_from_numpy(state, cfg, device=None) -> dict:
+    """The JAX package's ``init_train_state`` tree (``params``, ``opt``
+    with ``m``, ``v`` and ``step``, and ``comp_err`` when compressing),
+    pulled to NumPy, as the port's train state
+    (``repro_torch.launch.train``): leaf for leaf on ``device`` (the card
+    unless ``device="cpu"``), the parameters through
+    :func:`lm_params_from_numpy` and requiring grad, every other leaf in
+    its own dtype (bfloat16 moments bit for bit)."""
+    from repro_torch.models.backend import resolve_device
+    from repro_torch.optim.optimizer import tree_map
+    dev = resolve_device(device)
+
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            return _lm_leaf(a, torch.bfloat16, dev)
+        return torch.from_numpy(a.copy()).to(dev)
+    params = tree_map(lambda t: t.requires_grad_(),
+                      lm_params_from_numpy(state["params"], cfg, dev))
+    out = {"params": params,
+           "opt": {k: tree_map(leaf, state["opt"][k])
+                   for k in ("m", "v", "step")}}
+    if "comp_err" in state:
+        out["comp_err"] = tree_map(leaf, state["comp_err"])
+    return out

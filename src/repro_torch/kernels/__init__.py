@@ -23,9 +23,11 @@
                   relaxation step (``fps_update``), and the whole sampling
                   loop in one launch (``fps_batched``; ``ops.fps`` is one
                   cloud)
-- ``gather_backward``: P4, the feature gather's backward as a fixed-order
-                  segment sum (``csrc/gather_backward.cu``): training on
-                  the card is reproducible
+- ``gather_backward``: P4, a row gather's backward as a fixed-order
+                  segment sum (``csrc/gather_backward.cu``), and
+                  ``gather_rows`` over it (PointNet++'s feature gathers,
+                  the LM's embedding and MoE dispatch): training on the
+                  card is reproducible
 - ``ops``       : ``reram_linear``, ``fps``, ``count_dma_elisions``
 - ``_build``    : nvcc build at first use + ctypes binding
 
@@ -37,7 +39,7 @@ from . import (aggregate, fps_update as _fps_update, fused_mlp,
                gather_backward, plan_order, reram_mlp)
 from .aggregate import aggregate_diff, aggregate_diff_batched
 from .fps_update import fps_batched, fps_update
-from .gather_backward import gather_rows_backward
+from .gather_backward import gather_rows, gather_rows_backward
 from .fused_mlp import reram_mlp_fused, reram_mlp_fused_batched
 from .ops import count_dma_elisions, fps, reram_linear
 from .plan_order import plan_coordinate, plan_greedy
@@ -54,7 +56,8 @@ __all__ = [
     "LaunchWork",
     "aggregate_diff", "aggregate_diff_batched", "build_program",
     "combine_planes", "count_dma_elisions", "encode_planes", "fps",
-    "fps_batched", "fps_update", "fused_vmem_bytes", "gather_rows_backward",
+    "fps_batched", "fps_update", "fused_vmem_bytes", "gather_rows",
+    "gather_rows_backward",
     "launch_bytes",
     "launch_count", "launch_counts", "launch_work",
     "plan_coordinate", "plan_fused_mlp", "plan_greedy", "plan_launch",

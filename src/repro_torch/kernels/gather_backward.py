@@ -1,8 +1,10 @@
-"""P4: the backward of the feature gather as a fixed-order segment sum
-(``csrc/gather_backward.cu``).
+"""P4: the backward of a row gather as a fixed-order segment sum
+(``csrc/gather_backward.cu``), and :func:`gather_rows`, the gather whose
+backward it is: PointNet++'s feature gathers, the LM's embedding lookup
+and the MoE dispatch's gathers all take their rows through it.
 
-The forward of :func:`repro_torch.models.pointnet2.gather_rows` takes rows
-``x[l, idx[l, p]]``; its gradient with respect to ``x`` gives row ``n`` of
+The forward of :func:`gather_rows` takes rows ``x[l, idx[l, p]]``; its
+gradient with respect to ``x`` gives row ``n`` of
 batch row ``l`` the sum of the upstream gradient rows at the positions
 ``p`` with ``idx[l, p] == n``. Autograd's own backward for the gather is a
 scatter-add, whose order of summation on the card is not fixed, so two
@@ -31,12 +33,14 @@ import functools
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from . import _build
 from .record import launch_site
 
-__all__ = ["LAUNCHES", "gather_rows_backward", "gather_rows_backward_cuda",
-           "gather_rows_backward_plain", "segments"]
+__all__ = ["LAUNCHES", "gather_rows", "gather_rows_backward",
+           "gather_rows_backward_cuda", "gather_rows_backward_plain",
+           "segments"]
 
 #: Kernel launches (plain-version calls never count).
 LAUNCHES = {"gather_rows_backward": 0}
@@ -64,15 +68,15 @@ def gather_rows_backward_plain(grad, perm, starts):
     ``(R, C)``, ``R = starts.numel() - 1``: each output row the sum of its
     segment's gradient rows, added in segment order from ``0.0``. One
     vectorized step per depth: at step ``j`` every row with more than ``j``
-    positions adds its ``j``-th."""
+    positions adds its ``j``-th (the rows taking part, each once, are
+    found on the host: the work is the positions', not rows x depth)."""
     counts = starts[1:] - starts[:-1]
     out = torch.zeros((counts.numel(), grad.shape[1]), dtype=grad.dtype,
                       device=grad.device)
     depth = int(counts.max()) if counts.numel() else 0
     for j in range(depth):
-        live = (counts > j)[:, None]
-        src = perm[torch.clamp_max(starts[:-1] + j, perm.numel() - 1)]
-        out = torch.where(live, out + grad[src], out)
+        rows = torch.nonzero(counts > j).squeeze(1)
+        out[rows] = out[rows] + grad[perm[starts[rows] + j]]
     return out
 
 
@@ -136,3 +140,39 @@ def gather_rows_backward(grad, idx, n_rows: int):
     else:
         out = gather_rows_backward_cuda(g, perm, starts)
     return out.reshape(*lead, n_rows, c)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``take_along_dim`` rows forward; backward through P4
+    (:func:`gather_rows_backward`), each source row's gradient summed in
+    increasing position, where autograd's own backward (a scatter-add)
+    sums on the card in an order that changes run to run. P4 sums in
+    float32: a gradient of another dtype (bf16) is upcast, summed, and
+    rounded once to ``x``'s dtype, where a scatter-add in bf16 rounds
+    after every addition (a float64 one, on the CPU, sums in float64)."""
+
+    @staticmethod
+    def forward(ctx, x, flat):
+        ctx.save_for_backward(flat)
+        ctx.n_rows = x.shape[-2]
+        return torch.take_along_dim(x, flat[..., None], dim=-2)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (flat,) = ctx.saved_tensors
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        out = gather_rows_backward(grad.to(acc), flat, ctx.n_rows)
+        return out.to(grad.dtype), None
+
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx, :]`` per batch row: x ``(…, N, C)``, idx ``(…, *S)``
+    -> ``(…, *S, C)``; with ``x`` ``(N, C)`` any ``idx`` gives
+    ``x[idx]``. Its gradient with respect to ``x`` is summed in a fixed
+    order (:class:`_GatherRows`), so training is reproducible on the card;
+    the values are ``take_along_dim``'s."""
+    lead = x.shape[:-2]
+    flat = idx.reshape(*lead, -1).long()
+    out = _GatherRows.apply(x, flat)
+    return out.reshape(*idx.shape, x.shape[-1])

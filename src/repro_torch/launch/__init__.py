@@ -1,5 +1,7 @@
 """Launch-side tiers of the port: the serving engine (``serve``) over
-point clouds and LMs, the counterpart of ``repro.launch.serve``, and
+point clouds and LMs, the counterpart of ``repro.launch.serve``; LM
+training (``train``: the train state, the step captured on the card, the
+fault-tolerant loop), the counterpart of ``repro.launch.train``; and
 preemption and retries (``fault``).
 
 >>> import numpy as np
@@ -31,6 +33,8 @@ from repro_torch.launch.serve import (EDFScheduler, FIFOScheduler,
                                       Servable, ServingEngine, ShapeBuckets,
                                       VirtualClock, generate,
                                       make_serve_step)
+from repro_torch.launch.train import (TrainLoopConfig, init_train_state,
+                                      make_train_step, run_training)
 
 __all__ = [
     "EDFScheduler",
@@ -43,7 +47,11 @@ __all__ = [
     "Servable",
     "ServingEngine",
     "ShapeBuckets",
+    "TrainLoopConfig",
     "VirtualClock",
     "generate",
+    "init_train_state",
     "make_serve_step",
+    "make_train_step",
+    "run_training",
 ]

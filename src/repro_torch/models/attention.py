@@ -1,6 +1,7 @@
 """Attention of the LM stack, in PyTorch: RoPE, chunked (flash-style)
-attention for prefill, and cache-based decode attention — the port's
-counterpart of the JAX package's ``models/attention.py``, forward only.
+attention with the reference's recomputing backward, and cache-based
+decode attention — the port's counterpart of the JAX package's
+``models/attention.py``.
 
 Chunked attention follows the reference's algorithm step for step: the
 same chunking and padding (padded queries at position 0, padded keys at
@@ -10,17 +11,27 @@ to ``v``'s dtype before the PV product, and the same ``1e-30`` floor and
 ``lse``. GQA maps query head ``i`` to kv head ``i // groups``; KV is
 repeated per chunk, never the whole tensor.
 
+Its gradient is the reference's custom VJP of ``_flash``
+(:class:`_Flash`, a ``torch.autograd.Function``): the forward saves the
+operands, the output and the log-sum-exp; the backward recomputes each
+score chunk in the reference's order (an outer loop over KV chunks, an
+inner one over Q chunks), builds ``dv`` from float32 probabilities,
+accumulates ``dq`` across KV chunks in KV order and folds GQA by a sum
+over each kv head's group. Every op of that backward is a matmul, an
+elementwise op or a reduction, so on the card it sums in a fixed order:
+nothing scatters with atomics (autograd through the forward's
+``repeat_interleave`` would). The padding stays outside the Function,
+where autograd's pad and slice handle it.
+
 Where the reference asks for float32 products of low-precision operands
 (``preferred_element_type=jnp.float32``), the operands are upcast: bf16
 values are exact in float32, so the product sums exact terms in float32.
-The custom VJP of the reference's ``_flash`` belongs to the LM training
-slice; until then these functions run under ``torch.inference_mode()``
-on the serving path.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 __all__ = ["apply_rope", "chunked_attention", "decode_attention",
            "rope_tables", "rotate"]
@@ -99,8 +110,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         v = F.pad(v, (0, 0, 0, 0, 0, pad_k))
         kv_positions = F.pad(kv_positions, (0, pad_k), value=_INT32_MAX)
     kv_valid = torch.arange(skv + pad_k, device=k.device) < skv
-    out, _ = _flash_fwd(q, k, v, q_positions, kv_positions, kv_valid,
-                        causal, qc, kc)
+    out = _Flash.apply(q, k, v, q_positions, kv_positions, kv_valid,
+                       causal, qc, kc)
     return out[:, :sq]
 
 
@@ -149,6 +160,79 @@ def _flash_fwd(q, k, v, qp, kp, kvld, causal: bool, qc: int, kc: int):
         lses.append(torch.where(l > 0, m + torch.log(denom), _NEG_INF))
     out = torch.cat(outs, dim=2).transpose(1, 2)           # (B, Sq, H, D)
     return out, torch.cat(lses, dim=2)
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``_flash`` with its custom VJP, over padded
+    operands: :func:`_flash_fwd`'s output forward, :func:`_flash_bwd`
+    backward (no gradient for the positions and the key mask)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qp, kp, kvld, causal: bool, qc: int, kc: int):
+        out, lse = _flash_fwd(q, k, v, qp, kp, kvld, causal, qc, kc)
+        ctx.save_for_backward(q, k, v, qp, kp, kvld, out, lse)
+        ctx.chunking = (causal, qc, kc)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.saved_tensors, dout, *ctx.chunking)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _flash_bwd(q, k, v, qp, kp, kvld, out, lse, dout, causal: bool,
+               qc: int, kc: int):
+    """The reference's ``_flash_bwd``: ``(dq, dk, dv)`` in the inputs'
+    dtypes, float32 inside. The score chunks are recomputed KV chunk by KV
+    chunk, Q chunk by Q chunk within; ``D = sum(dout * out)`` and
+    ``p = exp(s - lse)`` under the mask are float32, ``ds = p (dp - D)
+    scale``; ``dq`` is the sum of the KV chunks' parts in KV order, and
+    ``dk``/``dv`` of each query head are summed over its kv head's
+    group."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    groups = h // hkv
+    nq, nk = sq // qc, skv // kc
+    scale = d ** -0.5
+    qh, doh = _heads_f32(q), _heads_f32(dout)              # (B, H, Sq, D)
+    dsum = (doh * _heads_f32(out)).sum(dim=-1)             # (B, H, Sq)
+    lse_safe = torch.where(torch.isneginf(lse), 0.0, lse)
+    dq = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for j in range(nk):
+        sl = slice(j * kc, (j + 1) * kc)
+        k_rep = _heads_f32(_repeat_kv(k[:, sl], groups))   # (B, H, kc, D)
+        v_rep = _heads_f32(_repeat_kv(v[:, sl], groups))
+        dk_c = torch.zeros((b, h, kc, d), dtype=torch.float32,
+                           device=q.device)
+        dv_c = torch.zeros_like(dk_c)
+        dq_parts = []
+        for i in range(nq):
+            qs = slice(i * qc, (i + 1) * qc)
+            q_blk, do_blk = qh[:, :, qs], doh[:, :, qs]
+            s = (q_blk @ k_rep.transpose(-1, -2)) * scale  # (B, H, qc, kc)
+            mask = _mask_for(qp[qs], kp[sl], kvld[sl], causal, qc, kc)
+            p = torch.where(mask, torch.exp(s - lse_safe[:, :, qs, None]),
+                            0.0)
+            dv_c = dv_c + p.transpose(-1, -2) @ do_blk
+            dp = do_blk @ v_rep.transpose(-1, -2)
+            ds = p * (dp - dsum[:, :, qs, None]) * scale
+            dq_parts.append(ds @ k_rep)
+            dk_c = dk_c + ds.transpose(-1, -2) @ q_blk
+        dq = dq + torch.cat(dq_parts, dim=2)
+        dks.append(dk_c)
+        dvs.append(dv_c)
+
+    def fold(parts):
+        """(B, H, Skv, D) chunks -> (B, Skv, Hkv, D), summed per group."""
+        full = torch.cat(parts, dim=2).transpose(1, 2)     # (B, Skv, H, D)
+        if groups > 1:
+            full = full.reshape(b, skv, hkv, groups, d).sum(dim=3)
+        return full
+
+    return (dq.transpose(1, 2).to(q.dtype), fold(dks).to(k.dtype),
+            fold(dvs).to(v.dtype))
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

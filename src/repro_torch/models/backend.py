@@ -617,6 +617,19 @@ def graph_key(fn, args) -> tuple:
             + tuple((tuple(t.shape), t.dtype) for t in leaves))
 
 
+def on_side_stream(fn: Callable, *args):
+    """``fn(*args)`` on a new CUDA stream of the current device, ordered
+    after the work already queued and before the work queued after it:
+    where a CUDA graph's warm-up runs."""
+    cur = torch.cuda.current_stream()
+    side = torch.cuda.Stream(cur.device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        out = fn(*args)
+    cur.wait_stream(side)
+    return out
+
+
 class CudaGraphCall:
     """One call of ``fn`` on CUDA operands captured into a
     ``torch.cuda.CUDAGraph`` for their shapes: warmed up on a side stream,
@@ -626,27 +639,29 @@ class CudaGraphCall:
     graph and returns clones of the outputs. A failed capture raises;
     nothing falls back to eager execution.
 
-    ``state`` lists the tensors ``fn`` updates in place (a training step's
-    parameters, moments and step counter): the warm-ups run ``fn`` for
-    real, so they are saved before the warm-ups and restored after
-    (:meth:`warm_up`), and the first replay starts from the state the
-    caller handed in. The graph reads and writes those very tensors."""
+    ``state`` lists the tensors ``fn`` updates in place (a serving
+    session's cache): the warm-ups run ``fn`` for real, so they are saved
+    before the warm-ups and restored after (:meth:`warm_up`), and the
+    first call is already a replay from the state the caller handed in.
+    The graph reads and writes those very tensors. ``warm=False`` captures
+    at once: for a caller that has already run ``fn`` :attr:`WARMUP`
+    times on these shapes on a side stream (:func:`on_side_stream`), as
+    real calls whose results it keeps (:class:`StepGraphs`: a training
+    step, with no copy of its state)."""
 
     #: eager calls on the side stream before the capture (they build the
     #: kernels and fill the wrappers' shape caches)
     WARMUP = 2
 
-    def __init__(self, fn: Callable, args: tuple, *, state=()):
+    def __init__(self, fn: Callable, args: tuple, *, state=(),
+                 warm: bool = True):
         leaves, spec = _flatten(args)
         dev = leaves[0].device
         self.inputs = tuple(t.clone() for t in leaves)
         static = _unflatten(self.inputs, spec)
         with torch.cuda.device(dev):
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                self.warm_up(fn, static, state)
-            torch.cuda.current_stream(dev).wait_stream(side)
+            if warm:
+                on_side_stream(self.warm_up, fn, static, state)
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.outputs = fn(*static)
@@ -671,6 +686,41 @@ class CudaGraphCall:
         if isinstance(self.outputs, tuple):
             return tuple(o.clone() for o in self.outputs)
         return self.outputs.clone()
+
+
+class StepGraphs:
+    """Calls of a step that updates a state in place (a training step's
+    parameters, moments and step counter). On CUDA operands, per state
+    and operand shapes (:func:`graph_key`), the first
+    :attr:`CudaGraphCall.WARMUP` calls run eagerly on a side stream as
+    real steps (the capture's warm-ups: no copy of the state is kept to
+    undo them), the next captures the step into one CUDA graph and each
+    call from then on replays it over the state's own tensors. Off the
+    card every call runs eagerly. ``graphs`` maps a key to its entry."""
+
+    def __init__(self):
+        self.graphs: dict = {}
+
+    def __call__(self, fn: Callable, state: list, args: tuple):
+        """``fn(*args)``, ``state`` the tensors it updates in place."""
+        leaves = _flatten(args)[0]
+        if leaves[0].device.type != "cuda":
+            return fn(*args)
+        key = (tuple(id(t) for t in state),) + graph_key(fn, args)
+        # the state stays referenced beside the graph, so no other
+        # state's tensors can take its ids
+        entry = self.graphs.setdefault(key, {"state": state, "eager": 0,
+                                             "graph": None})
+        if entry["eager"] < CudaGraphCall.WARMUP:
+            entry["eager"] += 1
+            return on_side_stream(fn, *args)
+        if entry["graph"] is None:
+            # the capture's pool is its own: the blocks the warm-ups left
+            # cached go back to the card first, or a step's temporaries
+            # would be held twice
+            torch.cuda.empty_cache()
+            entry["graph"] = CudaGraphCall(fn, args, warm=False)
+        return entry["graph"](*args)
 
 
 class CompiledModel(nn.Module):

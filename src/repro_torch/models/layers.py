@@ -5,7 +5,9 @@ Conventions, as the reference's:
   * params are plain dicts of tensors, stacked along a leading layer axis;
   * activations (B, S, D); attention heads (B, S, H, Dh);
   * computation dtype follows the input; params stored in ``cfg.dtype``;
-  * both norms compute in float32 and cast back.
+  * both norms compute in float32 and cast back (:func:`upcast`: float64
+    inputs stay float64, so float64 weights run the same algorithm
+    without float32's rounding).
 
 Initializers draw from an explicit ``torch.Generator`` (the port does not
 reimplement ``jax.random``): the same layout, shapes, dtypes and
@@ -17,26 +19,32 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "layer_norm", "dense_init", "linear", "mlp_init",
-           "mlp_apply", "embed_init"]
+           "mlp_apply", "embed_init", "upcast"]
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in float32, where the reference computes in float32 (norms,
+    decays, logits); a float64 ``t`` stays float64."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.float()
+    x32 = upcast(x)
     y = x32 * torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
-    return (y * gamma.float()).to(dt)
+    return (y * upcast(gamma)).to(dt)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     dt = x.dtype
-    x32 = x.float()
+    x32 = upcast(x)
     mu = x32.mean(dim=-1, keepdim=True)
     # jnp.var is the population variance (ddof=0); torch's default is not
     var = x32.var(dim=-1, keepdim=True, correction=0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * gamma.float() + beta.float()).to(dt)
+    return (y * upcast(gamma) + upcast(beta)).to(dt)
 
 
 def _normal(gen: torch.Generator, shape, std: float,

@@ -36,8 +36,19 @@ holds ``max(capacity, ceil(S / 32) · 32)`` rows. So after a prompt off the
 chunk, decode continues the padded sequence, not ``forward``; on the
 chunk it continues ``forward``. TP head layouts
 (``cfg.tp > 1``) wait for the distributed slice (ROADMAP item 17) and
-raise; so do the sharding constraints, which are identities here, and
-``remat``, a training matter, is ignored.
+raise; so do the sharding constraints, which are identities here.
+
+``forward`` and ``loss_fn`` are differentiable (``launch/train.py`` trains
+through them). The stacked leaves are unbound once per call
+(:func:`_unstack`), so the backward costs bytes linear in depth; the
+embedding's gradient, and the MoE dispatch's, go through P4
+(``kernels/gather_backward.py``), a fixed-order sum where autograd's
+backward of a row gather would scatter with atomics; attention's is the
+reference's recomputing backward (``attention._Flash``). So a training
+step on the card gives the same bits every run. ``cfg.remat`` (the
+reference's ``jax.checkpoint`` of each scanned layer) is not applied: it
+trades memory for recomputation and changes no value, and the port keeps
+every layer's activations for the backward.
 """
 from __future__ import annotations
 
@@ -46,6 +57,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.gather_backward import gather_rows
 from repro_torch.models import rwkv as rk
 from repro_torch.models import ssm
 from repro_torch.models.attention import (chunked_attention,
@@ -53,7 +65,8 @@ from repro_torch.models.attention import (chunked_attention,
                                           rotate)
 from repro_torch.models.backend import resolve_device
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
-                                       linear, mlp_apply, mlp_init, rms_norm)
+                                       linear, mlp_apply, mlp_init, rms_norm,
+                                       upcast)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.optim.optimizer import tree_map
 
@@ -109,9 +122,15 @@ def _stacked(n: int, make):
     return out
 
 
-def _layer(tree, i: int):
-    """Layer ``i`` of a stacked tree (views)."""
-    return tree_map(lambda t: t[i], tree)
+def _unstack(tree, n: int) -> list:
+    """The ``n`` layers of a stacked tree, each leaf unbound once along
+    its leading axis (views). Indexing ``t[i]`` per layer would give each
+    layer's gradient a zero tensor of the whole stack (``select``'s
+    backward): O(L²) bytes; ``unbind``'s backward is one ``stack``."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 # ---------------------------------------------------------------------------
@@ -349,10 +368,15 @@ def _logits(p, cfg, x):
 
 
 def _embed_in(p, cfg, ids=None, embeds=None):
+    """The rows of the embedding at ``ids`` (or ``embeds`` in the model's
+    dtype). The lookup's gradient goes through P4 (``gather_rows``), a
+    fixed-order sum per vocabulary row in float32 rounded once to the
+    table's dtype: ``index_select``'s backward on the card is an atomic
+    ``index_add_`` in no fixed order, and the reference's scatter-add
+    rounds a bf16 table's row after every addition."""
     if embeds is not None:
         return embeds.to(cfg.jdtype)
-    w = p["embed"]["w"]
-    return w.index_select(0, ids.reshape(-1)).reshape(*ids.shape, -1)
+    return gather_rows(p["embed"]["w"], ids)
 
 
 def _pad_to(x, chunk: int):
@@ -385,23 +409,22 @@ def _run(p, cfg, x, image_embeds=None, store=None):
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
     if cfg.family in ("dense", "moe", "audio"):
-        for i in range(cfg.n_layers):
-            x, (k, v) = block_apply(_layer(p["blocks"], i), cfg, x,
-                                    positions, rope=rope)
+        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+            x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
             if store is not None:
                 store["k"][i, :, :s] = k
                 store["v"][i, :, :s] = v
         return x
     img = linear(p["img_proj"], image_embeds.to(cfg.jdtype))
-    for gi in range(cfg.n_layers // cfg.cross_attn_interval):
-        plain = _layer(p["plain"], gi)
-        for j in range(cfg.cross_attn_interval - 1):
-            x, (k, v) = block_apply(_layer(plain, j), cfg, x, positions,
-                                    rope=rope)
+    groups = cfg.n_layers // cfg.cross_attn_interval
+    for gi, (plain, crossed) in enumerate(zip(
+            _unstack(p["plain"], groups), _unstack(p["crossed"], groups))):
+        for j, blk in enumerate(_unstack(plain,
+                                         cfg.cross_attn_interval - 1)):
+            x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
             if store is not None:
                 store["k_plain"][gi, j, :, :s] = k
                 store["v_plain"][gi, j, :, :s] = v
-        crossed = _layer(p["crossed"], gi)
         img_kv = project_image_kv(crossed["xattn"], cfg, img)
         x, (k, v) = block_apply(crossed, cfg, x, positions, img_kv=img_kv,
                                 rope=rope)
@@ -420,10 +443,9 @@ def _run_hybrid(p, cfg, x, store):
     positions = torch.arange(sp, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
     n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
-    for gi in range(n_super):
-        group = _layer(p["mamba"], gi)
-        for j in range(cfg.attn_interval):
-            h, st, cv = _mamba_layer(_layer(group, j), cfg, h)
+    for gi, group in enumerate(_unstack(p["mamba"], n_super)):
+        for j, blk in enumerate(_unstack(group, cfg.attn_interval)):
+            h, st, cv = _mamba_layer(blk, cfg, h)
             if store is not None:
                 store["ssm"][gi, j].copy_(st)
                 store["conv"][gi, j].copy_(cv)
@@ -432,8 +454,8 @@ def _run_hybrid(p, cfg, x, store):
         if store is not None:
             store["k"][gi, :, :sp] = k
             store["v"][gi, :, :sp] = v
-    for t in range(trail):
-        h, st, cv = _mamba_layer(_layer(p["mamba_trail"], t), cfg, h)
+    for t, blk in enumerate(_unstack(p["mamba_trail"], trail)):
+        h, st, cv = _mamba_layer(blk, cfg, h)
         if store is not None:
             store["ssm_trail"][t].copy_(st)
             store["conv_trail"][t].copy_(cv)
@@ -443,8 +465,8 @@ def _run_hybrid(p, cfg, x, store):
 def _run_rwkv(p, cfg, x, store):
     s = x.shape[1]
     h = _pad_to(x, rk.CHUNK)
-    for i in range(cfg.n_layers):
-        h, st, lt, lc = _rwkv_layer(_layer(p["blocks"], i), cfg, h)
+    for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+        h, st, lt, lc = _rwkv_layer(blk, cfg, h)
         if store is not None:
             store["state"][i].copy_(st)
             store["last_t"][i].copy_(lt)
@@ -473,7 +495,7 @@ def loss_fn(p, cfg, ids, labels, *, embeds=None, image_embeds=None):
     """Mean next-token cross-entropy: -> (loss, {"loss", "ppl"})."""
     logits, _ = forward(p, cfg, ids, embeds=embeds,
                         image_embeds=image_embeds)
-    logits = logits.float()
+    logits = upcast(logits)
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels.long()[..., None])[..., 0]
     loss = (logz - gold).mean()
@@ -546,10 +568,10 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
     x = _embed_in(p, cfg, ids1, embeds1)
     fam = cfg.family
     if fam == "ssm":
-        for i in range(cfg.n_layers):
+        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
             x, st, lt, lc = _rwkv_layer(
-                _layer(p["blocks"], i), cfg, x, cache["state"][i],
-                cache["last_t"][i], cache["last_c"][i])
+                blk, cfg, x, cache["state"][i], cache["last_t"][i],
+                cache["last_c"][i])
             cache["state"][i].copy_(st)
             cache["last_t"][i].copy_(lt)
             cache["last_c"][i].copy_(lc)
@@ -558,10 +580,9 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     rope = _rope(cfg, pos.reshape(1), cfg.jdtype)
     if fam in ("dense", "moe", "audio"):
-        for i in range(cfg.n_layers):
-            x, _ = block_decode(_layer(p["blocks"], i), cfg, x,
-                                cache["k"][i], cache["v"][i], pos,
-                                rope=rope)
+        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+            x, _ = block_decode(blk, cfg, x, cache["k"][i], cache["v"][i],
+                                pos, rope=rope)
         return _logits(p, cfg, x)[:, 0], cache
     if fam == "hybrid":
         n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
@@ -571,24 +592,22 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
             state.copy_(st)
             conv.copy_(cv)
             return h
-        for gi in range(n_super):
-            group = _layer(p["mamba"], gi)
-            for j in range(cfg.attn_interval):
-                x = mamba(_layer(group, j), cache["ssm"][gi, j],
-                          cache["conv"][gi, j], x)
+        for gi, group in enumerate(_unstack(p["mamba"], n_super)):
+            for j, blk in enumerate(_unstack(group, cfg.attn_interval)):
+                x = mamba(blk, cache["ssm"][gi, j], cache["conv"][gi, j], x)
             x, _ = block_decode(p["shared_attn"], cfg, x, cache["k"][gi],
                                 cache["v"][gi], pos, rope=rope)
-        for t in range(trail):
-            x = mamba(_layer(p["mamba_trail"], t), cache["ssm_trail"][t],
-                      cache["conv_trail"][t], x)
+        for t, blk in enumerate(_unstack(p["mamba_trail"], trail)):
+            x = mamba(blk, cache["ssm_trail"][t], cache["conv_trail"][t], x)
         return _logits(p, cfg, x)[:, 0], cache
-    for gi in range(cfg.n_layers // cfg.cross_attn_interval):
-        plain = _layer(p["plain"], gi)
-        for j in range(cfg.cross_attn_interval - 1):
-            x, _ = block_decode(_layer(plain, j), cfg, x,
-                                cache["k_plain"][gi, j],
+    groups = cfg.n_layers // cfg.cross_attn_interval
+    for gi, (plain, crossed) in enumerate(zip(
+            _unstack(p["plain"], groups), _unstack(p["crossed"], groups))):
+        for j, blk in enumerate(_unstack(plain,
+                                         cfg.cross_attn_interval - 1)):
+            x, _ = block_decode(blk, cfg, x, cache["k_plain"][gi, j],
                                 cache["v_plain"][gi, j], pos, rope=rope)
-        x, _ = block_decode(_layer(p["crossed"], gi), cfg, x,
+        x, _ = block_decode(crossed, cfg, x,
                             cache["k_cross"][gi], cache["v_cross"][gi], pos,
                             img_kv=(cache["img_k"][gi], cache["img_v"][gi]),
                             rope=rope)

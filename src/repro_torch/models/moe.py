@@ -18,7 +18,17 @@ routing is the reference's exactly and capturable:
     extra row ``E·cap``, which is discarded: no data-dependent shape.
 
 The three expert products are batched GEMMs in the model's dtype, as the
-reference's einsums. The local routing of a sharded batch (``shard_axes``,
+reference's einsums.
+
+The backward sums in a fixed order on the card: the dispatch's row
+gathers (the tokens into expert order, the gates into expert order, the
+expert outputs back per choice) take their rows through
+``kernels.gather_rows``, whose gradient is P4's fixed-order segment sum,
+where autograd's backward of an indexing would scatter with atomics; the
+top-k values are selected by a compare-and-sum over the experts (one
+non-zero term: the value exactly), whose backward is elementwise; the
+slot write (``index_copy_``) has a gather for its backward and the
+combine's ``index_add_`` an ``index_select``. The local routing of a sharded batch (``shard_axes``,
 ``groups`` > 1) waits for the distributed slice (ROADMAP item 17).
 """
 from __future__ import annotations
@@ -26,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.gather_backward import gather_rows
 from repro_torch.models.layers import dense_init
 
 __all__ = ["moe_init", "moe_apply", "capacity"]
@@ -54,12 +65,19 @@ def capacity(capacity_factor: float, tokens: int, top_k: int,
 
 
 def _top_k(logits: torch.Tensor, k: int):
-    """``lax.top_k``: the k largest per row, ties to the lower index."""
+    """``lax.top_k``: the k largest per row, ties to the lower index. The
+    values are read by a compare with the expert index and a sum (each a
+    row's one logit plus zeros, so the value exactly), whose backward,
+    unlike a ``gather``'s or a ``sort``'s, scatters nothing."""
     if k == 1:
         idx = logits.argmax(dim=-1, keepdim=True)
-        return logits.gather(-1, idx), idx
-    val, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    return val[..., :k], idx[..., :k]
+    else:
+        idx = torch.sort(logits, dim=-1, descending=True,
+                         stable=True).indices[..., :k]
+    experts = torch.arange(logits.shape[-1], device=logits.device)
+    chosen = idx[..., None] == experts                     # (t, k, E)
+    val = torch.where(chosen, logits[..., None, :], 0.0).sum(dim=-1)
+    return val, idx
 
 
 def _route_local(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
@@ -75,7 +93,8 @@ def _route_local(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
     token_of = torch.arange(t, device=x.device).repeat_interleave(top_k)
     gate_of = gates.reshape(-1)
     order = torch.argsort(expert_of, stable=True)              # reordering
-    se, st, sg = expert_of[order], token_of[order], gate_of[order]
+    se, st = expert_of[order], token_of[order]
+    sg = gather_rows(gate_of[:, None], order)[:, 0]
     counts = torch.zeros((e,), dtype=torch.int64, device=x.device
                          ).scatter_add_(0, se, torch.ones_like(se))
     starts = torch.cumsum(counts, dim=0) - counts
@@ -84,7 +103,7 @@ def _route_local(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
     slot = torch.where(keep, se * cap + rank, e * cap)         # drop row
     xd = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
     # the drop row takes duplicate writes and is discarded
-    xd.index_copy_(0, slot, x[st])
+    xd.index_copy_(0, slot, gather_rows(x, st))
     return (xd[:-1].reshape(e, cap, d), (st, sg, slot, keep), top_idx,
             logits)
 
@@ -94,7 +113,7 @@ def _combine_local(y: torch.Tensor, meta, t: int, d: int) -> torch.Tensor:
     e_cap = y.shape[0] * y.shape[1]
     yf = y.reshape(e_cap, -1)
     contrib = torch.where(keep[:, None],
-                          yf[torch.clamp_max(slot, e_cap - 1)]
+                          gather_rows(yf, torch.clamp_max(slot, e_cap - 1))
                           * sg[:, None].to(yf.dtype), 0)
     # each token gets at most k <= 2 contributions into a zero row: the
     # rounded sum (0 + a) + b equals (0 + b) + a, so the result does not

@@ -23,11 +23,9 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.autograd.function import once_differentiable
 
 from repro_torch.core.workload import PointNetConfig, SALayerSpec
-from repro_torch.kernels import (build_program, fps_batched,
-                                 gather_rows_backward)
+from repro_torch.kernels import build_program, fps_batched, gather_rows
 from repro_torch.kernels.fps_update import sq_dist, valid_rows
 
 Params = Any
@@ -36,37 +34,6 @@ Params = Any
 # ---------------------------------------------------------------------------
 # geometry: the "point mapping" stage
 # ---------------------------------------------------------------------------
-
-class _GatherRows(torch.autograd.Function):
-    """``take_along_dim`` rows forward; backward through P4
-    (:func:`~repro_torch.kernels.gather_rows_backward`), each source row's
-    gradient summed in increasing position, where autograd's own backward
-    (a scatter-add) sums on the card in an order that changes run to
-    run."""
-
-    @staticmethod
-    def forward(ctx, x, flat):
-        ctx.save_for_backward(flat)
-        ctx.n_rows = x.shape[-2]
-        return torch.take_along_dim(x, flat[..., None], dim=-2)
-
-    @staticmethod
-    @once_differentiable
-    def backward(ctx, grad):
-        (flat,) = ctx.saved_tensors
-        return gather_rows_backward(grad, flat, ctx.n_rows), None
-
-
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[..., idx, :]`` per batch row: x ``(…, N, C)``, idx ``(…, *S)``
-    -> ``(…, *S, C)``. Its gradient with respect to ``x`` is summed in a
-    fixed order (:class:`_GatherRows`), so training is reproducible on
-    the card; the values are ``take_along_dim``'s."""
-    lead = x.shape[:-2]
-    flat = idx.reshape(*lead, -1).long()
-    out = _GatherRows.apply(x, flat)
-    return out.reshape(*idx.shape, x.shape[-1])
-
 
 def farthest_point_sample(points: torch.Tensor, n_samples: int,
                           start: int = 0, *, n_valid=None) -> torch.Tensor:

@@ -13,14 +13,20 @@ tokens) as a Python loop over the static chunks, carrying the float32
 Decode is the O(1) recurrence. The token shift's trailing token is carried
 in the decode cache. The arithmetic is the reference's, op for op: float32
 decays, cumulative sums and products, the group norm's population
-variance, the output cast to the model's dtype before the gate.
+variance, the output cast to the model's dtype before the gate (float32
+is :func:`~repro_torch.models.layers.upcast`'s: float64 weights compute
+in float64). The decays' cumulative sums run in the reference's float32
+order, forward and backward (:class:`_CumSum`), for every chunk at once
+before the loop; the rest differentiates through autograd (no op here
+writes in place into a tensor autograd saved).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
-from repro_torch.models.layers import dense_init, linear
+from repro_torch.models.layers import dense_init, linear, upcast
 
 __all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_time_mix_step",
            "rwkv_channel_mix", "rwkv_channel_mix_step", "CHUNK"]
@@ -71,18 +77,18 @@ def _mix(x, xx, mu):
 
 
 def _log_w(wr: torch.Tensor) -> torch.Tensor:
-    return -(W_MIN + W_SPAN * torch.sigmoid(wr.float()))
+    return -(W_MIN + W_SPAN * torch.sigmoid(upcast(wr)))
 
 
 def _group_norm(o: torch.Tensor, gamma: torch.Tensor, head_size: int,
                 eps: float = 1e-5) -> torch.Tensor:
     b, s, d = o.shape
-    oh = o.reshape(b, s, d // head_size, head_size).float()
+    oh = upcast(o.reshape(b, s, d // head_size, head_size))
     mu = oh.mean(dim=-1, keepdim=True)
     # jnp.var is the population variance
     var = oh.var(dim=-1, keepdim=True, correction=0)
     oh = (oh - mu) * torch.rsqrt(var + eps)
-    return oh.reshape(b, s, d) * gamma.float()
+    return oh.reshape(b, s, d) * upcast(gamma)
 
 
 def _projections(pt, x, xx, head_size: int):
@@ -94,8 +100,8 @@ def _projections(pt, x, xx, head_size: int):
     g = linear(pt["g"], _mix(x, xx, pt["mix"][3]))
     wr = linear(pt["w"], _mix(x, xx, pt["mix"][4]))
     shape = (b, s, h, head_size)
-    return (r.reshape(shape).float(), k.reshape(shape).float(),
-            v.reshape(shape).float(), g, _log_w(wr.reshape(shape)))
+    return (upcast(r.reshape(shape)), upcast(k.reshape(shape)),
+            upcast(v.reshape(shape)), g, _log_w(wr.reshape(shape)))
 
 
 def _finish(pt, o, g, x, head_size: int):
@@ -104,11 +110,40 @@ def _finish(pt, o, g, x, head_size: int):
     return linear(pt["out"], o * F.silu(g))
 
 
-def _chunk(s0, u, rb, kb, vb, lwb):
-    """One chunk of the reference's ``chunk_body``: the state after it and
-    the chunk's outputs (B, q, H, V)."""
+class _CumSum(torch.autograd.Function):
+    """The inclusive sum along dim 1 in the reference's float32 order (what
+    XLA's CPU backend computes for a chunk of at most 16): output ``i`` is
+    ``((x_0 + x_1) + ...) + x_i``, its gradient ``((g_i + g_{i+1}) + ...)
+    + g_{q-1}``. ``torch.cumsum`` accumulates float32 in float64 on the
+    CPU and in a parallel order on the card; the decays' sums reach -60 in
+    a chunk, so their rounding moves ``exp(±lcum)`` by about 60 ulp, and
+    the group norm's rows that are nearly constant carry that into the
+    gradients. Each addition is one launch over every chunk of a layer
+    (dim 0 runs over batch rows and chunks)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        sums = [x[:, :1]]
+        for i in range(1, x.shape[1]):
+            sums.append(sums[-1] + x[:, i:i + 1])
+        return torch.cat(sums, dim=1)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        q = g.shape[1]
+        tail = F.pad(g, (0,) * (2 * (g.ndim - 2)) + (0, q - 1))
+        acc = g
+        for d in range(1, q):       # zeros past the end add exactly
+            acc = acc + tail[:, d:d + q]
+        return acc
+
+
+def _chunk(s0, u, rb, kb, vb, lwb, lcum):
+    """One chunk of the reference's ``chunk_body`` (``lcum`` the decays'
+    inclusive sum within it): the state after it and the chunk's outputs
+    (B, q, H, V)."""
     q = rb.shape[1]
-    lcum = torch.cumsum(lwb, dim=1)                   # inclusive
     p_prev = torch.exp(lcum - lwb)                    # P_{t-1} = P_t / w_t
     rt = rb * p_prev
     # inter-chunk: r_t ⊙ P_{t-1} @ S0
@@ -137,14 +172,17 @@ def rwkv_time_mix(pt, x: torch.Tensor, *, head_size: int, state=None,
     xx = _shift(x, last_x)
     r, k, v, g, lw = _projections(pt, x, xx, head_size)
     q = min(CHUNK, s)
+    # each chunk's inclusive decay sums, every chunk at once
+    lcum = _CumSum.apply(lw.reshape(b * (s // q), q, h, head_size))
+    lcum = lcum.reshape(lw.shape)
     if state is None:
-        state = torch.zeros((b, h, head_size, head_size),
-                            dtype=torch.float32, device=x.device)
+        state = torch.zeros((b, h, head_size, head_size), dtype=lw.dtype,
+                            device=x.device)
     outs = []
     for c in range(s // q):
         sl = slice(c * q, (c + 1) * q)
         state, o = _chunk(state, pt["u"], r[:, sl], k[:, sl], v[:, sl],
-                          lw[:, sl])
+                          lw[:, sl], lcum[:, sl])
         outs.append(o)
     o = torch.cat(outs, dim=1)
     return _finish(pt, o, g, x, head_size), state, x[:, -1:]

@@ -146,13 +146,39 @@ def clip_by_global_norm(grads, max_norm: float):
     """``grads`` scaled so that their global L2 norm is at most
     ``max_norm`` (each leaf in float32, back in its own dtype), and the
     norm before clipping: ``(tree, gn)``."""
-    leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                        for g in leaves))
-    scale = torch.clamp_max(
+    gn, scale = _clip_scale(grads, max_norm)
+    return tree_map(lambda g: _clipped(g, scale), grads), gn
+
+
+#: elements of a leaf squared and summed, or updated, at a time (1 GiB of
+#: float32): the float32 temporaries stay this size whatever the leaf's
+#: (llama4-scout's stacked experts are 671 M elements a layer). A leaf no
+#: larger is one piece, whose arithmetic is the whole leaf's.
+PIECE = 1 << 28
+
+
+def _pieces(t: torch.Tensor, read_only: bool = False) -> tuple:
+    """``t`` whole, or the consecutive flat pieces of a larger ``t``: views
+    of it, so that writes into them write ``t`` (a ``read_only`` ``t`` may
+    be non-contiguous, and is then copied)."""
+    if t.numel() <= PIECE:
+        return (t,)
+    return (t.reshape(-1) if read_only else t.view(-1)).split(PIECE)
+
+
+def _clip_scale(grads, max_norm: float):
+    """The global norm of ``grads`` (each leaf's squares summed piece by
+    piece, :data:`PIECE`) and the factor that clips it."""
+    gn = torch.sqrt(sum(torch.sum(torch.square(c.to(torch.float32)))
+                        for g in tree_leaves(grads)
+                        for c in _pieces(g, read_only=True)))
+    return gn, torch.clamp_max(
         _f32(max_norm, gn) / torch.clamp_min(gn, 1e-12), 1.0)
-    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype),
-                    grads), gn
+
+
+def _clipped(g: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """One leaf clipped: in float32, back in its own dtype."""
+    return (g.to(torch.float32) * scale).to(g.dtype)
 
 
 def adamw_init(params, cfg: AdamWConfig) -> dict:
@@ -178,7 +204,9 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
     new one would leave the next replay at the same step)."""
     step = state["step"].add_(1) if step_in_place else state["step"] + 1
     lr = warmup_cosine(cfg, step)
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    # each leaf clipped inside its update, as clip_by_global_norm clips it:
+    # no second tree of gradients
+    gnorm, scale = _clip_scale(grads, cfg.clip_norm)
     c = lambda v: _f32(v, lr)                               # noqa: E731
     s32 = step.to(torch.float32)
     bc1 = c(1.0) - torch.pow(c(cfg.b1), s32)
@@ -187,16 +215,27 @@ def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
     eps, wd = c(cfg.eps), c(cfg.weight_decay)
 
     def upd(p, g, m, v):
-        g32 = g.to(torch.float32)
-        m32 = b1 * m.to(torch.float32) + nb1 * g32
-        v32 = b2 * v.to(torch.float32) + nb2 * g32 * g32
-        mh = m32 / bc1
-        vh = v32 / bc2
-        p32 = p.to(torch.float32)
-        delta = mh / (torch.sqrt(vh) + eps) + wd * p32
-        p.copy_(p32 - lr * delta)
+        for pieces in zip(_pieces(p), _pieces(g, read_only=True),
+                          _pieces(m), _pieces(v)):
+            upd_piece(*pieces)
+
+    def upd_piece(p, g, m, v):
+        # the reference's expressions, each product and sum the same
+        # (commuted where IEEE arithmetic is exact under it) but computed
+        # in place into the float32 temporaries: a piece's update holds
+        # four float32 copies of it at most (1 GiB each)
+        g32 = _clipped(g, scale).to(torch.float32)
+        m32 = m.to(torch.float32, copy=True).mul_(b1).add_(g32 * nb1)
+        v32 = v.to(torch.float32, copy=True).mul_(b2).add_(
+            (g32 * nb2).mul_(g32))
+        del g32
         m.copy_(m32)
         v.copy_(v32)
+        delta = m32.div_(bc1).div_(v32.div_(bc2).sqrt_().add_(eps))
+        del v32
+        p32 = p.to(torch.float32)     # ``p`` itself when float32
+        delta.add_(wd * p32)
+        p.copy_(p32.sub_(delta.mul_(lr)))
 
     tree_map(upd, params, grads, state["m"], state["v"])
     return params, {"m": state["m"], "v": state["v"], "step": step}, \

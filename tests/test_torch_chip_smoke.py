@@ -98,6 +98,8 @@ def test_paths_count_one_prepass_per_k1_k2_call(smoke):
     counter = {"whole": "fused_mlp", "mtiled": "fused_mlp_mtiled",
                "wstat": "fused_mlp_wstat"}
     for model, paths in smoke.PATHS.items():
+        if model == "lm_train":
+            continue
         for name in ("reram-fused", "reram-fused-mtiled"):
             fused = paths.get(name)
             if fused is None:
@@ -792,3 +794,107 @@ def test_eager_against_forward_compares_every_token_step(smoke, arch):
     pairs = run["prefill"] + run["steps"]
     assert len(pairs) == 4 and all(p is not None for p in pairs)
     smoke._lm_compare(pairs, smoke.LM_F32_BOUND, arch)
+
+
+def test_lm_train_phase_runs_the_published_configs(smoke):
+    """(a) the published qwen1.5-0.5b at train_4k's length; (d) each wide
+    config at published width with its depth cut, as the phase names it."""
+    from repro_torch.configs import SHAPES, get_config
+    cfg = get_config(smoke.LM_ARCH)
+    assert (smoke.LM_TRAIN_BATCH, smoke.LM_TRAIN_SEQ) == (
+        2, SHAPES["train_4k"].seq_len)
+    assert cfg.opt_moment_dtype == "float32"
+    assert smoke.LM_TRAIN_COMPARE == 7 and smoke.LM_TRAIN_STEPS == 20
+    for arch, over, moments, n_params in smoke.LM_TRAIN_WIDE:
+        full = get_config(arch)
+        cut = dataclasses.replace(full, **over)
+        assert cut.n_params() == n_params and cut.dtype == "bfloat16"
+        assert (cut.d_model, cut.vocab_size) == (full.d_model,
+                                                 full.vocab_size)
+        assert cut.n_layers < full.n_layers
+        if cut.family == "hybrid":      # one attn_interval group, no trail
+            assert cut.n_layers == cut.attn_interval == 6
+        assert moments == ("bfloat16" if cut.family == "moe"
+                           else "float32")
+
+
+def test_lm_train_p4_counts_are_the_steps_gathers(smoke, monkeypatch):
+    """``PATHS["lm_train"]``: one P4 call a step for the embedding, three
+    more per MoE layer (counted on the CPU, where a call runs the plain
+    version, over one step's backward at ``reduced()``)."""
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.kernels import gather_backward
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves, tree_map
+    calls = []
+    real = gather_backward.gather_rows_backward
+    monkeypatch.setattr(gather_backward, "gather_rows_backward",
+                        lambda *a: calls.append(1) or real(*a))
+    for arch in ("qwen1.5-0.5b", "llama4-scout-17b-a16e", "grok-1-314b",
+                 "rwkv6-3b", "zamba2-7b"):
+        cfg = get_config(arch).reduced()
+        p = tree_map(lambda t: t.requires_grad_(),
+                     lm.init(0, cfg, device="cpu"))
+        ins = dummy_inputs(cfg, "train", 2, 16, seed=1, device="cpu")
+        calls.clear()
+        loss, _ = lm.loss_fn(p, cfg, ins["ids"], ins["labels"])
+        torch.autograd.grad(loss, tree_leaves(p))
+        moe = cfg.family == "moe"
+        assert len(calls) == 1 + (3 * cfg.n_layers if moe else 0), arch
+    for arch, over, _, _ in smoke.LM_TRAIN_WIDE:
+        cfg = dataclasses.replace(get_config(arch), **over)
+        moe = cfg.family == "moe"
+        assert smoke.PATHS["lm_train"][arch] == {
+            "gather_rows_backward": 1 + (3 * cfg.n_layers if moe else 0)}
+    assert smoke.PATHS["lm_train"][smoke.LM_ARCH] == {
+        "gather_rows_backward": 1}
+
+
+def test_lm_train_flops_by_hand(smoke):
+    from repro_torch.configs import get_config
+    cfg = get_config("qwen1.5-0.5b")
+    got = smoke.lm_train_flops(cfg, 2, 4096)
+    assert got["gemm_flops"] == 6 * 463_863_808 * 8192
+    # chunks of 512 queries and 1024 keys: query chunk i sees key chunks
+    # 0..i // 2, so 1+1+2+2+3+3+4+4 = 20 of the 8 x 4 pairs; 24 layers
+    assert smoke._causal_chunk_pairs(4096, 512, 1024) == 20
+    per_product = 2 * 2 * 16 * 512 * 1024 * 64 * 20 * 24
+    assert got["attention_bf16_flops"] == 4 * per_product
+    assert got["attention_f32_flops"] == 3 * per_product
+    assert got["gemm_ms"] == pytest.approx(23.05, abs=0.01)
+    assert got["attention_bf16_ms"] == pytest.approx(4.17, abs=0.01)
+    assert got["attention_f32_ms"] == pytest.approx(46.16, abs=0.01)
+    assert got["step_ms"] == pytest.approx(73.38, abs=0.01)
+    # a ragged tail: 1000 tokens in chunks of 512 and 1024 -> 2 pairs
+    assert smoke._causal_chunk_pairs(1000, 512, 1000) == 2
+    assert smoke._causal_chunk_pairs(48, 16, 16) == 6
+    # the hybrid pads to the Mamba2 chunk, then to its attention chunks;
+    # rwkv has no attention
+    zamba = dataclasses.replace(get_config("zamba2-7b"), n_layers=6)
+    z = smoke.lm_train_flops(zamba, 2, 1000)
+    assert z["attention_f32_flops"] == 3 * 2 * 2 * 32 * 1024 * 1024 * 112
+    assert smoke.lm_train_flops(get_config("rwkv6-3b"), 2, 1024)[
+        "attention_f32_flops"] == 0
+    # moe: the active parameters
+    scout = get_config("llama4-scout-17b-a16e")
+    assert smoke.lm_train_flops(scout, 1, 1)["gemm_flops"] == \
+        6 * scout.n_active_params()
+
+
+def test_float64_weights_give_float64_gradients(smoke):
+    """The ssm check's float64 run: float64 weights keep float64 through
+    the norms, decays and logits (``layers.upcast``), and land within
+    float32's distance of the float32 gradients."""
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_map
+    cfg = get_config("rwkv6-3b").reduced()
+    params = lm.init(0, cfg, device="cpu")
+    ins = dummy_inputs(cfg, "train", 2, 36, seed=5, device="cpu")
+    loss32, g32, _ = smoke._loss_and_grads(params, cfg, ins)
+    loss64, g64, _ = smoke._loss_and_grads(
+        tree_map(lambda t: t.double(), params),
+        dataclasses.replace(cfg, dtype="float64"), ins)
+    assert all(g.dtype == torch.float64 for g in g64)
+    assert loss64 != loss32 and abs(loss64 - loss32) <= 1e-6 * loss64
+    assert 0 < smoke._grad_err(g32, g64) <= 1e-3

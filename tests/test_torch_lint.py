@@ -72,6 +72,16 @@ BAD = {
             return clouds.max().item()
         call = CudaGraphCall(step, (None,))
         """, 5),
+    "host-sync/step-graphs": ("""
+        from repro_torch.models.backend import StepGraphs
+        def make():
+            graphs = StepGraphs()
+            def step(state, batch):
+                def train_step(x):
+                    return float(x.sum().cpu())
+                return graphs(train_step, [], (batch,))
+            return step
+        """, 6),
     "host-sync/replay": ("""
         class Model:
             def jit_loss(self, x):

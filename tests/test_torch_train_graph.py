@@ -1,6 +1,6 @@
 """The training step captured into one CUDA graph
 (``examples/train_pointnet_torch.py::make_step`` over
-``models/backend.py::CudaGraphCall``), and what it rests on.
+``models/backend.py::StepGraphs``), and what it rests on.
 
 On the CPU:
 - ``adamw_update(..., step_in_place=True)``, the form a captured step
@@ -8,15 +8,18 @@ On the CPU:
   AdamW within ``test_torch_optim.py``'s stated bounds (rtol 1e-6; the
   learning rate bit for bit), over 3 steps, and advances the state's own
   step tensor;
-- ``CudaGraphCall.warm_up`` leaves the parameters, moments and step
-  counter bit for bit as they were, so a run that warms up, then steps,
-  goes through the eager run's states;
-- off the card ``make_step`` is the eager step.
+- ``CudaGraphCall.warm_up`` (a capture with ``state=``, as the serving
+  sessions use) leaves the parameters, moments and step counter bit for
+  bit as they were, so a run that warms up, then steps, goes through the
+  eager run's states;
+- off the card ``StepGraphs`` calls the step itself every time, and
+  ``make_step`` is the eager step.
 
 On the card (``cuda`` marker; skipped here; the file imports no JAX at
 the top, so it runs where there is none): P4 bit for bit against its
 plain version at the training path's shapes, two eager runs bit for bit
-equal, captured steps bit for bit the eager ones, the graph holding the
+equal, captured steps bit for bit the eager ones (the first two calls
+eager, real steps; one graph per state and shapes), the graph holding the
 live parameter tensors, and K7 and P4 at 2 launches a replayed step.
 """
 import pathlib
@@ -31,7 +34,8 @@ from repro_torch.kernels import (launch_counts,                     # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels.gather_backward import (                   # noqa: E402
     gather_rows_backward_cuda, gather_rows_backward_plain, segments)
-from repro_torch.models.backend import CudaGraphCall                # noqa: E402
+from repro_torch.models.backend import (CudaGraphCall,              # noqa: E402
+                                        StepGraphs)
 from repro_torch.optim import (AdamWConfig, adamw_init,             # noqa: E402
                                adamw_update, tree_leaves, tree_map)
 
@@ -95,17 +99,14 @@ def _state(run):
     return tree_leaves(run["params"]) + tree_leaves(run["opt"])
 
 
-def _train(args, step_of, warm_up=False):
-    """``args.steps`` steps of a fresh run through ``step_of(run)``; with
-    ``warm_up``, first :meth:`CudaGraphCall.warm_up` on the first batch,
-    as a capture does. Returns the losses and the final state."""
+def _train(args, step_of):
+    """``args.steps`` steps of a fresh run through ``step_of(run)``.
+    Returns the losses and the final state."""
     run = trainer.setup(args)
     step = step_of(run)
     dev = run["device"]
     batches = [(torch.from_numpy(c).to(dev), torch.from_numpy(l).to(dev))
                for c, l in run["data"].batches(args.batch, args.steps)]
-    if warm_up:
-        CudaGraphCall.warm_up(step, batches[0], _state(run))
     losses = [step(*b)[0] for b in batches]
     return [float(x) for x in losses], _state(run), run
 
@@ -145,10 +146,40 @@ def test_a_warmed_up_run_goes_through_the_eager_states():
     """Warm-ups then 3 steps: the losses and the final state of 3 steps
     without warm-ups, bit for bit (the captured run's sequence)."""
     want, w_state, _ = _train(_args("cpu"), _eager)
-    got, g_state, _ = _train(_args("cpu"), _eager, warm_up=True)
+    got, g_state, _ = _train(_args("cpu"), _warmed_up)
     assert got == want
     assert all(torch.equal(a.detach(), b.detach())
                for a, b in zip(g_state, w_state))
+
+
+def _warmed_up(run):
+    """The eager step, its first call preceded by
+    :meth:`CudaGraphCall.warm_up` on that call's batch, as a capture with
+    ``state=`` does."""
+    step, first = _eager(run), []
+
+    def warmed(clouds, labels):
+        if not first:
+            first.append(1)
+            CudaGraphCall.warm_up(step, (clouds, labels), _state(run))
+        return step(clouds, labels)
+    return warmed
+
+
+def test_step_graphs_call_the_step_every_time_off_the_card():
+    calls = []
+
+    def step(x, y):
+        calls.append((x, y))
+        return x + 1, y
+
+    graphs = StepGraphs()
+    x, state = torch.zeros(3), [torch.ones(2)]
+    for i in range(4):
+        out = graphs(step, state, (x, None))
+        assert torch.equal(out[0], x + 1) and out[1] is None
+        assert len(calls) == i + 1 and calls[-1][0] is x
+    assert graphs.graphs == {}
 
 
 def test_make_step_on_the_cpu_is_the_eager_step():
@@ -252,7 +283,8 @@ def test_a_replayed_step_launches_k7_and_p4_twice(cuda):
     clouds, labels = (torch.from_numpy(a).to(cuda)
                       for a in next(run["data"].batches(CARD["batch"], 1)))
     reset_launch_counts()
-    step(clouds, labels)                # two warm-ups and the capture
+    for _ in range(CudaGraphCall.WARMUP + 1):   # eager steps, the capture
+        step(clouds, labels)
     torch.cuda.synchronize()
     counts = launch_counts()
     assert counts["fps"] == counts["gather_rows_backward"] == \
@@ -265,3 +297,28 @@ def test_a_replayed_step_launches_k7_and_p4_twice(cuda):
     assert sum("fps_" in n and "kernel" in n for n in names) == 2
     assert sum("gather_rows_backward_kernel" in n for n in names) == 2
     assert launch_counts() == counts      # a replay moves no counter
+
+
+@pytest.mark.cuda
+def test_step_graphs_warm_up_with_real_steps_then_capture(cuda):
+    """The first two calls per state and shapes run the step (each a real
+    step on the state), the third captures it, later ones replay; another
+    state, or other shapes, get a graph of their own."""
+    calls = []
+
+    def step(x):
+        calls.append(1)
+        state[0].add_(x)
+        return state[0].sum()
+
+    graphs = StepGraphs()
+    state = [torch.zeros(4, device=cuda)]
+    x = torch.ones(4, device=cuda)
+    sums = [float(graphs(step, state, (x,))) for _ in range(5)]
+    assert sums == [4.0, 8.0, 12.0, 16.0, 20.0]
+    assert len(calls) == CudaGraphCall.WARMUP + 1 and len(graphs.graphs) == 1
+    graphs(step, state, (torch.ones(2, 4, device=cuda)[0],))
+    assert len(graphs.graphs) == 1              # the same shapes replay
+    other = [torch.zeros(4, device=cuda)]
+    graphs(step, other, (x,))
+    assert len(graphs.graphs) == 2
