@@ -190,7 +190,29 @@ and batch size. Phases, each printing one JSON line:
    ``lm_decode_bytes`` with the timed step's routed experts counted on
    the card): the prefill's and the decode step's times, device time,
    busy share and launches, and the peak of allocated memory.
-12. lm_train: LM training (``repro_torch.launch.train``; no hand kernel
+12. distributed (after train, before lm): the distributed layer
+   (``repro_torch.launch``: ``mesh``, ``sharding``, ``collectives``,
+   ``pipeline``) over NCCL at world size 1 (the card machine has one
+   card; multi-rank parity runs on gloo in ``tests/
+   test_torch_distributed.py``), on ``make_test_mesh((1, 1))`` and
+   ``make_replica_mesh(1)``. (a) The TP head layout at published width and
+   depth: qwen1.5-4b from seed 0 at tp 16 (20 MHA heads padded to 32)
+   against tp 1, 4 prompts of 1000 tokens, the prefill and 8
+   teacher-forced captured decode steps within ``DIST_TP_BOUND``; tp 16's 8
+   captured steps bit for bit eager ones. (b) ``make_train_step(...,
+   mesh=)`` on qwen1.5-0.5b at published width and depth, 2 x 1024, state
+   and batch placed by ``state_pspecs``/``input_pspecs``: 3 steps' losses
+   and every leaf bit for bit the unsharded (captured) step's;
+   ``compressed_psum``, ``pipeline_forward`` and ``overlapped_tp_matmul``
+   on one rank bit for bit ``int8_dequantize(int8_quantize(x))``, the stage
+   and the product. (c) model2 'reram-fused' through
+   ``PointCloudServable(mesh=make_replica_mesh(1))``: rows bit for bit
+   ``mesh=None``'s on a fresh model, the launch counters equal and held to
+   the captures and plan builds (``PATHS["model2"]["serve_replica"]``).
+   Printed: prefill and decode times, peak memory and the KV caches'
+   bytes at 32 heads against 20; the sharded step's time beside the
+   unsharded step's, captured and eager.
+13. lm_train: LM training (``repro_torch.launch.train``; no hand kernel
    but P4, the embedding's and the MoE dispatch's gradient). (a)
    ``run_training`` on qwen1.5-0.5b at published width and depth, bf16,
    float32 moments, the port's weights from seed 0, 2 x 4096 tokens of one
@@ -218,7 +240,8 @@ and batch size. Phases, each printing one JSON line:
    its plain version, with its times beside ``index_add_`` and its bound.
 
 Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
-launches in the serve phase's runs; ``train_launches``: K7's in the train
+launches in the serve phase's runs; ``replica_launches``: in the
+distributed phase's replica run; ``train_launches``: K7's in the train
 phase's run, ``train_launches_per_replay`` its launches in one replayed
 step; P4's row, whose ``launches`` are its counter in the train phase's
 run, ``lm_train_launches`` and ``lm_train_launches_per_replay`` its
@@ -996,6 +1019,10 @@ PATHS = {
                  "zamba2-7b": {"gather_rows_backward": 1},
                  "llama4-scout-17b-a16e": {"gather_rows_backward": 4}},
 }
+# replica fan-out (phase ``distributed``): a served step per batch bucket on
+# each replica's slice of the batch; on one card the one replica's slice is
+# the whole batch, so the served path's counts
+PATHS["model2"]["serve_replica"] = PATHS["model2"]["serve"]
 MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
                 "fused_mlp_mtiled_layer", "fused_mlp_wstat",
                 "fused_mlp_wstat_layer", "fused_mlp_combine",
@@ -1046,7 +1073,7 @@ def phase_end_to_end(params, cfgs, clouds_np) -> dict:
                 check(torch.equal(geom[part][k].cpu(), ref_geom[part][k]),
                       f"{name} geometry layer {k} bitwise card vs CPU")
         for backend, mlp_counts in PATHS[name].items():
-            if backend == "serve":          # driven by phase_serve
+            if backend.startswith("serve"):   # phases serve, distributed
                 continue
             model = repro_torch.compile_model(params[name], cfg,
                                               backend=backend,
@@ -2427,6 +2454,22 @@ def _miss_build_ms(model, payloads) -> dict:
     return out
 
 
+def _served_counts(model, builds: int, per_step: dict) -> dict:
+    """The launches a served run on ``model`` must count: a capture calls
+    the step ``CudaGraphCall.WARMUP`` times on a side stream, then once
+    under capture (a replay moves no counter), each call ``per_step`` at
+    its batch with K7 and the gather twice; each of ``builds`` plan-cache
+    misses builds a plan (K7 twice, P1 and P2 once)."""
+    from repro_torch.models.backend import CudaGraphCall
+    calls = (CudaGraphCall.WARMUP + 1) * model.captures
+    want = {"fps": 2 * calls + 2 * builds, "plan_greedy": builds,
+            "plan_coordinate": builds, "aggregate_diff_batched": 2 * calls}
+    for key in model._graphs:        # (entry, operands, (clouds' shape, …))
+        for c, n in per_step[key[2][0][0]].items():
+            want[c] = want.get(c, 0) + (CudaGraphCall.WARMUP + 1) * n
+    return want
+
+
 def phase_serve(params2, cfg2, bare, smi) -> dict:
     """The serving tier over model2 'reram-fused' at full width and depth
     (a fresh model, so its captures are the served path's alone): the pool
@@ -2445,7 +2488,6 @@ def phase_serve(params2, cfg2, bare, smi) -> dict:
     served path's counts."""
     import repro_torch
     from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.models.backend import CudaGraphCall
     t0 = time.perf_counter()
     model = repro_torch.compile_model(params2, cfg2, backend="reram-fused",
                                       schedule="pointer")
@@ -2460,15 +2502,7 @@ def phase_serve(params2, cfg2, bare, smi) -> dict:
     counts = launch_counts()
     captures = model.captures
     builds = sum(r[0].plan_cache.misses for r in runs.values())
-    # a capture calls the step WARMUP times on a side stream, then once
-    # under capture; a replay moves no counter
-    calls = (CudaGraphCall.WARMUP + 1) * captures
-    per_step = PATHS["model2"]["serve"]
-    want = {"fps": 2 * calls + 2 * builds, "plan_greedy": builds,
-            "plan_coordinate": builds, "aggregate_diff_batched": 2 * calls}
-    for key in model._graphs:        # (entry, operands, (clouds' shape, …))
-        for c, n in per_step[key[2][0][0]].items():
-            want[c] = want.get(c, 0) + (CudaGraphCall.WARMUP + 1) * n
+    want = _served_counts(model, builds, PATHS["model2"]["serve"])
     for key, n in counts.items():
         check(n == want.get(key, 0),
               f"serve: {key} launched {n} times, expected "
@@ -3286,17 +3320,17 @@ def _moe_against_forward(params, cfg, sess, prompts, out, bound, what,
     return res
 
 
-def _lm_captured_vs_eager(params, cfg, sess, tokens, s: int) -> int:
-    """:data:`LM_BITWISE_STEPS` captured decode steps against
-    ``decode_step`` run eagerly on a copy of the same cache: logits and
-    caches bit for bit."""
+def _lm_captured_vs_eager(params, cfg, sess, tokens, s: int,
+                          steps: int = LM_BITWISE_STEPS) -> int:
+    """``steps`` captured decode steps against ``decode_step`` run eagerly
+    on a copy of the same cache: logits and caches bit for bit."""
     from repro_torch.models import lm
     sess.prefill(tokens[:, :s])
     with torch.inference_mode():
         eager_cache = {k: v.clone() for k, v in sess.cache.items()}
-        positions = torch.arange(s, s + LM_BITWISE_STEPS, dtype=torch.int32,
+        positions = torch.arange(s, s + steps, dtype=torch.int32,
                                  device="cuda")
-        for i in range(LM_BITWISE_STEPS):
+        for i in range(steps):
             ids1 = tokens[:, s + i:s + i + 1]
             got, _ = sess.decode(sess.cache, ids1, positions[i])
             want, _ = lm.decode_step(params, cfg, eager_cache, ids1,
@@ -3306,7 +3340,7 @@ def _lm_captured_vs_eager(params, cfg, sess, tokens, s: int) -> int:
         check(all(torch.equal(sess.cache[k], eager_cache[k])
                   for k in eager_cache),
               "lm: the captured steps' cache differs from eager's")
-    return LM_BITWISE_STEPS
+    return steps
 
 
 def _lm_times(params, cfg, sess, prompts, tokens) -> dict:
@@ -4266,6 +4300,305 @@ def phase_lm_train(smi: str) -> dict:
             "p4_embedding": res["p4_embedding"]}
 
 
+# ---------------------------------------------------------------------------
+# the distributed layer (NCCL at world size 1)
+# ---------------------------------------------------------------------------
+
+#: (a) the TP head layout at published width and depth: qwen1.5-4b (20
+#: heads with QKV biases, MHA) at tp 16 pads its heads 20 -> 32
+DIST_ARCH = "qwen1.5-4b"
+#: ``ArchConfig.n_params()`` of the published qwen1.5-4b
+DIST_PARAMS = 3_949_854_720
+DIST_TP = 16
+DIST_BATCH = 4
+DIST_PROMPT = 1000
+#: captured decode steps compared at tp 16 against tp 1, and held bit for
+#: bit against eager ones
+DIST_DECODE = 8
+#: bf16 logits at tp 16 against tp 1 (prefill and each teacher-forced
+#: decode step), as a fraction of the largest |logit|: the padded heads add
+#: exact zeros, the rest is the GEMMs' and attention's order at other
+#: shapes (measured 1.73% on an H100 80GB HBM3 at 700 W; the lm phase's
+#: bound is 4%)
+DIST_TP_BOUND = 0.03
+#: (b) the storage-sharded step: qwen1.5-0.5b at published width and
+#: depth, 2 x 1024 tokens, 3 steps against the unsharded step
+DIST_TRAIN_BATCH = 2
+DIST_TRAIN_SEQ = 1024
+DIST_TRAIN_STEPS = 3
+#: further steps of each, timed once the comparison is done (the captured
+#: step's replays, the sharded step and the unsharded step run eagerly)
+DIST_TRAIN_TIMED = 10
+#: compressed_psum at world size 1 on a (rows, cols) float32 gradient;
+#: pipeline_forward on 1 stage: M microbatches of (mb, d), stage tanh(h @ w)
+DIST_PSUM_SHAPE = (4096, 1024)
+DIST_PIPE = {"m": 4, "mb": 8, "d": 1024}
+#: (c) replica fan-out: model2 'reram-fused' behind one replica, batches
+#: of these sizes (8 clouds of 1024 points, 3 of 700: run replicated when
+#: they do not divide the replica count)
+DIST_SERVE_BATCHES = ((8, 1024), (3, 700), (8, 1024))
+
+
+def _nccl_world():
+    """The default process group over NCCL at world size 1 (a free port on
+    localhost); the caller destroys it."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    check(dist.get_backend() == "nccl", "distributed: no NCCL group")
+    return dist
+
+
+def _cache_bytes(cache: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in cache.values())
+
+
+def _dist_tp_layout() -> dict:
+    """(a): qwen1.5-4b from seed 0, ``generate`` at tp 1 (the tokens), then
+    at tp 16 through its own captured session; the tp 16 prefill and
+    :data:`DIST_DECODE` teacher-forced decode steps against tp 1's within
+    :data:`DIST_TP_BOUND`; tp 16's captured steps bit for bit the eager
+    ones; times, peak memory and the KV caches' bytes."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    cfg1 = get_config(DIST_ARCH)
+    check(cfg1.n_params() == DIST_PARAMS and cfg1.dtype == "bfloat16"
+          and cfg1.qkv_bias, "distributed: the config is not the "
+                             "published qwen1.5-4b")
+    cfg = dataclasses.replace(cfg1, tp=DIST_TP)
+    eff, eff_kv, _, _ = cfg.head_layout()
+    check((eff, eff_kv) == (32, 32), f"distributed: tp {DIST_TP} layout "
+                                     f"{eff}/{eff_kv}, not 32/32")
+    params = lm.init(SEED, cfg1)
+    prompts = torch.from_numpy(lm_prompts(cfg1, DIST_BATCH, DIST_PROMPT,
+                                          SEED))
+    new = DIST_DECODE + 1
+    out, _ = serve.generate(params, cfg1, prompts, max_new_tokens=new)
+    dev_prompts = prompts.cuda()
+    runs = {}
+    for name, c in (("tp1", cfg1), ("tp16", cfg)):
+        torch.cuda.reset_peak_memory_stats()
+        serve.generate(params, c, prompts, max_new_tokens=new)
+        sess = serve._session(params, c, DIST_BATCH, DIST_PROMPT + new)
+        last, steps = _lm_replay(sess, dev_prompts, out)
+        s, ids1 = DIST_PROMPT, out[:, DIST_PROMPT:DIST_PROMPT + 1]
+        pos = torch.tensor(s, dtype=torch.int32, device="cuda")
+        runs[name] = {
+            "last": last.clone(), "steps": [lg.clone() for lg in steps],
+            "prefill_ms": _wall_ms(lambda: sess.prefill(dev_prompts)),
+            "decode_ms": _wall_ms(lambda: sess.decode(sess.cache, ids1,
+                                                      pos)),
+            "kv_cache_bytes": _cache_bytes(sess.cache),
+            "kv_heads": int(sess.cache["k"].shape[-2]),
+            "peak_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sess": sess}
+    tp1, tp16 = runs["tp1"], runs["tp16"]
+    check(tp16["kv_heads"] == 32 and tp1["kv_heads"] == 20,
+          "distributed: the caches' KV heads")
+    pairs = [(tp16["last"], tp1["last"])] + list(zip(tp16["steps"],
+                                                     tp1["steps"]))
+    compare = _lm_compare(pairs, DIST_TP_BOUND, "tp 16 vs tp 1")
+    compare["per_step_err_over_max"] = _per_step_err(pairs)
+    bitwise = _lm_captured_vs_eager(params, cfg, tp16["sess"], out,
+                                    DIST_PROMPT, steps=DIST_DECODE)
+    res = {"arch": DIST_ARCH, "tp": DIST_TP, "heads": [cfg1.n_heads, eff],
+           "kv_heads": [cfg1.n_kv_heads, eff_kv],
+           "batch": DIST_BATCH, "prompt": DIST_PROMPT,
+           "decode_steps": DIST_DECODE, "bound": DIST_TP_BOUND,
+           "tp16_vs_tp1": compare, "captured_bitwise_steps": bitwise}
+    for name, r in runs.items():
+        res[name] = {"prefill_ms_median": statistics.median(r["prefill_ms"]),
+                     "prefill_ms": r["prefill_ms"],
+                     "decode_ms_median": statistics.median(r["decode_ms"]),
+                     "decode_ms": r["decode_ms"],
+                     "kv_cache_bytes": r["kv_cache_bytes"],
+                     "peak_allocated_gb": r["peak_allocated_gb"]}
+    res["kv_cache_ratio"] = tp16["kv_cache_bytes"] / tp1["kv_cache_bytes"]
+    del params, runs, tp1, tp16
+    serve.clear_lm_captures()
+    return res
+
+
+def _dist_sharded_step(mesh) -> dict:
+    """(b): :data:`DIST_TRAIN_STEPS` steps of qwen1.5-0.5b through
+    ``make_train_step(..., mesh=)`` on the (1, 1) mesh, the state and batch
+    placed by ``state_pspecs`` / ``input_pspecs``, against as many through
+    the unsharded (captured) ``make_train_step`` from the same seed: losses
+    and every leaf bit for bit; ``compressed_psum``, ``pipeline_forward``
+    and ``overlapped_tp_matmul`` on one rank bit for bit their unsharded
+    counterparts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train
+    from repro_torch.launch.collectives import (compressed_psum,
+                                                overlapped_tp_matmul)
+    from repro_torch.launch.pipeline import pipeline_forward
+    from repro_torch.launch.sharding import (input_pspecs, named_shardings,
+                                             shard_tree, state_pspecs)
+    from repro_torch.optim import (AdamWConfig, int8_dequantize,
+                                   int8_quantize, tree_leaves)
+    cfg = get_config(LM_ARCH)
+    check(cfg.n_params() == LM_PARAMS, "distributed: the config is not the "
+                                       "published qwen1.5-0.5b")
+    opt = AdamWConfig()
+    batch = _token_batch(cfg, DIST_TRAIN_BATCH, DIST_TRAIN_SEQ)
+    losses, plain, plain_step, plain_ms = _train_steps(
+        cfg, opt, batch, DIST_TRAIN_STEPS, True)
+    state = train.init_train_state(SEED, cfg, opt, device="cuda")
+    state = shard_tree(state, named_shardings(state_pspecs(state, mesh),
+                                              mesh))
+    step = train.make_train_step(cfg, opt, mesh=mesh)
+    sharded, sharded_ms = [], []
+    for _ in range(DIST_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        sharded.append(float(step(state, batch)[1]["loss"]))
+        sharded_ms.append(1e3 * (time.perf_counter() - t0))
+    check(sharded == losses, f"distributed: sharded losses {sharded} != "
+                             f"unsharded {losses}")
+    check(_leaves_equal(train.state_leaves(plain),
+                        [d.to_local() for d in tree_leaves(state)]),
+          "distributed: a sharded state leaf differs from the unsharded "
+          "step's")
+    input_specs = input_pspecs(batch, mesh)
+    # steady state, once the comparison is done: the captured step replays;
+    # the unsharded step run eagerly parts the eager launches from what the
+    # sharded step adds (the gathers, the reduce-scatter, the shards' norm)
+    args = tuple(batch.get(k) for k in train.BATCH_KEYS)
+    times = {"sharded_step_ms": _wall_ms(lambda: step(state, batch),
+                                         n=DIST_TRAIN_TIMED),
+             "unsharded_captured_step_ms": _wall_ms(
+                 lambda: plain_step(plain, batch), n=DIST_TRAIN_TIMED),
+             "unsharded_eager_step_ms": _wall_ms(
+                 lambda: train._step(cfg, opt, False, plain, *args),
+                 n=DIST_TRAIN_TIMED)}
+    del plain, state
+    group = mesh.get_group("data")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(DIST_PSUM_SHAPE, generator=gen, device="cuda")
+    check(torch.equal(compressed_psum(x, group),
+                      int8_dequantize(*int8_quantize(x))),
+          "distributed: compressed_psum on one rank is not "
+          "int8_dequantize(int8_quantize(x))")
+    m, mb, d = DIST_PIPE["m"], DIST_PIPE["mb"], DIST_PIPE["d"]
+    w = torch.randn((d, d), generator=gen, device="cuda") / d ** 0.5
+    xm = torch.randn((m, mb, d), generator=gen, device="cuda")
+
+    def stage(w, h):
+        return torch.tanh(h @ w)
+    check(torch.equal(pipeline_forward(stage, w, xm, group),
+                      torch.stack([stage(w, h) for h in xm])),
+          "distributed: pipeline_forward on one stage is not the stage")
+    check(torch.equal(overlapped_tp_matmul(xm[0], w, group), xm[0] @ w),
+          "distributed: overlapped_tp_matmul on one rank is not x @ w")
+    return {"arch": LM_ARCH, "layers": cfg.n_layers,
+            "batch": DIST_TRAIN_BATCH, "seq": DIST_TRAIN_SEQ,
+            "losses": losses, "bitwise_steps": DIST_TRAIN_STEPS,
+            "compared_sharded_step_ms": sharded_ms,
+            "compared_unsharded_step_ms": plain_ms,
+            **{k: {"median": statistics.median(v), "all": v}
+               for k, v in times.items()},
+            "input_specs": {k: list(v) for k, v in input_specs.items()},
+            "psum_shape": list(DIST_PSUM_SHAPE), "pipeline": DIST_PIPE}
+
+
+def _dist_replicas(params2, cfg2) -> dict:
+    """(c): model2 'reram-fused' served through
+    ``PointCloudServable(mesh=make_replica_mesh(1))`` and, on a fresh model,
+    through ``mesh=None``, the launch counters reset just before each and
+    read just after: every row bit for bit, the same launches, each held to
+    the captures and plan builds as phase ``serve`` holds them."""
+    import repro_torch
+    from repro_torch.data import synthetic_cloud
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import (PointCloudServable, ShapeBuckets,
+                                    make_replica_mesh)
+    mesh = make_replica_mesh(1)
+    batches = [[synthetic_cloud(i % 5, n, seed=100 * j + i)
+                for i in range(b)]
+               for j, (b, n) in enumerate(DIST_SERVE_BATCHES)]
+    out = {}
+    for name, m in (("replica", mesh), ("plain", None)):
+        model = repro_torch.compile_model(params2, cfg2,
+                                          backend="reram-fused",
+                                          schedule="pointer")
+        servable = PointCloudServable(
+            model, buckets=ShapeBuckets(**SERVE_BUCKETS), mesh=m)
+        reset_launch_counts()
+        rows = [torch.stack(servable.run_batch(b)) for b in batches]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = _served_counts(model, servable.plan_cache.misses,
+                              PATHS["model2"]["serve_replica" if m
+                                             else "serve"])
+        for key, n in counts.items():
+            check(n == want.get(key, 0),
+                  f"distributed {name}: {key} launched {n} times, expected "
+                  f"{want.get(key, 0)}")
+        out[name] = {"rows": rows, "counts": {k: n for k, n in
+                                              counts.items() if n},
+                     "captures": model.captures,
+                     "trace_shapes": servable.trace_shapes}
+    check(all(torch.equal(a, b) for a, b in zip(out["replica"]["rows"],
+                                               out["plain"]["rows"])),
+          "distributed: replica-served rows differ from mesh=None's")
+    check(out["replica"]["counts"] == out["plain"]["counts"],
+          f"distributed: replica launches {out['replica']['counts']} != "
+          f"{out['plain']['counts']}")
+    for key in ("fused_mlp_wstat", "aggregate_diff_batched", "fps",
+                "plan_greedy", "plan_coordinate"):
+        check(out["replica"]["counts"].get(key, 0) > 0,
+              f"distributed: {key} never launched on the replica path")
+    return {"replicas": 1, "batches": [list(b) for b in DIST_SERVE_BATCHES],
+            "rows_bitwise": sum(r.shape[0] for r in out["replica"]["rows"]),
+            "launches": out["replica"]["counts"],
+            "captures": out["replica"]["captures"],
+            "trace_shapes": out["replica"]["trace_shapes"]}
+
+
+def phase_distributed(params2, cfg2, smi: str) -> dict:
+    """The distributed layer on one card: NCCL at world size 1 over
+    ``make_test_mesh((1, 1))`` and ``make_replica_mesh(1)``; (a) the TP head
+    layout at published width and depth (:func:`_dist_tp_layout`), (b) the
+    storage-sharded train step and the collectives
+    (:func:`_dist_sharded_step`), (c) replica fan-out
+    (:func:`_dist_replicas`). Any failure, of the group or a collective
+    too, fails the phase: nothing falls back to gloo or the CPU. Returns the
+    replica path's launch counts."""
+    import gc
+
+    from repro_torch.launch import make_test_mesh
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist = _nccl_world()
+    try:
+        mesh = make_test_mesh((1, 1))
+        res = {"phase": "distributed", "nvidia_smi": smi,
+               "backend": dist.get_backend(),
+               "world_size": dist.get_world_size(),
+               "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+        res["tp_layout"] = _dist_tp_layout()
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["sharded_step"] = _dist_sharded_step(mesh)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["replicas"] = _dist_replicas(params2, cfg2)
+    finally:
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    emit(res)
+    return res["replicas"]["launches"]
+
+
 def phase_contracts(params, cfgs, clouds_np, smi) -> None:
     """``repro_torch.verify_contracts(..., check_graph=True)`` on every model
     and backend of :data:`PATHS` (the 'pointer' schedule, planning on the
@@ -4278,7 +4611,7 @@ def phase_contracts(params, cfgs, clouds_np, smi) -> None:
     rows = {}
     for name, cfg in cfgs.items():
         for backend in PATHS[name]:
-            if backend == "serve":
+            if backend.startswith("serve"):
                 continue
             model = repro_torch.compile_model(params[name], cfg,
                                               backend=backend,
@@ -4488,6 +4821,7 @@ def main(argv=None) -> int:
     phase_contracts(params, cfgs, clouds_np, smi)
     train = phase_train(smi)
     kernels.append(train["p4"])
+    replica_counts = phase_distributed(params["model2"], cfgs["model2"], smi)
     phase_lm(smi)
     phase_lm_families(smi)
     lm_train = phase_lm_train(smi)
@@ -4499,6 +4833,9 @@ def main(argv=None) -> int:
             k["serve_launches"] = serve_counts[SERVE_KERNELS[k["name"]]]
             check(k["serve_launches"] > 0,
                   f"{k['name']} never launched on the served path")
+            k["replica_launches"] = replica_counts[SERVE_KERNELS[k["name"]]]
+            check(k["replica_launches"] > 0,
+                  f"{k['name']} never launched on the replica path")
         if k["name"] == "K7 fps":
             k["train_launches"] = train["k7_launches"]
             k["train_launches_per_replay"] = train["k7_launches_per_replay"]

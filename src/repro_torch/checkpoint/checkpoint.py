@@ -16,9 +16,15 @@ dtype in the manifest; the view is taken through torch (``int16`` <->
 
 A save writes ``step_<N>.tmp`` and then ``os.replace``s it, so an
 interruption never leaves a half-written latest checkpoint, and keeps the
-newest ``keep`` steps. The reference's elastic restore (``shardings=``)
-belongs with the port's distributed code, which is not ported yet;
-:func:`restore_checkpoint` refuses it.
+newest ``keep`` steps.
+
+Elastic: leaves are stored as *global* arrays with their global shapes. A
+sharded leaf (a ``DTensor``) is gathered at save; under a started process
+group every rank calls :func:`save_checkpoint`, global rank 0 writes and
+all wait for it. :func:`restore_checkpoint` with ``shardings`` (a tree of
+``launch.sharding.NamedSharding`` s) re-cuts each global array into this
+rank's shard for the mesh given, whatever the mesh it was saved from, so a
+job resumes on another number of ranks.
 """
 from __future__ import annotations
 
@@ -68,7 +74,10 @@ def _unflatten(template, flat: dict, prefix: tuple = ()):
 
 
 def _to_savable(t) -> tuple[np.ndarray, str]:
-    """A leaf as the array stored and its logical dtype's name."""
+    """A leaf as the array stored and its logical dtype's name (a
+    ``DTensor`` gathered whole)."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
     t = torch.as_tensor(t).detach().cpu()
     name = str(t.dtype).removeprefix("torch.")
     if name in _VIEWED:
@@ -89,19 +98,31 @@ def _from_saved(arr: np.ndarray, logical: str) -> torch.Tensor:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
                     meta: dict | None = None) -> str:
-    """Blocking save of ``tree`` (tensors or arrays at the leaves) as step
-    ``step``. Returns the final checkpoint path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Blocking save of ``tree`` (tensors, arrays or ``DTensor`` s at the
+    leaves) as step ``step``. Returns the final checkpoint path."""
+    import torch.distributed as dist
     arrays, logical = {}, {}
     for k, v in _flatten(tree).items():
         arrays[k], logical[k] = _to_savable(v)
+    final = os.path.join(ckpt_dir, f"step_{step}")
+    if dist.is_initialized():
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, final, step, arrays, logical, meta, keep)
+        dist.barrier()
+    else:
+        _write(ckpt_dir, final, step, arrays, logical, meta, keep)
+    return final
+
+
+def _write(ckpt_dir: str, final: str, step: int, arrays: dict,
+           logical: dict, meta, keep: int) -> None:
+    os.makedirs(ckpt_dir, exist_ok=True)
     manifest = {
         "step": int(step),
         "meta": meta or {},
         "leaves": {k: {"shape": list(v.shape), "dtype": logical[k]}
                    for k, v in arrays.items()},
     }
-    final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -113,7 +134,6 @@ def save_checkpoint(ckpt_dir: str, step: int, tree, *, keep: int = 3,
         shutil.rmtree(final)
     os.replace(tmp, final)
     cleanup_old(ckpt_dir, keep=keep)
-    return final
 
 
 def latest_step(ckpt_dir: str) -> int | None:
@@ -139,12 +159,20 @@ def restore_checkpoint(ckpt_dir: str, template, *, step: int | None = None,
     template's dtype and placed on ``device`` (by default the template
     leaf's device, the CPU for a leaf that is not a tensor). The latest
     step unless ``step`` names one. Returns ``(tree, step, meta)``.
-    ``shardings`` (the reference's elastic restore onto a mesh) raises
-    ``ValueError``: the port has no mesh yet."""
+    ``shardings``: a matching tree of ``launch.sharding.NamedSharding`` s,
+    the elastic-resize path: each global array is cut into this rank's
+    shard for that mesh and returned as a ``DTensor`` on the mesh's
+    device (``device`` is not read)."""
+    shd_flat = None
     if shardings is not None:
-        raise ValueError("restore_checkpoint(shardings=...) restores onto "
-                         "a device mesh, which the port does not have yet; "
-                         "restore onto one device with device=")
+        from repro_torch.launch.sharding import NamedSharding
+        shd_flat = _flatten(shardings)
+        bad = [k for k, s in shd_flat.items()
+               if not isinstance(s, NamedSharding)]
+        if bad:
+            raise TypeError(f"shardings= takes a tree of NamedShardings "
+                            f"(launch/sharding.py::named_shardings); "
+                            f"{bad[0]!r} is a {type(shd_flat[bad[0]])}")
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
@@ -162,6 +190,9 @@ def restore_checkpoint(ckpt_dir: str, template, *, step: int | None = None,
                 raise ValueError(f"{key}: checkpoint shape "
                                  f"{tuple(t.shape)} != template {want}")
             dtype = _torch_dtype(tmpl.dtype)
+            if shd_flat is not None:
+                out[key] = shd_flat[key].put(t.to(dtype))
+                continue
             dev = device if device is not None else (
                 tmpl.device if isinstance(tmpl, torch.Tensor) else "cpu")
             out[key] = t.to(device=dev, dtype=dtype)

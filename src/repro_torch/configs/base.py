@@ -84,8 +84,10 @@ class ArchConfig:
             each ORIGINAL kv head a contiguous band of r*g' q slots
             (g'=ceil(g/r)), so padded-layout group math lands every real
             q head on its original kv head (slot = (i//g)*r*g' + i%g).
-        The port runs tp=1 only (the layout is the identity there); the
-        arithmetic is kept for the distributed slice.
+        Plain end-padding would silently remap q heads to the wrong kv
+        heads. ``models/lm.py`` arranges the attention weights into this
+        layout (``_eff_attn_params``); a kv count that divides neither way
+        raises ``ValueError``.
         """
         hq, hkv, tp = self.n_heads, self.n_kv_heads, self.tp
         if tp <= 1 or (hq % tp == 0 and hkv % tp == 0):

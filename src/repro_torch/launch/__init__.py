@@ -1,8 +1,11 @@
 """Launch-side tiers of the port: the serving engine (``serve``) over
 point clouds and LMs, the counterpart of ``repro.launch.serve``; LM
 training (``train``: the train state, the step captured on the card, the
-fault-tolerant loop), the counterpart of ``repro.launch.train``; and
-preemption and retries (``fault``).
+storage-sharded step, the fault-tolerant loop), the counterpart of
+``repro.launch.train``; preemption and retries (``fault``); and the
+distributed layer over ``torch.distributed``, one process per device:
+meshes (``mesh``), sharding rules and placements (``sharding``),
+collectives (``collectives``) and the GPipe schedule (``pipeline``).
 
 >>> import numpy as np
 >>> import repro_torch
@@ -27,12 +30,19 @@ preemption and retries (``fault``).
 >>> [r.id for r in eng.drain()]                 # earliest deadline first
 [1, 0]
 """
+from repro_torch.launch.mesh import (MESH_AXES, batch_axes,
+                                     make_production_mesh, make_replica_mesh,
+                                     make_test_mesh)
 from repro_torch.launch.serve import (EDFScheduler, FIFOScheduler,
                                       LMServable, PointCloudServable,
                                       Request, SCHEDULERS, Scheduler,
                                       Servable, ServingEngine, ShapeBuckets,
                                       VirtualClock, generate,
                                       make_serve_step)
+from repro_torch.launch.sharding import (cache_pspecs, input_pspecs,
+                                         named_shardings, param_pspecs,
+                                         replica_pspecs, shard_batch,
+                                         state_pspecs)
 from repro_torch.launch.train import (TrainLoopConfig, init_train_state,
                                       make_train_step, run_training)
 
@@ -40,6 +50,7 @@ __all__ = [
     "EDFScheduler",
     "FIFOScheduler",
     "LMServable",
+    "MESH_AXES",
     "PointCloudServable",
     "Request",
     "SCHEDULERS",
@@ -49,9 +60,20 @@ __all__ = [
     "ShapeBuckets",
     "TrainLoopConfig",
     "VirtualClock",
+    "batch_axes",
+    "cache_pspecs",
     "generate",
     "init_train_state",
+    "input_pspecs",
+    "make_production_mesh",
+    "make_replica_mesh",
     "make_serve_step",
+    "make_test_mesh",
     "make_train_step",
+    "named_shardings",
+    "param_pspecs",
+    "replica_pspecs",
     "run_training",
+    "shard_batch",
+    "state_pspecs",
 ]

@@ -355,20 +355,30 @@ class PointCloudServable(Servable):
 
     ``jit_traces`` and ``trace_shapes`` count the step keys this servable
     has seen, as the reference counts its traces; on the card each is at
-    most one capture, shared by every servable of the model. ``mesh=``
-    (replica fan-out) is not ported: anything but None raises.
+    most one capture, shared by every servable of the model.
+
+    ``mesh`` (a 1-D replica mesh from
+    :func:`repro_torch.launch.mesh.make_replica_mesh`) fans the batch out
+    over ranks: every rank of the mesh runs the same engine on the same
+    requests, each runs its slice of the batch
+    (:func:`repro_torch.launch.sharding.shard_batch` on the clouds,
+    ``n_valid`` and the stacked plan), and the rows are all-gathered over
+    the replica group, so every rank returns whole results. A batch that
+    does not divide the replica count runs replicated (correct, not
+    faster), as the reference's. The counters count the whole batch's
+    step, as the reference's traces do.
     """
 
     def __init__(self, model, *, buckets: ShapeBuckets | None = None,
                  plan_cache: PlanCache | bool | None = True,
                  mesh=None,
                  frame_reuse: FrameTracker | bool = False):
-        if mesh is not None:
-            raise ValueError(
-                "mesh= is not supported by the port: replica fan-out needs "
-                "the launch mesh and batch sharding (launch/mesh.py, "
-                "sharding.py), which are not ported yet; pass mesh=None")
+        if mesh is not None and "replica" not in (
+                getattr(mesh, "mesh_dim_names", None) or ()):
+            raise ValueError("mesh= takes a DeviceMesh with a 'replica' "
+                             "axis (launch/mesh.py::make_replica_mesh)")
         self.model = model
+        self.mesh = mesh
         self.buckets = buckets if buckets is not None else ShapeBuckets()
         self.max_batch = self.buckets.max_batch
         # compile-time plans need no per-request planning; 'baseline' has
@@ -463,13 +473,31 @@ class PointCloudServable(Servable):
                       or self.model.device_plan is not None)
         if capturable:
             self._count_step(b_bucket, n_bucket, dplan is not None)
-            logits = self.model.jit_batched_forward(padded, n_valid=n_valid,
-                                                    dplan=dplan)
+            step = self.model.jit_batched_forward
         else:
-            logits = self.model.batched_forward(padded, n_valid=n_valid)
+            step = self.model.batched_forward
+        if self.mesh is None:
+            logits = step(padded, n_valid=n_valid, dplan=dplan)
+        else:
+            logits = self._fan_out(step, padded, n_valid, dplan)
         self.requests += b_real
         self.batches += 1
         return list(logits[:b_real])
+
+    def _fan_out(self, step, padded, n_valid, dplan) -> torch.Tensor:
+        """The step on this rank's slice of the batch, the replicas' rows
+        all-gathered in rank order."""
+        import torch.distributed as dist
+        from repro_torch.launch.sharding import shard_batch
+        clouds, nv, plan = shard_batch((padded, n_valid, dplan), self.mesh)
+        logits = step(clouds, n_valid=nv, dplan=plan)
+        if clouds.shape[0] == padded.shape[0]:      # run replicated
+            return logits
+        group = self.mesh.get_group("replica")
+        parts = [torch.empty_like(logits)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, logits.contiguous(), group=group)
+        return torch.cat(parts)
 
     def stats(self) -> dict:
         s = {"requests": self.requests, "batches": self.batches,

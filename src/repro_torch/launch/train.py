@@ -16,6 +16,19 @@ jits its step. On the CPU it runs eagerly.
 Every gradient on the path sums in a fixed order (``models/lm.py``), so
 two runs from one state give the same bits, captured or eager.
 
+``make_train_step(..., mesh=)`` is the storage-sharded step (ZeRO-3) over
+a ``DeviceMesh``: each state leaf a ``DTensor`` of its shard per
+``launch.sharding.state_pspecs`` (``shard_tree``), on every axis. A step
+splits the batch per ``input_pspecs``, all-gathers each parameter whole
+at the step's start (the stacked layer leaves hold every layer, so a
+per-layer gather would need a hook into the model's loop), computes the
+loss and gradients on the rank's part of the batch, reduce-scatters the
+gradients back to shards (the mean over the global batch) and applies
+AdamW to the shards, clipping by the global norm summed over the ranks.
+Under GSPMD the reference's sharded step is its unsharded function; so
+is this one's, up to the order of the sums over the batch's parts. It
+runs eagerly: the collectives are not captured.
+
 ``run_training`` is the loop the examples and tests drive: the seeded
 ``TokenStream`` data by default, checkpoints in the reference's format
 (either package restores the other's; a restore writes into the live
@@ -24,6 +37,8 @@ checkpoints and stops, and the straggler watchdog.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
 import os
 import tempfile
 from dataclasses import dataclass
@@ -38,7 +53,7 @@ from repro_torch.models import lm
 from repro_torch.models.backend import StepGraphs, resolve_device
 from repro_torch.optim import (AdamWConfig, CompressionState, adamw_init,
                                adamw_update, compress_error_feedback,
-                               tree_leaves, tree_map)
+                               global_norm, tree_leaves, tree_map)
 
 __all__ = ["TrainLoopConfig", "make_train_step", "init_train_state",
            "run_training"]
@@ -94,20 +109,34 @@ def _step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, state: dict,
     grads = iter(torch.autograd.grad(loss, tree_leaves(params),
                                      materialize_grads=True))
     grads = tree_map(lambda _: next(grads), params)
-    if grad_compression:
-        grads, comp = compress_error_feedback(
-            grads, CompressionState(error=state["comp_err"]))
-        with torch.no_grad():
-            tree_map(lambda dst, src: dst.copy_(src), state["comp_err"],
-                     comp.error)
-    _, _, om = adamw_update(params, grads, state["opt"], opt_cfg,
-                            step_in_place=True)
+    om = _update(state, grads, opt_cfg, grad_compression)
     return (loss.detach(), metrics["ppl"].detach(), om["grad_norm"],
             om["lr"])
 
 
+def _update(state: dict, grads, opt_cfg: AdamWConfig,
+            grad_compression: bool, *, amax_reduce=None, norm=None) -> dict:
+    """A step's tail, in place on ``state`` (tensors, or a rank's local
+    shards of them): int8 error-feedback compression of ``grads`` when
+    asked, its residuals written back, then AdamW; AdamW's metrics. For
+    shards, ``amax_reduce`` (:func:`compress_error_feedback`'s) gives each
+    leaf one scale over its shards, and ``norm(grads)`` the global norm
+    over the ranks."""
+    if grad_compression:
+        grads, comp = compress_error_feedback(
+            grads, CompressionState(error=state["comp_err"]),
+            amax_reduce=amax_reduce)
+        with torch.no_grad():
+            tree_map(lambda dst, src: dst.copy_(src), state["comp_err"],
+                     comp.error)
+    _, _, om = adamw_update(state["params"], grads, state["opt"], opt_cfg,
+                            step_in_place=True,
+                            grad_norm=None if norm is None else norm(grads))
+    return om
+
+
 def make_train_step(cfg, opt_cfg: AdamWConfig, *,
-                    grad_compression: bool = False):
+                    grad_compression: bool = False, mesh=None):
     """``step(state, batch) -> (state, metrics)``: ``batch`` a dict with
     ``labels`` and ``ids`` (or ``embeds``; ``image_embeds`` for vlm),
     arrays or tensors; ``state`` as :func:`init_train_state` gives it,
@@ -115,7 +144,14 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *,
     "grad_norm", "lr"}`` as 0-d tensors. On the card, per (state, batch
     shapes), the first ``CudaGraphCall.WARMUP`` calls run eagerly, the
     next captures the step into one CUDA graph, and each call from then on
-    replays it over the state's own tensors (``step.graphs``)."""
+    replays it over the state's own tensors (``step.graphs``).
+
+    With ``mesh`` (a ``DeviceMesh``), the storage-sharded step
+    (:func:`_sharded_step`): ``state`` a tree of ``DTensor`` s, every rank
+    of the mesh calling it with the same global batch."""
+    if mesh is not None:
+        return lambda state, batch: _sharded_step(
+            cfg, opt_cfg, grad_compression, mesh, state, batch)
     graphs = StepGraphs()
 
     def step(state: dict, batch: dict):
@@ -131,6 +167,83 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *,
 
     step.graphs = graphs.graphs
     return step
+
+
+def _sharded_step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, mesh,
+                  state: dict, batch: dict):
+    """One storage-sharded step (module docstring) on ``state``'s DTensor
+    shards, in place; ``(state, metrics)``, the metrics the global
+    batch's."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.sharding import NamedSharding, input_pspecs
+    leaves = tree_leaves(state)
+    dev = leaves[0].to_local().device
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
+             if v is not None}
+    specs = input_pspecs(batch, mesh)
+    local = {k: NamedSharding(mesh, specs[k]).shard(v)
+             for k, v in batch.items()}
+    names = mesh.mesh_dim_names
+    split = specs["labels"][0] is not None      # the batch is cut
+    batch_dims = [i for i, n in enumerate(names)
+                  if split and n in batch_axes(mesh)]
+    parts = math.prod(mesh.size(i) for i in batch_dims)
+    # a rank routes its part of the batch as the reference's routing groups
+    # that fall in it (groups contiguous and batch-major); a group cut
+    # across ranks would need the tokens of other ranks
+    groups = max(1, cfg.dp_shards) if cfg.batch_axes else 1
+    if cfg.family == "moe" and groups % parts:
+        raise ValueError(
+            f"sharded step: {cfg.name}'s {groups} MoE routing group(s) "
+            f"(dp_shards with batch_axes set) do not split over the "
+            f"batch's {parts} data-parallel parts")
+    lcfg = dataclasses.replace(cfg, dp_shards=max(1, groups // parts))
+    params = tree_map(lambda d: d.full_tensor().detach().requires_grad_(),
+                      state["params"])
+    loss, _ = lm.loss_fn(params, lcfg, local.get("ids"), local["labels"],
+                         embeds=local.get("embeds"),
+                         image_embeds=local.get("image_embeds"))
+    grads = torch.autograd.grad(loss, tree_leaves(params),
+                                materialize_grads=True)
+    del params
+
+    def all_reduce(t, dims=range(len(names)), op=dist.ReduceOp.SUM):
+        """``t`` reduced over the mesh's ranks along ``dims``, in place."""
+        for i in dims:
+            dist.all_reduce(t, op=op, group=mesh.get_group(i))
+        return t
+    # the parts' sum where the batch is cut; reduce-scatter to each leaf's
+    # placements, then the mean over the parts
+    partial = tuple(Partial() if i in batch_dims else Replicate()
+                    for i in range(len(names)))
+    pleaves = tree_leaves(state["params"])
+    shards = []
+    with torch.no_grad():
+        for g, d in zip(grads, pleaves):
+            s = DTensor.from_local(g, mesh, partial, run_check=False
+                                   ).redistribute(mesh, d.placements
+                                                  ).to_local()
+            shards.append(s / parts if parts > 1 else s)
+        loss = loss.detach()
+        if parts > 1:
+            loss = all_reduce(loss.clone(), batch_dims) / parts
+        lstate = tree_map(lambda d: d.to_local(), state)
+    del grads
+    grads = iter(shards)
+    grads = tree_map(lambda _: next(grads), state["params"])
+    # each leaf's squares counted once over the ranks: a shard held by
+    # ``rep`` ranks (the mesh dims it is replicated on) is weighted 1/rep
+    reps = [math.prod(mesh.size(i) for i, pl in enumerate(d.placements)
+                      if pl.is_replicate()) for d in pleaves]
+    om = _update(lstate, grads, opt_cfg, grad_compression,
+                 amax_reduce=lambda t: all_reduce(t, op=dist.ReduceOp.MAX),
+                 norm=lambda g: global_norm(
+                     g, weights=[None if r == 1 else 1.0 / r for r in reps],
+                     reduce=all_reduce))
+    return state, {"loss": loss, "ppl": torch.exp(loss),
+                   "grad_norm": om["grad_norm"], "lr": om["lr"]}
 
 
 def _restore_into(ckpt_dir: str, state: dict) -> int:

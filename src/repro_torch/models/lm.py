@@ -34,9 +34,21 @@ states after the pad tokens (rwkv also the pad position's token-shift
 rows) and, for the hybrid, the pad tokens' keys and values: its KV cache
 holds ``max(capacity, ceil(S / 32) · 32)`` rows. So after a prompt off the
 chunk, decode continues the padded sequence, not ``forward``; on the
-chunk it continues ``forward``. TP head layouts
-(``cfg.tp > 1``) wait for the distributed slice (ROADMAP item 17) and
-raise; so do the sharding constraints, which are identities here.
+chunk it continues ``forward``.
+
+``cfg.tp > 1`` runs the reference's TP head layout: query heads
+zero-padded, and KV heads repeated (GQA with fewer KV heads than the TP
+degree) or zero-padded (MHA), up to ``cfg.head_layout()``'s counts. The
+layout is made on the WEIGHTS at each call (:func:`_eff_attn_params`), by
+slices, zero blocks and broadcasts, so the gradients land on the published
+parameters (a pad slot's are dropped) and sum in a fixed order; the
+arranged o-projection's pad rows are zero, so padded heads never reach the
+residual. The decode cache holds ``cfg.eff_kv_heads`` heads. The
+reference's sharding constraints (``_wshard`` on the arranged weights,
+``_shard_batch`` at block boundaries) change where values sit, never what
+they are; the port computes on whole local tensors (``launch/train.py``
+gathers sharded weights and splits the batch before the model runs), so
+it has no counterpart to them.
 
 ``forward`` and ``loss_fn`` are differentiable (``launch/train.py`` trains
 through them). The stacked leaves are unbound once per call
@@ -84,11 +96,7 @@ FAMILIES = ("dense", "moe", "audio", "vlm", "hybrid", "ssm")
 def _check(cfg) -> None:
     if cfg.family not in FAMILIES:
         raise ValueError(cfg.family)
-    if cfg.tp > 1:
-        raise ValueError(
-            f"{cfg.name}: tp={cfg.tp} needs the TP head layout and a launch "
-            f"mesh, which wait for the distributed slice (ROADMAP item 17); "
-            f"the port runs tp=1")
+    cfg.head_layout()           # raises for a tp the KV heads cannot meet
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +160,130 @@ def attn_init(gen, cfg, *, cross: bool = False):
     }
 
 
+def _head_perm(cfg) -> tuple:
+    eff, _, _, slots = cfg.head_layout()
+    perm = [cfg.n_heads] * eff            # n_heads = the zero pad slot
+    for i, sl in enumerate(slots):
+        perm[sl] = i
+    return tuple(perm)
+
+
+def _take_heads(w3: torch.Tensor, perm: tuple, dim: int) -> torch.Tensor:
+    """``w3``'s slices along ``dim`` in the order ``perm``, the index
+    ``w3.shape[dim]`` a zero slice: the reference's concatenated zero head
+    gathered by ``perm``, as runs of consecutive heads (``narrow``) and of
+    pad slots (zeros) joined by one ``cat``. A gather's backward would
+    scatter-add; a ``cat``'s slices its gradient."""
+    pad, pieces, i = w3.shape[dim], [], 0
+    while i < len(perm):
+        j = i + 1
+        if perm[i] == pad:
+            while j < len(perm) and perm[j] == pad:
+                j += 1
+            shape = list(w3.shape)
+            shape[dim] = j - i
+            pieces.append(w3.new_zeros(shape))
+        else:
+            while (j < len(perm) and perm[j] != pad
+                   and perm[j] == perm[i] + (j - i)):
+                j += 1
+            pieces.append(w3.narrow(dim, perm[i], j - i))
+        i = j
+    return torch.cat(pieces, dim=dim)
+
+
+def _arrange_wq(w, cfg):
+    """q projection weights (d, Hq*dh) -> the TP head layout (d, eff*dh):
+    done on the weights, not the activations, so gradients flow back to
+    the published parameters (pad-slot gradients are dropped)."""
+    eff, _, _, _ = cfg.head_layout()
+    if eff == cfg.n_heads:
+        return w
+    dh = cfg.head_dim
+    d = w.shape[0]
+    w3 = w.reshape(d, cfg.n_heads, dh)
+    return _take_heads(w3, _head_perm(cfg), 1).reshape(d, eff * dh)
+
+
+def _arrange_wq_bias(b, cfg):
+    eff, _, _, _ = cfg.head_layout()
+    if eff == cfg.n_heads:
+        return b
+    dh = cfg.head_dim
+    b3 = b.reshape(cfg.n_heads, dh)
+    return _take_heads(b3, _head_perm(cfg), 0).reshape(eff * dh)
+
+
+def _repeat_or_pad(w3: torch.Tensor, cfg, dim: int) -> torch.Tensor:
+    """KV heads along ``dim`` -> ``eff_kv``: each repeated ``r`` times in
+    place (``jnp.repeat``; a broadcast, whose backward sums the copies) for
+    GQA, zero-padded at the end for MHA."""
+    _, eff_kv, r, _ = cfg.head_layout()
+    shape = list(w3.shape)
+    if r > 1:
+        shape.insert(dim + 1, r)
+        return w3.unsqueeze(dim + 1).expand(shape).flatten(dim, dim + 1)
+    shape[dim] = eff_kv - cfg.n_kv_heads
+    return torch.cat([w3, w3.new_zeros(shape)], dim=dim)
+
+
+def _arrange_wkv(w, cfg):
+    """k/v projection weights -> eff_kv heads (contiguous repeat for GQA,
+    zero-pad for MHA)."""
+    _, eff_kv, _, _ = cfg.head_layout()
+    if eff_kv == cfg.n_kv_heads:
+        return w
+    dh = cfg.head_dim
+    d = w.shape[0]
+    w3 = w.reshape(d, cfg.n_kv_heads, dh)
+    return _repeat_or_pad(w3, cfg, 1).reshape(d, eff_kv * dh)
+
+
+def _arrange_kv_bias(b, cfg):
+    _, eff_kv, _, _ = cfg.head_layout()
+    if eff_kv == cfg.n_kv_heads:
+        return b
+    dh = cfg.head_dim
+    b3 = b.reshape(cfg.n_kv_heads, dh)
+    return _repeat_or_pad(b3, cfg, 0).reshape(eff_kv * dh)
+
+
+def _arrange_wo(w, cfg):
+    """(Hq*dh, d) o-projection -> (eff*dh, d); pad slots are zero rows, so
+    garbage in padded attention heads never reaches the residual."""
+    eff, _, _, _ = cfg.head_layout()
+    if eff == cfg.n_heads:
+        return w
+    dh = cfg.head_dim
+    d = w.shape[1]
+    w3 = w.reshape(cfg.n_heads, dh, d)
+    return _take_heads(w3, _head_perm(cfg), 0).reshape(eff * dh, d)
+
+
+def _eff_attn_params(p, cfg):
+    """Attention params in the TP head layout (identity fast-path when the
+    arch's heads already divide the TP degree)."""
+    eff, eff_kv, _, _ = cfg.head_layout()
+    if eff == cfg.n_heads and eff_kv == cfg.n_kv_heads:
+        return p
+    q = {"w": _arrange_wq(p["q"]["w"], cfg)}
+    if "b" in p["q"]:
+        q["b"] = _arrange_wq_bias(p["q"]["b"], cfg)
+    k = {"w": _arrange_wkv(p["k"]["w"], cfg)}
+    v = {"w": _arrange_wkv(p["v"]["w"], cfg)}
+    if "b" in p["k"]:
+        k["b"] = _arrange_kv_bias(p["k"]["b"], cfg)
+        v["b"] = _arrange_kv_bias(p["v"]["b"], cfg)
+    return dict(p, q=q, k=k, v=v, o={"w": _arrange_wo(p["o"]["w"], cfg)})
+
+
 def _qkv(p, cfg, x):
+    """Projects straight into the TP head layout (p pre-arranged)."""
     b, s, _ = x.shape
     dh = cfg.head_dim
-    q = linear(p["q"], x).reshape(b, s, cfg.n_heads, dh)
-    k = linear(p["k"], x).reshape(b, s, cfg.n_kv_heads, dh)
-    v = linear(p["v"], x).reshape(b, s, cfg.n_kv_heads, dh)
+    q = linear(p["q"], x).reshape(b, s, cfg.eff_heads, dh)
+    k = linear(p["k"], x).reshape(b, s, cfg.eff_kv_heads, dh)
+    v = linear(p["v"], x).reshape(b, s, cfg.eff_kv_heads, dh)
     return q, k, v
 
 
@@ -173,6 +299,7 @@ def _rope(cfg, positions, dtype):
 def self_attn(p, cfg, x, positions, rope=None):
     """``rope``: the call's :func:`rope_tables` for ``positions``, made
     here when not given."""
+    p = _eff_attn_params(p, cfg)
     q, k, v = _qkv(p, cfg, x)
     rope = rope if rope is not None else _rope(cfg, positions, q.dtype)
     q, k = rotate(q, *rope), rotate(k, *rope)
@@ -183,8 +310,9 @@ def self_attn(p, cfg, x, positions, rope=None):
 
 
 def self_attn_decode(p, cfg, x1, k_cache, v_cache, pos, rope=None):
-    """x1 (B,1,D); caches (B,S,Hkv,D), written in place at ``pos`` (a 0-d
+    """x1 (B,1,D); caches (B,S,Hkv_eff,D), written in place at ``pos`` (a 0-d
     int64 tensor on the caches' device)."""
+    p = _eff_attn_params(p, cfg)
     q, k, v = _qkv(p, cfg, x1)
     posv = pos.reshape(1)
     rope = rope if rope is not None else _rope(cfg, posv, q.dtype)
@@ -197,26 +325,27 @@ def self_attn_decode(p, cfg, x1, k_cache, v_cache, pos, rope=None):
 
 def cross_attn(p, cfg, x, img_kv):
     """Non-causal attention to fixed image keys/values (already projected):
-    img_kv = (k, v) each (B, S_img, Hkv, D). Only the projections' weights
-    are read, as the reference reads them."""
+    img_kv = (k, v) each (B, S_img, Hkv_eff, D). Only the projections'
+    weights are read, as the reference reads them."""
     b, s, _ = x.shape
-    q = linear({"w": p["q"]["w"]}, x).reshape(b, s, cfg.n_heads,
-                                              cfg.head_dim)
+    q = linear({"w": _arrange_wq(p["q"]["w"], cfg)}, x
+               ).reshape(b, s, cfg.eff_heads, cfg.head_dim)
     k, v = img_kv
     zeros = lambda n: torch.zeros((n,), dtype=torch.int32, device=x.device)
     out = chunked_attention(
         q, k, v, q_positions=zeros(s), kv_positions=zeros(k.shape[1]),
         causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return _finish_attn({"o": {"w": p["o"]["w"]}}, cfg, out)
+    return _finish_attn({"o": {"w": _arrange_wo(p["o"]["w"], cfg)}}, cfg,
+                        out)
 
 
 def project_image_kv(p_cross, cfg, image_embeds):
     """Project image embeddings once into a cross layer's K/V."""
     b, si, _ = image_embeds.shape
-    k = linear({"w": p_cross["k"]["w"]}, image_embeds
-               ).reshape(b, si, cfg.n_kv_heads, cfg.head_dim)
-    v = linear({"w": p_cross["v"]["w"]}, image_embeds
-               ).reshape(b, si, cfg.n_kv_heads, cfg.head_dim)
+    k = linear({"w": _arrange_wkv(p_cross["k"]["w"], cfg)}, image_embeds
+               ).reshape(b, si, cfg.eff_kv_heads, cfg.head_dim)
+    v = linear({"w": _arrange_wkv(p_cross["v"]["w"], cfg)}, image_embeds
+               ).reshape(b, si, cfg.eff_kv_heads, cfg.head_dim)
     return (k, v)
 
 
@@ -324,12 +453,13 @@ def _rwkv_layer(blk, cfg, h, state=None, last_t=None, last_c=None):
 def init(seed: int, cfg, *, device=None) -> Params:
     """Random weights in the reference's layout, shapes, dtypes and
     distributions, drawn from a ``torch.Generator`` on ``device`` (the card
-    unless ``device="cpu"``) seeded by ``seed``. The numbers are the
-    port's own; to run the reference's weights, convert them with
-    ``convert.lm_params_from_numpy``."""
+    unless ``device="cpu"``; ``"meta"`` for shapes only) seeded by
+    ``seed``. The numbers are the port's own; to run the reference's
+    weights, convert them with ``convert.lm_params_from_numpy``."""
     _check(cfg)
-    dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    dev = _target_device(device)
+    gen = (_MetaGenerator() if dev.type == "meta"
+           else torch.Generator(device=dev))
     gen.manual_seed(int(seed))
     p: dict = {"embed": embed_init(gen, cfg.vocab_size, cfg.d_model,
                                    cfg.jdtype),
@@ -504,10 +634,19 @@ def loss_fn(p, cfg, ids, labels, *, embeds=None, image_embeds=None):
 
 # ---- caches / decode ----
 
-def _cache_device(device) -> torch.device:
+def _target_device(device) -> torch.device:
     if device is not None and torch.device(device).type == "meta":
         return torch.device("meta")      # shapes only (``input_specs``)
     return resolve_device(device)
+
+
+class _MetaGenerator(torch.Generator):
+    """A CPU generator whose draws land on the ``meta`` device (shapes and
+    dtypes, no storage): ``init(..., device="meta")``."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=None, *,
@@ -516,10 +655,10 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=None, *,
     card unless ``device="cpu"``; ``"meta"`` for shapes only). The SSM and
     RWKV states are float32, as the reference's."""
     _check(cfg)
-    dev = _cache_device(device)
+    dev = _target_device(device)
     dt = dtype or cfg.jdtype
     fam = cfg.family
-    dh, hkv = cfg.head_dim, cfg.n_kv_heads
+    dh, hkv = cfg.head_dim, cfg.eff_kv_heads
     zeros = lambda shape, dtype=dt: torch.zeros(shape, dtype=dtype,
                                                 device=dev)
     if fam in ("dense", "moe", "audio"):

@@ -1,6 +1,6 @@
 """Mixture-of-Experts with sort-based dispatch in PyTorch (llama4-scout
 16e top-1, grok-1 8e top-2): the port's counterpart of the JAX package's
-``models/moe.py``, one routing group (``groups`` = 1).
+``models/moe.py``.
 
 Tokens are argsorted by expert id so that consecutive work items hit the
 same stationary expert weights; a fixed per-expert capacity ``cap =
@@ -28,8 +28,15 @@ where autograd's backward of an indexing would scatter with atomics; the
 top-k values are selected by a compare-and-sum over the experts (one
 non-zero term: the value exactly), whose backward is elementwise; the
 slot write (``index_copy_``) has a gather for its backward and the
-combine's ``index_add_`` an ``index_select``. The local routing of a sharded batch (``shard_axes``,
-``groups`` > 1) waits for the distributed slice (ROADMAP item 17).
+combine's ``index_add_`` an ``index_select``.
+
+Routing is LOCAL under data parallelism, as the reference's: with
+``shard_axes`` set and ``groups`` = g > 1 the T tokens are cut into g
+contiguous groups of T/g (batch-major, so group r is data-parallel rank
+r's part of the batch) and each group is routed, dispatched and combined
+on its own, with a capacity of ``max(1, int(cf · (T/g) · k / E))`` per
+expert. Dispatch and combine then never cross ranks; a rank that holds one
+group's tokens routes them as one group.
 """
 from __future__ import annotations
 
@@ -122,20 +129,28 @@ def _combine_local(y: torch.Tensor, meta, t: int, d: int) -> torch.Tensor:
                        ).index_add_(0, st, contrib)
 
 
-def moe_apply(p, x: torch.Tensor, *, top_k: int,
-              capacity_factor: float = 1.25, shard_axes: tuple = (),
-              groups: int = 1) -> torch.Tensor:
-    """x (T, d) flattened tokens -> (T, d), routed as one group."""
-    if shard_axes:
-        raise ValueError(
-            f"moe_apply: shard_axes={tuple(shard_axes)} (local routing over "
-            f"{groups} data-parallel groups) waits for the distributed slice "
-            f"(ROADMAP item 17); the port routes one group")
+def _moe_group(p, x: torch.Tensor, top_k: int, cap: int) -> torch.Tensor:
+    """One routing group: x (t, d) routed, the experts applied, combined."""
     t, d = x.shape
-    e = p["gate"].shape[0]
-    cap = capacity(capacity_factor, t, top_k, e)
-    xe, meta, _, _ = _route_local(x, p["router"]["w"], top_k, cap, e)
+    xe, meta, _, _ = _route_local(x, p["router"]["w"], top_k, cap,
+                                  p["gate"].shape[0])
     h = torch.bmm(xe, p["gate"])
     u = torch.bmm(xe, p["up"])
     y = torch.bmm(F.silu(h) * u, p["down"])
-    return _combine_local(y, meta, t, d).to(x.dtype)
+    return _combine_local(y, meta, t, d)
+
+
+def moe_apply(p, x: torch.Tensor, *, top_k: int,
+              capacity_factor: float = 1.25, shard_axes: tuple = (),
+              groups: int = 1) -> torch.Tensor:
+    """x (T, d) flattened tokens -> (T, d). ``groups`` = the data-parallel
+    shard count (local routing, with ``shard_axes`` set); 1 = one group."""
+    t, d = x.shape
+    e = p["gate"].shape[0]
+    g = max(1, groups) if shard_axes else 1
+    if t % g:
+        raise ValueError(f"moe_apply: {t} tokens do not split into {g} "
+                         f"routing groups")
+    cap = capacity(capacity_factor, t // g, top_k, e)
+    outs = [_moe_group(p, xg, top_k, cap) for xg in x.split(t // g)]
+    return (torch.cat(outs) if g > 1 else outs[0]).to(x.dtype)

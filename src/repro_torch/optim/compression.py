@@ -7,8 +7,8 @@ step's quantization residual into the next step's gradient, so the
 compression error telescopes instead of compounding.
 :func:`compress_error_feedback` is the pure tree transform the trainer
 applies right before the optimizer (where the cross-pod reduction sits);
-the collective that quantizes around an all-reduce (the reference's
-``compressed_psum``) belongs with the distributed code (ROADMAP item 17).
+the collective that quantizes around an all-reduce is
+``launch/collectives.py::compressed_psum``.
 
 The arithmetic is the reference's bit for bit: float32 throughout, the
 scale ``max(max|x|, 1e-12) / 127`` divided by a float32 tensor (PyTorch's
@@ -23,7 +23,7 @@ from typing import Any
 
 import torch
 
-from .optimizer import _f32, tree_map
+from .optimizer import _f32, tree_leaves, tree_map
 
 __all__ = ["CompressionState", "int8_quantize", "int8_dequantize",
            "compress_error_feedback"]
@@ -41,9 +41,11 @@ class CompressionState:
                                   device=p.device), params))
 
 
-def int8_quantize(x: torch.Tensor):
-    """float32 ``x`` -> (int8 values, the float32 0-d scale)."""
-    scale = torch.clamp_min(x.abs().max(), 1e-12) / _f32(127.0, x)
+def int8_quantize(x: torch.Tensor, amax=None):
+    """float32 ``x`` -> (int8 values, the float32 0-d scale). ``amax``:
+    the largest |x| of the whole tensor when ``x`` is a shard of it."""
+    amax = x.abs().max() if amax is None else amax
+    scale = torch.clamp_min(amax, 1e-12) / _f32(127.0, x)
     q = torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -53,14 +55,25 @@ def int8_dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-def compress_error_feedback(grads, state: CompressionState):
+def compress_error_feedback(grads, state: CompressionState, *,
+                            amax_reduce=None):
     """Quantize (gradient + carried residual) to int8 per leaf; return the
     dequantized gradient in each leaf's dtype (what the cross-pod
     reduction would carry) and the new residuals, ``(grads,
-    CompressionState)``."""
+    CompressionState)``. For shards of a sharded tree, ``amax_reduce``
+    takes the vector of every leaf's largest |value| and returns each
+    leaf's over all its shards (a MAX all-reduce), so each leaf keeps one
+    scale."""
+    amax = None
+    if amax_reduce is not None:
+        amax = iter(amax_reduce(torch.stack(
+            [(g.to(torch.float32) + e).abs().max() for g, e in
+             zip(tree_leaves(grads), tree_leaves(state.error))])))
+
     def one(g, e):
         g32 = g.to(torch.float32) + e
-        deq = int8_dequantize(*int8_quantize(g32))
+        deq = int8_dequantize(*int8_quantize(
+            g32, None if amax is None else next(amax)))
         return deq.to(g.dtype), g32 - deq
 
     pairs = tree_map(one, grads, state.error)

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update",
-           "clip_by_global_norm", "tree_leaves", "tree_map",
+           "clip_by_global_norm", "global_norm", "tree_leaves", "tree_map",
            "warmup_cosine"]
 
 
@@ -166,12 +166,27 @@ def _pieces(t: torch.Tensor, read_only: bool = False) -> tuple:
     return (t.reshape(-1) if read_only else t.view(-1)).split(PIECE)
 
 
-def _clip_scale(grads, max_norm: float):
-    """The global norm of ``grads`` (each leaf's squares summed piece by
-    piece, :data:`PIECE`) and the factor that clips it."""
-    gn = torch.sqrt(sum(torch.sum(torch.square(c.to(torch.float32)))
-                        for g in tree_leaves(grads)
-                        for c in _pieces(g, read_only=True)))
+def global_norm(grads, *, weights=None, reduce=None) -> torch.Tensor:
+    """The L2 norm of ``grads``, each leaf's squares summed in float32
+    piece by piece (:data:`PIECE`). For shards of a sharded tree:
+    ``weights`` (per leaf, None for 1) scales each leaf's sum, and
+    ``reduce`` (a function of the 0-d sum) sums it over the ranks before
+    the square root."""
+    leaves = tree_leaves(grads)
+    weights = weights or [None] * len(leaves)
+
+    def sq(c, w):
+        s = torch.sum(torch.square(c.to(torch.float32)))
+        return s if w is None else s * w
+    total = sum(sq(c, w) for g, w in zip(leaves, weights)
+                for c in _pieces(g, read_only=True))
+    return torch.sqrt(total if reduce is None else reduce(total))
+
+
+def _clip_scale(grads, max_norm: float, gn=None):
+    """The global norm of ``grads`` (:func:`global_norm`, unless given as
+    ``gn``) and the factor that clips it."""
+    gn = global_norm(grads) if gn is None else gn
     return gn, torch.clamp_max(
         _f32(max_norm, gn) / torch.clamp_min(gn, 1e-12), 1.0)
 
@@ -194,19 +209,21 @@ def adamw_init(params, cfg: AdamWConfig) -> dict:
 
 @torch.no_grad()
 def adamw_update(params, grads, state: dict, cfg: AdamWConfig, *,
-                 step_in_place: bool = False):
+                 step_in_place: bool = False, grad_norm=None):
     """One AdamW step: ``(params, state, {"grad_norm", "lr"})``. float32
     math; the parameters keep their dtype and the moments
     ``moment_dtype``, both updated in place. The returned state's
     ``step`` is a new tensor, the reference's ``step + 1``; with
     ``step_in_place`` it is ``state["step"]`` itself, advanced in place,
     as a captured step needs (a replay reads the state's own tensors, so a
-    new one would leave the next replay at the same step)."""
+    new one would leave the next replay at the same step). ``grad_norm``:
+    the gradients' global norm when they are shards of a larger tree
+    (:func:`global_norm` over the ranks); by default their own."""
     step = state["step"].add_(1) if step_in_place else state["step"] + 1
     lr = warmup_cosine(cfg, step)
     # each leaf clipped inside its update, as clip_by_global_norm clips it:
     # no second tree of gradients
-    gnorm, scale = _clip_scale(grads, cfg.clip_norm)
+    gnorm, scale = _clip_scale(grads, cfg.clip_norm, grad_norm)
     c = lambda v: _f32(v, lr)                               # noqa: E731
     s32 = step.to(torch.float32)
     bc1 = c(1.0) - torch.pow(c(cfg.b1), s32)

@@ -108,9 +108,12 @@ def test_no_checkpoint_raises(tmp_path):
 
 
 def test_shardings_refused(tmp_path):
+    """``shardings`` must be a tree of ``NamedSharding`` s over a mesh
+    (``tests/test_torch_distributed.py`` restores onto one); a tree of
+    anything else is refused."""
     t = _torch_tree(_arrays())
     save_checkpoint(str(tmp_path), 1, t)
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(TypeError, match="NamedSharding"):
         restore_checkpoint(str(tmp_path), t, shardings=t)
 
 

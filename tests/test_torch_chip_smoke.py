@@ -898,3 +898,51 @@ def test_float64_weights_give_float64_gradients(smoke):
     assert all(g.dtype == torch.float64 for g in g64)
     assert loss64 != loss32 and abs(loss64 - loss32) <= 1e-6 * loss64
     assert 0 < smoke._grad_err(g32, g64) <= 1e-3
+
+
+def test_distributed_phase_runs_the_published_configs(smoke):
+    """(a) the published qwen1.5-4b, whose 20 MHA heads tp 16 pads to 32
+    (KV too: 1.6x the cache), within the lm phase's bound or tighter; (b)
+    the published qwen1.5-0.5b, uncut."""
+    from repro_torch.configs import get_config
+    cfg = get_config(smoke.DIST_ARCH)
+    assert cfg.n_params() == smoke.DIST_PARAMS and cfg.qkv_bias
+    assert (cfg.n_heads, cfg.n_kv_heads, cfg.n_layers) == (20, 20, 40)
+    tp = dataclasses.replace(cfg, tp=smoke.DIST_TP)
+    assert tp.head_layout()[:2] == (32, 32)
+    assert smoke.DIST_TP_BOUND <= smoke.LM_BF16_BOUND
+    assert smoke.DIST_DECODE == 8 and smoke.DIST_PROMPT == 1000
+    assert get_config(smoke.LM_ARCH).n_params() == smoke.LM_PARAMS
+
+
+def test_replica_path_counts_are_the_served_paths(smoke):
+    """One replica on one card runs the whole batch: the replica path's
+    counts per batch bucket are the served path's, skipped by the phases
+    that compile ``PATHS``' backends, and every batch of the phase lands
+    on a configured bucket."""
+    assert smoke.PATHS["model2"]["serve_replica"] == \
+        smoke.PATHS["model2"]["serve"]
+    for b, n in smoke.DIST_SERVE_BATCHES:
+        assert b <= max(smoke.SERVE_BUCKETS["batch"])
+        assert n <= max(smoke.SERVE_BUCKETS["points"])
+
+
+def test_served_counts_follow_captures_and_builds(smoke):
+    """Per capture ``WARMUP + 1`` calls of the step (K7 and the gather
+    twice each, the step's MLP counts at its batch), per plan build K7
+    twice, P1 and P2 once."""
+    from repro_torch.models.backend import CudaGraphCall
+
+    class Model:
+        captures = 2
+        _graphs = {("step", "ops", ((2, 1024, 3),)): None,
+                   ("step", "ops", ((8, 768, 3),)): None}
+    calls = CudaGraphCall.WARMUP + 1
+    want = smoke._served_counts(Model(), 5, smoke.PATHS["model2"]["serve"])
+    assert want["fps"] == 2 * 2 * calls + 2 * 5
+    assert want["plan_greedy"] == want["plan_coordinate"] == 5
+    assert want["aggregate_diff_batched"] == 2 * 2 * calls
+    assert want["fused_mlp_wstat_layer"] == 2 * 8 * calls
+    assert smoke._cache_bytes({"k": torch.zeros((2, 3),
+                                                dtype=torch.bfloat16),
+                               "v": torch.zeros(4)}) == 2 * 6 + 16

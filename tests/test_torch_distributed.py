@@ -1,0 +1,744 @@
+"""The port's distributed layer (``repro_torch.launch``: ``mesh``,
+``sharding``, ``collectives``, ``pipeline``, the storage-sharded train
+step, ``restore_checkpoint(shardings=)``, ``PointCloudServable(mesh=)``,
+MoE local routing) against the JAX package, on the CPU.
+
+Multi-rank parity runs on gloo: the module fixture :func:`ranks` starts 8
+processes of this file (``python tests/test_torch_distributed.py RANK
+WORLD DIR``, a ``file://`` store in ``DIR``); each runs :func:`_worker` and
+saves its results. The reference's collectives run meanwhile in a
+subprocess with 8 forced host devices, under ``jax.set_mesh`` and
+``jax.shard_map`` (the reference's own tests call ``shard_map`` without a
+mesh context, which JAX 0.9 refuses). The reference's sharded train step
+is, under GSPMD, its unsharded function: it runs jitted here on one
+device. JAX is imported inside the fixtures and subprocesses only, so the
+``cuda`` cases collect where there is no JAX.
+
+Bounds, and why:
+- ``compressed_psum`` on 8 ranks: bit for bit the reference's (the scale
+  divides by a float32 127 in both; measured equal), and within the
+  reference's own test bound (8 quantization steps) of the exact sum;
+- ``pipeline_forward``, 8 stages and 4 microbatches: bit for bit the
+  port's sequential composition (the same stage calls on the same
+  microbatches), within 2e-5 of the reference's (its tolerance against
+  its own sequential composition);
+- ``overlapped_tp_matmul`` on 8 ranks: every rank within 1e-5 of the
+  reference's (8 partial products summed in each rank's ring order, the
+  products' own order the BLAS's) and within the reference test's 1e-4 of
+  ``x @ w``;
+- MoE local routing at 4 groups: token order, slots and drops equal to
+  the reference's, outputs within 1e-5 (the expert GEMMs' order);
+- the sharded step on a (4, 2) mesh (deepseek-7b ``reduced()``,
+  ``batch_axes=("data",)``, ``tp=2``; and grok-1 ``reduced()`` with 4
+  MoE routing groups), at full learning rate from the first step
+  (``warmup_steps=0``, so that the parameters move): both losses within
+  1e-6 relative of the reference's step (the global mean taken as the
+  mean of 4 parts' means) and both gradient norms within 1e-5 relative
+  (the norm reads the gradient's scale, which AdamW does not: a sum over
+  the parts in place of their mean, or a replicated shard counted once per
+  copy, shows here and in the moments); on every rank, every local shard
+  of the parameters after 2 steps within 1e-4 x max|p| and within
+  ``DP_BOUND`` x max|p - p0| of the port's unsharded step's, and of the
+  moments m and v within 1e-4 x their leaf's max; every local shard's
+  shape the reference's specs' cut; a MoE config whose routing groups do
+  not split over the data-parallel parts refused;
+- ``restore_checkpoint(shardings=)`` of a state saved on 8 ranks onto a
+  (2, 2) mesh of 4: every shard equal to its slice of the global array;
+- ``PointCloudServable(mesh=make_replica_mesh(2))``: every row bit for
+  bit the ``mesh=None`` servable's, at batch 4 (sharded) and 3 (run
+  replicated).
+"""
+import dataclasses
+import os
+import pathlib
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.optim import (AdamWConfig, int8_dequantize,       # noqa: E402
+                               int8_quantize, tree_leaves, tree_map)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+WORLD = 8
+ARCH, MOE_ARCH = "deepseek-7b", "grok-1-314b"
+#: the sharded step's cases, (config, overrides of ``reduced()``, int8
+#: gradient compression): as the reference's test runs it (every leaf
+#: under the rules' 1M-element floor, so replicated); widened so that the
+#: embedding, head and MLP weights shard (vocab over 'model'; d_model over
+#: 'data' and d_ff over 'model'); widened with compression (each leaf's
+#: scale the largest |value| over its shards); and a MoE config routing in
+#: 4 groups, one per data-parallel part, as the reference's launch layer
+#: sets ``dp_shards``
+WIDE = {"vocab_size": 16384, "d_ff": 8192}
+CASES = {"reduced": (ARCH, {}, False), "wide": (ARCH, WIDE, False),
+         "compressed": (ARCH, WIDE, True),
+         "moe": (MOE_ARCH, {"dp_shards": 4}, False)}
+BATCH, SEQ, STEPS = 8, 32, 2
+#: no warmup, so that each step moves every parameter by about the
+#: learning rate (AdamWConfig's warmup would move them by 3e-6 and 6e-6)
+OPT = dict(warmup_steps=0, lr=1e-4)
+#: the sharded step's parameters against the unsharded step's, relative to
+#: how far the two steps moved them: AdamW's first update g / (|g| + eps)
+#: is ill-conditioned where |g| is near eps, and there the order of the
+#: sum over the batch's parts shows (in one process, the mean of 4 parts'
+#: gradients in place of the whole batch's moved one element of the widened
+#: config's down/w 1.2e-2 of the step away); 1e-4 is the learning rate at
+#: which that error stays within 1e-4 x max|p| too
+DP_BOUND = 3e-2
+#: with int8 compression, the share of elements that the sharded and
+#: unsharded gradients' last-bit differences may flip across a rounding
+#: boundary of the quantization (each such element's update then differs
+#: by up to a learning rate)
+FLIP_SHARE = 1e-4
+PSUM_SHAPE = (8, 64)
+PIPE = dict(S=8, M=4, MB=2, D=16)
+MATMUL = dict(m=16, k=64, n=24)
+RANK_TIMEOUT = 240
+
+
+def _sharded_cfg(get_config, case: str):
+    arch, over, _ = CASES[case]
+    return dataclasses.replace(get_config(arch).reduced(),
+                               batch_axes=("data",), tp=2, **over)
+
+
+def _cuts(case: str) -> bool:
+    """Whether ``case``'s widths put some leaf above the rules' floor."""
+    return "vocab_size" in CASES[case][1]
+
+
+# ---------------------------------------------------------------------------
+# the ranks' program (gloo, one process each)
+# ---------------------------------------------------------------------------
+
+def _pipe_inputs():
+    rng = np.random.default_rng(0)
+    s, m, mb, d = PIPE["S"], PIPE["M"], PIPE["MB"], PIPE["D"]
+    ws = (rng.normal(size=(s, d, d)) / np.sqrt(d)).astype(np.float32)
+    return ws, rng.normal(size=(m, mb, d)).astype(np.float32)
+
+
+def _matmul_inputs():
+    rng = np.random.default_rng(2)
+    return (rng.normal(size=(MATMUL["m"], MATMUL["k"])).astype(np.float32),
+            rng.normal(size=(MATMUL["k"], MATMUL["n"])).astype(np.float32))
+
+
+def _psum_input():
+    return np.random.default_rng(1).normal(size=PSUM_SHAPE).astype(
+        np.float32)
+
+
+def _stage(w, h):
+    return torch.tanh(h @ w)
+
+
+def _serve_case():
+    """A tiny PointNet++ (the serving tests' shape) and 4 clouds."""
+    from repro_torch.core.workload import PointNetConfig, SALayerSpec
+    from repro_torch.models.pointnet2 import init_params
+    cfg = PointNetConfig(name="tiny-replicas", n_points=64, layers=(
+        SALayerSpec(n_centers=24, n_neighbors=4, in_features=4,
+                    mlp=(4, 8, 8, 16)),
+        SALayerSpec(n_centers=8, n_neighbors=4, in_features=16,
+                    mlp=(16, 16, 16, 32))))
+    params = init_params(cfg, seed=0, n_classes=10)
+    rng = np.random.default_rng(5)
+    clouds = [rng.normal(size=(n, 3)).astype(np.float32)
+              for n in (64, 50, 64, 40)]
+    return cfg, params, clouds
+
+
+def _served_rows(model, clouds, mesh):
+    from repro_torch.launch import PointCloudServable, ShapeBuckets
+    servable = PointCloudServable(model, buckets=ShapeBuckets(
+        points=(64,), batch=(1, 2, 3, 4)), mesh=mesh)
+    return [torch.stack(servable.run_batch(clouds)),
+            torch.stack(servable.run_batch(clouds[:3]))], servable
+
+
+def _worker(rank: int, world: int, out_dir: str) -> None:
+    import torch.distributed as dist
+    import repro_torch
+    from repro_torch.launch import make_replica_mesh, make_test_mesh
+    from repro_torch.launch.collectives import (compressed_psum,
+                                                overlapped_tp_matmul)
+    from repro_torch.launch.pipeline import pipeline_forward
+    out = pathlib.Path(out_dir)
+    dist.init_process_group("gloo", init_method=f"file://{out / 'store'}",
+                            rank=rank, world_size=world)
+    res = {}
+    try:
+        x = torch.from_numpy(_psum_input())
+        res["psum"] = compressed_psum(x[rank:rank + 1])
+        ws, xm = map(torch.from_numpy, _pipe_inputs())
+        res["pipe"] = pipeline_forward(_stage, ws[rank], xm)
+        if rank == 0:
+            seq = []
+            for j in range(xm.shape[0]):
+                h = xm[j]
+                for s in range(ws.shape[0]):
+                    h = _stage(ws[s], h)
+                seq.append(h)
+            res["pipe_sequential"] = torch.stack(seq)
+        xw, w = map(torch.from_numpy, _matmul_inputs())
+        k = xw.shape[1] // world
+        res["matmul"] = overlapped_tp_matmul(xw[:, rank * k:(rank + 1) * k],
+                                             w)
+
+        # the storage-sharded step on a (4, 2) mesh
+        mesh = make_test_mesh((4, 2), device_type="cpu")
+        mesh4 = make_test_mesh((2, 2), device_type="cpu")
+        for case in CASES:
+            res[case] = _sharded_run(case, mesh, mesh4, rank, out)
+
+        # a (1, 1) mesh of rank 0: every collective an identity
+        one = make_test_mesh((1, 1), device_type="cpu")
+        if rank == 0:
+            res["one_rank"] = _one_rank(one)
+
+        # replica fan-out over the first 2 ranks
+        replicas = make_replica_mesh(2, device_type="cpu")
+        if rank < 2:
+            pcfg, params, clouds = _serve_case()
+            model = repro_torch.compile_model(
+                params, pcfg, backend="reram-fused", schedule="pointer",
+                device="cpu")
+            rows, servable = _served_rows(model, clouds, replicas)
+            plain, base = _served_rows(model, clouds, None)
+            res["served"] = {"rows": rows, "plain": plain,
+                             "trace_shapes": servable.trace_shapes,
+                             "plain_trace_shapes": base.trace_shapes}
+        dist.barrier()
+    finally:
+        torch.save(res, out / f"rank{rank}.pt")
+        dist.destroy_process_group()
+
+
+def _sharded_run(case: str, mesh, mesh4, rank: int,
+                 out: pathlib.Path) -> dict:
+    """:data:`STEPS` sharded steps of ``case`` from the reference's state,
+    then the state saved on every rank and restored onto ``mesh4``."""
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch.sharding import (named_shardings, shard_tree,
+                                             state_pspecs)
+    cfg = _sharded_cfg(get_config, case)
+    comp = CASES[case][2]
+    with np.load(out / f"init_{case}.npz") as npz:
+        init = _unflatten({key: npz[key] for key in npz.files})
+    state = train_state_from_numpy(init, cfg, device="cpu")
+    shardings = named_shardings(state_pspecs(state, mesh), mesh)
+    state = shard_tree(state, shardings)
+    res = {"shard_shapes": {key: tuple(d.to_local().shape)
+                            for key, d in _flatten(state).items()}}
+    batch = dummy_inputs(cfg, "train", batch=BATCH, seq=SEQ, device="cpu")
+    step = make_train_step(cfg, AdamWConfig(**OPT), mesh=mesh,
+                           grad_compression=comp)
+    res["losses"], res["grad_norms"] = [], []
+    for _ in range(STEPS):
+        state, metrics = step(state, batch)
+        res["losses"].append(float(metrics["loss"]))
+        res["grad_norms"].append(float(metrics["grad_norm"]))
+    if cfg.family == "moe":
+        # one routing group for the whole batch cannot be cut over 4 parts
+        one = dataclasses.replace(cfg, dp_shards=1)
+        try:
+            make_train_step(one, AdamWConfig(**OPT), mesh=mesh)(state, batch)
+            res["refused"] = None
+        except ValueError as e:
+            res["refused"] = str(e)
+    # the port's unsharded step from the same state: every local shard
+    # against its slice of the unsharded leaf
+    plain = train_state_from_numpy(init, cfg, device="cpu")
+    plain_step = make_train_step(cfg, AdamWConfig(**OPT),
+                                 grad_compression=comp)
+    for _ in range(STEPS):
+        plain, _ = plain_step(plain, batch)
+    p0 = _flatten(train_state_from_numpy(init, cfg, device="cpu"))
+    res["vs_unsharded"] = {}
+    shardings, plain = _flatten(shardings), _flatten(plain)
+    for key, got in _flatten(state).items():
+        s, want = shardings[key], plain[key].detach()
+        diff = (got.to_local() - s.shard(want)).abs()
+        scale = float(want.abs().max())
+        moved = float((want - p0[key].detach()).abs().max())
+        res["vs_unsharded"][key] = {
+            "err": float(diff.max()), "scale": scale, "moved": moved,
+            "numel": diff.numel(),
+            "off": int((diff > (DP_BOUND * moved if key.startswith("params/")
+                                else 1e-4 * scale)).sum())}
+    full = tree_map(lambda d: d.full_tensor(), state)
+    # saved on 8 ranks, restored onto a (2, 2) mesh of the first 4
+    ckpt = str(out / f"ckpt_{case}")
+    save_checkpoint(ckpt, STEPS, state)
+    if rank < 4:
+        want = named_shardings(state_pspecs(state, mesh4), mesh4)
+        got, at, _ = restore_checkpoint(ckpt, state, shardings=want)
+        res["restore"] = {
+            "step": at, "leaves": len(tree_leaves(got)),
+            "equal": sum(torch.equal(g.to_local(), s.shard(f))
+                         for g, s, f in zip(tree_leaves(got),
+                                            tree_leaves(want),
+                                            tree_leaves(full))),
+            "sharded": sum(g.to_local().numel() < f.numel()
+                           for g, f in zip(tree_leaves(got),
+                                           tree_leaves(full)))}
+    return res
+
+
+def _one_rank(mesh) -> dict:
+    """On a one-rank mesh: 3 sharded steps of qwen1.5-0.5b ``reduced()``
+    against 3 unsharded ones from the same seed, with and without int8
+    compression, and the collectives against their one-rank meaning."""
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.launch import init_train_state, make_train_step
+    from repro_torch.launch.collectives import (compressed_psum,
+                                                overlapped_tp_matmul)
+    from repro_torch.launch.pipeline import pipeline_forward
+    from repro_torch.launch.sharding import (named_shardings, shard_tree,
+                                             state_pspecs)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    opt = AdamWConfig()
+    batch = dummy_inputs(cfg, "train", batch=2, seq=36, device="cpu")
+    losses, leaves = [], []
+    for comp in (False, True):
+        plain = init_train_state(0, cfg, opt, grad_compression=comp,
+                                 device="cpu")
+        sharded = init_train_state(0, cfg, opt, grad_compression=comp,
+                                   device="cpu")
+        sharded = shard_tree(sharded, named_shardings(
+            state_pspecs(sharded, mesh), mesh))
+        step = make_train_step(cfg, opt, grad_compression=comp)
+        sstep = make_train_step(cfg, opt, grad_compression=comp, mesh=mesh)
+        for _ in range(3):
+            losses.append((step(plain, batch)[1]["loss"],
+                           sstep(sharded, batch)[1]["loss"]))
+        leaves += list(zip(tree_leaves(plain), tree_leaves(sharded)))
+    group = mesh.get_group("data")
+    x = torch.from_numpy(_psum_input())
+    ws, xm = map(torch.from_numpy, _pipe_inputs())
+    xw, w = map(torch.from_numpy, _matmul_inputs())
+    return {
+        "losses": all(torch.equal(a, b) for a, b in losses),
+        "leaves": all(torch.equal(a.detach(), b.to_local())
+                      for a, b in leaves),
+        "psum": torch.equal(compressed_psum(x, group),
+                            int8_dequantize(*int8_quantize(x))),
+        "pipe": torch.equal(pipeline_forward(_stage, ws[0], xm, group),
+                            torch.stack([_stage(ws[0], h) for h in xm])),
+        "matmul": torch.equal(overlapped_tp_matmul(xw, w, group), xw @ w)}
+
+
+def _flatten(tree, prefix=()):
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], prefix + (k,)))
+        return out
+    return {"/".join(prefix): tree}
+
+
+def _unflatten(flat: dict) -> dict:
+    tree = {}
+    for key, v in flat.items():
+        *path, last = key.split("/")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[last] = v
+    return tree
+
+
+# ---------------------------------------------------------------------------
+# the reference
+# ---------------------------------------------------------------------------
+
+_REF_COLLECTIVES = """
+import sys
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import PartitionSpec as P
+sys.path.insert(0, "src")
+sys.path.insert(0, "tests")
+from repro.launch.collectives import compressed_psum, overlapped_tp_matmul
+from repro.launch.pipeline import pipeline_forward
+from test_torch_distributed import _matmul_inputs, _pipe_inputs, _psum_input
+
+out = {}
+pod = jax.make_mesh((8,), ("pod",))
+with jax.set_mesh(pod):
+    x = jnp.asarray(_psum_input())
+    out["psum"] = jax.shard_map(lambda a: compressed_psum(a, "pod"),
+                                mesh=pod, in_specs=P("pod"),
+                                out_specs=P())(x)
+    out["psum_exact"] = jax.shard_map(lambda a: jax.lax.psum(a, "pod"),
+                                      mesh=pod, in_specs=P("pod"),
+                                      out_specs=P())(x)
+    ws, xm = map(jnp.asarray, _pipe_inputs())
+    out["pipe"] = jax.shard_map(
+        lambda w, h: pipeline_forward(lambda a, b: jnp.tanh(b @ a), w[0], h,
+                                      axis_name="pod"),
+        mesh=pod, in_specs=(P("pod"), P()), out_specs=P())(ws, xm)
+model = jax.make_mesh((8,), ("model",))
+with jax.set_mesh(model):
+    xw, w = map(jnp.asarray, _matmul_inputs())
+    out["matmul"] = jax.shard_map(
+        lambda a, b: overlapped_tp_matmul(a, b, "model"), mesh=model,
+        in_specs=(P(None, "model"), P()), out_specs=P(),
+        check_vma=False)(xw, w)
+np.savez(sys.argv[1], **{k: np.asarray(v) for k, v in out.items()})
+"""
+
+
+def _free_env() -> dict:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    return env
+
+
+@pytest.fixture(scope="module")
+def jx():
+    jax = pytest.importorskip("jax")
+    from repro.configs import dummy_inputs, get_config
+    from repro.launch import train as ref_train
+    from repro.models import moe as ref_moe
+    from repro.optim import AdamWConfig as RefAdamW
+    return {"jax": jax, "jnp": jax.numpy, "get_config": get_config,
+            "dummy_inputs": dummy_inputs, "train": ref_train,
+            "moe": ref_moe, "AdamWConfig": RefAdamW}
+
+
+@pytest.fixture(scope="module")
+def ranks(jx, tmp_path_factory):
+    """Every rank's results (``rank{r}.pt``), the reference's collectives
+    (``ref.npz``) and the reference's train state and 2 steps."""
+    jax = jx["jax"]
+    out = tmp_path_factory.mktemp("gloo")
+    ref_proc = subprocess.Popen(
+        [sys.executable, "-c", _REF_COLLECTIVES, str(out / "ref.npz")],
+        cwd=ROOT, env=dict(_free_env(), XLA_FLAGS=(
+            "--xla_force_host_platform_device_count=8")),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    opt = jx["AdamWConfig"](**OPT)
+    init = {}
+    for case in CASES:
+        rcfg = _sharded_cfg(jx["get_config"], case)
+        init[case] = jax.device_get(jax.jit(
+            lambda k: jx["train"].init_train_state(
+                k, rcfg, opt, grad_compression=CASES[case][2]))(
+                    jax.random.PRNGKey(0)))
+        np.savez(out / f"init_{case}.npz", **{
+            k: np.asarray(v) for k, v in _flatten(init[case]).items()})
+    procs = [subprocess.Popen(
+        [sys.executable, __file__, str(r), str(WORLD), str(out)], cwd=ROOT,
+        env=_free_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(WORLD)]
+    # the reference's steps meanwhile: its sharded step is, under GSPMD,
+    # the unsharded function, here on a one-device mesh so that
+    # ``batch_axes`` (the MoE routing groups) takes effect
+    ref_losses, ref_norms = {}, {}
+    one = jax.make_mesh((1, 1), ("data", "model"), axis_types=(
+        jax.sharding.AxisType.Auto,) * 2)
+    for case in CASES:
+        rcfg = _sharded_cfg(jx["get_config"], case)
+        batch = jx["dummy_inputs"](rcfg, "train", batch=BATCH, seq=SEQ)
+        ref_step = jax.jit(jx["train"].make_train_step(
+            rcfg, opt, grad_compression=CASES[case][2]))
+        st = jax.tree.map(jax.numpy.asarray, init[case])
+        ref_losses[case], ref_norms[case] = [], []
+        with jax.set_mesh(one):
+            for _ in range(STEPS):
+                st, m = ref_step(st, batch)
+                ref_losses[case].append(float(m["loss"]))
+                ref_norms[case].append(float(m["grad_norm"]))
+    logs = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
+    _, err = ref_proc.communicate(timeout=RANK_TIMEOUT)
+    assert ref_proc.returncode == 0, err[-4000:]
+    res = [torch.load(out / f"rank{r}.pt", weights_only=False)
+           for r in range(WORLD)]
+    return {"rank": res, "ref": dict(np.load(out / "ref.npz")),
+            "init": init, "ref_losses": ref_losses, "ref_norms": ref_norms}
+
+
+# ---------------------------------------------------------------------------
+# collectives and the pipeline
+# ---------------------------------------------------------------------------
+
+def test_compressed_psum_is_the_references(ranks):
+    got = [r["psum"] for r in ranks["rank"]]
+    assert all(torch.equal(g, got[0]) for g in got)
+    np.testing.assert_array_equal(got[0].numpy(), ranks["ref"]["psum"])
+    x = _psum_input()
+    err = float(np.abs(got[0].numpy() - ranks["ref"]["psum_exact"]).max())
+    assert err <= 8 * float(np.abs(x).max()) / 127 + 1e-6
+
+
+def test_pipeline_forward_is_the_sequential_composition(ranks):
+    got = [r["pipe"] for r in ranks["rank"]]
+    assert all(torch.equal(g, got[0]) for g in got)
+    assert torch.equal(got[0], ranks["rank"][0]["pipe_sequential"])
+    np.testing.assert_allclose(got[0].numpy(), ranks["ref"]["pipe"],
+                               rtol=0, atol=2e-5)
+
+
+def test_overlapped_tp_matmul_matches_the_reference(ranks):
+    """Each rank sums its 8 partial products in its own ring order, so the
+    ranks' results differ in the last bits, as the reference's devices'
+    do: each within the bounds."""
+    xw, w = _matmul_inputs()
+    for r in ranks["rank"]:
+        np.testing.assert_allclose(r["matmul"].numpy(),
+                                   ranks["ref"]["matmul"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(r["matmul"].numpy(), xw @ w, rtol=1e-4,
+                                   atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the storage-sharded train step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_step_losses_match_the_references(ranks, case):
+    ref = np.asarray(ranks["ref_losses"][case])
+    for r in ranks["rank"]:
+        np.testing.assert_allclose(np.asarray(r[case]["losses"]), ref,
+                                   rtol=1e-6)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_step_grad_norms_match_the_references(ranks, case):
+    ref = np.asarray(ranks["ref_norms"][case])
+    for r in ranks["rank"]:
+        np.testing.assert_allclose(np.asarray(r[case]["grad_norms"]), ref,
+                                   rtol=1e-5)
+
+
+def _vs_unsharded(ranks, case: str, prefixes: tuple):
+    """Every rank's comparison of its local shards with the unsharded
+    step's (:func:`_sharded_run`), for the leaves under ``prefixes``."""
+    out = [(key, e) for r in ranks["rank"]
+           for key, e in r[case]["vs_unsharded"].items()
+           if key.startswith(prefixes)]
+    assert out
+    return out
+
+
+def _within(ranks, case: str, prefixes: tuple, flip_err=None) -> None:
+    """Every leaf's largest error within 1e-4 of its largest value and no
+    element beyond its bound (``off``); with int8 compression, at most
+    :data:`FLIP_SHARE` of the elements beyond it and each leaf's largest
+    error within ``flip_err`` of its largest value, where given."""
+    leaves = _vs_unsharded(ranks, case, prefixes)
+    if CASES[case][2]:
+        off = sum(e["off"] for _, e in leaves)
+        assert off <= FLIP_SHARE * sum(e["numel"] for _, e in leaves), off
+        for key, e in leaves:
+            assert flip_err is None or e["err"] <= flip_err * e["scale"], (
+                key, e)
+        return
+    for key, e in leaves:
+        assert e["off"] == 0, (key, e)
+        assert e["err"] <= 1e-4 * e["scale"], (key, e)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_step_parameters_match_the_unsharded_step(ranks, case):
+    """Every rank's shard of every parameter after the steps, against its
+    slice of the port's unsharded step's: within 1e-4 x max|p| and within
+    :data:`DP_BOUND` of how far the steps moved the leaf (a flipped element
+    under compression moves by up to a step more or less)."""
+    for key, e in _vs_unsharded(ranks, case, ("params/",)):
+        assert e["moved"] > 0, key
+    _within(ranks, case, ("params/",))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_step_moments_match_the_unsharded_step(ranks, case):
+    """Every rank's shard of AdamW's m and v, which carry the gradient's
+    scale, within 1e-4 of their leaf's largest value; under compression a
+    flipped element is off by at most 2 int8 steps of the gradient."""
+    _within(ranks, case, ("opt/m/", "opt/v/"), flip_err=2 / 127)
+
+
+def test_moe_routing_groups_must_split_over_the_parts(ranks):
+    for r in ranks["rank"]:
+        assert "do not split" in r["moe"]["refused"]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_sharded_state_shards_are_the_reference_specs_cut(ranks, jx, case):
+    """Each rank's local shard of every state leaf has the shape the
+    reference's ``state_pspecs`` on a (4, 2) mesh cut; at ``reduced()``
+    every leaf is below the rules' floor and whole, widened some shard."""
+    from jax.sharding import AbstractMesh, PartitionSpec
+    from repro.launch import sharding as ref_shd
+    mesh = AbstractMesh((4, 2), ("data", "model"))
+    init = _flatten(ranks["init"][case])
+    specs = jx["jax"].tree.leaves(
+        ref_shd.state_pspecs(ranks["init"][case], mesh),
+        is_leaf=lambda x: isinstance(x, PartitionSpec))
+    sizes = dict(mesh.shape)
+    want = {}
+    for (key, leaf), spec in zip(init.items(), specs):
+        shape = list(np.shape(leaf))
+        for d, entry in enumerate(spec):
+            axes = (entry,) if isinstance(entry, str) else (entry or ())
+            for a in axes:
+                shape[d] //= sizes[a]
+        want[key] = tuple(shape)
+    cut = sum(w != np.shape(leaf) for w, leaf in zip(want.values(),
+                                                      init.values()))
+    assert (cut > 0) == _cuts(case)
+    for r in ranks["rank"]:
+        assert r[case]["shard_shapes"] == want
+
+
+def test_one_rank_mesh_is_the_unsharded_program(ranks):
+    """At one rank every collective is an identity: the sharded step's
+    losses and state bit for bit the unsharded step's, ``compressed_psum``
+    bit for bit ``int8_dequantize(int8_quantize(x))``, ``pipeline_forward``
+    the stage, ``overlapped_tp_matmul`` the product (what phase
+    ``distributed`` of ``chip_smoke.py`` holds on the card)."""
+    assert ranks["rank"][0]["one_rank"] == {
+        "losses": True, "leaves": True, "psum": True, "pipe": True,
+        "matmul": True}
+
+
+# ---------------------------------------------------------------------------
+# elastic restore and replica fan-out
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", CASES)
+def test_restore_recuts_an_8_rank_checkpoint_for_4(ranks, case):
+    for r in ranks["rank"][:4]:
+        got = r[case]["restore"]
+        assert got["step"] == STEPS
+        assert got["equal"] == got["leaves"] > 0
+        assert (got["sharded"] > 0) == _cuts(case)
+    assert all("restore" not in r[case] for r in ranks["rank"][4:])
+
+
+def test_replica_fan_out_serves_the_plain_rows(ranks):
+    for r in ranks["rank"][:2]:
+        served = r["served"]
+        for rows, plain in zip(served["rows"], served["plain"]):
+            assert torch.equal(rows, plain)
+        assert served["trace_shapes"] == served["plain_trace_shapes"]
+    assert torch.equal(ranks["rank"][0]["served"]["rows"][0],
+                       ranks["rank"][1]["served"]["rows"][0])
+
+
+# ---------------------------------------------------------------------------
+# MoE local routing (one process)
+# ---------------------------------------------------------------------------
+
+def test_moe_local_routing_matches_the_reference(jx):
+    """4 routing groups of 16 tokens, top-2 of 4 experts at capacity
+    factor 1 (8 slots per expert and group, so some choices drop): each
+    group's routing
+    (tokens in expert order, slots, drops) equal to the reference's
+    ``_route_local`` on the same group, and ``moe_apply`` under a mesh
+    within 1e-5 of the reference's."""
+    from repro_torch.models import moe
+    jax, jnp, ref = jx["jax"], jx["jnp"], jx["moe"]
+    groups, t, d, f, e, k, cf = 4, 64, 16, 32, 4, 2, 1.0
+    p = jax.device_get(ref.moe_init(jax.random.PRNGKey(3), d, f, e,
+                                    jnp.float32))
+    x = np.random.default_rng(4).normal(size=(t, d)).astype(np.float32)
+    mesh = jax.make_mesh((1, 1), ("data", "model"), axis_types=(
+        jax.sharding.AxisType.Auto,) * 2)
+    with jax.set_mesh(mesh):
+        want = jax.jit(lambda p, x: ref.moe_apply(
+            p, x, top_k=k, capacity_factor=cf, shard_axes=("data",),
+            groups=groups))(p, x)
+    tp = tree_map(lambda a: torch.from_numpy(np.array(a)), p)
+    got = moe.moe_apply(tp, torch.from_numpy(x), top_k=k,
+                        capacity_factor=cf, shard_axes=("data",),
+                        groups=groups)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+    cap = moe.capacity(cf, t // groups, k, e)
+    assert cap == 8
+    drops = 0
+    for xg in np.split(x, groups):
+        _, (st, _, slot, keep) = ref._route_local(
+            jnp.asarray(xg), p["router"]["w"], k, cap, e)
+        _, meta, _, _ = moe._route_local(torch.from_numpy(xg),
+                                         tp["router"]["w"], k, cap, e)
+        for a, b in zip(meta[:1] + meta[2:], (st, slot, keep)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        drops += int((~meta[3]).sum())
+    assert drops > 0
+
+
+# ---------------------------------------------------------------------------
+# the card: world-size-1 identities over NCCL
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1)
+    yield dist
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_compressed_psum_on_one_rank_is_quantize_dequantize(nccl):
+    from repro_torch.launch.collectives import compressed_psum
+    x = torch.from_numpy(_psum_input()).cuda()
+    assert torch.equal(compressed_psum(x),
+                       int8_dequantize(*int8_quantize(x)))
+
+
+@pytest.mark.cuda
+def test_pipeline_on_one_stage_is_the_stage(nccl):
+    from repro_torch.launch.pipeline import pipeline_forward
+    ws, xm = (torch.from_numpy(a).cuda() for a in _pipe_inputs())
+    got = pipeline_forward(_stage, ws[0], xm)
+    assert torch.equal(got, torch.stack([_stage(ws[0], h) for h in xm]))
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_one_rank_is_the_unsharded_step(nccl):
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.launch import (init_train_state, make_test_mesh,
+                                    make_train_step)
+    from repro_torch.launch.sharding import (named_shardings, shard_tree,
+                                             state_pspecs)
+    cfg = get_config("qwen1.5-0.5b").reduced()
+    opt = AdamWConfig()
+    mesh = make_test_mesh((1, 1))
+    plain = init_train_state(0, cfg, opt)
+    sharded = shard_tree(init_train_state(0, cfg, opt), named_shardings(
+        state_pspecs(plain, mesh), mesh))
+    batch = dummy_inputs(cfg, "train", batch=2, seq=36)
+    step, sstep = make_train_step(cfg, opt), make_train_step(cfg, opt,
+                                                             mesh=mesh)
+    for _ in range(3):
+        _, m = step(plain, batch)
+        _, sm = sstep(sharded, batch)
+        assert torch.equal(m["loss"], sm["loss"])
+    for a, b in zip(tree_leaves(plain), tree_leaves(sharded)):
+        assert torch.equal(a.detach(), b.to_local())
+
+
+if __name__ == "__main__":
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])

@@ -431,9 +431,16 @@ def test_token_stream_is_the_reference_stream():
 # ---------------------------------------------------------------------------
 
 def test_tensor_parallel_layouts_wait_for_the_mesh():
-    cfg = dataclasses.replace(get_config("qwen1.5-0.5b").reduced(), tp=2)
-    with pytest.raises(ValueError, match="item 17"):
-        lm.init(0, cfg, device="cpu")
+    """A tp the KV heads cannot meet (GQA, 2 KV heads, tp=3) is refused;
+    a tp they meet runs (``tests/test_torch_tp_layout.py`` holds it
+    against the reference)."""
+    cfg = get_config("mistral-nemo-12b").reduced()
+    with pytest.raises(ValueError, match="incompatible with tp=3"):
+        lm.init(0, dataclasses.replace(cfg, tp=3), device="cpu")
+    params = lm.init(0, dataclasses.replace(cfg, tp=8), device="cpu")
+    cache = lm.init_cache(dataclasses.replace(cfg, tp=8), 1, 4, device="cpu")
+    assert params["blocks"]["attn"]["k"]["w"].shape[-1] == 2 * cfg.head_dim
+    assert cache["k"].shape[-2] == 8
 
 
 def test_entry_points_want_a_card():

@@ -335,15 +335,20 @@ def _recorded_routes(monkeypatch) -> list:
 
 
 def test_moe_records_routes_and_refuses_sharded_routing(jx, monkeypatch):
-    """``moe_apply`` routes once a call through ``_route_local``, which a
-    caller may wrap to record the routing; the sharded path is refused."""
+    """``moe_apply`` routes once a group through ``_route_local``, which a
+    caller may wrap to record the routing: once a call unsharded; with
+    ``shard_axes`` and 2 groups twice, each group of 16 tokens with its own
+    capacity; 3 groups do not divide 32 tokens and are refused."""
     p, x = _moe_case(jx, 1)
     rec = _recorded_routes(monkeypatch)
     moe.moe_apply(_t(p), _t(x), top_k=1, capacity_factor=1.25)
     assert len(rec) == 1 and rec[0]["cap"] == 10
     assert tuple(rec[0]["top_idx"].shape) == (32, 1)
-    with pytest.raises(ValueError, match="item 17"):
-        moe.moe_apply(_t(p), _t(x), top_k=1, shard_axes=("data",), groups=2)
+    moe.moe_apply(_t(p), _t(x), top_k=1, shard_axes=("data",), groups=2)
+    assert [r["cap"] for r in rec[1:]] == [5, 5]
+    assert [tuple(r["top_idx"].shape) for r in rec[1:]] == [(16, 1)] * 2
+    with pytest.raises(ValueError, match="routing groups"):
+        moe.moe_apply(_t(p), _t(x), top_k=1, shard_axes=("data",), groups=3)
 
 
 # ---------------------------------------------------------------------------

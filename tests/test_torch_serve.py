@@ -16,7 +16,8 @@
   logits within the port-vs-reference tolerance of
   ``tests/test_torch_device_planning.py``.
 - Counters and refusals: a warm repeat adds no step key; an oversized
-  cloud is refused before the queue changes; ``mesh=`` is refused.
+  cloud is refused before the queue changes; a ``mesh=`` without a
+  'replica' axis is refused.
 
 On the card each bucket shape replays one CUDA graph
 (``tests/test_torch_cuda.py``); here the step runs eagerly."""
@@ -350,7 +351,7 @@ def test_oversized_cloud_is_refused_before_the_queue_changes(models,
 
 def test_mesh_and_unplanned_options_are_refused(models):
     model = models[("reram-fused", "pointer", None)]
-    with pytest.raises(ValueError, match="mesh= is not supported"):
+    with pytest.raises(ValueError, match="replica"):
         PointCloudServable(model, mesh=object())
     with pytest.raises(ValueError, match="frame_reuse"):
         PointCloudServable(model, plan_cache=False, frame_reuse=True)
