@@ -209,9 +209,17 @@ and batch size. Phases, each printing one JSON line:
    ``PointCloudServable(mesh=make_replica_mesh(1))``: rows bit for bit
    ``mesh=None``'s on a fresh model, the launch counters equal and held to
    the captures and plan builds (``PATHS["model2"]["serve_replica"]``).
+   (d) One layer of qwen1.5-4b at published width (bf16) at tp 16 as 16
+   rank slices through the sharded step's tensor-parallel Functions
+   (``launch/tp.py``), forward and backward, against the unsplit layer:
+   the output and every gradient within ``DIST_EMU_BOUND``.
    Printed: prefill and decode times, peak memory and the KV caches'
-   bytes at 32 heads against 20; the sharded step's time beside the
-   unsharded step's, captured and eager.
+   bytes at 32 heads against 20; the sharded step's time (per-layer
+   gathers) beside the unsharded step's, captured and eager, and beside
+   the earlier whole-model gather's; the gathered bytes a step, the
+   device memory the sharded and the eager unsharded step each take beyond
+   what was allocated before them, and the bytes of the weights' copies a
+   sharded step keeps for its backward; (d)'s errors and times.
 13. lm_train: LM training (``repro_torch.launch.train``; no hand kernel
    but P4, the embedding's and the MoE dispatch's gradient). (a)
    ``run_training`` on qwen1.5-0.5b at published width and depth, bf16,
@@ -4333,6 +4341,24 @@ DIST_TRAIN_TIMED = 10
 #: pipeline_forward on 1 stage: M microbatches of (mb, d), stage tanh(h @ w)
 DIST_PSUM_SHAPE = (4096, 1024)
 DIST_PIPE = {"m": 4, "mb": 8, "d": 1024}
+#: (b)'s 10 timed steps with the earlier sharded step body, which gathered
+#: every parameter whole at the step's start: medians in ms (H100 80GB
+#: HBM3, 700 W) of the sharded step, the unsharded step eager, and its
+#: captured replay
+DIST_WHOLE_GATHER_MS = {"sharded_step_ms": 235.5,
+                        "unsharded_eager_step_ms": 226.5,
+                        "unsharded_captured_step_ms": 146.3}
+#: (d) the TP split at published width, emulated in one process: one
+#: layer of qwen1.5-4b (bf16, seed-0 weights, QKV biases drawn from the
+#: seed too: ``init``'s are zero) at tp 16 as 16 rank slices through the
+#: sharded step's Functions, on this many tokens
+DIST_EMU_BATCH, DIST_EMU_SEQ = 2, 1024
+#: (d)'s bound on the split layer's output and every gradient (the
+#: published leaves' and the input's) against the unsplit layer's, as a
+#: fraction of each one's largest value; stated before the first run: bf16
+#: partial products summed over 16 ranks round once per rank where the
+#: unsplit GEMM rounds once
+DIST_EMU_BOUND = DIST_TP_BOUND
 #: (c) replica fan-out: model2 'reram-fused' behind one replica, batches
 #: of these sizes (8 clouds of 1024 points, 3 of 700: run replicated when
 #: they do not divide the replica count)
@@ -4433,8 +4459,14 @@ def _dist_sharded_step(mesh) -> dict:
     ``make_train_step(..., mesh=)`` on the (1, 1) mesh, the state and batch
     placed by ``state_pspecs`` / ``input_pspecs``, against as many through
     the unsharded (captured) ``make_train_step`` from the same seed: losses
-    and every leaf bit for bit; ``compressed_psum``, ``pipeline_forward``
-    and ``overlapped_tp_matmul`` on one rank bit for bit their unsharded
+    and every leaf bit for bit (each sharded leaf gathered per layer, over
+    mesh dims of 1: copies, the backward's re-gathers too); the eager times
+    beside :data:`DIST_WHOLE_GATHER_MS` and the gather counter's bytes a
+    step; the device memory each step takes beyond the state (the sharded
+    step's and the eager unsharded step's) and the weights' copies that a
+    sharded step keeps for its backward; ``compressed_psum``,
+    ``pipeline_forward`` and
+    ``overlapped_tp_matmul`` on one rank bit for bit their unsharded
     counterparts."""
     from repro_torch.configs import get_config
     from repro_torch.launch import train
@@ -4472,6 +4504,7 @@ def _dist_sharded_step(mesh) -> dict:
     # the unsharded step run eagerly parts the eager launches from what the
     # sharded step adds (the gathers, the reduce-scatter, the shards' norm)
     args = tuple(batch.get(k) for k in train.BATCH_KEYS)
+    compared_gathers = step.gather_stats.as_dict()
     times = {"sharded_step_ms": _wall_ms(lambda: step(state, batch),
                                          n=DIST_TRAIN_TIMED),
              "unsharded_captured_step_ms": _wall_ms(
@@ -4479,7 +4512,6 @@ def _dist_sharded_step(mesh) -> dict:
              "unsharded_eager_step_ms": _wall_ms(
                  lambda: train._step(cfg, opt, False, plain, *args),
                  n=DIST_TRAIN_TIMED)}
-    del plain, state
     group = mesh.get_group("data")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn(DIST_PSUM_SHAPE, generator=gen, device="cuda")
@@ -4498,15 +4530,146 @@ def _dist_sharded_step(mesh) -> dict:
           "distributed: pipeline_forward on one stage is not the stage")
     check(torch.equal(overlapped_tp_matmul(xm[0], w, group), xm[0] @ w),
           "distributed: overlapped_tp_matmul on one rank is not x @ w")
+    gathers = step.gather_stats.as_dict()
+    profile = {"sharded_step": _host_and_device(lambda: step(state, batch)),
+               "unsharded_eager_step": _host_and_device(
+                   lambda: train._step(cfg, opt, False, plain, *args))}
+    check(gathers == compared_gathers and gathers["gathered_bytes"] > 0,
+          f"distributed: the gather counter {gathers} (compared steps "
+          f"{compared_gathers})")
+    memory = {"sharded_step": _step_memory(lambda: step(state, batch)),
+              "unsharded_eager_step": _step_memory(
+                  lambda: train._step(cfg, opt, False, plain, *args))}
+    # one more step with the weights' copies counted (every torch call of
+    # its forward through a Python mode: not timed)
+    step.gather_stats.track_copies = True
+    step(state, batch)
+    copies = step.gather_stats.as_dict()
+    check(copies["gathered_bytes"] == gathers["gathered_bytes"]
+          and copies["kept_copy_bytes"] is not None,
+          f"distributed: the counted step's gathers {copies}")
+    del plain, state
     return {"arch": LM_ARCH, "layers": cfg.n_layers,
             "batch": DIST_TRAIN_BATCH, "seq": DIST_TRAIN_SEQ,
             "losses": losses, "bitwise_steps": DIST_TRAIN_STEPS,
             "compared_sharded_step_ms": sharded_ms,
             "compared_unsharded_step_ms": plain_ms,
-            **{k: {"median": statistics.median(v), "all": v}
+            **{k: {"median": statistics.median(v), "all": v,
+                   "whole_gather_median": DIST_WHOLE_GATHER_MS[k]}
                for k, v in times.items()},
+            "gathers_per_step": gathers, "device_memory": memory,
+            "kept_copy_bytes": copies["kept_copy_bytes"], "profile": profile,
             "input_specs": {k: list(v) for k, v in input_specs.items()},
             "psum_shape": list(DIST_PSUM_SHAPE), "pipeline": DIST_PIPE}
+
+
+def _step_memory(fn) -> dict:
+    """One call of ``fn``: the device memory allocated before it, the most
+    allocated during it, and the difference, in bytes."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return {"before_bytes": before, "peak_bytes": peak,
+            "step_bytes": peak - before}
+
+
+def _host_and_device(fn, top: int = 12) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (settled first): the
+    host's operators by self time and the device's kernels by time, the
+    largest ``top`` of each, and the totals."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_SETTLE_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    host = sorted((e for e in events if e.self_cpu_time_total > 0),
+                  key=lambda e: -e.self_cpu_time_total)
+    device = [e for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and getattr(e, "self_device_time_total", 0) > 0]
+    device.sort(key=lambda e: -e.self_device_time_total)
+    return {"wall_ms": wall,
+            "host_self_ms": sum(e.self_cpu_time_total for e in host) / 1e3,
+            "device_ms": sum(e.self_device_time_total for e in device) / 1e3,
+            "kernel_launches": sum(e.count for e in device),
+            "host_top": [{"op": e.key[:60], "count": e.count,
+                          "self_ms": e.self_cpu_time_total / 1e3}
+                         for e in host[:top]],
+            "device_top": [{"kernel": e.key[:60], "count": e.count,
+                            "ms": e.self_device_time_total / 1e3}
+                           for e in device[:top]]}
+
+
+def _dist_tp_split() -> dict:
+    """(d): one layer of qwen1.5-4b at published width (bf16, seed-0
+    weights and biases, :data:`DIST_EMU_BATCH` x :data:`DIST_EMU_SEQ`
+    tokens) at tp 16 as 16 rank slices (``TensorParallel(16, range(16))``:
+    the sharded step's column- and row-parallel Functions, the ranks'
+    partials summed in rank order), forward and backward, against the
+    unsplit layer at the same head layout: the output and every gradient
+    (the published leaves' and the input's) within :data:`DIST_EMU_BOUND`
+    of each one's largest value; the times of both."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.tp import TensorParallel
+    from repro_torch.launch.train import _leaf_paths
+    from repro_torch.models import lm
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(DIST_ARCH), tp=DIST_TP)
+    check(cfg.n_params() == DIST_PARAMS and cfg.dtype == "bfloat16"
+          and cfg.qkv_bias, "distributed: the config is not the published "
+                            "qwen1.5-4b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    blk = lm.block_init(gen, cfg)
+    for name in "qkv":
+        b = blk["attn"][name]["b"]
+        b.copy_(0.02 * torch.randn(b.shape, generator=gen, device="cuda"))
+    blk = tree_map(lambda t: t.requires_grad_(), blk)
+    x = torch.randn((DIST_EMU_BATCH, DIST_EMU_SEQ, cfg.d_model),
+                    generator=gen, device="cuda").to(cfg.jdtype)
+    x.requires_grad_()
+    pos = torch.arange(DIST_EMU_SEQ, dtype=torch.int32, device="cuda")
+    leaves = tree_leaves(blk) + [x]
+    g = torch.randn(x.shape, generator=gen, device="cuda").to(cfg.jdtype)
+    tp = TensorParallel(DIST_TP, range(DIST_TP))
+    out, ms = {}, {}
+    for name, split in (("unsplit", False), ("tp16", True)):
+        def call():
+            p = lm.tp_block_params(blk, cfg, tp) if split else blk
+            y, _ = lm.block_apply(p, cfg, x, pos)
+            return y, torch.autograd.grad(y, leaves, g)
+        out[name] = call()
+        ms[name] = _wall_ms(call, n=3)
+    (y0, g0), (y1, g1) = out["unsplit"], out["tp16"]
+
+    def rel(a, b):
+        a, b = a.detach().float(), b.detach().float()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    errs = {"output": rel(y1, y0)}
+    keys = [f"grad/{k}" for k in _leaf_paths(blk)] + ["grad/x"]
+    errs.update({k: rel(a, b) for k, a, b in zip(keys, g1, g0)})
+    worst = max(errs, key=errs.get)
+    check(errs[worst] <= DIST_EMU_BOUND,
+          f"distributed: tp 16 split {worst} off by {errs[worst]:.4f} of its "
+          f"largest value (bound {DIST_EMU_BOUND})")
+    eff, eff_kv, _, _ = cfg.head_layout()
+    return {"arch": DIST_ARCH, "tp": DIST_TP, "heads": [cfg.n_heads, eff],
+            "kv_heads": [cfg.n_kv_heads, eff_kv], "d_ff": cfg.d_ff,
+            "batch": DIST_EMU_BATCH, "seq": DIST_EMU_SEQ,
+            "bound": DIST_EMU_BOUND, "worst": [worst, errs[worst]],
+            "err_over_max": errs,
+            **{f"{k}_fwd_bwd_ms_median": statistics.median(v)
+               for k, v in ms.items()},
+            "fwd_bwd_ms": ms}
 
 
 def _dist_replicas(params2, cfg2) -> dict:
@@ -4567,11 +4730,13 @@ def phase_distributed(params2, cfg2, smi: str) -> dict:
     """The distributed layer on one card: NCCL at world size 1 over
     ``make_test_mesh((1, 1))`` and ``make_replica_mesh(1)``; (a) the TP head
     layout at published width and depth (:func:`_dist_tp_layout`), (b) the
-    storage-sharded train step and the collectives
+    sharded train step (per-layer gathers) and the collectives
     (:func:`_dist_sharded_step`), (c) replica fan-out
-    (:func:`_dist_replicas`). Any failure, of the group or a collective
-    too, fails the phase: nothing falls back to gloo or the CPU. Returns the
-    replica path's launch counts."""
+    (:func:`_dist_replicas`), (d) the tensor-parallel split of a published
+    layer at tp 16, emulated in one process (:func:`_dist_tp_split`). Any
+    failure, of the group or a collective too, fails the phase: nothing
+    falls back to gloo or the CPU. Returns the replica path's launch
+    counts."""
     import gc
 
     from repro_torch.launch import make_test_mesh
@@ -4592,6 +4757,9 @@ def phase_distributed(params2, cfg2, smi: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
         res["replicas"] = _dist_replicas(params2, cfg2)
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["tp_split"] = _dist_tp_split()
     finally:
         dist.destroy_process_group()
     res["seconds"] = time.perf_counter() - t0

@@ -1,11 +1,12 @@
 """Launch-side tiers of the port: the serving engine (``serve``) over
 point clouds and LMs, the counterpart of ``repro.launch.serve``; LM
 training (``train``: the train state, the step captured on the card, the
-storage-sharded step, the fault-tolerant loop), the counterpart of
+sharded step, the fault-tolerant loop), the counterpart of
 ``repro.launch.train``; preemption and retries (``fault``); and the
 distributed layer over ``torch.distributed``, one process per device:
 meshes (``mesh``), sharding rules and placements (``sharding``),
-collectives (``collectives``) and the GPipe schedule (``pipeline``).
+collectives (``collectives``), tensor parallelism and the sharded step's
+per-layer gathers (``tp``) and the GPipe schedule (``pipeline``).
 
 >>> import numpy as np
 >>> import repro_torch

@@ -26,21 +26,29 @@ entry names mesh dims major to minor, as JAX's does); a
 (:meth:`NamedSharding.shard`) or wraps it as a ``DTensor``
 (:meth:`NamedSharding.put`, the counterpart of ``jax.device_put``). There
 is no GSPMD: a leaf is stored as its local shard, and code that computes on
-it gathers it first (``launch/train.py``).
+it gathers it first. :func:`gather_plan` says, for the sharded train step
+(``launch/train.py``), which mesh dims of each parameter leaf are gathered
+where its block uses it and which the block computes on: the attention,
+MLP, embedding and head of the dense, moe, audio and vlm families, and
+vlm's ``img_proj``, on their 'model' shards when all their weight leaves
+are 'model'-sharded, everything else whole.
 """
 from __future__ import annotations
 
 import math
 import re
+from dataclasses import dataclass
 
 import numpy as np
 
 from repro_torch.core.schedule import DevicePlan
 from repro_torch.launch.mesh import axis_sizes, batch_axes
+from repro_torch.models import lm
 
 __all__ = ["PartitionSpec", "NamedSharding", "param_pspecs", "input_pspecs",
            "cache_pspecs", "named_shardings", "state_pspecs",
-           "replica_pspecs", "shard_batch", "shard_tree"]
+           "replica_pspecs", "shard_batch", "shard_tree", "LeafPlan",
+           "gather_plan", "check_head_layout"]
 
 
 class PartitionSpec(tuple):
@@ -281,6 +289,135 @@ def shard_tree(tree, shardings):
     matching tree of :class:`NamedSharding` s (the counterpart of
     ``jax.device_put(tree, shardings)``)."""
     return _tree_map(lambda _, leaf, s: s.put(leaf), tree, shardings)
+
+
+# ---------------------------------------------------------------------------
+# where the sharded train step gathers and where it computes on shards
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class LeafPlan:
+    """How the sharded step brings one parameter leaf to its block.
+
+    ``gather``: ``(mesh dim, tensor dim, summed)`` per mesh dim that is
+    all-gathered before each use, minor mesh dims first, the tensor dim
+    counted in one layer's slice; ``summed``: the gather's backward sums the
+    ranks' gradients (a reduce-scatter: the batch's parts, or 'model' ranks
+    that each read part of the leaf), else it keeps the rank's slice (the
+    ranks computed the same). ``use``: ``"whole"``; ``"shard"`` (the block
+    computes on the rank's 'model' shard); ``("heads", "q"|"kv", dim)``
+    (the rank's heads of the TP head layout, arranged from the whole leaf);
+    or ``("arranged", proj, leaf)`` (an attention leaf of a block that
+    computes whole, in a TP head layout that pads or repeats heads).
+    ``reduce``: the mesh dims over whose ranks the leaf's gradient is
+    summed after the backward (the batch's parts where the leaf is
+    replicated; 'model' where a replicated leaf is read in parts)."""
+    gather: tuple
+    use: object
+    reduce: tuple
+
+
+def check_head_layout(cfg, mesh) -> None:
+    """Raise ``ValueError`` when the TP head layout's query or KV heads do
+    not split over the mesh's 'model' ranks (families of
+    ``lm.TP_FAMILIES``)."""
+    tp = axis_sizes(mesh).get("model", 1)
+    if cfg.family not in lm.TP_FAMILIES or tp == 1:
+        return
+    eff, eff_kv, _, _ = cfg.head_layout()
+    if eff % tp or eff_kv % tp:
+        raise ValueError(
+            f"{cfg.name}: the head layout's {eff} query and {eff_kv} KV heads "
+            f"(cfg.tp={cfg.tp}) do not divide the mesh's 'model' size {tp}")
+
+
+def _mdims(leaf) -> tuple:
+    """A DTensor's tensor dim per mesh dim (None where replicated)."""
+    return tuple(pl.dim if pl.is_shard() else None for pl in leaf.placements)
+
+
+def _tp_blocks(cfg, dims: dict, model: int) -> dict:
+    """Per path, the sub-blocks that compute on 'model' shards: each one
+    whose weight leaves (``lm.TP_LEAVES``, ``lm.TP_WHOLE``) are all
+    'model'-sharded on the dim that a rank's part cuts (a leaf under the
+    rules' floor, or one whose dim does not divide, is whole, and so is its
+    block)."""
+    out = {}
+    if cfg.family not in lm.TP_FAMILIES:
+        return out
+    for top, stack in lm.STACK_DIMS.items():
+        subs = []
+        for sub in ("attn", "mlp"):
+            cut = [dims[f"{top}/{rest}"][model] == stack + dim
+                   for rest, (_, dim) in lm.TP_LEAVES.items()
+                   if rest.startswith(f"{sub}/") and rest.endswith("/w")
+                   and f"{top}/{rest}" in dims]
+            if cut and all(cut):
+                subs.append(sub)
+        if subs:
+            out[top] = tuple(subs)
+    for key, dim in lm.TP_WHOLE.items():
+        if key in dims and dims[key][model] == dim:
+            out[key.split("/")[0]] = ("",)
+    return out
+
+
+def _use(top: str, rest: str, blocks: dict, same: bool):
+    """A leaf's :attr:`LeafPlan.use` (``rest``: its path under ``top``;
+    ``same``: the TP head layout is the published heads)."""
+    subs = blocks.get(top, ())
+    if "" in subs:
+        return "shard"
+    sub, _, tail = rest.partition("/")
+    role = lm.TP_LEAVES.get(rest)
+    if role is not None and sub in subs:
+        kind, dim = role
+        if kind is None or (same and rest.endswith("/w")):
+            return "shard"
+        return ("heads", kind, dim)
+    if not same and sub in ("attn", "xattn") and f"attn/{tail}" in (
+            lm.TP_LEAVES):
+        return ("arranged",) + tuple(tail.split("/"))
+    return "whole"
+
+
+def gather_plan(cfg, params, mesh, batch_dims) -> tuple:
+    """``(plans, blocks)`` for the sharded step over ``params`` (a tree of
+    DTensors): ``plans`` a :class:`LeafPlan` per leaf path, ``blocks`` per
+    path the sub-blocks (``""``: the tree itself) that compute on 'model'
+    shards. ``batch_dims``: the names of the mesh dims the batch is split
+    over. With a 'model' axis of 1, every block computes whole. A stacked
+    leaf whose layer dim is sharded (no config's, on any mesh: the rules
+    shard a leaf's last two dims) raises ``ValueError``."""
+    names = list(mesh.mesh_dim_names)
+    model = names.index("model") if "model" in names else None
+    dims = {}
+
+    def read(path, leaf):
+        dims["/".join(path)] = _mdims(leaf)
+    _tree_map(read, params)
+    blocks = ({} if model is None or mesh.size(model) == 1
+              else _tp_blocks(cfg, dims, model))
+    same = cfg.head_layout()[:2] == (cfg.n_heads, cfg.n_kv_heads)
+    plans = {}
+    for key, d in dims.items():
+        top, rest = key.split("/", 1)
+        stack = lm.STACK_DIMS.get(top, 0)
+        use = _use(top, rest, blocks, same)
+        partial = isinstance(use, tuple) and use[0] == "heads"
+        gather, reduce = [], []
+        for i in reversed(range(len(names))):
+            summed = names[i] in batch_dims or (i == model and partial)
+            if d[i] is None:
+                if summed:
+                    reduce.append(i)
+            elif d[i] < stack:
+                raise ValueError(f"{key}: mesh dim {names[i]!r} shards a "
+                                 f"layer dim; the step gathers per layer")
+            elif not (i == model and use == "shard"):
+                gather.append((i, d[i] - stack, summed))
+        plans[key] = LeafPlan(tuple(gather), use, tuple(sorted(reduce)))
+    return plans, blocks
 
 
 # ---------------------------------------------------------------------------

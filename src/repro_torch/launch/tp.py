@@ -1,0 +1,544 @@
+"""Tensor parallelism over a mesh's 'model' axis and the sharded step's
+per-layer parameter gathers: the collectives of ``launch/train.py``'s
+sharded step that autograd differentiates.
+
+Tensor parallelism is Megatron's, on the leaves as ``state_pspecs`` shards
+them. A :class:`TensorParallel` names ``tp`` ranks of the 'model' axis and
+the ones this process computes: its own on a mesh, every one of them in a
+one-process emulation. A rank-local tensor carries those ranks on a leading
+axis (of 1 on a mesh). Two conjugate ``torch.autograd.Function`` s join
+rank-local and replicated values:
+
+- :class:`_CopyIn` (a column-parallel input): forward the replicated input
+  as each rank's copy, backward the sum of the ranks' gradients;
+- :class:`_ReduceOut` (a row-parallel output): forward the sum of the
+  ranks' partial products, backward the gradient as each rank's copy;
+- :class:`_GatherOut` (a column-parallel output a replicated consumer
+  reads): forward the ranks' columns joined, backward each rank's columns
+  of the gradient.
+
+A sum over ranks adds the process's ranks in rank order and then, with a
+process group, all-reduces over it; so one body serves NCCL ranks, gloo
+ranks and the emulation (``chip_smoke.py``'s phase ``distributed``, and
+``tests/test_torch_tp.py``).
+
+:class:`ParamShards` is what the sharded step hands the model
+(``lm.loss_fn(..., par=)``): each parameter leaf all-gathered where its
+block uses it (a stacked leaf one layer at a time) over the mesh dims that
+shard it, apart from 'model' where the block computes on the rank's shard;
+in the layout the block computes in (the rank's heads, columns, rows or
+vocabulary range on a leading rank axis of 1, the block's dict marked
+``"tp"``; an attention block that computes whole under a TP head layout
+that pads or repeats heads, in that layout, its dict marked
+``"arranged"``). The gather's backward reduce-scatters the gradient onto
+the rank's shard, summing the ranks that computed on parts of it (the
+batch's parts, and 'model' ranks that read parts of a whole leaf), or
+keeps the rank's slice where the ranks computed the same thing. No
+gathered tensor outlives its layer's forward: while the model runs, a
+tensor that autograd saves for the backward and that lies in a gathered
+(or arranged) tensor's storage is kept as the recipe that makes it again
+(saved-tensor hooks, ZeRO-3's re-gather). :class:`GatherStats` counts the
+bytes; with ``track_copies`` also those of the weights' copies (arranged,
+cast or sliced ones, :class:`_Copies`) that autograd keeps until the
+backward: the bf16 norm gains' float32 casts, say.
+"""
+from __future__ import annotations
+
+import contextlib
+import threading
+import weakref
+
+import torch
+import torch.distributed as dist
+from torch.overrides import TorchFunctionMode
+
+__all__ = ["TensorParallel", "ParamShards", "GatherStats", "TokenSpan",
+           "EmulatedTP"]
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class TensorParallel:
+    """``tp`` ranks of a 'model' axis, of which this process computes
+    ``ranks`` (its own one on a mesh, with the axis's ``group``; all of
+    them, with no group, in a one-process emulation)."""
+
+    def __init__(self, tp: int, ranks, group=None):
+        self.tp = int(tp)
+        self.ranks = tuple(int(r) for r in ranks)
+        self.group = group
+
+    @property
+    def n(self) -> int:
+        """The ranks this process computes: a rank-local tensor's leading
+        axis."""
+        return len(self.ranks)
+
+    def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A rank-local ``t`` ``(n, ...)`` summed (or maximized) over all
+        ``tp`` ranks -> ``(...)``: this process's ranks in rank order, then
+        an all-reduce over the group."""
+        acc = torch.clone(t[0], memory_format=torch.contiguous_format)
+        for i in range(1, t.shape[0]):
+            acc = acc + t[i] if op == "sum" else torch.maximum(acc, t[i])
+        if self.group is not None:
+            acc = acc.contiguous()
+            dist.all_reduce(acc, op=_OPS[op], group=self.group)
+        return acc
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """The replicated ``x`` as each rank's input ``(n, ...)``; its
+        gradient the sum of the ranks' (:class:`_CopyIn`)."""
+        return _CopyIn.apply(x, self)
+
+    def reduce_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The ranks' partials ``y`` ``(n, ...)`` summed over every rank;
+        the gradient each rank's copy (:class:`_ReduceOut`)."""
+        return _ReduceOut.apply(y, self)
+
+    def gather_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The ranks' column blocks ``y`` ``(n, ..., c)`` joined along the
+        last dim in rank order -> ``(..., tp·c)``; the gradient each rank's
+        columns (:class:`_GatherOut`)."""
+        return _GatherOut.apply(y, self)
+
+    def split(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """A whole ``t`` cut in ``tp`` equal chunks along ``dim``: this
+        process's ranks' chunks on a new leading axis."""
+        size = t.shape[dim] // self.tp
+        return torch.stack([t.narrow(dim, r * size, size)
+                            for r in self.ranks])
+
+
+class _CopyIn(torch.autograd.Function):
+    """Column-parallel input: forward an identity (each rank's copy of the
+    replicated input), backward the sum over the ranks of the input's
+    gradient (an all-reduce over 'model')."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.unsqueeze(0).expand(tp.n, *x.shape)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.reduce(grad), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """Row-parallel output: forward the sum over the ranks of their partial
+    products (an all-reduce over 'model'), backward an identity (the
+    gradient as each rank's copy)."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp = tp
+        return tp.reduce(y)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.unsqueeze(0).expand(ctx.tp.n, *grad.shape), None
+
+
+class _GatherOut(torch.autograd.Function):
+    """Column-parallel output, gathered: forward the ranks' columns joined
+    (an all-gather over 'model'), backward each rank's columns of the
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, y, tp):
+        ctx.tp = tp
+        out = torch.cat(list(y), dim=-1)
+        if tp.group is not None:
+            out = _all_gather(out, tp.group, tp.tp, out.ndim - 1)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.split(grad, grad.ndim - 1), None
+
+
+# ---------------------------------------------------------------------------
+# gathers
+# ---------------------------------------------------------------------------
+
+def _all_gather(t: torch.Tensor, group, k: int, dim: int) -> torch.Tensor:
+    """``t`` from each of the ``k`` ranks of ``group``, joined along
+    ``dim`` in the group's rank order; over one rank, a copy (no collective
+    call: a call costs the host more than the copy costs the card)."""
+    if k == 1:
+        return torch.clone(t, memory_format=torch.contiguous_format)
+    out = torch.empty((k * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype,
+                      device=t.device)
+    dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    return out.unflatten(0, (k, t.shape[0])).movedim(0, dim).flatten(
+        dim, dim + 1)
+
+
+def _reduce_scatter(g: torch.Tensor, group, k: int, dim: int) -> torch.Tensor:
+    """``g`` summed over the ``k`` ranks of ``group``; this rank's chunk of
+    ``dim`` (over one rank, ``g``)."""
+    if k == 1:
+        return g
+    parts = g.unflatten(dim, (k, g.shape[dim] // k)).movedim(dim, 0)
+    out = torch.empty(parts.shape[1:], dtype=g.dtype, device=g.device)
+    dist.reduce_scatter_tensor(out, parts.contiguous().flatten(0, 1),
+                               group=group)
+    return out
+
+
+def _gathered(local: torch.Tensor, steps: tuple, transform):
+    """``local`` all-gathered per ``steps`` (each ``(group, size, coord,
+    dim, summed)``, minor mesh dims first), then ``transform`` ed."""
+    t = local
+    for group, k, _, dim, _ in steps:
+        t = _all_gather(t, group, k, dim)
+    return t if transform is None else transform(t)
+
+
+class _Gather(torch.autograd.Function):
+    """A leaf's all-gather (:func:`_gathered`); it saves no gathered
+    tensor. Backward: through ``transform`` (linear: its vector-Jacobian
+    product read off a zero leaf of the gathered shape), then per step,
+    major mesh dims first, a reduce-scatter where the step's ranks' gradients
+    sum and the rank's slice where they are copies."""
+
+    @staticmethod
+    def forward(ctx, local, steps, transform):
+        ctx.steps, ctx.transform = steps, transform
+        ctx.shape = list(local.shape)
+        for _, k, _, dim, _ in steps:
+            ctx.shape[dim] *= k
+        return _gathered(local, steps, transform)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if ctx.transform is not None:
+            with torch.enable_grad():
+                zero = torch.zeros((), dtype=grad.dtype, device=grad.device
+                                   ).expand(ctx.shape).requires_grad_()
+                (grad,) = torch.autograd.grad(ctx.transform(zero), zero,
+                                              grad)
+        for group, k, coord, dim, summed in reversed(ctx.steps):
+            if summed:
+                grad = _reduce_scatter(grad, group, k, dim)
+            else:
+                size = grad.shape[dim] // k
+                grad = grad.narrow(dim, coord * size, size)
+        return grad, None, None
+
+
+class GatherStats:
+    """Bytes of gathered parameters in one step: ``gathered`` in all (the
+    forward's gathers and the backward's re-gathers), ``alive`` now and
+    ``peak`` the most alive at once. A gathered tensor counts until it is
+    freed. With ``track_copies`` set, ``kept`` counts the bytes of the
+    weights' copies that autograd keeps for the backward (:class:`_Copies`;
+    slow: for tests and measurements), else it is None."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.track_copies = False
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self.gathered = self.alive = self.peak = 0
+            self.kept = 0 if self.track_copies else None
+
+    def keep(self, n: int) -> None:
+        with self._lock:
+            self.kept += n
+
+    def add(self, t: torch.Tensor) -> None:
+        n = t.numel() * t.element_size()
+        with self._lock:
+            self.gathered += n
+            self.alive += n
+            self.peak = max(self.peak, self.alive)
+        weakref.finalize(t, self._free, n)
+
+    def _free(self, n: int) -> None:
+        with self._lock:
+            self.alive -= n
+
+    def as_dict(self) -> dict:
+        return {"gathered_bytes": self.gathered, "peak_alive_bytes": self.peak,
+                "kept_copy_bytes": self.kept}
+
+
+def _storage(t: torch.Tensor) -> tuple:
+    return t.device, t.untyped_storage().data_ptr()
+
+
+class _Copies(TorchFunctionMode):
+    """While the model's forward runs, the kind of each tensor's storage:
+    ``"source"`` a parameter leaf as the model reads it, ``"gathered"`` a
+    gathered one, ``"const"`` a constant (made from no tensor, or from
+    constants), ``"copy"`` one made from parameters and constants alone (a
+    weight's arranged, cast or sliced copy); a tensor made from anything
+    else (the batch, an activation), and an empty buffer, is not marked. A
+    view shares its base's kind, and an entry leaves with the tensor that
+    made it. :meth:`kept` counts the bytes of a copy that autograd saves as
+    it is. Every torch call of the forward passes through it."""
+
+    def __init__(self, stats: GatherStats):
+        super().__init__()
+        self.stats = stats
+        self._kinds = {}
+        self._counted = set()
+
+    def kind(self, t: torch.Tensor):
+        if t.numel() == 0:
+            return "const"
+        entry = self._kinds.get(_storage(t))
+        return None if entry is None or entry[0]() is None else entry[1]
+
+    def mark(self, t: torch.Tensor, kind: str) -> None:
+        if t.numel() == 0:
+            return
+        key, ref = _storage(t), weakref.ref(t)
+        self._kinds[key] = (ref, kind)
+        weakref.finalize(t, self._drop, key, ref)
+
+    def _drop(self, key, ref) -> None:
+        if self._kinds.get(key, (None,))[0] is ref:
+            del self._kinds[key]
+
+    def kept(self, t: torch.Tensor) -> None:
+        key = _storage(t)
+        if self.kind(t) == "copy" and key not in self._counted:
+            self._counted.add(key)
+            self.stats.keep(t.untyped_storage().nbytes())
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if "empty" in getattr(func, "__name__", ""):
+            return out          # a buffer: a collective may fill it
+        ins = _tensors((args, kwargs))
+        kinds = {self.kind(a) for a in ins}
+        outs = _tensors(out)
+        if _mutates(func, kwargs) and ins:
+            outs += _tensors(kwargs.get("out", args[0]))
+            if None in kinds:
+                # an activation written into a marked tensor
+                for t in outs:
+                    self._kinds.pop(_storage(t), None)
+                return out
+        if None in kinds:
+            return out
+        kind = "copy" if kinds - {"const"} else "const"
+        for t in outs:
+            # a fresh storage, or a constant one written with weights
+            if self.kind(t) in (None, "const"):
+                self.mark(t, kind)
+        return out
+
+
+def _tensors(x) -> list:
+    """The tensors in ``x`` (nested lists, tuples and dicts)."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    return []
+
+
+def _mutates(func, kwargs: dict) -> bool:
+    """Whether ``func`` writes into its first argument (or ``out=``)."""
+    name = getattr(func, "__name__", "")
+    return ("out" in kwargs or name == "__setitem__"
+            or (name.startswith("__i") and name.endswith("__"))
+            or (name.endswith("_") and not name.endswith("__")))
+
+
+class _Regather:
+    """Saved-tensor hooks: a tensor autograd saves that lies in a live
+    gathered tensor's storage is packed as that tensor's recipe and its
+    view (size, stride, offset), and unpacked by running the recipe again.
+    Entries leave with their tensors, so a storage address reused later
+    matches nothing."""
+
+    def __init__(self):
+        self._live = {}
+        self.copies = None
+
+    def register(self, t: torch.Tensor, recipe) -> None:
+        key = _storage(t)
+        ref = weakref.ref(t)
+        self._live[key] = (ref, recipe)
+        weakref.finalize(t, self._drop, key, ref)
+
+    def _drop(self, key, ref) -> None:
+        if self._live.get(key, (None,))[0] is ref:
+            del self._live[key]
+
+    def pack(self, t: torch.Tensor):
+        if t.numel() == 0:
+            return t
+        entry = self._live.get(_storage(t))
+        if entry is None or entry[0]() is None:
+            if self.copies is not None:
+                self.copies.kept(t)
+            return t
+        return entry[1], tuple(t.shape), t.stride(), t.storage_offset()
+
+    @staticmethod
+    def unpack(packed):
+        if isinstance(packed, torch.Tensor):
+            return packed
+        recipe, size, stride, offset = packed
+        return recipe().as_strided(size, stride, offset)
+
+
+class TokenSpan:
+    """MoE routing groups that span a rank's batch part: the tokens
+    all-gathered over the batch's mesh dims (``steps``, minor first; the
+    backward a reduce-scatter, so each rank's rows get the sum of the
+    ranks' contributions) and the rank's own rows of a result, the
+    ``index``-th of ``parts`` equal row blocks."""
+
+    def __init__(self, steps: tuple, index: int, parts: int):
+        self.steps, self.index, self.parts = steps, index, parts
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _Gather.apply(x, self.steps, None)
+
+    def mine(self, y: torch.Tensor) -> torch.Tensor:
+        rows = y.shape[0] // self.parts
+        return y.narrow(0, self.index * rows, rows)
+
+
+class EmulatedTP:
+    """A 'model' axis of ``tp`` ranks emulated in one process over whole
+    parameters (``lm.loss_fn(..., par=)``): the sub-blocks that ``blocks``
+    names (``launch.sharding.gather_plan``'s) in the TP form of all ``tp``
+    ranks, through the sharded step's code, every other leaf as it is. The
+    unsharded step in the sharded step's tensor-parallel arithmetic."""
+
+    def __init__(self, cfg, blocks: dict, tp: int):
+        self.cfg, self.blocks = cfg, blocks
+        self.tp = TensorParallel(tp, range(tp))
+
+    def gather(self, tree, path: str):
+        from repro_torch.models import lm
+        subs = self.blocks.get(path, ())
+        if "" in subs:      # embed (V, d); lm_head, img_proj (d, V)
+            return {"w": self.tp.split(tree["w"], 0 if path == "embed"
+                                       else 1), "tp": self.tp}
+        out = dict(tree)
+        if "attn" in subs:
+            out["attn"] = lm.tp_attn_params(tree["attn"], self.cfg, self.tp)
+        if "mlp" in subs:
+            out["mlp"] = lm.tp_mlp_params(tree["mlp"], self.tp)
+        return out
+
+
+class ParamShards:
+    """A rank's parameter shards as the model reads them in the sharded
+    step: ``plans`` (``launch.sharding.gather_plan``: per leaf path the
+    gather steps, as mesh dims, and the use), ``blocks`` (per path, the
+    sub-blocks that compute on 'model' shards), ``tp`` (the 'model' axis's
+    :class:`TensorParallel`, or None), ``span`` (a :class:`TokenSpan` for
+    MoE routing that spans ranks, or None) and ``stats`` (the
+    :class:`GatherStats` the gathers count into)."""
+
+    def __init__(self, cfg, mesh, plans: dict, blocks: dict, *, tp, span,
+                 stats: GatherStats):
+        self.cfg, self.plans, self.blocks = cfg, plans, blocks
+        self.tp, self.span, self.stats = tp, span, stats
+        coord = mesh.get_coordinate()
+
+        def steps(dims):
+            return tuple((mesh.get_group(i), mesh.size(i), coord[i], dim,
+                          summed) for i, dim, summed in dims)
+        self._steps = {k: steps(p.gather) for k, p in plans.items()}
+        # the attention dicts whose leaves come arranged in the head layout
+        self._arranged = {k.rsplit("/", 2)[0] for k, p in plans.items()
+                          if p.use[0] == "arranged"}
+        self._regather = _Regather()
+
+    @contextlib.contextmanager
+    def saving(self):
+        """The model's forward and backward under the re-gather hooks."""
+        with torch.autograd.graph.saved_tensors_hooks(self._regather.pack,
+                                                      self._regather.unpack):
+            yield
+
+    @contextlib.contextmanager
+    def forward(self):
+        """The model's forward (inside :meth:`saving`): with the stats'
+        ``track_copies``, under :class:`_Copies`."""
+        if not self.stats.track_copies:
+            yield
+            return
+        self._regather.copies = _Copies(self.stats)
+        try:
+            with self._regather.copies:
+                yield
+        finally:
+            self._regather.copies = None
+
+    def gather(self, tree, path: str):
+        """``tree`` (a layer's slices of the rank's stacked shards, or an
+        unstacked leaf's tree) at ``path`` as its block computes on it."""
+        out = self._walk(tree, path)
+        for sub in self.blocks.get(path, ()):
+            (out[sub] if sub else out)["tp"] = self.tp
+        if self.span is not None and isinstance(out, dict) and "moe" in out:
+            out["moe"]["span"] = self.span
+        return out
+
+    def _walk(self, tree, key: str):
+        if isinstance(tree, dict):
+            out = {k: self._walk(v, f"{key}/{k}") for k, v in tree.items()}
+            if key in self._arranged:
+                out["arranged"] = True
+            return out
+        return self._leaf(tree, key)
+
+    def _transform(self, use):
+        from repro_torch.models import lm
+        if use == "whole":
+            return None
+        if use == "shard":
+            return lambda w: w.unsqueeze(0)
+        if use[0] == "arranged":
+            _, proj, leaf = use
+            return lambda w: lm.arrange_leaf(w, self.cfg, proj, leaf)
+        _, kind, dim = use
+        return lambda w: lm.tp_heads(w, self.cfg, self.tp, kind, dim)
+
+    def _leaf(self, t: torch.Tensor, key: str) -> torch.Tensor:
+        steps = self._steps[key]
+        transform = self._transform(self.plans[key].use)
+        copies = self._regather.copies
+        if copies is not None:
+            copies.mark(t, "source")
+        src = t.detach()
+        if not steps:
+            if transform is None:
+                return t
+            out = transform(t)
+            if _storage(out) != _storage(t):
+                # a copy (arranged heads): made again for the backward
+                def remake():
+                    with torch.no_grad():
+                        return transform(src)
+                self._regather.register(out, remake)
+            return out
+        out = _Gather.apply(t, steps, transform)
+        if copies is not None:
+            copies.mark(out, "gathered")
+
+        def recipe():
+            with torch.no_grad():
+                again = _gathered(src, steps, transform)
+            self.stats.add(again)
+            return again
+        self._regather.register(out, recipe)
+        self.stats.add(out)
+        return out

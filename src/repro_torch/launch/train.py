@@ -16,18 +16,36 @@ jits its step. On the CPU it runs eagerly.
 Every gradient on the path sums in a fixed order (``models/lm.py``), so
 two runs from one state give the same bits, captured or eager.
 
-``make_train_step(..., mesh=)`` is the storage-sharded step (ZeRO-3) over
-a ``DeviceMesh``: each state leaf a ``DTensor`` of its shard per
+``make_train_step(..., mesh=)`` is the sharded step over a
+``DeviceMesh``: each state leaf a ``DTensor`` of its shard per
 ``launch.sharding.state_pspecs`` (``shard_tree``), on every axis. A step
-splits the batch per ``input_pspecs``, all-gathers each parameter whole
-at the step's start (the stacked layer leaves hold every layer, so a
-per-layer gather would need a hook into the model's loop), computes the
-loss and gradients on the rank's part of the batch, reduce-scatters the
-gradients back to shards (the mean over the global batch) and applies
-AdamW to the shards, clipping by the global norm summed over the ranks.
-Under GSPMD the reference's sharded step is its unsharded function; so
-is this one's, up to the order of the sums over the batch's parts. It
-runs eagerly: the collectives are not captured.
+splits the batch per ``input_pspecs`` and runs the model on the rank's
+part through ``launch.tp.ParamShards`` (``launch.sharding.gather_plan``
+says where): each parameter leaf all-gathered where its block uses it, a
+stacked leaf one layer at a time (ZeRO-3: the gathered weights are
+gathered again for the backward, never kept), over the mesh dims that
+shard it except 'model' where the block computes on the rank's shards.
+On a mesh with 'model' > 1 the dense, moe, audio and vlm families'
+attention (the rank's heads), MLP (d_ff columns and rows), embedding and
+head and cross-entropy (the rank's vocabulary range) and vlm's
+``img_proj`` (columns) compute tensor-parallel where all of their weight
+leaves are 'model'-sharded; everything else computes whole on every rank:
+the ssm and hybrid families, the vlm cross-attention, the MoE experts and
+router, and every leaf under the rules' 1M-element floor (all of them at
+``reduced()``). MoE routing groups that split over the batch's parts are
+routed by the rank that holds them; a group that spans ranks is routed on
+every rank over the batch's gathered tokens, each rank keeping its own
+rows. The gathers' backward reduce-scatters the gradients onto the
+shards (the sum over the batch's parts), a leaf replicated on a batch dim
+is all-reduced there, the sum becomes the mean over the global batch, and
+AdamW updates the shards, clipping by the global norm summed over the
+ranks. Under GSPMD the reference's sharded step is its unsharded function;
+so is this one's, up to the order of the sums over the batch's parts and
+the 'model' ranks. It runs eagerly: the collectives are not captured.
+``step.gather_stats`` (``launch.tp.GatherStats``) holds the last step's
+gathered bytes and the most that were alive at once, and, with its
+``track_copies`` set, the bytes of the weights' copies that autograd kept
+for the backward.
 
 ``run_training`` is the loop the examples and tests drive: the seeded
 ``TokenStream`` data by default, checkpoints in the reference's format
@@ -97,13 +115,15 @@ def state_leaves(state: dict) -> list:
 
 
 def _step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, state: dict,
-          *batch):
+          *batch, par=None):
     """One step on ``batch`` (tensors or None in :data:`BATCH_KEYS`' order),
-    in place; the metrics as a tuple in :data:`METRICS`' order."""
+    in place; the metrics as a tuple in :data:`METRICS`' order. ``par``:
+    ``lm.loss_fn``'s (``launch.tp.EmulatedTP``: the step in the sharded
+    step's tensor-parallel arithmetic, in one process)."""
     ids, labels, embeds, image_embeds = batch
     params = state["params"]
     loss, metrics = lm.loss_fn(params, cfg, ids, labels, embeds=embeds,
-                               image_embeds=image_embeds)
+                               image_embeds=image_embeds, par=par)
     # a leaf the loss does not read (a cross layer's unused norm) gets
     # zeros, as the reference's grad gives it
     grads = iter(torch.autograd.grad(loss, tree_leaves(params),
@@ -146,12 +166,22 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *,
     next captures the step into one CUDA graph, and each call from then on
     replays it over the state's own tensors (``step.graphs``).
 
-    With ``mesh`` (a ``DeviceMesh``), the storage-sharded step
+    With ``mesh`` (a ``DeviceMesh``), the sharded step
     (:func:`_sharded_step`): ``state`` a tree of ``DTensor`` s, every rank
-    of the mesh calling it with the same global batch."""
+    of the mesh calling it with the same global batch; ``step.gather_stats``
+    the last step's gathered bytes. A TP head layout whose query or KV heads
+    do not split over the mesh's 'model' ranks raises ``ValueError``."""
     if mesh is not None:
-        return lambda state, batch: _sharded_step(
-            cfg, opt_cfg, grad_compression, mesh, state, batch)
+        from repro_torch.launch.sharding import check_head_layout
+        from repro_torch.launch.tp import GatherStats
+        check_head_layout(cfg, mesh)
+        stats = GatherStats()
+
+        def sharded(state: dict, batch: dict):
+            return _sharded_step(cfg, opt_cfg, grad_compression, mesh,
+                                 state, batch, stats)
+        sharded.gather_stats = stats
+        return sharded
     graphs = StepGraphs()
 
     def step(state: dict, batch: dict):
@@ -169,15 +199,25 @@ def make_train_step(cfg, opt_cfg: AdamWConfig, *,
     return step
 
 
+def _leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of ``tree``'s leaves, in :func:`tree_leaves`' order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree)
+                for p in _leaf_paths(tree[k], f"{prefix}/{k}" if prefix
+                                     else k)]
+    return [prefix]
+
+
 def _sharded_step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, mesh,
-                  state: dict, batch: dict):
-    """One storage-sharded step (module docstring) on ``state``'s DTensor
-    shards, in place; ``(state, metrics)``, the metrics the global
-    batch's."""
+                  state: dict, batch: dict, stats):
+    """One sharded step (module docstring) on ``state``'s DTensor shards,
+    in place; ``(state, metrics)``, the metrics the global batch's. The
+    gathered bytes go to ``stats``."""
     import torch.distributed as dist
-    from torch.distributed.tensor import DTensor, Partial, Replicate
     from repro_torch.launch.mesh import batch_axes
-    from repro_torch.launch.sharding import NamedSharding, input_pspecs
+    from repro_torch.launch.sharding import (NamedSharding, gather_plan,
+                                             input_pspecs)
+    from repro_torch.launch.tp import ParamShards, TensorParallel, TokenSpan
     leaves = tree_leaves(state)
     dev = leaves[0].to_local().device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
@@ -190,48 +230,63 @@ def _sharded_step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, mesh,
     batch_dims = [i for i, n in enumerate(names)
                   if split and n in batch_axes(mesh)]
     parts = math.prod(mesh.size(i) for i in batch_dims)
-    # a rank routes its part of the batch as the reference's routing groups
-    # that fall in it (groups contiguous and batch-major); a group cut
-    # across ranks would need the tokens of other ranks
+    coord = mesh.get_coordinate()
+    # routing groups are contiguous and batch-major: where they split over
+    # the parts, a rank routes the ones its part holds; where one spans
+    # ranks, every rank routes the gathered tokens of the whole batch as the
+    # reference does and keeps its own rows
     groups = max(1, cfg.dp_shards) if cfg.batch_axes else 1
+    span, lcfg = None, cfg
     if cfg.family == "moe" and groups % parts:
-        raise ValueError(
-            f"sharded step: {cfg.name}'s {groups} MoE routing group(s) "
-            f"(dp_shards with batch_axes set) do not split over the "
-            f"batch's {parts} data-parallel parts")
-    lcfg = dataclasses.replace(cfg, dp_shards=max(1, groups // parts))
-    params = tree_map(lambda d: d.full_tensor().detach().requires_grad_(),
+        index = 0
+        for i in batch_dims:
+            index = index * mesh.size(i) + coord[i]
+        span = TokenSpan(tuple((mesh.get_group(i), mesh.size(i), coord[i], 0,
+                                True) for i in reversed(batch_dims)),
+                         index, parts)
+    else:
+        lcfg = dataclasses.replace(cfg, dp_shards=max(1, groups // parts))
+    model = names.index("model") if "model" in names else None
+    tp = (TensorParallel(mesh.size(model), (coord[model],),
+                         mesh.get_group(model))
+          if model is not None and mesh.size(model) > 1 else None)
+    plans, blocks = gather_plan(cfg, state["params"], mesh,
+                                {names[i] for i in batch_dims})
+    stats.reset()
+    shards = ParamShards(lcfg, mesh, plans, blocks, tp=tp, span=span,
+                         stats=stats)
+    params = tree_map(lambda d: d.to_local().detach().requires_grad_(),
                       state["params"])
-    loss, _ = lm.loss_fn(params, lcfg, local.get("ids"), local["labels"],
-                         embeds=local.get("embeds"),
-                         image_embeds=local.get("image_embeds"))
-    grads = torch.autograd.grad(loss, tree_leaves(params),
-                                materialize_grads=True)
-    del params
+    with shards.saving():
+        with shards.forward():
+            loss, _ = lm.loss_fn(params, lcfg, local.get("ids"),
+                                 local["labels"], embeds=local.get("embeds"),
+                                 image_embeds=local.get("image_embeds"),
+                                 par=shards)
+        grads = torch.autograd.grad(loss, tree_leaves(params),
+                                    materialize_grads=True)
+    del params, shards
 
     def all_reduce(t, dims=range(len(names)), op=dist.ReduceOp.SUM):
         """``t`` reduced over the mesh's ranks along ``dims``, in place."""
         for i in dims:
             dist.all_reduce(t, op=op, group=mesh.get_group(i))
         return t
-    # the parts' sum where the batch is cut; reduce-scatter to each leaf's
-    # placements, then the mean over the parts
-    partial = tuple(Partial() if i in batch_dims else Replicate()
-                    for i in range(len(names)))
+    # the gathers' backward summed each leaf's gradient over the mesh dims
+    # it is gathered on; sum it over the ones its plan reduces, then the
+    # mean over the parts
     pleaves = tree_leaves(state["params"])
-    shards = []
+    out = []
     with torch.no_grad():
-        for g, d in zip(grads, pleaves):
-            s = DTensor.from_local(g, mesh, partial, run_check=False
-                                   ).redistribute(mesh, d.placements
-                                                  ).to_local()
-            shards.append(s / parts if parts > 1 else s)
+        for g, key in zip(grads, _leaf_paths(state["params"])):
+            g = all_reduce(g.contiguous(), plans[key].reduce)
+            out.append(g / parts if parts > 1 else g)
         loss = loss.detach()
         if parts > 1:
             loss = all_reduce(loss.clone(), batch_dims) / parts
         lstate = tree_map(lambda d: d.to_local(), state)
     del grads
-    grads = iter(shards)
+    grads = iter(out)
     grads = tree_map(lambda _: next(grads), state["params"])
     # each leaf's squares counted once over the ranks: a shard held by
     # ``rep`` ranks (the mesh dims it is replicated on) is weighted 1/rep

@@ -12,6 +12,14 @@ Conventions, as the reference's:
 Initializers draw from an explicit ``torch.Generator`` (the port does not
 reimplement ``jax.random``): the same layout, shapes, dtypes and
 distributions as the reference's, other numbers.
+
+Tensor-parallel forms (``launch/tp.py``): a block dict marked ``"tp"`` (a
+``TensorParallel``) holds its weights as the ranks' shards on a leading
+rank axis. :func:`linear_col` multiplies a rank-local input by the ranks'
+columns, :func:`linear_row` the ranks' rows and sums the partial products
+over the ranks, adding a bias once after the sum; :func:`mlp_apply` on a
+marked dict copies the replicated input in, runs gate and up
+column-parallel and down row-parallel.
 """
 from __future__ import annotations
 
@@ -19,7 +27,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["rms_norm", "layer_norm", "dense_init", "linear", "mlp_init",
-           "mlp_apply", "embed_init", "upcast"]
+           "mlp_apply", "embed_init", "upcast", "rank_matmul", "linear_col",
+           "linear_row"]
 
 
 def upcast(t: torch.Tensor) -> torch.Tensor:
@@ -73,6 +82,34 @@ def linear(p: dict, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Per rank of the leading axis: ``x`` ``(n, ..., k)`` @ ``w`` ``(n, k,
+    m)`` -> ``(n, ..., m)``, one batched GEMM."""
+    n, k = x.shape[0], x.shape[-1]
+    return torch.bmm(x.reshape(n, -1, k), w).reshape(*x.shape[:-1],
+                                                     w.shape[-1])
+
+
+def linear_col(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """Column-parallel: the rank-local ``x`` ``(n, ..., k)`` times each
+    rank's columns ``p["w"]`` ``(n, k, m)``, plus its bias ``(n, m)``."""
+    y = rank_matmul(x, p["w"])
+    if "b" in p:
+        b = p["b"]
+        y = y + b.reshape(b.shape[0], *([1] * (y.ndim - 2)), b.shape[-1])
+    return y
+
+
+def linear_row(p: dict, h: torch.Tensor, tp) -> torch.Tensor:
+    """Row-parallel: the rank-local ``h`` ``(n, ..., k)`` times each rank's
+    rows ``p["w"]`` ``(n, k, m)``, summed over the ranks (``tp.reduce_out``);
+    a (replicated) bias added once, after the sum."""
+    y = tp.reduce_out(rank_matmul(h, p["w"]))
+    if "b" in p:
+        y = y + p["b"]
+    return y
+
+
 def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
              dtype: torch.dtype, *, kind: str = "swiglu") -> dict:
     """``kind`` is config state, not a leaf — pass it to mlp_apply."""
@@ -87,6 +124,14 @@ def mlp_init(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def mlp_apply(p: dict, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
+    if "tp" in p:
+        tp = p["tp"]
+        xr = tp.copy_in(x)
+        if kind == "swiglu":
+            h = F.silu(linear_col(p["gate"], xr)) * linear_col(p["up"], xr)
+        else:
+            h = F.gelu(linear_col(p["up"], xr), approximate="tanh")
+        return linear_row(p["down"], h, tp)
     if kind == "swiglu":
         h = F.silu(linear(p["gate"], x)) * linear(p["up"], x)
     else:

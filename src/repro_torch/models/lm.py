@@ -43,12 +43,30 @@ layout is made on the WEIGHTS at each call (:func:`_eff_attn_params`), by
 slices, zero blocks and broadcasts, so the gradients land on the published
 parameters (a pad slot's are dropped) and sum in a fixed order; the
 arranged o-projection's pad rows are zero, so padded heads never reach the
-residual. The decode cache holds ``cfg.eff_kv_heads`` heads. The
-reference's sharding constraints (``_wshard`` on the arranged weights,
-``_shard_batch`` at block boundaries) change where values sit, never what
-they are; the port computes on whole local tensors (``launch/train.py``
-gathers sharded weights and splits the batch before the model runs), so
-it has no counterpart to them.
+residual. The decode cache holds ``cfg.eff_kv_heads`` heads.
+
+``forward`` and ``loss_fn`` take ``par``, the sharded train step's
+``launch.tp.ParamShards``: the model then reads each parameter leaf
+through ``par.gather`` where its block runs it (a stacked leaf one layer
+at a time), on the rank's shards. A block dict marked ``"tp"`` (a
+``TensorParallel``) computes on the ranks' shards, on a leading rank axis
+(``launch/tp.py``), where the reference's ``_wshard`` and the rules pin
+its weights over 'model': attention on the ranks' heads of the TP head
+layout (q, k and v column-parallel, each rank's attention unchanged on its
+heads, o row-parallel; :func:`tp_heads` arranges a whole leaf into them),
+the MLP's gate and up column-parallel and down row-parallel, the embedding
+looked up on each rank's vocabulary range and the logits and cross-entropy
+kept vocabulary-sharded (the reference's iota compare, split over the
+ranks), vlm's ``img_proj`` column-parallel with its columns gathered. An
+attention dict marked ``"arranged"`` comes in the TP head layout already
+(the gather arranged it, :func:`arrange_leaf`, so that no arranged copy
+is kept for the backward).
+Where a block's weights are not all 'model'-sharded (under the rules'
+floor, and every leaf at ``reduced()``), and in the ssm and hybrid
+families, the vlm cross-attention and the MoE experts, the block computes
+whole on every rank; the reference's ``_shard_batch``
+changes where values sit, never what they are. :func:`tp_block_params`
+makes a whole block's TP form for a one-process emulation of the ranks.
 
 ``forward`` and ``loss_fn`` are differentiable (``launch/train.py`` trains
 through them). The stacked leaves are unbound once per call
@@ -77,15 +95,18 @@ from repro_torch.models.attention import (chunked_attention,
                                           rotate)
 from repro_torch.models.backend import resolve_device
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
-                                       linear, mlp_apply, mlp_init, rms_norm,
-                                       upcast)
+                                       linear, linear_col, linear_row,
+                                       mlp_apply, mlp_init, rank_matmul,
+                                       rms_norm, upcast)
 from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.optim.optimizer import tree_map
 
 __all__ = ["FAMILIES", "init", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "block_apply", "block_decode",
            "cross_attn", "project_image_kv", "kv_rows", "mamba_block_init",
-           "rwkv_block_init"]
+           "rwkv_block_init", "tp_heads", "tp_attn_params", "tp_mlp_params",
+           "tp_block_params", "arrange_leaf", "STACK_DIMS", "TP_FAMILIES",
+           "TP_LEAVES", "TP_WHOLE"]
 
 Params = Any
 
@@ -128,6 +149,12 @@ def _stacked(n: int, make):
         layer = first if i == 0 else make()
         tree_map(lambda dst, src: dst[i].copy_(src), out, layer)
     return out
+
+
+#: the leading layer dims of :func:`init`'s stacked trees, by top-level key
+#: (:func:`_unstack` unbinds them, one layer at a time)
+STACK_DIMS = {"blocks": 1, "plain": 2, "crossed": 1, "mamba": 2,
+              "mamba_trail": 1}
 
 
 def _unstack(tree, n: int) -> list:
@@ -260,21 +287,111 @@ def _arrange_wo(w, cfg):
     return _take_heads(w3, _head_perm(cfg), 0).reshape(eff * dh, d)
 
 
+_ARRANGE = {("q", "w"): _arrange_wq, ("q", "b"): _arrange_wq_bias,
+            ("k", "w"): _arrange_wkv, ("k", "b"): _arrange_kv_bias,
+            ("v", "w"): _arrange_wkv, ("v", "b"): _arrange_kv_bias,
+            ("o", "w"): _arrange_wo}
+
+
+def arrange_leaf(t, cfg, proj: str, leaf: str):
+    """An attention leaf ``t`` (``proj`` "q", "k", "v" or "o", ``leaf``
+    "w" or "b") in the TP head layout."""
+    return _ARRANGE[proj, leaf](t, cfg)
+
+
+def _arranged(p, cfg, proj: str):
+    """``p[proj]["w"]`` in the TP head layout; as it stands where the
+    sharded step's gather arranged it (``p`` marked ``"arranged"``)."""
+    w = p[proj]["w"]
+    return w if "arranged" in p else arrange_leaf(w, cfg, proj, "w")
+
+
 def _eff_attn_params(p, cfg):
     """Attention params in the TP head layout (identity fast-path when the
-    arch's heads already divide the TP degree)."""
+    arch's heads already divide the TP degree, or when the sharded step's
+    gather arranged them: ``p`` marked ``"arranged"``)."""
     eff, eff_kv, _, _ = cfg.head_layout()
-    if eff == cfg.n_heads and eff_kv == cfg.n_kv_heads:
+    if "arranged" in p or (eff == cfg.n_heads and eff_kv == cfg.n_kv_heads):
         return p
-    q = {"w": _arrange_wq(p["q"]["w"], cfg)}
-    if "b" in p["q"]:
-        q["b"] = _arrange_wq_bias(p["q"]["b"], cfg)
-    k = {"w": _arrange_wkv(p["k"]["w"], cfg)}
-    v = {"w": _arrange_wkv(p["v"]["w"], cfg)}
-    if "b" in p["k"]:
-        k["b"] = _arrange_kv_bias(p["k"]["b"], cfg)
-        v["b"] = _arrange_kv_bias(p["v"]["b"], cfg)
-    return dict(p, q=q, k=k, v=v, o={"w": _arrange_wo(p["o"]["w"], cfg)})
+    return dict(p, **{proj: {leaf: arrange_leaf(t, cfg, proj, leaf)
+                             for leaf, t in p[proj].items()}
+                      for proj in "qkvo"})
+
+
+#: the families whose attention and MLP blocks compute on 'model' shards
+#: (RWKV6's channel mix gates the whole d_model and Mamba2's ``in_proj``
+#: packs z, x, B, C and dt in one leaf: their shards do not cut by heads)
+TP_FAMILIES = ("dense", "moe", "audio", "vlm")
+#: the leaves that a block's TP form cuts (their paths under a block): the
+#: dim of one layer's slice that a rank's part cuts, and the heads it cuts
+#: ("q", "kv"; None for the MLP's columns or rows). A leaf not here (a
+#: norm's gain) is read whole
+TP_LEAVES = {"attn/q/w": ("q", 1), "attn/q/b": ("q", 0),
+             "attn/k/w": ("kv", 1), "attn/k/b": ("kv", 0),
+             "attn/v/w": ("kv", 1), "attn/v/b": ("kv", 0),
+             "attn/o/w": ("q", 0), "mlp/gate/w": (None, 1),
+             "mlp/up/w": (None, 1), "mlp/down/w": (None, 0)}
+#: the unstacked leaves that compute on a rank's part whole (:func:`_embed_tp`,
+#: :func:`_head`, :func:`_img_proj`): the dim it cuts, the vocabulary's or
+#: the columns'
+TP_WHOLE = {"embed/w": 0, "lm_head/w": 1, "img_proj/w": 1}
+
+
+def _kv_perm(cfg) -> tuple:
+    """The TP head layout's KV heads as source heads: each repeated ``r``
+    times in place (GQA), or zero-padded at the end (MHA; the index
+    ``n_kv_heads`` a zero slot), as :func:`_repeat_or_pad` arranges them."""
+    _, eff_kv, r, _ = cfg.head_layout()
+    hkv = cfg.n_kv_heads
+    if r > 1:
+        return tuple(j // r for j in range(eff_kv))
+    return tuple(range(hkv)) + (hkv,) * (eff_kv - hkv)
+
+
+def tp_heads(t: torch.Tensor, cfg, tp, kind: str, dim: int) -> torch.Tensor:
+    """A whole attention leaf ``t`` (heads of ``head_dim`` flattened along
+    ``dim``: dim 1 of the q/k/v weights, dim 0 of their biases and of o's
+    weights) as ``tp``'s ranks' heads of the TP head layout, on a new
+    leading axis: rank r the r-th of ``tp.tp`` equal runs of the layout's
+    query heads (``kind`` "q") or KV heads ("kv"), pad slots zero. Slices
+    and zero blocks (:func:`_take_heads`), so the gradient lands on the
+    published leaf."""
+    perm = _head_perm(cfg) if kind == "q" else _kv_perm(cfg)
+    heads = cfg.n_heads if kind == "q" else cfg.n_kv_heads
+    per = len(perm) // tp.tp
+    t3 = t.unflatten(dim, (heads, cfg.head_dim))
+    return torch.stack([_take_heads(t3, perm[r * per:(r + 1) * per], dim
+                                    ).flatten(dim, dim + 1)
+                        for r in tp.ranks])
+
+
+def tp_attn_params(p, cfg, tp) -> dict:
+    """Whole attention params ``p`` in the TP form of ``tp``'s ranks
+    (marked ``"tp"``): q/k/v weights and biases and o's rows, each rank's
+    heads (:func:`tp_heads`)."""
+    out = {"ln": p["ln"], "tp": tp}
+    for path, (kind, dim) in TP_LEAVES.items():
+        sub, proj, leaf = path.split("/")
+        if sub == "attn" and leaf in p[proj]:
+            out.setdefault(proj, {})[leaf] = tp_heads(p[proj][leaf], cfg, tp,
+                                                      kind, dim)
+    return out
+
+
+def tp_mlp_params(p, tp) -> dict:
+    """Whole MLP params ``p`` in the TP form of ``tp``'s ranks (marked
+    ``"tp"``): gate and up by columns, down by rows."""
+    out = {k: {"w": tp.split(v["w"], TP_LEAVES[f"mlp/{k}/w"][1])}
+           for k, v in p.items()}
+    return dict(out, tp=tp)
+
+
+def tp_block_params(p, cfg, tp) -> dict:
+    """A whole block ``p`` (attention and MLP) with both in the TP form of
+    ``tp``'s ranks: the one-process emulation of a tensor-parallel layer
+    (``tp.ranks`` all of them), through the sharded step's code."""
+    return dict(p, attn=tp_attn_params(p["attn"], cfg, tp),
+                mlp=tp_mlp_params(p["mlp"], tp))
 
 
 def _qkv(p, cfg, x):
@@ -296,9 +413,28 @@ def _rope(cfg, positions, dtype):
     return rope_tables(positions, cfg.head_dim, cfg.rope_theta, dtype)
 
 
+def _self_attn_tp(p, cfg, x, positions, rope):
+    """Self-attention in TP form: the replicated input copied in, q, k, v
+    column-parallel, each rank's attention over its heads, o row-parallel;
+    the keys and values rank-local ``(n·B, S, heads, D)``."""
+    tp = p["tp"]
+    n, (b, s, _) = tp.n, x.shape
+    xr = tp.copy_in(x)
+    q, k, v = (linear_col(p[name], xr).reshape(n * b, s, -1, cfg.head_dim)
+               for name in "qkv")
+    rope = rope if rope is not None else _rope(cfg, positions, q.dtype)
+    q, k = rotate(q, *rope), rotate(k, *rope)
+    out = chunked_attention(q, k, v, q_positions=positions,
+                            kv_positions=positions, causal=True,
+                            q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return linear_row(p["o"], out.reshape(n, b, s, -1), tp), (k, v)
+
+
 def self_attn(p, cfg, x, positions, rope=None):
     """``rope``: the call's :func:`rope_tables` for ``positions``, made
-    here when not given."""
+    here when not given. ``p`` marked ``"tp"``: :func:`_self_attn_tp`."""
+    if "tp" in p:
+        return _self_attn_tp(p, cfg, x, positions, rope)
     p = _eff_attn_params(p, cfg)
     q, k, v = _qkv(p, cfg, x)
     rope = rope if rope is not None else _rope(cfg, positions, q.dtype)
@@ -328,23 +464,22 @@ def cross_attn(p, cfg, x, img_kv):
     img_kv = (k, v) each (B, S_img, Hkv_eff, D). Only the projections'
     weights are read, as the reference reads them."""
     b, s, _ = x.shape
-    q = linear({"w": _arrange_wq(p["q"]["w"], cfg)}, x
+    q = linear({"w": _arranged(p, cfg, "q")}, x
                ).reshape(b, s, cfg.eff_heads, cfg.head_dim)
     k, v = img_kv
     zeros = lambda n: torch.zeros((n,), dtype=torch.int32, device=x.device)
     out = chunked_attention(
         q, k, v, q_positions=zeros(s), kv_positions=zeros(k.shape[1]),
         causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    return _finish_attn({"o": {"w": _arrange_wo(p["o"]["w"], cfg)}}, cfg,
-                        out)
+    return _finish_attn({"o": {"w": _arranged(p, cfg, "o")}}, cfg, out)
 
 
 def project_image_kv(p_cross, cfg, image_embeds):
     """Project image embeddings once into a cross layer's K/V."""
     b, si, _ = image_embeds.shape
-    k = linear({"w": _arrange_wkv(p_cross["k"]["w"], cfg)}, image_embeds
+    k = linear({"w": _arranged(p_cross, cfg, "k")}, image_embeds
                ).reshape(b, si, cfg.eff_kv_heads, cfg.head_dim)
-    v = linear({"w": _arrange_wkv(p_cross["v"]["w"], cfg)}, image_embeds
+    v = linear({"w": _arranged(p_cross, cfg, "v")}, image_embeds
                ).reshape(b, si, cfg.eff_kv_heads, cfg.head_dim)
     return (k, v)
 
@@ -370,11 +505,19 @@ def block_init(gen, cfg, *, cross: bool = False):
 
 def _ffn(p, cfg, x):
     if cfg.family == "moe":
+        # routing groups that span ranks (``p["moe"]["span"]``, the sharded
+        # step's ``launch.tp.TokenSpan``): route every rank's tokens, keep
+        # this rank's rows
         b, s, d = x.shape
-        y = moe_apply(p["moe"], x.reshape(b * s, d),
-                      top_k=cfg.experts_per_token,
+        span = p["moe"].get("span")
+        xt = x.reshape(b * s, d)
+        if span is not None:
+            xt = span.gather(xt)
+        y = moe_apply(p["moe"], xt, top_k=cfg.experts_per_token,
                       capacity_factor=cfg.capacity_factor,
                       shard_axes=cfg.batch_axes, groups=cfg.dp_shards)
+        if span is not None:
+            y = span.mine(y)
         return y.reshape(b, s, d)
     return mlp_apply(p["mlp"], x, cfg.mlp_kind)
 
@@ -491,13 +634,44 @@ def init(seed: int, cfg, *, device=None) -> Params:
     return p
 
 
+def _at(par, tree, path: str):
+    """``tree`` (at ``path`` in the params) as its block computes on it:
+    the sharded step's gather (``par.gather``), or as it is."""
+    return tree if par is None else par.gather(tree, path)
+
+
+def _head(p, cfg, x, par=None):
+    """``(logits, tp)``: the logits (B, S, V) and None; with the head in TP
+    form, the ranks' vocabulary slices (n, B, S, V/tp) and its
+    ``TensorParallel``."""
+    key = "embed" if cfg.tie_embeddings else "lm_head"
+    head = _at(par, p[key], key)
+    h = _norm(_at(par, p["ln_f"], "ln_f"), x, cfg)
+    w = head["w"].transpose(-2, -1) if cfg.tie_embeddings else head["w"]
+    if "tp" in head:
+        return rank_matmul(head["tp"].copy_in(h), w), head["tp"]
+    return h @ w, None
+
+
 def _logits(p, cfg, x):
-    w = (p["embed"]["w"].T if cfg.tie_embeddings
-         else p["lm_head"]["w"])
-    return _norm(p["ln_f"], x, cfg) @ w
+    return _head(p, cfg, x)[0]
 
 
-def _embed_in(p, cfg, ids=None, embeds=None):
+def _embed_tp(e, ids):
+    """The vocab-parallel lookup: each rank reads the ids in its vocabulary
+    range through ``gather_rows`` (an id outside reads the clamped row,
+    zeroed by the mask after the gather, so P4 sums zeros into it), and the
+    ranks' rows are summed: one term non-zero, so exact."""
+    tp, w = e["tp"], e["w"]
+    vl = w.shape[1]
+    lo = torch.tensor(tp.ranks, device=ids.device).mul(vl)
+    local = ids.long() - lo.reshape(-1, *([1] * ids.ndim))
+    inside = (local >= 0) & (local < vl)
+    rows = gather_rows(w, local.clamp(0, vl - 1))
+    return tp.reduce_out(rows * inside.unsqueeze(-1).to(rows.dtype))
+
+
+def _embed_in(p, cfg, ids=None, embeds=None, par=None):
     """The rows of the embedding at ``ids`` (or ``embeds`` in the model's
     dtype). The lookup's gradient goes through P4 (``gather_rows``), a
     fixed-order sum per vocabulary row in float32 rounded once to the
@@ -506,7 +680,10 @@ def _embed_in(p, cfg, ids=None, embeds=None):
     rounds a bf16 table's row after every addition."""
     if embeds is not None:
         return embeds.to(cfg.jdtype)
-    return gather_rows(p["embed"]["w"], ids)
+    e = _at(par, p["embed"], "embed")
+    if "tp" in e:
+        return _embed_tp(e, ids)
+    return gather_rows(e["w"], ids)
 
 
 def _pad_to(x, chunk: int):
@@ -525,36 +702,56 @@ def kv_rows(cfg, seq: int) -> int:
     return seq
 
 
-def _run(p, cfg, x, image_embeds=None, store=None):
+def _layers(tree, n: int, par, path: str):
+    """The ``n`` layers of a stacked tree (:func:`_unstack`), each gathered
+    as it runs (:func:`_at`): a layer is gathered while the one before is
+    still bound, so at most two are at once."""
+    for blk in _unstack(tree, n):
+        yield _at(par, blk, path)
+
+
+def _img_proj(p, x):
+    """vlm's image projection; in TP form column-parallel, the ranks'
+    columns gathered for the cross layers, which read the whole."""
+    if "tp" in p:
+        tp = p["tp"]
+        return tp.gather_out(linear_col(p, tp.copy_in(x)))
+    return linear(p, x)
+
+
+def _run(p, cfg, x, image_embeds=None, store=None, par=None):
     """The blocks over embedded inputs ``x`` (B, S, D): the final hidden
     state. With ``store`` (a cache with at least ``kv_rows(cfg, S)`` rows)
     each layer's keys and values are written into its first rows, vlm's
     image keys and values into ``img_k``/``img_v``, and the state-space
     families' states into theirs."""
     if cfg.family == "hybrid":
-        return _run_hybrid(p, cfg, x, store)
+        return _run_hybrid(p, cfg, x, store, par)
     if cfg.family == "ssm":
-        return _run_rwkv(p, cfg, x, store)
+        return _run_rwkv(p, cfg, x, store, par)
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
     if cfg.family in ("dense", "moe", "audio"):
-        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+        for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
+                                        "blocks")):
             x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
             if store is not None:
                 store["k"][i, :, :s] = k
                 store["v"][i, :, :s] = v
         return x
-    img = linear(p["img_proj"], image_embeds.to(cfg.jdtype))
+    img = _img_proj(_at(par, p["img_proj"], "img_proj"),
+                    image_embeds.to(cfg.jdtype))
     groups = cfg.n_layers // cfg.cross_attn_interval
     for gi, (plain, crossed) in enumerate(zip(
             _unstack(p["plain"], groups), _unstack(p["crossed"], groups))):
-        for j, blk in enumerate(_unstack(plain,
-                                         cfg.cross_attn_interval - 1)):
+        for j, blk in enumerate(_layers(plain, cfg.cross_attn_interval - 1,
+                                        par, "plain")):
             x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
             if store is not None:
                 store["k_plain"][gi, j, :, :s] = k
                 store["v_plain"][gi, j, :, :s] = v
+        crossed = _at(par, crossed, "crossed")
         img_kv = project_image_kv(crossed["xattn"], cfg, img)
         x, (k, v) = block_apply(crossed, cfg, x, positions, img_kv=img_kv,
                                 rope=rope)
@@ -566,7 +763,7 @@ def _run(p, cfg, x, image_embeds=None, store=None):
     return x
 
 
-def _run_hybrid(p, cfg, x, store):
+def _run_hybrid(p, cfg, x, store, par=None):
     s = x.shape[1]
     h = _pad_to(x, ssm.CHUNK)
     sp = h.shape[1]
@@ -574,17 +771,19 @@ def _run_hybrid(p, cfg, x, store):
     rope = _rope(cfg, positions, cfg.jdtype)
     n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
     for gi, group in enumerate(_unstack(p["mamba"], n_super)):
-        for j, blk in enumerate(_unstack(group, cfg.attn_interval)):
+        for j, blk in enumerate(_layers(group, cfg.attn_interval, par,
+                                        "mamba")):
             h, st, cv = _mamba_layer(blk, cfg, h)
             if store is not None:
                 store["ssm"][gi, j].copy_(st)
                 store["conv"][gi, j].copy_(cv)
-        h, (k, v) = block_apply(p["shared_attn"], cfg, h, positions,
-                                rope=rope)
+        h, (k, v) = block_apply(_at(par, p["shared_attn"], "shared_attn"),
+                                cfg, h, positions, rope=rope)
         if store is not None:
             store["k"][gi, :, :sp] = k
             store["v"][gi, :, :sp] = v
-    for t, blk in enumerate(_unstack(p["mamba_trail"], trail)):
+    for t, blk in enumerate(_layers(p["mamba_trail"], trail, par,
+                                    "mamba_trail")):
         h, st, cv = _mamba_layer(blk, cfg, h)
         if store is not None:
             store["ssm_trail"][t].copy_(st)
@@ -592,10 +791,11 @@ def _run_hybrid(p, cfg, x, store):
     return h[:, :s]
 
 
-def _run_rwkv(p, cfg, x, store):
+def _run_rwkv(p, cfg, x, store, par=None):
     s = x.shape[1]
     h = _pad_to(x, rk.CHUNK)
-    for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+    for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
+                                    "blocks")):
         h, st, lt, lc = _rwkv_layer(blk, cfg, h)
         if store is not None:
             store["state"][i].copy_(st)
@@ -604,31 +804,83 @@ def _run_rwkv(p, cfg, x, store):
     return h[:, :s]
 
 
-def forward(p, cfg, ids=None, *, embeds=None, image_embeds=None,
-            collect_cache: bool = False):
-    """-> (logits (B,S,V), cache | None). The collected cache holds every
-    layer's keys and values over the sequence (the hybrid's over the
-    padded sequence) and the state-space families' final states, as the
-    reference's."""
+def _forward(p, cfg, ids, embeds, image_embeds, collect_cache, par):
+    """:func:`forward`, with the head's ``TensorParallel`` (or None)."""
     _check(cfg)
-    x = _embed_in(p, cfg, ids, embeds)
+    x = _embed_in(p, cfg, ids, embeds, par)
     store = (init_cache(cfg, x.shape[0], kv_rows(cfg, x.shape[1]),
                         device=x.device)
              if collect_cache else None)
-    x = _run(p, cfg, x, image_embeds, store)
+    x = _run(p, cfg, x, image_embeds, store, par)
     if store is not None and cfg.family == "vlm":
         del store["img_k"], store["img_v"]   # prefill's, not forward's
-    return _logits(p, cfg, x), store
+    logits, tp = _head(p, cfg, x, par)
+    return logits, store, tp
 
 
-def loss_fn(p, cfg, ids, labels, *, embeds=None, image_embeds=None):
-    """Mean next-token cross-entropy: -> (loss, {"loss", "ppl"})."""
-    logits, _ = forward(p, cfg, ids, embeds=embeds,
-                        image_embeds=image_embeds)
+def forward(p, cfg, ids=None, *, embeds=None, image_embeds=None,
+            collect_cache: bool = False, par=None):
+    """-> (logits (B,S,V), cache | None). The collected cache holds every
+    layer's keys and values over the sequence (the hybrid's over the
+    padded sequence) and the state-space families' final states, as the
+    reference's. ``par``: the sharded step's ``ParamShards`` (module
+    docstring); with the head in TP form the logits are the ranks'
+    vocabulary slices (n, B, S, V/tp)."""
+    logits, store, _ = _forward(p, cfg, ids, embeds, image_embeds,
+                                collect_cache, par)
+    return logits, store
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """``logsumexp`` of vocabulary-sharded logits ``(n, B, S, V/tp)`` over
+    the whole vocabulary: the row max reduced with MAX, the sum of ``exp``
+    over the ranks accumulated in float64 and ``log(sum) + max`` rounded
+    once, so that a row's value does not depend on how its vocabulary is
+    split (but for a double rounding now and then); backward
+    ``torch.logsumexp``'s own, ``g · exp(l - logz)`` on each rank's slice.
+    Where ``logz`` rounds as the unsplit one does, the gradient is the
+    unsplit step's bit for bit."""
+
+    @staticmethod
+    def forward(ctx, logits, tp):
+        m = tp.reduce(logits.amax(dim=-1), "max")
+        e = torch.exp(logits - m[..., None])
+        total = tp.reduce(e.sum(dim=-1, dtype=torch.float64))
+        logz = (torch.log(total) + m).to(logits.dtype)
+        ctx.save_for_backward(logits, logz)
+        return logz
+
+    @staticmethod
+    def backward(ctx, grad):
+        logits, logz = ctx.saved_tensors
+        return grad[..., None] * torch.exp(logits - logz[..., None]), None
+
+
+def _vocab_parallel_ce(logits, labels, tp):
+    """The mean cross-entropy of vocabulary-sharded float32 logits ``(n, B,
+    S, V/tp)``: :class:`_VocabLogSumExp` less the gold logit (the
+    reference's iota compare on each rank's range, summed over the
+    ranks)."""
+    vl = logits.shape[-1]
+    lo = torch.tensor(tp.ranks, device=logits.device).mul(vl)
+    vocab = torch.arange(vl, device=logits.device) + lo.reshape(-1, 1, 1, 1)
+    gold = tp.reduce_out(torch.where(vocab == labels.long()[..., None],
+                                     logits, 0.0).sum(dim=-1))
+    return (_VocabLogSumExp.apply(logits, tp) - gold).mean()
+
+
+def loss_fn(p, cfg, ids, labels, *, embeds=None, image_embeds=None,
+            par=None):
+    """Mean next-token cross-entropy: -> (loss, {"loss", "ppl"}).
+    ``par``: the sharded step's ``ParamShards`` (module docstring)."""
+    logits, _, tp = _forward(p, cfg, ids, embeds, image_embeds, False, par)
     logits = upcast(logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
-    loss = (logz - gold).mean()
+    if tp is not None:
+        loss = _vocab_parallel_ce(logits, labels, tp)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+        loss = (logz - gold).mean()
     return loss, {"loss": loss, "ppl": torch.exp(loss)}
 
 

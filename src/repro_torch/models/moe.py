@@ -36,7 +36,11 @@ contiguous groups of T/g (batch-major, so group r is data-parallel rank
 r's part of the batch) and each group is routed, dispatched and combined
 on its own, with a capacity of ``max(1, int(cf · (T/g) · k / E))`` per
 expert. Dispatch and combine then never cross ranks; a rank that holds one
-group's tokens routes them as one group.
+group's tokens routes them as one group. A group that spans ranks (fewer
+groups than data-parallel parts: every config's ``dp_shards=1``) is routed
+by the sharded step on every rank over the batch's gathered tokens, each
+rank keeping its own rows (``launch/tp.py::TokenSpan``, ``models/lm.py``'s
+``_ffn``).
 """
 from __future__ import annotations
 

@@ -915,6 +915,21 @@ def test_distributed_phase_runs_the_published_configs(smoke):
     assert get_config(smoke.LM_ARCH).n_params() == smoke.LM_PARAMS
 
 
+def test_distributed_tp_split_is_the_published_layer_at_tp_16(smoke):
+    """(d) splits a published qwen1.5-4b layer (d_ff 6912, which tp 16
+    cuts in 432-column runs) over 16 ranks, held no looser than (a)'s
+    bound; (b) prints its times beside the earlier whole-model gather's,
+    one per timed step kind."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(smoke.DIST_ARCH), tp=smoke.DIST_TP)
+    assert cfg.d_ff % smoke.DIST_TP == 0 and cfg.d_model == 2560
+    assert cfg.head_layout()[0] % smoke.DIST_TP == 0
+    assert 0 < smoke.DIST_EMU_BOUND <= smoke.DIST_TP_BOUND
+    assert set(smoke.DIST_WHOLE_GATHER_MS) == {
+        "sharded_step_ms", "unsharded_captured_step_ms",
+        "unsharded_eager_step_ms"}
+
+
 def test_replica_path_counts_are_the_served_paths(smoke):
     """One replica on one card runs the whole batch: the replica path's
     counts per batch bucket are the served path's, skipped by the phases

@@ -1,7 +1,9 @@
 """The port's distributed layer (``repro_torch.launch``: ``mesh``,
-``sharding``, ``collectives``, ``pipeline``, the storage-sharded train
-step, ``restore_checkpoint(shardings=)``, ``PointCloudServable(mesh=)``,
-MoE local routing) against the JAX package, on the CPU.
+``sharding``, ``collectives``, ``pipeline``, ``tp``, the sharded train
+step with its per-layer gathers and tensor-parallel compute,
+``restore_checkpoint(shardings=)``, ``PointCloudServable(mesh=)``, MoE
+local routing and routing groups that span ranks) against the JAX
+package, on the CPU.
 
 Multi-rank parity runs on gloo: the module fixture :func:`ranks` starts 8
 processes of this file (``python tests/test_torch_distributed.py RANK
@@ -28,20 +30,34 @@ Bounds, and why:
   ``x @ w``;
 - MoE local routing at 4 groups: token order, slots and drops equal to
   the reference's, outputs within 1e-5 (the expert GEMMs' order);
-- the sharded step on a (4, 2) mesh (deepseek-7b ``reduced()``,
-  ``batch_axes=("data",)``, ``tp=2``; and grok-1 ``reduced()`` with 4
-  MoE routing groups), at full learning rate from the first step
-  (``warmup_steps=0``, so that the parameters move): both losses within
+- the sharded step on a (4, 2) mesh (the :data:`CASES`: deepseek-7b
+  ``reduced()``, ``batch_axes=("data",)``, ``tp=2``, as it is, widened,
+  with compression and widened until attention shards on 'model' too; and
+  grok-1 ``reduced()`` with 4 MoE routing groups and with 1, which spans
+  the 4 data parts), at full learning rate from the first step
+  (``warmup_steps=0``, so that the parameters move): the losses within
   1e-6 relative of the reference's step (the global mean taken as the
-  mean of 4 parts' means) and both gradient norms within 1e-5 relative
+  mean of 4 parts' means) and the gradient norms within 1e-5 relative
   (the norm reads the gradient's scale, which AdamW does not: a sum over
   the parts in place of their mean, or a replicated shard counted once per
   copy, shows here and in the moments); on every rank, every local shard
-  of the parameters after 2 steps within 1e-4 x max|p| and within
-  ``DP_BOUND`` x max|p - p0| of the port's unsharded step's, and of the
-  moments m and v within 1e-4 x their leaf's max; every local shard's
-  shape the reference's specs' cut; a MoE config whose routing groups do
-  not split over the data-parallel parts refused;
+  of the parameters after 2 steps within 1e-4 x max|p| (the ``tp``
+  case: ``TP_P_BOUND``) of the port's unsharded step's and within
+  ``DP_BOUND`` x max|p - p0| (``tp``: ``TP_DP_BOUND``) of it; where
+  blocks compute tensor-parallel (``wide``, ``compressed``, ``tp``), also
+  within that bound of the unsharded step in the sharded step's
+  tensor-parallel arithmetic (``launch.tp.EmulatedTP``: the 'model' ranks
+  emulated in one process), and, with both steps run again in float64,
+  within ``DP_BOUND`` and 1e-4 x max|p| of the unsharded step (the split
+  sums' rounding, which AdamW's eps regime amplifies in float32, falls
+  far below it there); the moments m and v within 1e-4 x their leaf's
+  max of the port's unsharded step's (in float64 too where blocks compute
+  tensor-parallel); every local shard's shape the reference's specs' cut;
+  the routing of a MoE group that spans ranks equal to the unsharded
+  step's (which ``tests/test_torch_lm_families.py`` holds equal to the
+  reference's); the gathered parameter bytes alive at once at most two
+  layers' slices and the unstacked leaves, and no weight's copy kept for
+  the backward;
 - ``restore_checkpoint(shardings=)`` of a state saved on 8 ranks onto a
   (2, 2) mesh of 4: every shard equal to its slice of the global array;
 - ``PointCloudServable(mesh=make_replica_mesh(2))``: every row bit for
@@ -49,6 +65,7 @@ Bounds, and why:
   replicated).
 """
 import dataclasses
+import math
 import os
 import pathlib
 import socket
@@ -70,14 +87,23 @@ ARCH, MOE_ARCH = "deepseek-7b", "grok-1-314b"
 #: gradient compression): as the reference's test runs it (every leaf
 #: under the rules' 1M-element floor, so replicated); widened so that the
 #: embedding, head and MLP weights shard (vocab over 'model'; d_model over
-#: 'data' and d_ff over 'model'); widened with compression (each leaf's
-#: scale the largest |value| over its shards); and a MoE config routing in
-#: 4 groups, one per data-parallel part, as the reference's launch layer
-#: sets ``dp_shards``
+#: 'data' and d_ff over 'model'), which then compute tensor-parallel;
+#: widened with compression (each leaf's scale the largest |value| over
+#: its shards); widened until q/k/v/o shard too, with 5 MHA heads that the
+#: TP layout pads to 6 at tp 2, so that a rank's 'model' shard (320 of 640
+#: columns) falls inside a head and attention gathers, arranges and takes
+#: the rank's 3 heads, and 3 layers, so that two layers' slices are less
+#: than the whole stack; a MoE config routing in 4 groups, one per
+#: data-parallel part, as the reference's launch layer sets ``dp_shards``;
+#: and in 1 group, which spans the 4 parts
 WIDE = {"vocab_size": 16384, "d_ff": 8192}
+TP_WIDE = {"d_model": 1024, "d_head": 128, "n_heads": 5, "n_kv_heads": 5,
+           "vocab_size": 2048, "d_ff": 512, "n_layers": 3}
 CASES = {"reduced": (ARCH, {}, False), "wide": (ARCH, WIDE, False),
          "compressed": (ARCH, WIDE, True),
-         "moe": (MOE_ARCH, {"dp_shards": 4}, False)}
+         "moe": (MOE_ARCH, {"dp_shards": 4}, False),
+         "tp": (ARCH, TP_WIDE, False),
+         "moe_span": (MOE_ARCH, {"dp_shards": 1}, False)}
 BATCH, SEQ, STEPS = 8, 32, 2
 #: no warmup, so that each step moves every parameter by about the
 #: learning rate (AdamWConfig's warmup would move them by 3e-6 and 6e-6)
@@ -88,8 +114,24 @@ OPT = dict(warmup_steps=0, lr=1e-4)
 #: sum over the batch's parts shows (in one process, the mean of 4 parts'
 #: gradients in place of the whole batch's moved one element of the widened
 #: config's down/w 1.2e-2 of the step away); 1e-4 is the learning rate at
-#: which that error stays within 1e-4 x max|p| too
+#: which that error stays within 1e-4 x max|p| too. Tensor parallelism's
+#: split sums add float32 rounding of their own: on the 8 ranks the
+#: widened config's worst element (down/w) is 2.6e-2 of the step off; in
+#: float64 2.1e-4 (attention computes in float32 whatever its inputs)
 DP_BOUND = 3e-2
+#: :data:`DP_BOUND` for the float32 ``tp`` case: at d_model 1024 the CPU's
+#: GEMMs round a row differently at a rank's 64 rows than at the batch's
+#: 256 (measured: not so at d_model 64), so every activation of a data
+#: part carries float32 noise that AdamW's eps regime amplifies, tensor
+#: parallelism or not (measured worst: 7.6% of the step, an element of
+#: embed/w, against the unsharded step; 3.6% against the one in the same
+#: tensor-parallel arithmetic; in float64, 5.1e-4 within ``DP_BOUND``)
+TP_DP_BOUND = 0.1
+#: the parameters' bound against the unsharded step, as a fraction of the
+#: leaf's largest value (1e-4), for the ``tp`` case: its embedding's
+#: largest value is 0.1 (std 0.02), so the element that the same noise
+#: moves 7.6% of the step away (measured) is 1.5e-4 of it
+TP_P_BOUND = 3e-4
 #: with int8 compression, the share of elements that the sharded and
 #: unsharded gradients' last-bit differences may flip across a rounding
 #: boundary of the quantization (each such element's update then differs
@@ -201,6 +243,7 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
         one = make_test_mesh((1, 1), device_type="cpu")
         if rank == 0:
             res["one_rank"] = _one_rank(one)
+            res["padded_one_rank"] = _padded_one_rank(one)
 
         # replica fan-out over the first 2 ranks
         replicas = make_replica_mesh(2, device_type="cpu")
@@ -220,6 +263,128 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
         dist.destroy_process_group()
 
 
+def _routes(fn) -> list:
+    """``fn()``'s MoE routing: per call of ``moe._route_local``, the token
+    count, the capacity, the top-k experts and the keep mask."""
+    from repro_torch.models import moe
+    routes, route = [], moe._route_local
+
+    def record(x, router_w, top_k, cap, e):
+        xe, meta, top_idx, logits = route(x, router_w, top_k, cap, e)
+        routes.append((x.shape[0], cap, top_idx.clone(), meta[3].clone()))
+        return xe, meta, top_idx, logits
+    moe._route_local = record
+    try:
+        fn()
+    finally:
+        moe._route_local = route
+    return routes
+
+
+def _gathered_bytes(cfg, params, plans: dict, mesh) -> tuple:
+    """``(one layer's, the unstacked leaves')`` bytes that the gathers hand
+    the model: each gathered leaf's local slice times the sizes of the mesh
+    dims it is gathered over, a heads-arranged one cut to the rank's heads
+    of the TP head layout."""
+    from repro_torch.models.lm import STACK_DIMS
+    eff, eff_kv, _, _ = cfg.head_layout()
+    tp = mesh.size(mesh.mesh_dim_names.index("model"))
+    layer = unstacked = 0
+    for key, d in _flatten(params).items():
+        plan = plans[key]
+        if not plan.gather:
+            continue
+        stack = STACK_DIMS.get(key.split("/")[0], 0)
+        n = d.to_local()[(0,) * stack].numel()
+        n *= math.prod(mesh.size(i) for i, _, _ in plan.gather)
+        if isinstance(plan.use, tuple):
+            q = plan.use[1] in ("q", "o")
+            n = n // (cfg.n_heads if q else cfg.n_kv_heads) * (
+                eff if q else eff_kv)
+            n //= tp if plan.use[0] == "heads" else 1
+        if stack:
+            layer += n * d.element_size()
+        else:
+            unstacked += n * d.element_size()
+    return layer, unstacked
+
+
+def _emulated_steps(cfg, opt, comp: bool, blocks: dict, state, batch):
+    """:data:`STEPS` unsharded steps of ``state`` in the sharded step's
+    tensor-parallel arithmetic (``blocks`` of ``gather_plan``, 2 'model'
+    ranks in this process)."""
+    from repro_torch.launch import train
+    from repro_torch.launch.tp import EmulatedTP
+    par = EmulatedTP(cfg, blocks, 2)
+    args = [None if batch.get(k) is None else torch.as_tensor(batch[k])
+            for k in train.BATCH_KEYS]
+    for _ in range(STEPS):
+        train._step(cfg, opt, comp, state, *args, par=par)
+    return state
+
+
+def _float64(state: dict) -> dict:
+    """``state`` with its floating leaves in float64 (the parameters still
+    requiring grad)."""
+    return tree_map(lambda t: t.detach().double().requires_grad_(
+        t.requires_grad) if t.is_floating_point() else t, state)
+
+
+def _compare(state, shardings, plain, p0, bound: float, same=None) -> dict:
+    """Every local shard of ``state`` (after the steps) against its slice
+    of the unsharded ``plain``'s leaf: the largest error, the leaf's largest
+    value, how far the steps moved it from ``p0``, and the elements
+    ``off``: a parameter's beyond ``bound`` x that distance, a moment's
+    beyond 1e-4 x its leaf's largest value; with ``same`` (another
+    unsharded step), a parameter's ``off_same`` beyond ``bound`` x that
+    distance from ``same``'s."""
+    shardings, plain, p0 = map(_flatten, (shardings, plain, p0))
+    same = None if same is None else _flatten(same)
+    res = {}
+    for key, got in _flatten(state).items():
+        s, want = shardings[key], plain[key].detach()
+        diff = (got.to_local() - s.shard(want)).abs()
+        scale = float(want.abs().max())
+        moved = float((want - p0[key].detach()).abs().max())
+        e = {"err": float(diff.max()), "scale": scale, "moved": moved,
+             "numel": diff.numel()}
+        if key.startswith("params/"):
+            e["off"] = int((diff > bound * moved).sum())
+            if same is not None:
+                gap = (got.to_local() - s.shard(same[key].detach())).abs()
+                e["off_same"] = int((gap > bound * moved).sum())
+        else:
+            e["off"] = int((diff > 1e-4 * scale).sum())
+        res[key] = e
+    return res
+
+
+def _float64_run(case: str, init: dict, mesh, batch: dict) -> dict:
+    """:data:`STEPS` sharded and unsharded steps of ``case`` in float64
+    from the reference's state, compared by :func:`_compare` at
+    :data:`DP_BOUND`."""
+    from repro_torch.configs import get_config
+    from repro_torch.convert import train_state_from_numpy
+    from repro_torch.launch import make_train_step
+    from repro_torch.launch.sharding import (named_shardings, shard_tree,
+                                             state_pspecs)
+    cfg = _sharded_cfg(get_config, case)
+    comp = CASES[case][2]
+    opt = AdamWConfig(**OPT)
+
+    def start():
+        return _float64(train_state_from_numpy(init, cfg, device="cpu"))
+    state, plain = start(), start()
+    shardings = named_shardings(state_pspecs(state, mesh), mesh)
+    state = shard_tree(state, shardings)
+    step = make_train_step(cfg, opt, mesh=mesh, grad_compression=comp)
+    plain_step = make_train_step(cfg, opt, grad_compression=comp)
+    for _ in range(STEPS):
+        step(state, batch)
+        plain_step(plain, batch)
+    return _compare(state, shardings, plain, start(), DP_BOUND)
+
+
 def _sharded_run(case: str, mesh, mesh4, rank: int,
                  out: pathlib.Path) -> dict:
     """:data:`STEPS` sharded steps of ``case`` from the reference's state,
@@ -228,8 +393,8 @@ def _sharded_run(case: str, mesh, mesh4, rank: int,
     from repro_torch.configs import dummy_inputs, get_config
     from repro_torch.convert import train_state_from_numpy
     from repro_torch.launch import make_train_step
-    from repro_torch.launch.sharding import (named_shardings, shard_tree,
-                                             state_pspecs)
+    from repro_torch.launch.sharding import (gather_plan, named_shardings,
+                                             shard_tree, state_pspecs)
     cfg = _sharded_cfg(get_config, case)
     comp = CASES[case][2]
     with np.load(out / f"init_{case}.npz") as npz:
@@ -242,39 +407,44 @@ def _sharded_run(case: str, mesh, mesh4, rank: int,
     batch = dummy_inputs(cfg, "train", batch=BATCH, seq=SEQ, device="cpu")
     step = make_train_step(cfg, AdamWConfig(**OPT), mesh=mesh,
                            grad_compression=comp)
-    res["losses"], res["grad_norms"] = [], []
-    for _ in range(STEPS):
-        state, metrics = step(state, batch)
+    step.gather_stats.track_copies = True
+    plans, blocks = gather_plan(cfg, state["params"], mesh, {"data"})
+    res["tp_blocks"] = blocks
+    res["gathered_layer"], res["gathered_unstacked"] = _gathered_bytes(
+        cfg, state["params"], plans, mesh)
+    res["layers"] = cfg.n_layers
+    res["losses"], res["grad_norms"], res["gathers"] = [], [], []
+    routes = []
+    for i in range(STEPS):
+        got = []
+        seen = _routes(lambda: got.append(step(state, batch)[1]))
+        routes = routes or seen
+        metrics = got[0]
         res["losses"].append(float(metrics["loss"]))
         res["grad_norms"].append(float(metrics["grad_norm"]))
-    if cfg.family == "moe":
-        # one routing group for the whole batch cannot be cut over 4 parts
-        one = dataclasses.replace(cfg, dp_shards=1)
-        try:
-            make_train_step(one, AdamWConfig(**OPT), mesh=mesh)(state, batch)
-            res["refused"] = None
-        except ValueError as e:
-            res["refused"] = str(e)
+        res["gathers"].append(step.gather_stats.as_dict())
     # the port's unsharded step from the same state: every local shard
-    # against its slice of the unsharded leaf
+    # against its slice of the unsharded leaf; where blocks compute
+    # tensor-parallel, both steps again in float64, and the parameters'
+    # float32 DP bound also against the unsharded step in the sharded
+    # step's tensor-parallel arithmetic
+    opt = AdamWConfig(**OPT)
     plain = train_state_from_numpy(init, cfg, device="cpu")
-    plain_step = make_train_step(cfg, AdamWConfig(**OPT),
-                                 grad_compression=comp)
-    for _ in range(STEPS):
+    plain_step = make_train_step(cfg, opt, grad_compression=comp)
+    plain_routes = _routes(lambda: plain_step(plain, batch))
+    for _ in range(STEPS - 1):
         plain, _ = plain_step(plain, batch)
-    p0 = _flatten(train_state_from_numpy(init, cfg, device="cpu"))
-    res["vs_unsharded"] = {}
-    shardings, plain = _flatten(shardings), _flatten(plain)
-    for key, got in _flatten(state).items():
-        s, want = shardings[key], plain[key].detach()
-        diff = (got.to_local() - s.shard(want)).abs()
-        scale = float(want.abs().max())
-        moved = float((want - p0[key].detach()).abs().max())
-        res["vs_unsharded"][key] = {
-            "err": float(diff.max()), "scale": scale, "moved": moved,
-            "numel": diff.numel(),
-            "off": int((diff > (DP_BOUND * moved if key.startswith("params/")
-                                else 1e-4 * scale)).sum())}
+    if cfg.family == "moe":
+        res["routes"], res["plain_routes"] = routes, plain_routes
+    same = None
+    if blocks:
+        same = _emulated_steps(cfg, opt, comp, blocks, train_state_from_numpy(
+            init, cfg, device="cpu"), batch)
+        res["vs_unsharded_f64"] = _float64_run(case, init, mesh, batch)
+    res["vs_unsharded"] = _compare(
+        state, shardings, plain,
+        train_state_from_numpy(init, cfg, device="cpu"),
+        TP_DP_BOUND if case == "tp" else DP_BOUND, same)
     full = tree_map(lambda d: d.full_tensor(), state)
     # saved on 8 ranks, restored onto a (2, 2) mesh of the first 4
     ckpt = str(out / f"ckpt_{case}")
@@ -292,6 +462,40 @@ def _sharded_run(case: str, mesh, mesh4, rank: int,
                            for g, f in zip(tree_leaves(got),
                                            tree_leaves(full)))}
     return res
+
+
+def _padded_one_rank(mesh) -> dict:
+    """On a one-rank mesh: 2 sharded steps of the ``tp`` case's config
+    (5 heads padded to 6 at ``tp=2``; q/k/v/o above the floor, so gathered
+    over mesh dims of 1 and arranged in the gather, attention computing
+    whole) against 2 unsharded ones, and the weights' copies kept."""
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.launch import init_train_state, make_train_step
+    from repro_torch.launch.sharding import (gather_plan, named_shardings,
+                                             shard_tree, state_pspecs)
+    cfg = _sharded_cfg(get_config, "tp")
+    opt = AdamWConfig(**OPT)
+    batch = dummy_inputs(cfg, "train", batch=2, seq=SEQ, device="cpu")
+    plain = init_train_state(0, cfg, opt, device="cpu")
+    sharded = init_train_state(0, cfg, opt, device="cpu")
+    sharded = shard_tree(sharded, named_shardings(
+        state_pspecs(sharded, mesh), mesh))
+    plans, _ = gather_plan(cfg, sharded["params"], mesh, {"data"})
+    step = make_train_step(cfg, opt)
+    sstep = make_train_step(cfg, opt, mesh=mesh)
+    sstep.gather_stats.track_copies = True
+    losses, gathers = [], []
+    for _ in range(2):
+        losses.append((step(plain, batch)[1]["loss"],
+                       sstep(sharded, batch)[1]["loss"]))
+        gathers.append(sstep.gather_stats.as_dict())
+    return {"arranged": sorted(k for k, p in plans.items()
+                               if p.gather and p.use[0] == "arranged"),
+            "losses": all(torch.equal(a, b) for a, b in losses),
+            "leaves": all(torch.equal(a.detach(), b.to_local())
+                          for a, b in zip(tree_leaves(plain),
+                                          tree_leaves(sharded))),
+            "gathers": gathers}
 
 
 def _one_rank(mesh) -> dict:
@@ -524,56 +728,140 @@ def test_sharded_step_grad_norms_match_the_references(ranks, case):
                                    rtol=1e-5)
 
 
-def _vs_unsharded(ranks, case: str, prefixes: tuple):
+def _vs_unsharded(ranks, case: str, prefixes: tuple,
+                  field: str = "vs_unsharded"):
     """Every rank's comparison of its local shards with the unsharded
-    step's (:func:`_sharded_run`), for the leaves under ``prefixes``."""
+    step's (:func:`_sharded_run`; ``field`` "vs_unsharded_f64": both in
+    float64), for the leaves under ``prefixes``."""
     out = [(key, e) for r in ranks["rank"]
-           for key, e in r[case]["vs_unsharded"].items()
+           for key, e in r[case][field].items()
            if key.startswith(prefixes)]
     assert out
     return out
 
 
-def _within(ranks, case: str, prefixes: tuple, flip_err=None) -> None:
-    """Every leaf's largest error within 1e-4 of its largest value and no
-    element beyond its bound (``off``); with int8 compression, at most
-    :data:`FLIP_SHARE` of the elements beyond it and each leaf's largest
-    error within ``flip_err`` of its largest value, where given."""
-    leaves = _vs_unsharded(ranks, case, prefixes)
+def _computes_tp(ranks, case: str) -> bool:
+    """Whether some block of ``case`` computes on 'model' shards."""
+    return bool(ranks["rank"][0][case]["tp_blocks"])
+
+
+def _within(ranks, case: str, prefixes: tuple, flip_err=None,
+            bound: float = 1e-4, field: str = "vs_unsharded",
+            off: str = "off") -> None:
+    """Every leaf's largest error within ``bound`` of its largest value and
+    no element beyond its bound (``off``, or ``off_same``); with int8
+    compression, at most :data:`FLIP_SHARE` of the elements beyond it and
+    each leaf's largest error within ``flip_err`` of its largest value,
+    where given."""
+    leaves = _vs_unsharded(ranks, case, prefixes, field)
     if CASES[case][2]:
-        off = sum(e["off"] for _, e in leaves)
-        assert off <= FLIP_SHARE * sum(e["numel"] for _, e in leaves), off
+        n = sum(e[off] for _, e in leaves)
+        assert n <= FLIP_SHARE * sum(e["numel"] for _, e in leaves), n
         for key, e in leaves:
             assert flip_err is None or e["err"] <= flip_err * e["scale"], (
                 key, e)
         return
     for key, e in leaves:
-        assert e["off"] == 0, (key, e)
-        assert e["err"] <= 1e-4 * e["scale"], (key, e)
+        assert e[off] == 0, (key, e)
+        assert e["err"] <= bound * e["scale"], (key, e)
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_sharded_step_parameters_match_the_unsharded_step(ranks, case):
     """Every rank's shard of every parameter after the steps, against its
-    slice of the port's unsharded step's: within 1e-4 x max|p| and within
-    :data:`DP_BOUND` of how far the steps moved the leaf (a flipped element
-    under compression moves by up to a step more or less)."""
+    slice of the port's unsharded step's: within 1e-4 x max|p| (``tp``:
+    :data:`TP_P_BOUND`) and within :data:`DP_BOUND` (``tp``:
+    :data:`TP_DP_BOUND`) of how far the steps moved the leaf (a flipped
+    element under compression moves by up to a step more or less). Where
+    blocks compute tensor-parallel, also within that bound of the
+    unsharded step in the sharded step's tensor-parallel arithmetic, and,
+    with both steps run in float64 (where the split sums' rounding falls
+    far below it), within :data:`DP_BOUND` and 1e-4 x max|p| of the
+    unsharded step."""
     for key, e in _vs_unsharded(ranks, case, ("params/",)):
         assert e["moved"] > 0, key
-    _within(ranks, case, ("params/",))
+    bound = TP_P_BOUND if case == "tp" else 1e-4
+    _within(ranks, case, ("params/",), bound=bound)
+    if _computes_tp(ranks, case):
+        _within(ranks, case, ("params/",), bound=bound, off="off_same")
+        for key, e in _vs_unsharded(ranks, case, ("params/",),
+                                    "vs_unsharded_f64"):
+            assert e["moved"] > 0, key
+        _within(ranks, case, ("params/",), field="vs_unsharded_f64")
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_sharded_step_moments_match_the_unsharded_step(ranks, case):
     """Every rank's shard of AdamW's m and v, which carry the gradient's
-    scale, within 1e-4 of their leaf's largest value; under compression a
+    scale, within 1e-4 of their leaf's largest value, in float32 and, where
+    blocks compute tensor-parallel, in float64; under compression a
     flipped element is off by at most 2 int8 steps of the gradient."""
     _within(ranks, case, ("opt/m/", "opt/v/"), flip_err=2 / 127)
+    if _computes_tp(ranks, case):
+        _within(ranks, case, ("opt/m/", "opt/v/"), flip_err=2 / 127,
+                field="vs_unsharded_f64")
 
 
 def test_moe_routing_groups_must_split_over_the_parts(ranks):
+    """Routing groups that split over the 4 data parts (``moe``) are routed
+    by the rank that holds them: each routes its 64 tokens as one group;
+    one group that spans the parts (``moe_span``) is routed on every rank
+    over the batch's 256 gathered tokens, the routing (top-k experts and
+    kept slots, each layer) equal to the unsharded step's, whose routing
+    ``tests/test_torch_lm_families.py`` holds equal to the reference's."""
     for r in ranks["rank"]:
-        assert "do not split" in r["moe"]["refused"]
+        local = r["moe"]["routes"]
+        assert local and all(t == BATCH * SEQ // 4 for t, *_ in local)
+        got, want = r["moe_span"]["routes"], r["moe_span"]["plain_routes"]
+        assert len(got) == len(want) > 0
+        for (t, cap, idx, keep), (t0, cap0, idx0, keep0) in zip(got, want):
+            assert (t, cap) == (t0, cap0) == (BATCH * SEQ, cap0)
+            assert torch.equal(idx, idx0) and torch.equal(keep, keep0)
+
+
+def test_sharded_step_gathers_at_most_two_layers(ranks):
+    """Per-layer gathers: in every step, on every rank, the most gathered
+    parameter bytes alive at once (forward and backward) at most two
+    layers' worth of what the gathers hand the model and the unstacked
+    leaves' (``_gathered_bytes``), where the ``tp`` case's 3 layers gather
+    more; every layer gathered again for the backward (a weight that
+    autograd kept would be neither); and, in every case, no copy of a
+    weight (arranged, cast or sliced) kept by autograd for the backward.
+    Where nothing is sharded (``reduced``) nothing is gathered. On one
+    rank, a layout that pads heads arranges q/k/v/o in their gathers: the
+    steps bit for bit the unsharded step's, no copy kept."""
+    for r in ranks["rank"]:
+        for case in ("wide", "tp"):
+            layer, unstacked = r[case]["gathered_layer"], r[case][
+                "gathered_unstacked"]
+            assert layer > 0
+            for g in r[case]["gathers"]:
+                assert 0 < g["peak_alive_bytes"] <= 2 * layer + unstacked
+                assert g["gathered_bytes"] >= 2 * r[case]["layers"] * layer
+        assert 2 < r["tp"]["layers"]
+        for case in CASES:
+            assert all(g["kept_copy_bytes"] == 0 for g in r[case]["gathers"])
+        assert all(g == {"gathered_bytes": 0, "peak_alive_bytes": 0,
+                         "kept_copy_bytes": 0}
+                   for g in r["reduced"]["gathers"])
+    padded = ranks["rank"][0]["padded_one_rank"]
+    assert padded["arranged"] == [f"blocks/attn/{n}/w" for n in "koqv"]
+    assert padded["losses"] and padded["leaves"]
+    assert all(g["gathered_bytes"] > 0 and g["kept_copy_bytes"] == 0
+               for g in padded["gathers"])
+
+
+def test_tp_blocks_compute_on_model_shards(ranks):
+    """Which blocks compute tensor-parallel: none at ``reduced()`` (every
+    leaf under the rules' floor) or in the MoE cases; the embedding, head
+    and MLP when widened; attention too in ``tp``."""
+    for r in ranks["rank"]:
+        for case in ("reduced", "moe", "moe_span"):
+            assert r[case]["tp_blocks"] == {}
+        assert r["wide"]["tp_blocks"] == {"blocks": ("mlp",),
+                                          "embed": ("",), "lm_head": ("",)}
+        assert r["tp"]["tp_blocks"] == {"blocks": ("attn", "mlp"),
+                                        "embed": ("",), "lm_head": ("",)}
 
 
 @pytest.mark.parametrize("case", CASES)
