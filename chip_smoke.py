@@ -205,21 +205,30 @@ and batch size. Phases, each printing one JSON line:
    and every leaf bit for bit the unsharded (captured) step's;
    ``compressed_psum``, ``pipeline_forward`` and ``overlapped_tp_matmul``
    on one rank bit for bit ``int8_dequantize(int8_quantize(x))``, the stage
-   and the product. (c) model2 'reram-fused' through
+   and the product; one eager sharded step counted under
+   ``FlopCounterMode`` with the allocator's peak reset before it (phase
+   ``dryrun`` reads it). (c) model2 'reram-fused' through
    ``PointCloudServable(mesh=make_replica_mesh(1))``: rows bit for bit
    ``mesh=None``'s on a fresh model, the launch counters equal and held to
    the captures and plan builds (``PATHS["model2"]["serve_replica"]``).
    (d) One layer of qwen1.5-4b at published width (bf16) at tp 16 as 16
    rank slices through the sharded step's tensor-parallel Functions
    (``launch/tp.py``), forward and backward, against the unsplit layer:
-   the output and every gradient within ``DIST_EMU_BOUND``.
+   the output and every gradient within ``DIST_EMU_BOUND``. (e) (a)'s
+   qwen1.5-4b at tp 1 through the sharded prefill and decode step
+   (``make_prefill`` / ``make_serve_step(..., mesh=)``, the weights placed
+   by ``param_pspecs``, the cache by ``cache_pspecs``): the prefill of 4 x
+   1000 tokens and 8 teacher-forced decode steps, logits and every cache
+   leaf bit for bit ``lm.prefill`` / ``lm.decode_step``'s, both eager, their
+   times side by side.
    Printed: prefill and decode times, peak memory and the KV caches'
    bytes at 32 heads against 20; the sharded step's time (per-layer
    gathers) beside the unsharded step's, captured and eager, and beside
    the earlier whole-model gather's; the gathered bytes a step, the
    device memory the sharded and the eager unsharded step each take beyond
    what was allocated before them, and the bytes of the weights' copies a
-   sharded step keeps for its backward; (d)'s errors and times.
+   sharded step keeps for its backward; (d)'s errors and times; (e)'s
+   times and gathered bytes.
 13. lm_train: LM training (``repro_torch.launch.train``; no hand kernel
    but P4, the embedding's and the MoE dispatch's gradient). (a)
    ``run_training`` on qwen1.5-0.5b at published width and depth, bf16,
@@ -247,6 +256,17 @@ and batch size. Phases, each printing one JSON line:
    operands at 989, those of a float32 operand at 67 TFLOP/s); P4 at the embedding's gradient against
    its plain version, with its times beside ``index_add_`` and its bound.
 
+14. dryrun (last; its subprocesses start after every timed phase, so
+   that no time is taken while they load the CPU): the dry run (``repro_torch.launch.dryrun``, no
+   card): ``distributed`` (b)'s step counted on ``meta`` as rank 0 of a fake
+   world of 1, its operations exactly the card's count and its peak bytes
+   within ``DRYRUN_PEAK_BOUND`` of the card's, both printed, its roofline
+   bound (H100 spec-sheet peaks) beside the step's measured eager time and
+   the unsharded step's replay; qwen1.5-0.5b's ``train_4k`` and
+   ``decode_32k`` cells on the 'single' production mesh through
+   ``python -m repro_torch.launch.dryrun``, each ``ok``, their records
+   printed.
+
 Then one ``{"kernels": [...]}`` line (``serve_launches``: a kernel's
 launches in the serve phase's runs; ``replica_launches``: in the
 distributed phase's replica run; ``train_launches``: K7's in the train
@@ -264,6 +284,7 @@ from __future__ import annotations
 import contextlib
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -276,10 +297,15 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-#: Published H100 SXM peaks (NVIDIA data sheet, dense, at 700 W).
-HBM_BYTES_PER_S = 3.35e12
+# The H100 SXM's published peaks (NVIDIA data sheet, dense, at 700 W) and
+# the LM stack's bounds live in the port's roofline module.
+from repro_torch.launch.hlo_analysis import (  # noqa: E402
+    FP32_FLOPS as FP32_OPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_OPS_PER_S, _causal_chunk_pairs, lm_decode_bytes,
+    lm_prefill_flops, lm_train_flops)
+
+#: H100 SXM int8 dense tensor-core peak (NVIDIA data sheet, at 700 W)
 INT8_OPS_PER_S = 1979e12
-FP32_OPS_PER_S = 67e12
 
 BATCH = 8
 SEED = 0
@@ -3003,83 +3029,6 @@ LM_F32_BOUND = 1e-4
 #: vlm's cross-attention gate on the card's reduced run (``tanh(0)`` at
 #: init would hide the cross-attention)
 LM_GATE_X = 0.5
-#: H100 SXM dense bf16 peak (NVIDIA data sheet, at 700 W)
-BF16_OPS_PER_S = 989e12
-
-
-def _attention_applications(cfg) -> int:
-    """Self-attention layers a token passes: the hybrid's one shared block
-    once per group of ``attn_interval`` Mamba layers, none in RWKV."""
-    if cfg.family == "hybrid":
-        return cfg.n_layers // cfg.attn_interval
-    if cfg.family == "ssm":
-        return 0
-    return cfg.n_layers
-
-
-def _expert_weights(cfg) -> int:
-    """One expert's gate, up and down weights."""
-    return 3 * cfg.d_model * cfg.d_ff
-
-
-def lm_decode_bytes(cfg, batch: int, positions: int,
-                    routed_experts: int | None = None) -> int:
-    """Bytes one decode step must move at least: every weight read once
-    (``ArchConfig.n_params()``; the tied embedding once, for the logits);
-    for moe the non-expert weights and only ``routed_experts`` experts'
-    (summed over the layers: the experts the step's tokens route to), not
-    all of them; ``positions`` cached rows of each attention application's
-    keys and values for each of ``batch`` sequences (the hybrid's shared
-    block applied ``n_layers // attn_interval`` times, RWKV none); and the
-    state-space families' decode state read once and written once: the
-    float32 SSM and RWKV states, the conv and token-shift rows in the
-    model's dtype."""
-    esize = torch.empty((), dtype=cfg.jdtype).element_size()
-    weights = cfg.n_params()
-    if cfg.family == "moe":
-        if routed_experts is None:
-            raise ValueError("a moe step's bytes need its routed experts")
-        weights += (routed_experts - cfg.n_layers * cfg.n_experts) \
-            * _expert_weights(cfg)
-    kv_row = 2 * cfg.n_kv_heads * cfg.head_dim * esize
-    nbytes = weights * esize \
-        + batch * positions * _attention_applications(cfg) * kv_row
-    if cfg.family == "ssm":
-        h = cfg.d_model // cfg.head_size
-        state = h * cfg.head_size ** 2 * 4 + 2 * cfg.d_model * esize
-        nbytes += 2 * cfg.n_layers * batch * state
-    elif cfg.family == "hybrid":
-        from repro_torch.models.ssm import CONV_K
-        h = 2 * cfg.d_model // 64
-        state = h * 64 * cfg.ssm_state * 4 \
-            + (CONV_K - 1) * (2 * cfg.d_model + 2 * cfg.ssm_state) * esize
-        nbytes += 2 * cfg.n_layers * batch * state
-    return nbytes
-
-
-def lm_prefill_flops(cfg, batch: int, seq: int) -> int:
-    """Operations (2 a multiply-add) a prefill of ``batch`` x ``seq`` must
-    do: every block weight once a token (moe: only the routed experts',
-    ``n_active_params``; the hybrid's shared block once per application),
-    the LM head for the last position only (the port's prefill computes no
-    other logits), and causal attention's QK and PV over the position
-    pairs i >= j of each attention application. The state-space
-    recurrences' own operations (float32, a few per state element and
-    token) are not counted: the bound stays a lower one."""
-    heads = 1 if cfg.tie_embeddings else 2
-    weights = (cfg.n_active_params() if cfg.family == "moe"
-               else cfg.n_params())
-    blocks = weights - heads * cfg.vocab_size * cfg.d_model
-    if cfg.family == "hybrid":
-        d, dh = cfg.d_model, cfg.head_dim
-        shared = d * cfg.n_heads * dh + 2 * d * cfg.n_kv_heads * dh \
-            + cfg.n_heads * dh * d + 3 * d * cfg.d_ff
-        blocks += (_attention_applications(cfg) - 1) * shared
-    pairs = seq * (seq + 1) // 2
-    attention = 2 * 2 * _attention_applications(cfg) * batch * cfg.n_heads \
-        * cfg.head_dim * pairs
-    return (2 * blocks * batch * seq + 2 * cfg.vocab_size * cfg.d_model
-            * batch + attention)
 
 
 def lm_prompts(cfg, batch: int, seq: int, seed: int) -> np.ndarray:
@@ -3864,41 +3813,6 @@ LM_TRAIN_WIDE_SEQ = 1024
 LM_TRAIN_WIDE_STEPS = 4
 
 
-def _padded(n: int, chunk: int) -> int:
-    return -(-n // chunk) * chunk
-
-
-def _causal_chunk_pairs(seq: int, qc: int, kc: int) -> int:
-    """Query and key chunk pairs of a causal mask over ``seq`` tokens that
-    hold a query at or after a key: the pairs that need computing."""
-    return sum(1 for i in range(-(-seq // qc)) for j in range(-(-seq // kc))
-               if j * kc <= min((i + 1) * qc, seq) - 1)
-
-
-def lm_train_flops(cfg, batch: int, seq: int) -> dict:
-    """Operations (2 a multiply-add) of one training step: the bf16 GEMMs
-    as 6 x (active) parameters x tokens, and, listed apart, attention's
-    products over the chunk pairs the causal mask leaves (whole chunks),
-    once per attention application (the hybrid's shared block once per
-    group; the sequence first padded to the Mamba2 chunk there): the four
-    with bf16 operands (the forward's QK and PV, the backward's recomputed
-    QK and dP; float32 accumulation, at the bf16 tensor-core rate) and the
-    three with a float32 operand (dV from float32 probabilities, dQ and dK
-    from float32 ``ds``; at float32's rate)."""
-    from repro_torch.models import ssm
-    s = _padded(seq, ssm.CHUNK) if cfg.family == "hybrid" else seq
-    qc, kc = min(cfg.q_chunk, s), min(cfg.kv_chunk, s)
-    product = 2 * batch * cfg.n_heads * qc * kc * cfg.head_dim \
-        * _causal_chunk_pairs(s, qc, kc) * _attention_applications(cfg)
-    gemm = 6 * cfg.n_active_params() * batch * seq
-    ms = {"gemm_ms": 1e3 * gemm / BF16_OPS_PER_S,
-          "attention_bf16_ms": 1e3 * 4 * product / BF16_OPS_PER_S,
-          "attention_f32_ms": 1e3 * 3 * product / FP32_OPS_PER_S}
-    return {"gemm_flops": gemm, "attention_bf16_flops": 4 * product,
-            "attention_f32_flops": 3 * product, **ms,
-            "step_ms": sum(ms.values())}
-
-
 def _token_batch(cfg, batch: int, seq: int, step: int = 0) -> dict:
     from repro_torch.data import TokenStream
     ids, labels = TokenStream(cfg.vocab_size, seq, batch,
@@ -4385,12 +4299,14 @@ def _cache_bytes(cache: dict) -> int:
     return sum(t.numel() * t.element_size() for t in cache.values())
 
 
-def _dist_tp_layout() -> dict:
+def _dist_tp_layout(mesh) -> dict:
     """(a): qwen1.5-4b from seed 0, ``generate`` at tp 1 (the tokens), then
     at tp 16 through its own captured session; the tp 16 prefill and
     :data:`DIST_DECODE` teacher-forced decode steps against tp 1's within
     :data:`DIST_TP_BOUND`; tp 16's captured steps bit for bit the eager
-    ones; times, peak memory and the KV caches' bytes."""
+    ones; times, peak memory and the KV caches' bytes; then (e), the
+    sharded prefill and decode step at tp 1 on ``mesh``
+    (:func:`_dist_sharded_serve`), under ``"sharded_serve"``."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -4449,8 +4365,69 @@ def _dist_tp_layout() -> dict:
                      "kv_cache_bytes": r["kv_cache_bytes"],
                      "peak_allocated_gb": r["peak_allocated_gb"]}
     res["kv_cache_ratio"] = tp16["kv_cache_bytes"] / tp1["kv_cache_bytes"]
-    del params, runs, tp1, tp16
+    del runs, tp1, tp16
     serve.clear_lm_captures()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["sharded_serve"] = _dist_sharded_serve(mesh, params, cfg1,
+                                               dev_prompts, out)
+    del params
+    return res
+
+
+def _dist_sharded_serve(mesh, params, cfg, prompts, out) -> dict:
+    """(e): (a)'s qwen1.5-4b weights at tp 1 through the sharded prefill
+    and decode step (``make_prefill`` / ``make_serve_step(..., mesh=)``) on
+    the (1, 1) mesh, the weights placed by ``param_pspecs``: the prefill of
+    :data:`DIST_BATCH` x :data:`DIST_PROMPT` tokens and :data:`DIST_DECODE`
+    teacher-forced decode steps (``out``'s tokens), the logits and every
+    cache leaf bit for bit the unsharded ``lm.prefill`` /
+    ``lm.decode_step``'s; both eager, their times side by side, and the
+    sharded calls' gathered bytes (copies at one rank)."""
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.launch.sharding import (named_shardings, param_pspecs,
+                                             shard_tree)
+    from repro_torch.models import lm
+    cap = DIST_PROMPT + DIST_DECODE
+    sparams = shard_tree(params, named_shardings(param_pspecs(params, mesh),
+                                                 mesh))
+    prefill = make_prefill(cfg, mesh=mesh)
+    step = make_serve_step(cfg, mesh=mesh)
+    with torch.no_grad():
+        l0, c0 = lm.prefill(params, cfg, prompts, max_seq=cap)
+        l1, c1 = prefill(sparams, prompts, max_seq=cap)
+        check(torch.equal(l0, l1.to_local()) and all(
+            torch.equal(c0[k], c1[k].to_local()) for k in c0),
+            "distributed: the sharded prefill differs from lm.prefill")
+        prefill_gathers = prefill.gather_stats.as_dict()
+        dev_out = out.cuda()
+        for t in range(DIST_DECODE):
+            ids1 = dev_out[:, DIST_PROMPT + t:DIST_PROMPT + t + 1]
+            pos = torch.tensor(DIST_PROMPT + t, dtype=torch.int32,
+                               device="cuda")
+            d0, _ = lm.decode_step(params, cfg, c0, ids1=ids1, pos=pos)
+            d1, _ = step(sparams, c1, ids1, pos)
+            check(torch.equal(d0, d1.to_local()),
+                  f"distributed: sharded decode step {t} differs from "
+                  "lm.decode_step")
+        check(all(torch.equal(c0[k], c1[k].to_local()) for k in c0),
+              "distributed: the sharded decode steps' cache differs")
+        times = {
+            "prefill_ms": _wall_ms(lambda: lm.prefill(params, cfg, prompts,
+                                                      max_seq=cap)),
+            "sharded_prefill_ms": _wall_ms(lambda: prefill(
+                sparams, prompts, max_seq=cap)),
+            "decode_ms": _wall_ms(lambda: lm.decode_step(
+                params, cfg, c0, ids1=ids1, pos=pos)),
+            "sharded_decode_ms": _wall_ms(lambda: step(sparams, c1, ids1,
+                                                       pos))}
+    res = {"arch": DIST_ARCH, "tp": 1, "batch": DIST_BATCH,
+           "prompt": DIST_PROMPT, "decode_steps": DIST_DECODE,
+           "bitwise": True, "prefill_gathers": prefill_gathers,
+           "decode_gathers": step.gather_stats.as_dict()}
+    res.update({k: {"median": statistics.median(v), "all": v}
+                for k, v in times.items()})
+    del sparams, c0, c1
     return res
 
 
@@ -4540,6 +4517,7 @@ def _dist_sharded_step(mesh) -> dict:
     memory = {"sharded_step": _step_memory(lambda: step(state, batch)),
               "unsharded_eager_step": _step_memory(
                   lambda: train._step(cfg, opt, False, plain, *args))}
+    counted = _counted_step(lambda: step(state, batch), (state, batch))
     # one more step with the weights' copies counted (every torch call of
     # its forward through a Python mode: not timed)
     step.gather_stats.track_copies = True
@@ -4559,8 +4537,33 @@ def _dist_sharded_step(mesh) -> dict:
                for k, v in times.items()},
             "gathers_per_step": gathers, "device_memory": memory,
             "kept_copy_bytes": copies["kept_copy_bytes"], "profile": profile,
+            "counted_step": counted,
             "input_specs": {k: list(v) for k, v in input_specs.items()},
             "psum_shape": list(DIST_PSUM_SHAPE), "pipeline": DIST_PIPE}
+
+
+def _counted_step(fn, arguments) -> dict:
+    """One call of ``fn`` under ``FlopCounterMode``, the allocator's peak
+    reset before it: its operations, the bytes allocated before it and the
+    most during it, the bytes of ``arguments`` (the rank's state shards and
+    batch, allocated before it) and ``step_peak_bytes``, the peak less what
+    was allocated before plus the arguments: what phase ``dryrun``'s meta
+    count of the same step calls its peak."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.hlo_analysis import tree_bytes
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    args = tree_bytes(arguments)
+    return {"flops": int(counter.get_total_flops()),
+            "allocated_before_bytes": before,
+            "max_memory_allocated_bytes": peak, "argument_bytes": args,
+            "step_peak_bytes": peak - before + args}
 
 
 def _step_memory(fn) -> dict:
@@ -4735,8 +4738,9 @@ def phase_distributed(params2, cfg2, smi: str) -> dict:
     (:func:`_dist_replicas`), (d) the tensor-parallel split of a published
     layer at tp 16, emulated in one process (:func:`_dist_tp_split`). Any
     failure, of the group or a collective too, fails the phase: nothing
-    falls back to gloo or the CPU. Returns the replica path's launch
-    counts."""
+    falls back to gloo or the CPU. (e) the sharded prefill and decode step
+    (:func:`_dist_sharded_serve`). Returns the replica path's launch counts
+    and (b)'s results (phase ``dryrun`` reads its counted step)."""
     import gc
 
     from repro_torch.launch import make_test_mesh
@@ -4750,7 +4754,8 @@ def phase_distributed(params2, cfg2, smi: str) -> dict:
                "backend": dist.get_backend(),
                "world_size": dist.get_world_size(),
                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
-        res["tp_layout"] = _dist_tp_layout()
+        res["tp_layout"] = _dist_tp_layout(mesh)
+        res["sharded_serve"] = res["tp_layout"].pop("sharded_serve")
         gc.collect()
         torch.cuda.empty_cache()
         res["sharded_step"] = _dist_sharded_step(mesh)
@@ -4764,7 +4769,142 @@ def phase_distributed(params2, cfg2, smi: str) -> dict:
         dist.destroy_process_group()
     res["seconds"] = time.perf_counter() - t0
     emit(res)
-    return res["replicas"]["launches"]
+    return res["replicas"]["launches"], res["sharded_step"]
+
+
+# ---------------------------------------------------------------------------
+# the dry run (launch/dryrun.py): counts on meta tensors against the card
+# ---------------------------------------------------------------------------
+
+#: the step that phase ``distributed`` (b) counts on the card, counted on
+#: ``meta`` as rank 0 of a fake world of 1: qwen1.5-0.5b, 2 x 1024, the
+#: (1, 1) mesh, at tp 1 as (b) runs it
+DRYRUN_STEP = ("qwen1.5-0.5b", 1024, 2)
+#: the production cells run through the dry run's command line
+DRYRUN_CELLS = (("qwen1.5-0.5b", "train_4k"), ("qwen1.5-0.5b", "decode_32k"))
+#: the meta count's peak bytes against the card's peak allocated bytes in
+#: the same step, as a fraction of the card's (stated before the first run)
+DRYRUN_PEAK_BOUND = 0.10
+#: seconds the dry run's subprocesses may take
+DRYRUN_TIMEOUT_S = 300
+
+_DRYRUN_STEP_CODE = """
+import json, sys
+from repro_torch.configs import Shape
+from repro_torch.launch.dryrun import count_cell
+arch, seq, batch = sys.argv[1], int(sys.argv[2]), int(sys.argv[3])
+rec = count_cell(arch, Shape("chip_step", "train", seq, batch), (1, 1),
+                 cfg_extra={"tp": 1}, limit_s=None)
+print(json.dumps(rec))
+"""
+
+
+def start_dryrun() -> dict:
+    """Phase ``dryrun``'s host work, started in subprocesses that run
+    together on the CPU (after every timed phase: they would load the host
+    that the eager steps' times depend on): the (1, 1) step of
+    :data:`DRYRUN_STEP` counted on meta, and each of
+    :data:`DRYRUN_CELLS` on the 'single' production mesh through
+    ``python -m repro_torch.launch.dryrun``."""
+    import tempfile
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = tempfile.mkdtemp(prefix="dryrun_")
+    arch, seq, batch = DRYRUN_STEP
+    procs = {"step": subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN_STEP_CODE, arch, str(seq),
+         str(batch)], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)}
+    for arch, shape in DRYRUN_CELLS:
+        procs[shape] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", "single", "--out", out,
+             "--force"], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)
+    return {"procs": procs, "out": out, "t0": time.perf_counter()}
+
+
+def stop_dryrun(started: dict) -> None:
+    """Kill any of :func:`start_dryrun`'s subprocesses still running."""
+    for proc in started["procs"].values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def phase_dryrun(started: dict, sharded: dict, smi: str) -> None:
+    """The dry run against the card: the meta count of the (1, 1) step
+    (:data:`DRYRUN_STEP`) against phase ``distributed`` (b)'s count of the
+    same step on the card: operations exactly equal (``FlopCounterMode``
+    on both), the meta peak within :data:`DRYRUN_PEAK_BOUND` of the card's
+    (``_counted_step``'s ``step_peak_bytes``), both printed; the roofline
+    bound of the step (H100 spec-sheet peaks) beside its measured eager
+    time and the unsharded step's replay; each production cell of
+    :data:`DRYRUN_CELLS` ``ok`` through the command line, its record's
+    memory, collectives and roofline printed."""
+    import shutil
+    t0 = time.perf_counter()
+    logs = {}
+    for name, proc in started["procs"].items():
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        check(proc.returncode == 0, f"dryrun: {name} exited "
+                                    f"{proc.returncode}:\n{stderr[-3000:]}")
+        logs[name] = stdout
+    subprocess_s = time.perf_counter() - started["t0"]
+    meta = json.loads(logs["step"].strip().splitlines()[-1])
+    check(meta["ok"], f"dryrun: the meta count failed: {meta.get('error')}")
+    card = sharded["counted_step"]
+    flops = meta["cost"]["flops_per_device"]
+    check(flops == card["flops"], f"dryrun: meta counts {flops} "
+                                  f"operations, the card {card['flops']}")
+    peak = meta["memory"]["peak_memory_in_bytes"]
+    off = abs(peak - card["step_peak_bytes"]) / card["step_peak_bytes"]
+    print(f"dryrun: peak bytes meta {peak}, card {card['step_peak_bytes']} "
+          f"(max_memory_allocated {card['max_memory_allocated_bytes']}), "
+          f"{off:.4f} apart, bound {DRYRUN_PEAK_BOUND}", flush=True)
+    check(off <= DRYRUN_PEAK_BOUND,
+          f"dryrun: the meta peak {peak} is {off:.4f} off the card's "
+          f"{card['step_peak_bytes']} (bound {DRYRUN_PEAK_BOUND})")
+    cells = {}
+    for arch, shape in DRYRUN_CELLS:
+        path = os.path.join(started["out"], f"{arch}__{shape}__single.json")
+        with open(path) as f:
+            rec = json.load(f)
+        check(rec["ok"], f"dryrun: {arch} x {shape}: {rec.get('error')}")
+        cells[f"{arch}/{shape}"] = {
+            k: rec[k] for k in ("chips", "build_s", "count_s", "memory",
+                                "cost", "collectives", "roofline",
+                                "gathers")}
+        cells[f"{arch}/{shape}"]["log"] = logs[shape].strip()
+    shutil.rmtree(started["out"], ignore_errors=True)
+    roof = meta["roofline"]
+    emit({"phase": "dryrun", "nvidia_smi": smi,
+          "step": {"arch": DRYRUN_STEP[0], "seq": DRYRUN_STEP[1],
+                   "batch": DRYRUN_STEP[2], "mesh": [1, 1],
+                   "meta_flops": flops, "card_flops": card["flops"],
+                   "meta_peak_bytes": peak,
+                   "card_step_peak_bytes": card["step_peak_bytes"],
+                   "card_max_memory_allocated_bytes":
+                       card["max_memory_allocated_bytes"],
+                   "card_allocated_before_bytes":
+                       card["allocated_before_bytes"],
+                   "argument_bytes": [meta["memory"]["argument_size_in_bytes"],
+                                      card["argument_bytes"]],
+                   "peak_off": off, "peak_bound": DRYRUN_PEAK_BOUND,
+                   "meta_bytes": meta["cost"]["bytes_per_device"],
+                   "meta_ops": meta["cost"]["ops_per_device"],
+                   "roofline_bound_ms": 1e3 * roof["bound_step_time_s"],
+                   "roofline": roof,
+                   "sharded_eager_step_ms_median":
+                       sharded["sharded_step_ms"]["median"],
+                   "unsharded_captured_step_ms_median":
+                       sharded["unsharded_captured_step_ms"]["median"],
+                   "unsharded_eager_step_ms_median":
+                       sharded["unsharded_eager_step_ms"]["median"],
+                   "count_s": meta["count_s"]},
+          "cells": cells, "hbm_per_chip_bytes":
+              torch.cuda.get_device_properties(0).total_memory,
+          "subprocess_s": subprocess_s,
+          "seconds": time.perf_counter() - t0})
 
 
 def phase_contracts(params, cfgs, clouds_np, smi) -> None:
@@ -4989,10 +5129,16 @@ def main(argv=None) -> int:
     phase_contracts(params, cfgs, clouds_np, smi)
     train = phase_train(smi)
     kernels.append(train["p4"])
-    replica_counts = phase_distributed(params["model2"], cfgs["model2"], smi)
+    replica_counts, sharded = phase_distributed(params["model2"],
+                                                cfgs["model2"], smi)
     phase_lm(smi)
     phase_lm_families(smi)
     lm_train = phase_lm_train(smi)
+    dryrun = start_dryrun()
+    try:
+        phase_dryrun(dryrun, sharded, smi)
+    finally:
+        stop_dryrun(dryrun)
     check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
           "a served kernel has no row")
     for k in kernels:

@@ -45,24 +45,30 @@ from repro_torch.core.workload import (PAPER_MODELS, PointNetConfig,
                                        PointNetWorkload)
 from repro_torch.kernels import CrossbarProgram
 from repro_torch.launch.serve import (EDFScheduler, FIFOScheduler,
-                                      PointCloudServable, Request,
-                                      Scheduler, Servable, ServingEngine,
-                                      ShapeBuckets, VirtualClock)
+                                      LMServable, PointCloudServable,
+                                      Request, Scheduler, Servable,
+                                      ServingEngine, ShapeBuckets,
+                                      VirtualClock)
 from repro_torch.models.backend import (Backend, CompiledModel,
                                         available_backends, compile_model,
                                         register_backend)
+from repro_torch import analysis
 from repro_torch import reliability
 from repro_torch.analysis import verify_contracts
 from repro_torch.reliability import FaultModel
 
+#: the API version: the JAX package's, whose public names this one mirrors
+__version__ = "0.10.0"
+
 __all__ = [
     "Backend", "CompiledModel", "CrossbarProgram", "DevicePlan",
     "EDFScheduler", "ExecutionPlan", "FIFOScheduler", "FaultModel",
-    "FrameTracker", "MODE_PRESETS", "PAPER_MODELS", "PlanCache",
+    "FrameTracker", "LMServable", "MODE_PRESETS", "PAPER_MODELS",
+    "PlanCache",
     "PlanPolicy", "PointCloudServable", "PointNetConfig",
     "PointNetWorkload", "Request", "RooflineParams", "Scheduler",
     "Servable", "ServingEngine", "ShapeBuckets", "VirtualClock",
-    "available_backends", "build_plan", "cloud_content_key",
-    "compile_model", "frame_fingerprint", "register_backend",
-    "reliability", "verify_contracts",
+    "__version__", "analysis", "available_backends", "build_plan",
+    "cloud_content_key", "compile_model", "frame_fingerprint",
+    "register_backend", "reliability", "verify_contracts",
 ]

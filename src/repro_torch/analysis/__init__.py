@@ -7,7 +7,8 @@ the port's capture sites and kernel entry points (:func:`lint_paths`;
 ``python -m repro_torch.analysis`` lints ``src/repro_torch`` and
 ``examples/*_torch.py``)."""
 from repro_torch.analysis import lint
-from repro_torch.analysis.lint import Finding, lint_paths, lint_source
+from repro_torch.analysis.lint import (RULES, Finding, LintRule, lint_paths,
+                                      lint_source, register_rule)
 from repro_torch.analysis.trace import (CONTRACTS, ContractReport,
                                         ContractViolation, LaunchRecord,
                                         TraceInfo, trace_info,
@@ -19,10 +20,13 @@ __all__ = [
     "ContractViolation",
     "Finding",
     "LaunchRecord",
+    "LintRule",
+    "RULES",
     "TraceInfo",
     "lint",
     "lint_paths",
     "lint_source",
+    "register_rule",
     "trace_info",
     "verify_contracts",
 ]

@@ -203,15 +203,17 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
 
-def input_specs(cfg: ArchConfig, shape_name: str) -> dict:
+def input_specs(cfg: ArchConfig, shape_name) -> dict:
     """``meta``-device stand-ins (shapes and dtypes, no storage) for every
-    model input of a given shape.
+    model input of a given shape (a name of :data:`SHAPES`, or a
+    :class:`Shape`).
 
     Modality frontends are stubs per the assignment: ``audio`` receives
     precomputed EnCodec frame embeddings, ``vlm`` receives precomputed
     patch/image embeddings.
     """
-    shape = SHAPES[shape_name]
+    shape = (shape_name if isinstance(shape_name, Shape)
+             else SHAPES[shape_name])
     b, s = shape.global_batch, shape.seq_len
     out: dict = {}
     if shape.kind in ("train", "prefill"):

@@ -23,7 +23,10 @@ depth) on the CPU. No replaced ``pallas_call``: the port's own kernel,
 as P1 and P2 are. See the source note for its bound.
 
 On CPU tensors :func:`gather_rows_backward` runs the plain version; on
-CUDA tensors it launches the kernel (or raises). ``LAUNCHES`` counts the
+CUDA tensors it launches the kernel (or raises); on ``meta`` tensors
+(shapes only: the dry run, ``launch/dryrun.py``) it gives an empty tensor
+of the result's shape and dtype, as the plain version would, which reads
+the segments' depth on the host. ``LAUNCHES`` counts the
 kernel's launches: :func:`gather_rows_backward_cuda` adds one after a
 launch that returned no error, and nowhere else.
 """
@@ -132,6 +135,9 @@ def gather_rows_backward(grad, idx, n_rows: int):
     if idx.shape != grad.shape[:-1]:
         raise ValueError(f"shape mismatch: grad {tuple(grad.shape)}, idx "
                          f"{tuple(idx.shape)}")
+    if grad.device.type == "meta":
+        # the meta rule: the result's shape and dtype (no launch, no data)
+        return grad.new_empty((*lead, n_rows, c))
     flat_idx = idx.reshape(math.prod(lead), -1)
     perm, starts = segments(flat_idx, n_rows)
     g = grad.reshape(-1, c).contiguous()

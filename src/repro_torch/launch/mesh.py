@@ -25,9 +25,12 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["make_production_mesh", "make_test_mesh", "make_replica_mesh",
-           "batch_axes", "MESH_AXES", "MeshShape", "axis_sizes"]
+           "batch_axes", "MESH_AXES", "MESH_SHAPES", "MeshShape",
+           "axis_sizes"]
 
 MESH_AXES = {"single": ("data", "model"), "multi": ("pod", "data", "model")}
+#: the production meshes' sizes, in :data:`MESH_AXES`' order
+MESH_SHAPES = {"single": (16, 16), "multi": (2, 16, 16)}
 
 
 @dataclass(frozen=True)
@@ -83,9 +86,8 @@ def make_replica_mesh(n_replicas: int | None = None, *,
 
 def make_production_mesh(*, multi_pod: bool = False,
                          device_type: str = "cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = MESH_AXES["multi" if multi_pod else "single"]
-    return _mesh(shape, axes, device_type)
+    name = "multi" if multi_pod else "single"
+    return _mesh(MESH_SHAPES[name], MESH_AXES[name], device_type)
 
 
 def make_test_mesh(shape=(2, 2), axes=("data", "model"), *,

@@ -32,6 +32,26 @@ counters:
                             place, every family; on the CPU both run
                             eagerly. ``generate`` is its thin client, with
                             the reference's signature and stats keys.
+  ``make_prefill`` and    — the LM's sharded prefill over ``mesh=`` (a
+  ``make_serve_step``       ``DeviceMesh``) and its decode step, sharded
+                            with ``mesh=``, as functions, every rank
+                            calling with the same global batch as the
+                            sharded train step's ranks do
+                            (``launch/train.py``): the weights a tree of
+                            ``DTensor`` s (``param_pspecs``), each rank on
+                            its part of the batch, the weights gathered per
+                            layer and the blocks computed on 'model' shards
+                            as the sharded train step does
+                            (``launch.tp.ParamShards``, forward only), the
+                            decode cache a tree of ``DTensor`` s by
+                            ``cache_pspecs`` written in place on the rank's
+                            shards, the logits a ``DTensor`` of the rank's
+                            rows. Under GSPMD the reference's sharded
+                            prefill and decode step are its unsharded
+                            functions; so are these, up to the order of the
+                            sums over the 'model' ranks and, for a cache
+                            whose rows are cut, over the rows' ranks. They
+                            run eagerly.
 
 Results stay on the model's device, one logits row per request. The
 service time ``serve_stream`` measures ends after the card has finished
@@ -44,6 +64,7 @@ import math
 import time
 from collections import deque
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Any, Callable, Iterable
 
 import numpy as np
@@ -69,6 +90,7 @@ __all__ = [
     "VirtualClock",
     "ServingEngine",
     "make_serve_step",
+    "make_prefill",
     "generate",
     "lm_capture_counts",
     "clear_lm_captures",
@@ -624,12 +646,169 @@ def _device_of(params) -> torch.device:
     return tree_leaves(params)[0].device
 
 
-def make_serve_step(cfg: ArchConfig):
+def make_serve_step(cfg: ArchConfig, *, mesh=None):
+    """``serve_step(params, cache, ids1, pos, *, image_embeds=None,
+    embeds1=None) -> (logits, cache)``: ``lm.decode_step``; with ``mesh``
+    the sharded decode step (module docstring), ``cache`` a tree of
+    ``DTensor`` s (``make_prefill(..., mesh=)``'s, or any cache sharded by
+    ``cache_pspecs``) and ``serve_step.gather_stats`` the last step's
+    gathered bytes."""
+    if mesh is not None:
+        from repro_torch.launch.sharding import check_head_layout
+        from repro_torch.launch.tp import GatherStats
+        check_head_layout(cfg, mesh)
+        stats = GatherStats()
+
+        def sharded(params, cache, ids1=None, pos=None, *, image_embeds=None,
+                    embeds1=None):
+            return _sharded_decode(cfg, mesh, stats, params, cache, ids1,
+                                   pos, embeds1)
+        sharded.gather_stats = stats
+        return sharded
+
     def serve_step(params, cache, ids1, pos, *, image_embeds=None,
                    embeds1=None):
         return lm.decode_step(params, cfg, cache, ids1=ids1, pos=pos,
                               embeds1=embeds1, image_embeds=image_embeds)
     return serve_step
+
+
+def make_prefill(cfg: ArchConfig, *, mesh):
+    """``prefill(params, ids=None, *, embeds=None, image_embeds=None,
+    max_seq=None) -> (last logits, cache)``: the sharded prefill over
+    ``mesh`` (module docstring; unsharded, ``lm.prefill``): a new cache of
+    the rank's zeroed shards, filled, and ``prefill.gather_stats`` the last
+    call's gathered bytes."""
+    from repro_torch.launch.sharding import check_head_layout
+    from repro_torch.launch.tp import GatherStats
+    check_head_layout(cfg, mesh)
+    stats = GatherStats()
+
+    def sharded(params, ids=None, *, embeds=None, image_embeds=None,
+                max_seq=None):
+        return _sharded_prefill(cfg, mesh, stats, params, ids, embeds,
+                                image_embeds, max_seq)
+    sharded.gather_stats = stats
+    return sharded
+
+
+def _local_tree(tree):
+    """A tree of ``DTensor`` s' local shards."""
+    from repro_torch.optim import tree_map
+    return tree_map(lambda d: d.to_local(), tree)
+
+
+def _sharded_inputs(mesh, inputs: dict, dev) -> tuple:
+    """The global batch's entries on ``dev`` cut to this rank's part
+    (``input_pspecs``): ``(local entries, whether the batch is cut)``."""
+    from repro_torch.launch.sharding import NamedSharding, input_pspecs
+    inputs = {k: torch.as_tensor(v, device=dev) for k, v in inputs.items()
+              if v is not None}
+    specs = input_pspecs(inputs, mesh)
+    local = {k: NamedSharding(mesh, specs[k]).shard(v)
+             for k, v in inputs.items()}
+    return local, next(iter(specs.values()))[0] is not None
+
+
+def _shards(cfg, mesh, params, split: bool, stats, cache_specs: dict,
+            cache_shapes: dict):
+    """``(lcfg, ParamShards)``: the rank's config and its forward-only
+    gathers of ``params`` (DTensors) for a batch cut (``split``) or not,
+    over a cache of ``cache_shapes`` (global, by key) sharded by
+    ``cache_specs``."""
+    from repro_torch.launch.sharding import gather_plan
+    from repro_torch.launch.tp import ParamShards, batch_parts, model_axis
+    lcfg, span, batch_dims, _ = batch_parts(cfg, mesh, split)
+    names = mesh.mesh_dim_names
+    plans, blocks = gather_plan(cfg, params, mesh,
+                                {names[i] for i in batch_dims})
+    stats.reset()
+    tp = model_axis(mesh)
+    return lcfg, ParamShards(lcfg, mesh, plans, blocks, tp=tp, span=span,
+                             stats=stats,
+                             cache=_cache_shards(cache_specs, cache_shapes,
+                                                 mesh, tp))
+
+
+def _cache_shards(specs: dict, shapes: dict, mesh, tp):
+    """The ``CacheShards`` of a cache of ``shapes`` sharded by ``specs``
+    (``cache_pspecs``): per key the dim 'model' cuts, and the KV rows this
+    rank holds where the batch's mesh dims cut them."""
+    from repro_torch.launch.sharding import NamedSharding
+    from repro_torch.launch.tp import CacheShards, SeqShards
+    dims, seq = {}, None
+    for key, spec in specs.items():
+        n = len(spec)
+        for d, entry in enumerate(spec):
+            if entry == "model":
+                dims[key] = d - n
+        if key.startswith(("k", "v")) and spec[n - 3] is not None:
+            ns = NamedSharding(mesh, spec)
+            lo, rows = ns.bounds(shapes[key])[n - 3]
+            seq = SeqShards(tuple(mesh.get_group(i) for i, d in
+                                  enumerate(ns.shard_dims) if d == n - 3),
+                            lo, rows)
+    return CacheShards(dims, tp, seq)
+
+
+def _logits_out(logits, mesh, split: bool):
+    """The rank's logits rows as a ``DTensor`` of the global logits."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.launch.sharding import NamedSharding, PartitionSpec
+    spec = PartitionSpec(batch_axes(mesh) if split else None, None)
+    return DTensor.from_local(logits, mesh,
+                              NamedSharding(mesh, spec).placements,
+                              run_check=False)
+
+
+def _sharded_prefill(cfg, mesh, stats, params, ids, embeds, image_embeds,
+                     max_seq):
+    from torch.distributed.tensor import DTensor
+    from repro_torch.launch.sharding import NamedSharding, cache_pspecs
+    dev = tree_leaves(params)[0].to_local().device
+    local, split = _sharded_inputs(mesh, {"ids": ids, "embeds": embeds,
+                                          "image_embeds": image_embeds}, dev)
+    b, s = (ids if ids is not None else embeds).shape[:2]
+    cap = max(max_seq or s, lm.kv_rows(cfg, s))
+    # the global cache's shapes, allocating nothing (no tensor: a dry run
+    # on meta tensors would count it)
+    shapes = lm.cache_shapes(cfg, b, cap)
+    specs = cache_pspecs({k: SimpleNamespace(shape=shape)
+                          for k, (shape, _) in shapes.items()}, mesh)
+    cache = {}
+    for key, (shape, dtype) in shapes.items():
+        ns = NamedSharding(mesh, specs[key])
+        part = tuple(size for _, size in ns.bounds(shape))
+        cache[key] = DTensor.from_local(
+            torch.zeros(part, dtype=dtype, device=dev), mesh, ns.placements,
+            run_check=False)
+    lcfg, shards = _shards(cfg, mesh, params, split, stats, specs,
+                           {k: shape for k, (shape, _) in shapes.items()})
+    with torch.no_grad():
+        logits, _ = lm.prefill(_local_tree(params), lcfg, local.get("ids"),
+                               embeds=local.get("embeds"),
+                               image_embeds=local.get("image_embeds"),
+                               max_seq=cap, cache=_local_tree(cache),
+                               par=shards)
+    return _logits_out(logits, mesh, split), cache
+
+
+def _sharded_decode(cfg, mesh, stats, params, cache, ids1, pos, embeds1):
+    from repro_torch.launch.sharding import cache_pspecs
+    dev = tree_leaves(params)[0].to_local().device
+    local, split = _sharded_inputs(mesh, {"ids1": ids1, "embeds1": embeds1},
+                                   dev)
+    lcfg, shards = _shards(cfg, mesh, params, split, stats,
+                           cache_pspecs(cache, mesh),
+                           {k: tuple(t.shape) for k, t in cache.items()})
+    pos = None if pos is None else torch.as_tensor(pos, device=dev)
+    with torch.no_grad():
+        logits, _ = lm.decode_step(_local_tree(params), lcfg,
+                                   _local_tree(cache), ids1=local.get("ids1"),
+                                   pos=pos, embeds1=local.get("embeds1"),
+                                   par=shards)
+    return _logits_out(logits, mesh, split), cache
 
 
 def _generator(key, device) -> torch.Generator:

@@ -241,25 +241,30 @@ class NamedSharding:
         return tuple(Replicate() if d is None else Shard(d)
                      for d in self.shard_dims)
 
-    def shard(self, x):
-        """This rank's slice of the global ``x`` (a tensor or an array;
-        basic slicing, so a view): per mesh dim in order, the dim it shards
-        cut into its size and the rank's coordinate taken."""
+    def bounds(self, shape) -> list:
+        """This rank's slice of a global tensor of ``shape``: ``(start,
+        size)`` per dim, each mesh dim in order cutting the dim it shards
+        into its size and taking the rank's coordinate."""
         coord = self.mesh.get_coordinate()
         if coord is None:
             raise ValueError("this rank is not on the mesh")
-        lo = [0] * len(x.shape)
-        size = list(x.shape)
+        lo = [0] * len(shape)
+        size = list(shape)
         for i, d in enumerate(self.shard_dims):
             if d is None:
                 continue
             n = self.mesh.size(i)
             if size[d] % n:
-                raise ValueError(f"dim {d} of {tuple(x.shape)} does not "
+                raise ValueError(f"dim {d} of {tuple(shape)} does not "
                                  f"divide mesh dim {i} of size {n}")
             size[d] //= n
             lo[d] += coord[i] * size[d]
-        return x[tuple(slice(a, a + s) for a, s in zip(lo, size))]
+        return list(zip(lo, size))
+
+    def shard(self, x):
+        """This rank's slice of the global ``x`` (a tensor or an array;
+        basic slicing, so a view): :meth:`bounds`."""
+        return x[tuple(slice(a, a + s) for a, s in self.bounds(x.shape))]
 
     def put(self, x):
         """The global ``x`` (every rank holds it) as a ``DTensor`` of a copy

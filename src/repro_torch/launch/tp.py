@@ -41,6 +41,16 @@ tensor that autograd saves for the backward and that lies in a gathered
 bytes; with ``track_copies`` also those of the weights' copies (arranged,
 cast or sliced ones, :class:`_Copies`) that autograd keeps until the
 backward: the bf16 norm gains' float32 casts, say.
+
+The sharded prefill and decode step (``launch/serve.py``) read the weights
+through a forward-only :class:`ParamShards`: the same per-layer gathers
+and the same blocks on 'model' shards, with no autograd Function, no
+saved-tensor hooks and no re-gathers. Their decode cache is sharded by
+``launch.sharding.cache_pspecs``; :class:`CacheShards` tells the model how
+(``models/lm.py``): the cut that 'model' makes in each leaf (the KV heads,
+the state-space families' heads and channels) and, for a batch that does
+not split over the batch's mesh dims, the KV rows that each rank holds of
+the sequence (:class:`SeqShards`).
 """
 from __future__ import annotations
 
@@ -53,7 +63,8 @@ import torch.distributed as dist
 from torch.overrides import TorchFunctionMode
 
 __all__ = ["TensorParallel", "ParamShards", "GatherStats", "TokenSpan",
-           "EmulatedTP"]
+           "EmulatedTP", "CacheShards", "SeqShards", "batch_parts",
+           "model_axis"]
 
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
@@ -268,7 +279,10 @@ class GatherStats:
 
 
 def _storage(t: torch.Tensor) -> tuple:
-    return t.device, t.untyped_storage().data_ptr()
+    """``t``'s storage, as a key: the storage itself (its address, unique
+    while it lives), not its data's address, which every ``meta`` tensor
+    shares (0)."""
+    return t.device, t.untyped_storage()._cdata
 
 
 class _Copies(TorchFunctionMode):
@@ -444,12 +458,15 @@ class ParamShards:
     sub-blocks that compute on 'model' shards), ``tp`` (the 'model' axis's
     :class:`TensorParallel`, or None), ``span`` (a :class:`TokenSpan` for
     MoE routing that spans ranks, or None) and ``stats`` (the
-    :class:`GatherStats` the gathers count into)."""
+    :class:`GatherStats` the gathers count into). With ``cache`` (a
+    prefill's or a decode step's :class:`CacheShards`), the gathers run
+    outside autograd (no re-gathers)."""
 
     def __init__(self, cfg, mesh, plans: dict, blocks: dict, *, tp, span,
-                 stats: GatherStats):
+                 stats: GatherStats, cache=None):
         self.cfg, self.plans, self.blocks = cfg, plans, blocks
         self.tp, self.span, self.stats = tp, span, stats
+        self.cache = cache
         coord = mesh.get_coordinate()
 
         def steps(dims):
@@ -515,6 +532,12 @@ class ParamShards:
     def _leaf(self, t: torch.Tensor, key: str) -> torch.Tensor:
         steps = self._steps[key]
         transform = self._transform(self.plans[key].use)
+        if self.cache is not None:
+            with torch.no_grad():
+                out = _gathered(t, steps, transform)
+            if steps:
+                self.stats.add(out)
+            return out
         copies = self._regather.copies
         if copies is not None:
             copies.mark(t, "source")
@@ -542,3 +565,103 @@ class ParamShards:
         self._regather.register(out, recipe)
         self.stats.add(out)
         return out
+
+
+class SeqShards:
+    """A decode cache's KV rows cut over the batch's mesh dims (a batch
+    that does not split over them: ``long_500k`` at batch 1): this rank
+    holds rows ``[lo, lo + rows)`` of the sequence, and the ranks of
+    ``groups`` (one process group per mesh dim) hold the others."""
+
+    def __init__(self, groups: tuple, lo: int, rows: int):
+        self.groups, self.lo, self.rows = tuple(groups), int(lo), int(rows)
+
+    def reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """``t`` all-reduced over the ranks that hold the other rows."""
+        t = t.contiguous()
+        for group in self.groups:
+            dist.all_reduce(t, op=_OPS[op], group=group)
+        return t
+
+
+class CacheShards:
+    """How a rank's decode cache shards cut the cache: ``dims`` per cache
+    key the dim of one layer's slice (counted from the end) that the
+    'model' axis cuts (None where no dim is cut), ``tp`` the 'model' axis's
+    :class:`TensorParallel` (None on a mesh without 'model' ranks),
+    ``seq`` a :class:`SeqShards` where the KV rows are cut over the batch's
+    mesh dims."""
+
+    def __init__(self, dims: dict, tp=None, seq=None):
+        self.dims, self.tp, self.seq = dims, tp, seq
+
+    def cut(self, key: str, t: torch.Tensor, like: torch.Tensor):
+        """One layer's value ``t`` as the rank's shard of ``key`` holds it:
+        where 'model' cuts a dim that ``t`` has whole (its size a ``tp``
+        multiple of ``like``'s), the rank's part of it."""
+        d = self.dims.get(key)
+        if d is None or self.tp is None or t.shape[d] == like.shape[d]:
+            return t
+        size = like.shape[d]
+        return t.narrow(d, self.tp.ranks[0] * size, size)
+
+    def whole(self, key: str, t: torch.Tensor) -> torch.Tensor:
+        """The rank's shard ``t`` of one layer's slice of ``key``, whole
+        (all-gathered over 'model' where 'model' cuts it)."""
+        d = self.dims.get(key)
+        if d is None or self.tp is None:
+            return t
+        return _all_gather(t, self.tp.group, self.tp.tp, t.ndim + d)
+
+    def heads(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' heads ``t`` ``(B, S, heads, D)`` joined over 'model'
+        in rank order."""
+        return _all_gather(t, self.tp.group, self.tp.tp, 2)
+
+
+def batch_parts(cfg, mesh, split: bool) -> tuple:
+    """``(lcfg, span, batch_dims, parts)`` for a step that every rank of
+    ``mesh`` calls with the same global batch: ``split``, whether the batch
+    is cut over the batch's mesh dims (``input_pspecs``); ``batch_dims``
+    those mesh dims (indices; none when the batch is not cut) and ``parts``
+    the pieces it is cut in; ``lcfg`` the config the rank runs (its MoE
+    routing groups the ones its part holds) and ``span`` a
+    :class:`TokenSpan` where a routing group spans ranks (else None).
+    Routing groups are contiguous and batch-major: where they split over
+    the parts, a rank routes the ones its part holds; where one spans ranks,
+    every rank routes the gathered tokens of the whole batch as the
+    reference does and keeps its own rows."""
+    import dataclasses
+    import math
+
+    from repro_torch.launch.mesh import batch_axes
+    names = mesh.mesh_dim_names
+    batch_dims = [i for i, n in enumerate(names)
+                  if split and n in batch_axes(mesh)]
+    parts = math.prod(mesh.size(i) for i in batch_dims)
+    coord = mesh.get_coordinate()
+    groups = max(1, cfg.dp_shards) if cfg.batch_axes else 1
+    span, lcfg = None, cfg
+    if cfg.family == "moe" and groups % parts:
+        index = 0
+        for i in batch_dims:
+            index = index * mesh.size(i) + coord[i]
+        span = TokenSpan(tuple((mesh.get_group(i), mesh.size(i), coord[i], 0,
+                                True) for i in reversed(batch_dims)),
+                         index, parts)
+    else:
+        lcfg = dataclasses.replace(cfg, dp_shards=max(1, groups // parts))
+    return lcfg, span, batch_dims, parts
+
+
+def model_axis(mesh):
+    """The mesh's 'model' axis as a :class:`TensorParallel` of this rank,
+    or None (no 'model' axis, or one of size 1)."""
+    names = mesh.mesh_dim_names
+    if "model" not in names:
+        return None
+    i = names.index("model")
+    if mesh.size(i) == 1:
+        return None
+    return TensorParallel(mesh.size(i), (mesh.get_coordinate()[i],),
+                          mesh.get_group(i))

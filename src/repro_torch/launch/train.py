@@ -55,7 +55,6 @@ checkpoints and stops, and the straggler watchdog.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 import os
 import tempfile
@@ -214,10 +213,9 @@ def _sharded_step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, mesh,
     in place; ``(state, metrics)``, the metrics the global batch's. The
     gathered bytes go to ``stats``."""
     import torch.distributed as dist
-    from repro_torch.launch.mesh import batch_axes
     from repro_torch.launch.sharding import (NamedSharding, gather_plan,
                                              input_pspecs)
-    from repro_torch.launch.tp import ParamShards, TensorParallel, TokenSpan
+    from repro_torch.launch.tp import ParamShards, batch_parts, model_axis
     leaves = tree_leaves(state)
     dev = leaves[0].to_local().device
     batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()
@@ -227,29 +225,8 @@ def _sharded_step(cfg, opt_cfg: AdamWConfig, grad_compression: bool, mesh,
              for k, v in batch.items()}
     names = mesh.mesh_dim_names
     split = specs["labels"][0] is not None      # the batch is cut
-    batch_dims = [i for i, n in enumerate(names)
-                  if split and n in batch_axes(mesh)]
-    parts = math.prod(mesh.size(i) for i in batch_dims)
-    coord = mesh.get_coordinate()
-    # routing groups are contiguous and batch-major: where they split over
-    # the parts, a rank routes the ones its part holds; where one spans
-    # ranks, every rank routes the gathered tokens of the whole batch as the
-    # reference does and keeps its own rows
-    groups = max(1, cfg.dp_shards) if cfg.batch_axes else 1
-    span, lcfg = None, cfg
-    if cfg.family == "moe" and groups % parts:
-        index = 0
-        for i in batch_dims:
-            index = index * mesh.size(i) + coord[i]
-        span = TokenSpan(tuple((mesh.get_group(i), mesh.size(i), coord[i], 0,
-                                True) for i in reversed(batch_dims)),
-                         index, parts)
-    else:
-        lcfg = dataclasses.replace(cfg, dp_shards=max(1, groups // parts))
-    model = names.index("model") if "model" in names else None
-    tp = (TensorParallel(mesh.size(model), (coord[model],),
-                         mesh.get_group(model))
-          if model is not None and mesh.size(model) > 1 else None)
+    lcfg, span, batch_dims, parts = batch_parts(cfg, mesh, split)
+    tp = model_axis(mesh)
     plans, blocks = gather_plan(cfg, state["params"], mesh,
                                 {names[i] for i in batch_dims})
     stats.reset()

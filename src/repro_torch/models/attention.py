@@ -34,7 +34,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 __all__ = ["apply_rope", "chunked_attention", "decode_attention",
-           "rope_tables", "rotate"]
+           "decode_attention_split", "rope_tables", "rotate"]
 
 _INT32_MAX = 2 ** 31 - 1
 _NEG_INF = float("-inf")
@@ -235,23 +235,51 @@ def _flash_bwd(q, k, v, qp, kp, kvld, out, lse, dout, causal: bool,
             fold(dvs).to(v.dtype))
 
 
+def _decode_scores(q, k_cache, pos, lo: int = 0) -> torch.Tensor:
+    """Scaled float32 scores (B, Hkv, g, S) of q (B,1,H,D) against the
+    cache's rows (B,S,Hkv,D), the rows ``[lo, lo + S)`` of the sequence;
+    a row after ``pos`` -inf."""
+    b, _, h, d = q.shape
+    s, hkv = k_cache.shape[1], k_cache.shape[2]
+    qh = q[:, 0].reshape(b, hkv, h // hkv, d).float()
+    kt = k_cache.permute(0, 2, 3, 1).to(
+        torch.float32, memory_format=torch.contiguous_format)  # (B,Hkv,D,S)
+    logits = (qh @ kt) * d ** -0.5
+    rows = torch.arange(s, device=q.device)
+    mask = (rows + lo if lo else rows) <= pos
+    return torch.where(mask, logits, _NEG_INF)
+
+
+def _weighted_values(w, v_cache) -> torch.Tensor:
+    """Weights (B, Hkv, g, S), rounded to the cache's dtype, times the
+    cached values (B,S,Hkv,D) in float32 -> (B, Hkv, g, D)."""
+    vt = v_cache.transpose(1, 2).to(
+        torch.float32, memory_format=torch.contiguous_format)  # (B,Hkv,S,D)
+    return w.to(v_cache.dtype).float() @ vt
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos) -> torch.Tensor:
     """q (B,1,H,D); caches (B,S,Hkv,D); ``pos`` a scalar (an int or a 0-d
     int32 tensor, on the device inside a captured step): the index of the
     current token, which attends to cache positions <= pos."""
-    b, _, h, d = q.shape
-    s, hkv = k_cache.shape[1], k_cache.shape[2]
-    groups = h // hkv
-    scale = d ** -0.5
-    qh = q[:, 0].reshape(b, hkv, groups, d).float()
-    kt = k_cache.permute(0, 2, 3, 1).to(
-        torch.float32, memory_format=torch.contiguous_format)  # (B,Hkv,D,S)
-    logits = (qh @ kt) * scale                             # (B,Hkv,g,S)
-    mask = torch.arange(s, device=q.device) <= pos
-    logits = torch.where(mask, logits, _NEG_INF)
-    w = torch.softmax(logits, dim=-1)
-    vt = v_cache.transpose(1, 2).to(
-        torch.float32, memory_format=torch.contiguous_format)  # (B,Hkv,S,D)
-    out = w.to(v_cache.dtype).float() @ vt                 # (B,Hkv,g,D)
-    return out.reshape(b, 1, h, d).to(q.dtype)
+    w = torch.softmax(_decode_scores(q, k_cache, pos), dim=-1)
+    return _weighted_values(w, v_cache).reshape(q.shape).to(q.dtype)
+
+
+def decode_attention_split(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, pos, lo: int,
+                           reduce) -> torch.Tensor:
+    """:func:`decode_attention` over a cache whose rows are cut over ranks:
+    this rank's caches hold rows ``[lo, lo + S)`` of the sequence and
+    ``reduce(t, op)`` all-reduces ``t`` (``"max"`` or ``"sum"``) over the
+    ranks that hold the others. The ranks' partial softmaxes are merged by
+    log-sum-exp: the row maximum over every rank, each rank's exponentials
+    against it, their sums and products with the values summed over the
+    ranks. A rank none of whose rows is at or before ``pos`` adds zeros."""
+    logits = _decode_scores(q, k_cache, pos, lo)
+    m = reduce(logits.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(logits - m)
+    w = e / reduce(e.sum(dim=-1, keepdim=True), "sum")
+    out = reduce(_weighted_values(w, v_cache), "sum")
+    return out.reshape(q.shape).to(q.dtype)

@@ -68,6 +68,22 @@ whole on every rank; the reference's ``_shard_batch``
 changes where values sit, never what they are. :func:`tp_block_params`
 makes a whole block's TP form for a one-process emulation of the ranks.
 
+``prefill`` and ``decode_step`` take ``par`` too: the sharded prefill and
+decode step's forward-only ``ParamShards`` (``launch/serve.py``), each rank
+on its part of the batch, the blocks gathered and computed as in the
+sharded train step, the cache the rank's shards of it
+(``launch.sharding.cache_pspecs``, ``par.cache`` a ``launch.tp.CacheShards``):
+keys and values of the rank's KV heads, which its attention attends over
+(a block in TP form computes those heads; one computed whole takes them
+from its whole q, k and v and joins the heads over 'model' before o), the
+state-space states and conv rows gathered whole over 'model' for the step
+and the rank's part written back, vlm's image keys and values the rank's
+heads; where the batch does not split over the batch's mesh dims and the
+rows do, each rank holds its rows of the sequence, writes the new token
+only where it holds its row, and the ranks' partial attentions are merged
+by log-sum-exp (``attention.decode_attention_split``). The logits are the
+rank's rows, whole over the vocabulary.
+
 ``forward`` and ``loss_fn`` are differentiable (``launch/train.py`` trains
 through them). The stacked leaves are unbound once per call
 (:func:`_unstack`), so the backward costs bytes linear in depth; the
@@ -91,8 +107,9 @@ from repro_torch.kernels.gather_backward import gather_rows
 from repro_torch.models import rwkv as rk
 from repro_torch.models import ssm
 from repro_torch.models.attention import (chunked_attention,
-                                          decode_attention, rope_tables,
-                                          rotate)
+                                          decode_attention,
+                                          decode_attention_split,
+                                          rope_tables, rotate)
 from repro_torch.models.backend import resolve_device
 from repro_torch.models.layers import (dense_init, embed_init, layer_norm,
                                        linear, linear_col, linear_row,
@@ -102,6 +119,7 @@ from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.optim.optimizer import tree_map
 
 __all__ = ["FAMILIES", "init", "forward", "loss_fn", "init_cache",
+           "cache_shapes",
            "prefill", "decode_step", "block_apply", "block_decode",
            "cross_attn", "project_image_kv", "kv_rows", "mamba_block_init",
            "rwkv_block_init", "tp_heads", "tp_attn_params", "tp_mlp_params",
@@ -445,32 +463,103 @@ def self_attn(p, cfg, x, positions, rope=None):
     return _finish_attn(p, cfg, out), (k, v)
 
 
-def self_attn_decode(p, cfg, x1, k_cache, v_cache, pos, rope=None):
+def _cache(par):
+    """The sharded prefill's or decode step's ``CacheShards``, or None."""
+    return getattr(par, "cache", None)
+
+
+def _heads_cut(par, kv: torch.Tensor, cfg):
+    """The 'model' axis's ``TensorParallel`` where the cached keys or
+    values ``kv`` (B, S, heads, D) hold the rank's KV heads only, else
+    None."""
+    if _cache(par) is None or par.tp is None or kv.shape[2] == \
+            cfg.eff_kv_heads:
+        return None
+    return par.tp
+
+
+def _rank_heads(t: torch.Tensor, tp) -> torch.Tensor:
+    """The rank's heads of ``t`` (B, S, heads, D): its ``tp``-th part."""
+    size = t.shape[2] // tp.tp
+    return t.narrow(2, tp.ranks[0] * size, size)
+
+
+def _write_at(cache: torch.Tensor, t: torch.Tensor, posv, par) -> None:
+    """The new token's keys or values ``t`` (B, 1, heads, D) written into
+    ``cache`` at ``posv``; where the rows are cut over ranks, into the
+    rank's row if it holds it (no host read: a write of the row's own
+    value elsewhere)."""
+    t = t.to(cache.dtype)
+    seq = None if _cache(par) is None else par.cache.seq
+    if seq is None:
+        cache.index_copy_(1, posv, t)
+        return
+    local = posv - seq.lo
+    at = local.clamp(0, seq.rows - 1)
+    inside = (local >= 0) & (local < seq.rows)
+    cache.index_copy_(1, at, torch.where(inside, t, cache.index_select(1, at)))
+
+
+def _attend(q, k_cache, v_cache, pos, par):
+    seq = None if _cache(par) is None else par.cache.seq
+    if seq is None:
+        return decode_attention(q, k_cache, v_cache, pos)
+    return decode_attention_split(q, k_cache, v_cache, pos, seq.lo,
+                                  seq.reduce)
+
+
+def self_attn_decode(p, cfg, x1, k_cache, v_cache, pos, rope=None,
+                     par=None):
     """x1 (B,1,D); caches (B,S,Hkv_eff,D), written in place at ``pos`` (a 0-d
-    int64 tensor on the caches' device)."""
-    p = _eff_attn_params(p, cfg)
-    q, k, v = _qkv(p, cfg, x1)
+    int64 tensor on the caches' device). Sharded (``par``; module
+    docstring): the caches hold the rank's KV heads, a block in TP form
+    (``p`` marked ``"tp"``) computes them, one computed whole takes them
+    from its whole q, k and v and joins the heads over 'model' before o."""
+    cut = _heads_cut(par, k_cache, cfg)
+    if "tp" in p:
+        tp, b = p["tp"], x1.shape[0]
+        xr = tp.copy_in(x1)
+        q, k, v = (linear_col(p[name], xr).reshape(tp.n * b, 1, -1,
+                                                  cfg.head_dim)
+                   for name in "qkv")
+    else:
+        p = _eff_attn_params(p, cfg)
+        q, k, v = _qkv(p, cfg, x1)
+        if cut is not None:
+            q, k, v = (_rank_heads(t, cut) for t in (q, k, v))
     posv = pos.reshape(1)
     rope = rope if rope is not None else _rope(cfg, posv, q.dtype)
     q, k = rotate(q, *rope), rotate(k, *rope)
-    k_cache.index_copy_(1, posv, k.to(k_cache.dtype))
-    v_cache.index_copy_(1, posv, v.to(v_cache.dtype))
-    out = decode_attention(q, k_cache, v_cache, pos)
+    _write_at(k_cache, k, posv, par)
+    _write_at(v_cache, v, posv, par)
+    out = _attend(q, k_cache, v_cache, pos, par)
+    if "tp" in p:
+        return (linear_row(p["o"], out.reshape(tp.n, b, 1, -1), tp),
+                (k_cache, v_cache))
+    if cut is not None:
+        out = par.cache.heads(out)
     return _finish_attn(p, cfg, out), (k_cache, v_cache)
 
 
-def cross_attn(p, cfg, x, img_kv):
+def cross_attn(p, cfg, x, img_kv, par=None):
     """Non-causal attention to fixed image keys/values (already projected):
     img_kv = (k, v) each (B, S_img, Hkv_eff, D). Only the projections'
-    weights are read, as the reference reads them."""
+    weights are read, as the reference reads them. Sharded decode
+    (``par``): image keys and values of the rank's heads, attended by its
+    heads of the whole q, the heads joined over 'model' before o."""
     b, s, _ = x.shape
     q = linear({"w": _arranged(p, cfg, "q")}, x
                ).reshape(b, s, cfg.eff_heads, cfg.head_dim)
     k, v = img_kv
+    cut = _heads_cut(par, k, cfg)
+    if cut is not None:
+        q = _rank_heads(q, cut)
     zeros = lambda n: torch.zeros((n,), dtype=torch.int32, device=x.device)
     out = chunked_attention(
         q, k, v, q_positions=zeros(s), kv_positions=zeros(k.shape[1]),
         causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if cut is not None:
+        out = par.cache.heads(out)
     return _finish_attn({"o": {"w": _arranged(p, cfg, "o")}}, cfg, out)
 
 
@@ -534,13 +623,14 @@ def block_apply(p, cfg, x, positions, img_kv=None, rope=None):
 
 
 def block_decode(p, cfg, x1, k_cache, v_cache, pos, img_kv=None,
-                 rope=None):
+                 rope=None, par=None):
     h, (k_cache, v_cache) = self_attn_decode(
         p["attn"], cfg, _norm(p["attn"]["ln"], x1, cfg), k_cache, v_cache,
-        pos, rope)
+        pos, rope, par)
     x1 = x1 + h
     if img_kv is not None and "xattn" in p:
-        hx = cross_attn(p["xattn"], cfg, _norm(p["ln_x"], x1, cfg), img_kv)
+        hx = cross_attn(p["xattn"], cfg, _norm(p["ln_x"], x1, cfg), img_kv,
+                        par)
         x1 = x1 + torch.tanh(p["gate_x"]) * hx
     x1 = x1 + _ffn(p, cfg, _norm(p["ln2"], x1, cfg))
     return x1, (k_cache, v_cache)
@@ -653,8 +743,13 @@ def _head(p, cfg, x, par=None):
     return h @ w, None
 
 
-def _logits(p, cfg, x):
-    return _head(p, cfg, x)[0]
+def _last_logits(p, cfg, x, par=None):
+    """The logits of ``x``'s one position (B, 1, D) -> (B, V), whole over
+    the vocabulary (a TP head's slices joined over 'model')."""
+    logits, tp = _head(p, cfg, x, par)
+    if tp is not None:
+        logits = tp.gather_out(logits)
+    return logits[:, 0]
 
 
 def _embed_tp(e, ids):
@@ -719,6 +814,35 @@ def _img_proj(p, x):
     return linear(p, x)
 
 
+def _store(store, key: str, index, t: torch.Tensor, par=None) -> None:
+    """One layer's value ``t`` (a state, whole) into ``store[key][index]``;
+    sharded, the rank's part of it."""
+    dst = store[key][index]
+    if _cache(par) is not None:
+        t = par.cache.cut(key, t, dst)
+    dst.copy_(t)
+
+
+def _store_rows(store, key: str, index, t: torch.Tensor, par=None) -> None:
+    """One layer's keys or values ``t`` (B, S, heads, D) into the first S
+    rows of ``store[key][index]``; sharded, the rank's heads (of ``t``'s
+    whole heads, or ``t`` as it is) and, where the rows are cut over ranks,
+    the ones the rank holds."""
+    dst = store[key][index]
+    cache = _cache(par)
+    if cache is not None:
+        t = cache.cut(key, t, dst)
+        if cache.seq is not None:
+            t = t[:, cache.seq.lo:cache.seq.lo + cache.seq.rows]
+    dst[:, :t.shape[1]] = t
+
+
+def _whole(store, key: str, index, par=None) -> torch.Tensor:
+    """``store[key][index]``; sharded, whole over 'model'."""
+    t = store[key][index]
+    return t if _cache(par) is None else par.cache.whole(key, t)
+
+
 def _run(p, cfg, x, image_embeds=None, store=None, par=None):
     """The blocks over embedded inputs ``x`` (B, S, D): the final hidden
     state. With ``store`` (a cache with at least ``kv_rows(cfg, S)`` rows)
@@ -737,8 +861,8 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
                                         "blocks")):
             x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
             if store is not None:
-                store["k"][i, :, :s] = k
-                store["v"][i, :, :s] = v
+                _store_rows(store, "k", i, k, par)
+                _store_rows(store, "v", i, v, par)
         return x
     img = _img_proj(_at(par, p["img_proj"], "img_proj"),
                     image_embeds.to(cfg.jdtype))
@@ -749,17 +873,17 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
                                         par, "plain")):
             x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
             if store is not None:
-                store["k_plain"][gi, j, :, :s] = k
-                store["v_plain"][gi, j, :, :s] = v
+                _store_rows(store, "k_plain", (gi, j), k, par)
+                _store_rows(store, "v_plain", (gi, j), v, par)
         crossed = _at(par, crossed, "crossed")
         img_kv = project_image_kv(crossed["xattn"], cfg, img)
         x, (k, v) = block_apply(crossed, cfg, x, positions, img_kv=img_kv,
                                 rope=rope)
         if store is not None:
-            store["k_cross"][gi, :, :s] = k
-            store["v_cross"][gi, :, :s] = v
-            store["img_k"][gi] = img_kv[0]
-            store["img_v"][gi] = img_kv[1]
+            _store_rows(store, "k_cross", gi, k, par)
+            _store_rows(store, "v_cross", gi, v, par)
+            _store(store, "img_k", gi, img_kv[0], par)
+            _store(store, "img_v", gi, img_kv[1], par)
     return x
 
 
@@ -775,19 +899,19 @@ def _run_hybrid(p, cfg, x, store, par=None):
                                         "mamba")):
             h, st, cv = _mamba_layer(blk, cfg, h)
             if store is not None:
-                store["ssm"][gi, j].copy_(st)
-                store["conv"][gi, j].copy_(cv)
+                _store(store, "ssm", (gi, j), st, par)
+                _store(store, "conv", (gi, j), cv, par)
         h, (k, v) = block_apply(_at(par, p["shared_attn"], "shared_attn"),
                                 cfg, h, positions, rope=rope)
         if store is not None:
-            store["k"][gi, :, :sp] = k
-            store["v"][gi, :, :sp] = v
+            _store_rows(store, "k", gi, k, par)
+            _store_rows(store, "v", gi, v, par)
     for t, blk in enumerate(_layers(p["mamba_trail"], trail, par,
                                     "mamba_trail")):
         h, st, cv = _mamba_layer(blk, cfg, h)
         if store is not None:
-            store["ssm_trail"][t].copy_(st)
-            store["conv_trail"][t].copy_(cv)
+            _store(store, "ssm_trail", t, st, par)
+            _store(store, "conv_trail", t, cv, par)
     return h[:, :s]
 
 
@@ -798,9 +922,8 @@ def _run_rwkv(p, cfg, x, store, par=None):
                                     "blocks")):
         h, st, lt, lc = _rwkv_layer(blk, cfg, h)
         if store is not None:
-            store["state"][i].copy_(st)
-            store["last_t"][i].copy_(lt)
-            store["last_c"][i].copy_(lc)
+            for key, v in (("state", st), ("last_t", lt), ("last_c", lc)):
+                _store(store, key, i, v, par)
     return h[:, :s]
 
 
@@ -901,125 +1024,146 @@ class _MetaGenerator(torch.Generator):
         return torch.device("meta")
 
 
-def init_cache(cfg, batch: int, max_seq: int, dtype=None, *,
-               device=None) -> Params:
-    """Empty decode cache sized for ``max_seq`` context, on ``device`` (the
-    card unless ``device="cpu"``; ``"meta"`` for shapes only). The SSM and
-    RWKV states are float32, as the reference's."""
-    _check(cfg)
-    dev = _target_device(device)
+def cache_shapes(cfg, batch: int, max_seq: int, dtype=None) -> dict:
+    """The decode cache's leaves for ``max_seq`` context as ``{key:
+    (shape, dtype)}``, allocating nothing (:func:`init_cache` allocates
+    them). The SSM and RWKV states are float32, as the reference's."""
     dt = dtype or cfg.jdtype
-    fam = cfg.family
+    f32 = torch.float32
     dh, hkv = cfg.head_dim, cfg.eff_kv_heads
-    zeros = lambda shape, dtype=dt: torch.zeros(shape, dtype=dtype,
-                                                device=dev)
+    fam = cfg.family
     if fam in ("dense", "moe", "audio"):
         shape = (cfg.n_layers, batch, max_seq, hkv, dh)
-        return {"k": zeros(shape), "v": zeros(shape)}
+        return {"k": (shape, dt), "v": (shape, dt)}
     if fam == "vlm":
         g = cfg.n_layers // cfg.cross_attn_interval
         sp = (g, cfg.cross_attn_interval - 1, batch, max_seq, hkv, dh)
         sc = (g, batch, max_seq, hkv, dh)
         si = (g, batch, cfg.n_image_tokens, hkv, dh)
-        return {"k_plain": zeros(sp), "v_plain": zeros(sp),
-                "k_cross": zeros(sc), "v_cross": zeros(sc),
-                "img_k": zeros(si), "img_v": zeros(si)}
-    f32 = torch.float32
+        return {"k_plain": (sp, dt), "v_plain": (sp, dt),
+                "k_cross": (sc, dt), "v_cross": (sc, dt),
+                "img_k": (si, dt), "img_v": (si, dt)}
     if fam == "hybrid":
         n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
         h = 2 * cfg.d_model // 64
         cchan = 2 * cfg.d_model + 2 * cfg.ssm_state
         kv = (n_super, batch, max_seq, hkv, dh)
         return {
-            "ssm": zeros((n_super, cfg.attn_interval, batch, h, 64,
-                          cfg.ssm_state), f32),
-            "conv": zeros((n_super, cfg.attn_interval, batch,
-                           ssm.CONV_K - 1, cchan)),
-            "ssm_trail": zeros((trail, batch, h, 64, cfg.ssm_state), f32),
-            "conv_trail": zeros((trail, batch, ssm.CONV_K - 1, cchan)),
-            "k": zeros(kv), "v": zeros(kv),
+            "ssm": ((n_super, cfg.attn_interval, batch, h, 64,
+                     cfg.ssm_state), f32),
+            "conv": ((n_super, cfg.attn_interval, batch, ssm.CONV_K - 1,
+                      cchan), dt),
+            "ssm_trail": ((trail, batch, h, 64, cfg.ssm_state), f32),
+            "conv_trail": ((trail, batch, ssm.CONV_K - 1, cchan), dt),
+            "k": (kv, dt), "v": (kv, dt),
         }
     h = cfg.d_model // cfg.head_size
-    return {"state": zeros((cfg.n_layers, batch, h, cfg.head_size,
-                            cfg.head_size), f32),
-            "last_t": zeros((cfg.n_layers, batch, 1, cfg.d_model)),
-            "last_c": zeros((cfg.n_layers, batch, 1, cfg.d_model))}
+    return {"state": ((cfg.n_layers, batch, h, cfg.head_size,
+                       cfg.head_size), f32),
+            "last_t": ((cfg.n_layers, batch, 1, cfg.d_model), dt),
+            "last_c": ((cfg.n_layers, batch, 1, cfg.d_model), dt)}
+
+
+def init_cache(cfg, batch: int, max_seq: int, dtype=None, *,
+               device=None) -> Params:
+    """Empty decode cache sized for ``max_seq`` context, on ``device`` (the
+    card unless ``device="cpu"``; ``"meta"`` for shapes only): the leaves
+    of :func:`cache_shapes`, zeroed."""
+    _check(cfg)
+    dev = _target_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=dev)
+            for k, (shape, dt) in cache_shapes(cfg, batch, max_seq,
+                                               dtype).items()}
 
 
 def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
-                image_embeds=None):
+                image_embeds=None, par=None):
     """One serving step: ids1 (B, 1) int32 (or ``embeds1`` (B, 1, D) for the
     audio frontend stub), ``pos`` the new token's position (an int or a 0-d
     int32 tensor; the RWKV family reads none). -> (logits (B, V), cache),
     the cache written in place. ``image_embeds`` is accepted for the
     reference's signature and not read: the image keys and values are in
     the cache since ``prefill`` (the reference projects ``image_embeds``
-    here into a value nothing reads)."""
+    here into a value nothing reads). ``par``: the sharded decode step's
+    ``ParamShards``, ``cache`` the rank's shards (module docstring)."""
     _check(cfg)
-    x = _embed_in(p, cfg, ids1, embeds1)
+    x = _embed_in(p, cfg, ids1, embeds1, par)
     fam = cfg.family
     if fam == "ssm":
-        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
-            x, st, lt, lc = _rwkv_layer(
-                blk, cfg, x, cache["state"][i], cache["last_t"][i],
-                cache["last_c"][i])
-            cache["state"][i].copy_(st)
-            cache["last_t"][i].copy_(lt)
-            cache["last_c"][i].copy_(lc)
-        return _logits(p, cfg, x)[:, 0], cache
+        keys = ("state", "last_t", "last_c")
+        for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
+                                        "blocks")):
+            x, *new = _rwkv_layer(blk, cfg, x, *(_whole(cache, k, i, par)
+                                                 for k in keys))
+            for key, t in zip(keys, new):
+                _store(cache, key, i, t, par)
+        return _last_logits(p, cfg, x, par), cache
     # one conversion a step: index_copy_ wants an int64 index
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
     rope = _rope(cfg, pos.reshape(1), cfg.jdtype)
     if fam in ("dense", "moe", "audio"):
-        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+        for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
+                                        "blocks")):
             x, _ = block_decode(blk, cfg, x, cache["k"][i], cache["v"][i],
-                                pos, rope=rope)
-        return _logits(p, cfg, x)[:, 0], cache
+                                pos, rope=rope, par=par)
+        return _last_logits(p, cfg, x, par), cache
     if fam == "hybrid":
         n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
 
-        def mamba(blk, state, conv, h):
-            h, st, cv = _mamba_layer(blk, cfg, h, state, conv)
-            state.copy_(st)
-            conv.copy_(cv)
+        def mamba(blk, keys, index, h):
+            h, st, cv = _mamba_layer(blk, cfg, h, *(_whole(cache, k, index,
+                                                           par)
+                                                    for k in keys))
+            _store(cache, keys[0], index, st, par)
+            _store(cache, keys[1], index, cv, par)
             return h
         for gi, group in enumerate(_unstack(p["mamba"], n_super)):
-            for j, blk in enumerate(_unstack(group, cfg.attn_interval)):
-                x = mamba(blk, cache["ssm"][gi, j], cache["conv"][gi, j], x)
-            x, _ = block_decode(p["shared_attn"], cfg, x, cache["k"][gi],
-                                cache["v"][gi], pos, rope=rope)
-        for t, blk in enumerate(_unstack(p["mamba_trail"], trail)):
-            x = mamba(blk, cache["ssm_trail"][t], cache["conv_trail"][t], x)
-        return _logits(p, cfg, x)[:, 0], cache
+            for j, blk in enumerate(_layers(group, cfg.attn_interval, par,
+                                            "mamba")):
+                x = mamba(blk, ("ssm", "conv"), (gi, j), x)
+            x, _ = block_decode(_at(par, p["shared_attn"], "shared_attn"),
+                                cfg, x, cache["k"][gi], cache["v"][gi], pos,
+                                rope=rope, par=par)
+        for t, blk in enumerate(_layers(p["mamba_trail"], trail, par,
+                                        "mamba_trail")):
+            x = mamba(blk, ("ssm_trail", "conv_trail"), t, x)
+        return _last_logits(p, cfg, x, par), cache
     groups = cfg.n_layers // cfg.cross_attn_interval
     for gi, (plain, crossed) in enumerate(zip(
             _unstack(p["plain"], groups), _unstack(p["crossed"], groups))):
-        for j, blk in enumerate(_unstack(plain,
-                                         cfg.cross_attn_interval - 1)):
+        for j, blk in enumerate(_layers(plain, cfg.cross_attn_interval - 1,
+                                        par, "plain")):
             x, _ = block_decode(blk, cfg, x, cache["k_plain"][gi, j],
-                                cache["v_plain"][gi, j], pos, rope=rope)
-        x, _ = block_decode(crossed, cfg, x,
+                                cache["v_plain"][gi, j], pos, rope=rope,
+                                par=par)
+        x, _ = block_decode(_at(par, crossed, "crossed"), cfg, x,
                             cache["k_cross"][gi], cache["v_cross"][gi], pos,
                             img_kv=(cache["img_k"][gi], cache["img_v"][gi]),
-                            rope=rope)
-    return _logits(p, cfg, x)[:, 0], cache
+                            rope=rope, par=par)
+    return _last_logits(p, cfg, x, par), cache
 
 
 def prefill(p, cfg, ids=None, *, embeds=None, image_embeds=None,
-            max_seq: int | None = None, cache=None):
+            max_seq: int | None = None, cache=None, par=None):
     """Run the prompt, return (last-token logits (B,V), decode cache). The
     cache's capacity is the prompt length unless ``max_seq`` extends it
     (the hybrid's is at least ``kv_rows(cfg, S)``: the padded prompt's keys
     and values are kept, as the reference keeps them); its rows past
     those are zero. ``cache``, if given (a cache of that capacity, e.g. a
     captured step's), is written in place instead of a new one. Only the
-    last position's logits are computed."""
+    last position's logits are computed. ``par``: the sharded prefill's
+    ``ParamShards``, ``cache`` the rank's zeroed shards of a cache of that
+    capacity (module docstring)."""
     _check(cfg)
-    x = _embed_in(p, cfg, ids, embeds)
+    x = _embed_in(p, cfg, ids, embeds, par)
     b, s = x.shape[:2]
     rows = kv_rows(cfg, s)
     cap = max(max_seq or s, rows)
-    if cache is None:
+    if par is not None:
+        if cache is None:
+            raise ValueError("a sharded prefill writes into the rank's "
+                             "cache shards: pass cache=")
+    elif cache is None:
         cache = init_cache(cfg, b, cap, device=x.device)
     else:
         for key, t in cache.items():
@@ -1028,5 +1172,5 @@ def prefill(p, cfg, ids=None, *, embeds=None, image_embeds=None,
                     raise ValueError(f"cache {key!r} holds {t.shape[-3]} "
                                      f"positions; this prefill needs {cap}")
                 t[..., rows:, :, :].zero_()
-    x = _run(p, cfg, x, image_embeds, cache)
-    return _logits(p, cfg, x[:, -1:])[:, 0], cache
+    x = _run(p, cfg, x, image_embeds, cache, par)
+    return _last_logits(p, cfg, x[:, -1:], par), cache

@@ -62,7 +62,20 @@ Bounds, and why:
   (2, 2) mesh of 4: every shard equal to its slice of the global array;
 - ``PointCloudServable(mesh=make_replica_mesh(2))``: every row bit for
   bit the ``mesh=None`` servable's, at batch 4 (sharded) and 3 (run
-  replicated).
+  replicated);
+- the sharded prefill and decode step (``make_prefill`` /
+  ``make_serve_step(..., mesh=)``) on the (4, 2) mesh (:data:`SERVE_CASES`:
+  the dense, moe, ssm, hybrid and vlm families at ``reduced()``, the
+  ``tp`` widths, whose attention and MLP compute on 'model' shards, and a
+  batch of 1 whose KV rows are cut over 'data'): on every rank the logits
+  of its rows and every leaf of its cache shards after the prefill and
+  after each of 2 decode steps within ``SERVE_BOUND`` x the largest |value|
+  of the port's unsharded ``lm.prefill`` / ``lm.decode_step``: their
+  float32 GEMMs round a rank's rows otherwise than the batch's, sums split
+  over 'model' and the rows' log-sum-exp merge round otherwise than whole
+  ones, and RWKV6's decays amplify such roundings through its scan
+  (measured: at most 1.3e-6 in the attention families, 2.0e-5 in rwkv6's
+  token-shift rows); each shard's shape the ``cache_pspecs`` cut.
 """
 import dataclasses
 import math
@@ -141,6 +154,14 @@ PSUM_SHAPE = (8, 64)
 PIPE = dict(S=8, M=4, MB=2, D=16)
 MATMUL = dict(m=16, k=64, n=24)
 RANK_TIMEOUT = 240
+#: the sharded prefill and decode step's cases: (config, overrides of
+#: ``reduced()``, batch)
+SERVE_CASES = {"dense": (ARCH, {}, 4), "moe": (MOE_ARCH, {"dp_shards": 4}, 4),
+               "ssm": ("rwkv6-3b", {}, 4), "hybrid": ("zamba2-7b", {}, 4),
+               "vlm": ("llama-3.2-vision-11b", {}, 4),
+               "tp": (ARCH, TP_WIDE, 4), "seq": (ARCH, {}, 1)}
+SERVE_PROMPT, SERVE_CAPACITY, SERVE_STEPS = 20, 40, 2
+SERVE_BOUND = 1e-4
 
 
 def _sharded_cfg(get_config, case: str):
@@ -239,6 +260,9 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
         for case in CASES:
             res[case] = _sharded_run(case, mesh, mesh4, rank, out)
 
+        for case in SERVE_CASES:
+            res[f"serve_{case}"] = _serve_run(case, mesh)
+
         # a (1, 1) mesh of rank 0: every collective an identity
         one = make_test_mesh((1, 1), device_type="cpu")
         if rank == 0:
@@ -261,6 +285,65 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
     finally:
         torch.save(res, out / f"rank{rank}.pt")
         dist.destroy_process_group()
+
+
+def _serve_run(case: str, mesh) -> dict:
+    """The sharded prefill and :data:`SERVE_STEPS` decode steps of
+    ``case`` against the port's unsharded ones on this rank: per output
+    (the logits, each cache leaf) the largest difference over the calls
+    as a fraction of the largest |value|, the shards' shapes against the
+    specs' cut, and the KV leaves' specs."""
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.launch.sharding import (NamedSharding, cache_pspecs,
+                                             input_pspecs, named_shardings,
+                                             param_pspecs, shard_tree)
+    from repro_torch.models import lm
+    arch, over, b = SERVE_CASES[case]
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              batch_axes=("data",), tp=2, **over)
+    params = lm.init(0, cfg, device="cpu")
+    sharded = shard_tree(params, named_shardings(param_pspecs(params, mesh),
+                                                 mesh))
+    ins = dummy_inputs(cfg, "prefill", b, SERVE_PROMPT, device="cpu")
+    ids, embeds = ins.get("ids"), ins.get("embeds")
+    prefill, step = make_prefill(cfg, mesh=mesh), make_serve_step(cfg,
+                                                                  mesh=mesh)
+    want, cache = lm.prefill(params, cfg, ids, embeds=embeds,
+                             image_embeds=ins.get("image_embeds"),
+                             max_seq=SERVE_CAPACITY)
+    got, shards = prefill(sharded, ids, embeds=embeds,
+                          image_embeds=ins.get("image_embeds"),
+                          max_seq=SERVE_CAPACITY)
+    specs = cache_pspecs(cache, mesh)
+    rows = NamedSharding(mesh, input_pspecs({"ids": ids if ids is not None
+                                             else embeds}, mesh)["ids"])
+    errs, shapes = {}, True
+
+    def compare(want, got):
+        nonlocal shapes
+        pairs = [("logits", rows.shard(want), got.to_local())] + [
+            (k, NamedSharding(mesh, specs[k]).shard(cache[k]),
+             shards[k].to_local()) for k in cache]
+        for k, a, g in pairs:
+            shapes = shapes and a.shape == g.shape
+            err = float((a - g).abs().max() / (
+                (cache[k] if k in cache else want).abs().max()
+                .clamp_min(1e-30)))
+            errs[k] = max(errs.get(k, 0.0), err)
+    compare(want, got)
+    s = lm.kv_rows(cfg, SERVE_PROMPT)
+    for t in range(SERVE_STEPS):
+        pos = torch.tensor(s + t, dtype=torch.int32)
+        ids1 = None if ids is None else ids[:, t:t + 1]
+        e1 = None if embeds is None else embeds[:, t:t + 1]
+        want, _ = lm.decode_step(params, cfg, cache, ids1=ids1, pos=pos,
+                                 embeds1=e1)
+        got, _ = step(sharded, shards, ids1, pos, embeds1=e1)
+        compare(want, got)
+    return {"errs": errs, "shapes": shapes,
+            "kv_specs": {k: tuple(v) for k, v in specs.items()
+                         if k.startswith(("k", "v"))}}
 
 
 def _routes(fn) -> list:
@@ -971,6 +1054,29 @@ def test_moe_local_routing_matches_the_reference(jx):
 
 
 # ---------------------------------------------------------------------------
+# the sharded prefill and decode step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_sharded_prefill_and_decode_match_the_unsharded_port(ranks, case):
+    for r, res in enumerate(ranks["rank"]):
+        got = res[f"serve_{case}"]
+        assert got["shapes"], (r, case)
+        worst = max(got["errs"], key=got["errs"].get)
+        assert got["errs"][worst] <= SERVE_BOUND, (r, case, worst, got)
+
+
+def test_batch_one_decode_cuts_the_kv_rows_over_data(ranks):
+    """``seq``'s batch of 1 does not split over 'data': its KV rows do,
+    and each rank attends over its own (the log-sum-exp merge)."""
+    for res in ranks["rank"]:
+        specs = res["serve_seq"]["kv_specs"]
+        assert specs["k"] == (None, None, ("data",), "model", None), specs
+    dense = ranks["rank"][0]["serve_dense"]["kv_specs"]
+    assert dense["k"] == (None, ("data",), None, "model", None), dense
+
+
+# ---------------------------------------------------------------------------
 # the card: world-size-1 identities over NCCL
 # ---------------------------------------------------------------------------
 
@@ -1026,6 +1132,39 @@ def test_sharded_step_on_one_rank_is_the_unsharded_step(nccl):
         assert torch.equal(m["loss"], sm["loss"])
     for a, b in zip(tree_leaves(plain), tree_leaves(sharded)):
         assert torch.equal(a.detach(), b.to_local())
+
+
+@pytest.mark.cuda
+def test_sharded_prefill_and_decode_on_one_rank_are_the_unsharded_ones(nccl):
+    from repro_torch.configs import dummy_inputs, get_config
+    from repro_torch.launch import make_test_mesh
+    from repro_torch.launch.serve import make_prefill, make_serve_step
+    from repro_torch.launch.sharding import (named_shardings, param_pspecs,
+                                             shard_tree)
+    from repro_torch.models import lm
+    mesh = make_test_mesh((1, 1))
+    for arch in ("qwen1.5-0.5b", "rwkv6-3b", "zamba2-7b",
+                 "llama-3.2-vision-11b"):
+        cfg = get_config(arch).reduced()
+        params = lm.init(0, cfg)
+        sharded = shard_tree(params, named_shardings(
+            param_pspecs(params, mesh), mesh))
+        ins = dummy_inputs(cfg, "prefill", 2, SERVE_PROMPT)
+        img = ins.get("image_embeds")
+        want, cache = lm.prefill(params, cfg, ins["ids"], image_embeds=img,
+                                 max_seq=SERVE_CAPACITY)
+        got, shards = make_prefill(cfg, mesh=mesh)(
+            sharded, ins["ids"], image_embeds=img, max_seq=SERVE_CAPACITY)
+        assert torch.equal(want, got.to_local()), arch
+        step = make_serve_step(cfg, mesh=mesh)
+        pos = torch.tensor(lm.kv_rows(cfg, SERVE_PROMPT), dtype=torch.int32,
+                           device="cuda")
+        want, _ = lm.decode_step(params, cfg, cache, ids1=ins["ids"][:, :1],
+                                 pos=pos)
+        got, _ = step(sharded, shards, ins["ids"][:, :1], pos)
+        assert torch.equal(want, got.to_local()), arch
+        for k in cache:
+            assert torch.equal(cache[k], shards[k].to_local()), (arch, k)
 
 
 if __name__ == "__main__":
