@@ -211,8 +211,12 @@ and batch size. Phases, each printing one JSON line:
    ``PointCloudServable(mesh=make_replica_mesh(1))``: rows bit for bit
    ``mesh=None``'s on a fresh model, the launch counters equal and held to
    the captures and plan builds (``PATHS["model2"]["serve_replica"]``).
-   (d) One layer of qwen1.5-4b at published width (bf16) at tp 16 as 16
-   rank slices through the sharded step's tensor-parallel Functions
+   (d) One published layer each (``DIST_EMU_LAYERS``: qwen1.5-4b's,
+   llama4-scout's MoE layer with 4 GB of experts, a llama-3.2-vision
+   crossed layer, a zamba2-7b Mamba2 layer and its shared block, an
+   rwkv6-3b layer; the state-space and crossed ones in float32) at tp 16
+   as 16 rank
+   slices through the sharded step's tensor-parallel Functions
    (``launch/tp.py``), forward and backward, against the unsplit layer:
    the output and every gradient within ``DIST_EMU_BOUND``. (e) (a)'s
    qwen1.5-4b at tp 1 through the sharded prefill and decode step
@@ -232,19 +236,23 @@ and batch size. Phases, each printing one JSON line:
 13. lm_train: LM training (``repro_torch.launch.train``; no hand kernel
    but P4, the embedding's and the MoE dispatch's gradient). (a)
    ``run_training`` on qwen1.5-0.5b at published width and depth, bf16,
-   float32 moments, the port's weights from seed 0, 2 x 4096 tokens of one
-   repeated ``TokenStream`` batch (seed 0), 20 steps: two eager warm-ups,
-   then one CUDA graph a step; every loss finite, the last below step 0's;
-   two runs bit for bit (every metric, every leaf); 7 eager steps bit for
-   bit the first 7 through ``make_train_step``; P4 counted 3 times in a
-   run (its warm-ups and the capture: 1 a step) and once in a replay
-   (``torch.profiler``). (b) qwen1.5-0.5b at published width, 2 of 24
-   layers, float32, 2 x 256: the loss within 1e-6 relative and every
-   gradient leaf within 1e-4 x max|g| of the port's CPU run. (c) every
+   float32 moments, the published ``cfg.remat`` (each layer checkpointed
+   and recomputed in the backward), the port's weights from seed 0, 2 x
+   4096 tokens of one repeated ``TokenStream`` batch (seed 0), 4 steps:
+   two eager warm-ups, then one CUDA graph a step; every loss finite, the
+   last below step 0's; two runs bit for bit (every metric, every leaf); 4
+   eager steps bit for bit the first 4 through ``make_train_step``; P4
+   counted 3 times in a run (its warm-ups and the capture: 1 a step) and
+   once in a replay (``torch.profiler``); 2 eager steps without remat,
+   their losses bit for bit the run's, their peak memory and step times
+   printed beside the run's and (a)'s eager steps with remat. (b)
+   qwen1.5-0.5b at published width, 2 of 24 layers, float32, 2 x 256: the
+   loss within 1e-6 relative and every gradient leaf within 1e-4 x max|g|
+   of the port's CPU run. (c) every
    config at ``reduced()``, float32: the same against the CPU (moe's
    expert choices equal; rwkv6, at its float32 conditioning's limit, held
    to the float64 gradient instead), and 4 captured steps bit for bit the
-   eager ones, twice. (d) bf16, 2 x 1024: rwkv6-3b at 4 of 32 layers,
+   eager ones, twice. (d) bf16, 2 x 1024: rwkv6-3b at 2 of 32 layers,
    zamba2-7b at one ``attn_interval`` group (6 Mamba2 layers and the
    shared block), llama4-scout at 1 of 48 (bf16 moments: ``LM_TRAIN_WIDE``
    says why): 4 captured steps bit for bit the eager ones, twice, P4 per
@@ -3780,10 +3788,15 @@ def phase_lm_families(smi: str) -> dict:
 #: port's weights from SEED, one repeated ``TokenStream`` batch (seed SEED)
 LM_TRAIN_BATCH = 2
 LM_TRAIN_SEQ = 4096
-LM_TRAIN_STEPS = 20
+LM_TRAIN_STEPS = 4
 #: steps held bit for bit, eager against captured: the capture's two eager
-#: warm-up steps and 5 replays
-LM_TRAIN_COMPARE = 7
+#: warm-up steps, the capture and a replay
+LM_TRAIN_COMPARE = 4
+#: eager steps of (a)'s config without ``cfg.remat`` (the published config
+#: sets it: each layer checkpointed), from the same seed: their losses bit
+#: for bit the run's (remat recomputes the same values), their peak memory
+#: and step times beside (a)'s eager steps with remat
+LM_TRAIN_NOREMAT = 2
 #: (b) gradients at published width against the CPU: qwen1.5-0.5b with
 #: 2 of 24 layers, float32, 2 x 256 tokens
 LM_TRAIN_GRAD_LAYERS = 2
@@ -3803,7 +3816,7 @@ LM_TRAIN_REDUCED_STEPS = 4
 #: process of their own (54.5 GB allocated at the peak, 83.6 GB reserved,
 #: on an H100 80GB HBM3 at 700 W) but ran out of memory here, the cache
 #: holding 17.6-17.8 GiB in free blocks too small for a 2.5-5 GiB request
-LM_TRAIN_WIDE = (("rwkv6-3b", {"n_layers": 4}, "float32", 676_331_520),
+LM_TRAIN_WIDE = (("rwkv6-3b", {"n_layers": 2}, "float32", 505_937_920),
                  ("zamba2-7b", {"n_layers": 6}, "float32", 902_654_976),
                  ("llama4-scout-17b-a16e", {"n_layers": 1}, "bfloat16",
                   4_145_233_920))
@@ -3852,11 +3865,14 @@ def _host_stats(ms) -> dict:
 
 
 def _lm_train_full(smi: str) -> dict:
-    """(a): ``run_training`` twice from the port's seed-0 weights,
+    """(a): ``run_training`` twice from the port's seed-0 weights, with
+    the published ``cfg.remat`` (each layer checkpointed),
     :data:`LM_TRAIN_STEPS` steps on one repeated batch, the launch counters
     reset just before each run and read just after; then
     :data:`LM_TRAIN_COMPARE` eager steps against as many through
-    ``make_train_step``; one replay profiled."""
+    ``make_train_step``; one replay profiled; :data:`LM_TRAIN_NOREMAT`
+    captured steps without remat."""
+    import dataclasses
     import tempfile
 
     from repro_torch.configs import get_config
@@ -3937,6 +3953,17 @@ def _lm_train_full(smi: str) -> dict:
     p4 = _p4_count(replay)
     check(p4 == per_step, f"lm_train: a replayed step launched P4 {p4} "
                           f"times, expected {per_step}")
+    check(cfg.remat, "lm_train: the published config does not set remat")
+    torch.cuda.reset_peak_memory_stats()
+    k = LM_TRAIN_NOREMAT
+    nr_loss, nr_state, nr_step, nr_ms = _train_steps(
+        dataclasses.replace(cfg, remat=False), opt, batch, k, False)
+    nr_peak = torch.cuda.max_memory_allocated() / 1e9
+    del nr_state, nr_step
+    torch.cuda.empty_cache()
+    check(nr_loss == losses[:k], f"lm_train: without remat the losses "
+                                 f"{nr_loss} differ from the run's "
+                                 f"{losses[:k]}")
     cap_ms = a["ms"][warm + 1:]          # the replays
     device = sum(r["device_ms"] for r in replay)
     return {"arch": LM_ARCH, "n_params": cfg.n_params(), "dtype": cfg.dtype,
@@ -3952,6 +3979,12 @@ def _lm_train_full(smi: str) -> dict:
             "eager": _host_stats(e_ms[warm:]),
             "p4_launches_in_run": a["p4"],
             "max_memory_allocated_gb": a["peak_gb"],
+            "remat": {"max_memory_allocated_gb": a["peak_gb"],
+                      "captured_step_ms_median": statistics.median(cap_ms),
+                      "eager_step_ms": e_ms,
+                      "without": {"steps": k, "losses_bitwise_equal": k,
+                                  "max_memory_allocated_gb": nr_peak,
+                                  "eager_step_ms": nr_ms}},
             "stragglers": a["stragglers"],
             "bound": lm_train_flops(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)}
 
@@ -4199,17 +4232,24 @@ def _p4_lm_row(smi: str) -> dict:
             "max_segment": int((starts[1:] - starts[:-1]).max())}
 
 
-def phase_lm_train(smi: str) -> dict:
+def phase_lm_train(smi: str, dryrun: dict | None = None) -> dict:
     """LM training on the card (module docstring, 12): (a) the full-width
-    run, (b) its gradients against the CPU, (c) every reduced config, (d)
-    the wide families; P4 at the embedding's gradient. Returns P4's
-    launches in (a)'s run and in one replay, and its row there."""
+    run, P4 at the embedding's gradient, (b) its gradients against the CPU,
+    (c) every reduced config, (d) the wide families. Once the parts whose
+    host clock or event times are printed have run ((a) and P4's), phase
+    ``dryrun``'s subprocesses start where ``dryrun`` is given
+    (:func:`start_dryrun`, their handles put in it): (b) to (d) print
+    device-bound replay times only.
+    Returns P4's launches in (a)'s run and in one replay, and its row
+    there."""
     t0 = time.perf_counter()
     res = {}
-    for part, fn in (("full", _lm_train_full), ("grads_vs_cpu",
-                                                _lm_train_grads),
-                     ("reduced", _lm_train_reduced), ("wide", _lm_train_wide),
-                     ("p4_embedding", _p4_lm_row)):
+    for part, fn in (("full", _lm_train_full), ("p4_embedding", _p4_lm_row),
+                     ("grads_vs_cpu", _lm_train_grads),
+                     ("reduced", _lm_train_reduced),
+                     ("wide", _lm_train_wide)):
+        if part == "grads_vs_cpu" and dryrun is not None:
+            dryrun.update(start_dryrun())
         t1 = time.perf_counter()
         res[part] = fn(smi)
         emit({"phase": "lm_train", "part": part, "nvidia_smi": smi,
@@ -4250,7 +4290,7 @@ DIST_TRAIN_SEQ = 1024
 DIST_TRAIN_STEPS = 3
 #: further steps of each, timed once the comparison is done (the captured
 #: step's replays, the sharded step and the unsharded step run eagerly)
-DIST_TRAIN_TIMED = 10
+DIST_TRAIN_TIMED = 4
 #: compressed_psum at world size 1 on a (rows, cols) float32 gradient;
 #: pipeline_forward on 1 stage: M microbatches of (mb, d), stage tanh(h @ w)
 DIST_PSUM_SHAPE = (4096, 1024)
@@ -4273,6 +4313,28 @@ DIST_EMU_BATCH, DIST_EMU_SEQ = 2, 1024
 #: partial products summed over 16 ranks round once per rank where the
 #: unsplit GEMM rounds once
 DIST_EMU_BOUND = DIST_TP_BOUND
+#: (d)'s published layers, (arch, layer, dtype, ``n_params()``): qwen1.5-4b
+#: (attention and MLP, 20 heads padded to 32), llama4-scout's MoE layer
+#: (attention, 40 heads padded to 48 over 8 KV heads repeated to 16, and
+#: 4 GB of experts cut on f), a llama-3.2-vision crossed layer (attention,
+#: cross-attention over 2048 image tokens, 8 KV heads repeated to 16, and
+#: MLP), a zamba2-7b Mamba2 layer (112 heads, 7 a rank) and its shared
+#: block, an rwkv6-3b layer (40 heads padded to 48). The state-space
+#: layers run in float32: in bf16 their scans are at their conditioning's
+#: limit (phase ``lm_families``: rwkv6 35%, zamba2 8% of ``forward``'s own
+#: noise apart), so a split's rounding would not tell a fault. So does the
+#: crossed layer: in bf16 its gate's gradient, one bf16 scalar summed over
+#: 2 x 1024 x 4096 terms that mostly cancel, landed 7 of its ulps (2.78%)
+#: from the unsplit layer's, the other leaves within 1.41% (H100 80GB HBM3,
+#: 700 W)
+DIST_EMU_LAYERS = (("qwen1.5-4b", "block", "bfloat16", 3_949_854_720),
+                   ("llama4-scout-17b-a16e", "block", "bfloat16",
+                    101_729_566_720),
+                   ("llama-3.2-vision-11b", "crossed", "float32",
+                    10_127_147_008),
+                   ("zamba2-7b", "mamba", "float32", 6_749_630_976),
+                   ("zamba2-7b", "shared", "bfloat16", 6_749_630_976),
+                   ("rwkv6-3b", "rwkv", "float32", 3_061_841_920))
 #: (c) replica fan-out: model2 'reram-fused' behind one replica, batches
 #: of these sizes (8 clouds of 1024 points, 3 of 700: run replicated when
 #: they do not divide the replica count)
@@ -4611,68 +4673,109 @@ def _host_and_device(fn, top: int = 12) -> dict:
                            for e in device[:top]]}
 
 
-def _dist_tp_split() -> dict:
-    """(d): one layer of qwen1.5-4b at published width (bf16, seed-0
-    weights and biases, :data:`DIST_EMU_BATCH` x :data:`DIST_EMU_SEQ`
-    tokens) at tp 16 as 16 rank slices (``TensorParallel(16, range(16))``:
-    the sharded step's column- and row-parallel Functions, the ranks'
-    partials summed in rank order), forward and backward, against the
-    unsplit layer at the same head layout: the output and every gradient
-    (the published leaves' and the input's) within :data:`DIST_EMU_BOUND`
-    of each one's largest value; the times of both."""
+def _emu_layer(arch: str, kind: str, dtype: str, gen):
+    """One seeded layer of ``arch`` at published width and tp 16 for (d):
+    ``(cfg, the layer's params, its sub-blocks that split, the call on an
+    input x)``. qwen1.5-4b's QKV biases drawn from the seed (``init``'s are
+    zero), vlm's gate set to :data:`LM_GATE_X` (0 would hide the
+    cross-attention), the image embeddings drawn from the seed."""
     import dataclasses
 
     from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = dataclasses.replace(get_config(arch), tp=DIST_TP, dtype=dtype)
+    pos = torch.arange(DIST_EMU_SEQ, dtype=torch.int32, device="cuda")
+    if kind == "mamba":
+        return (cfg, lm.mamba_block_init(gen, cfg), ("mamba",),
+                lambda p, x: lm._mamba_layer(p, cfg, x)[0])
+    if kind == "rwkv":
+        return (cfg, lm.rwkv_block_init(gen, cfg), ("time", "channel"),
+                lambda p, x: lm._rwkv_layer(p, cfg, x)[0])
+    blk = lm.block_init(gen, cfg, cross=kind == "crossed")
+    if cfg.qkv_bias:
+        for name in "qkv":
+            b = blk["attn"][name]["b"]
+            b.copy_(0.02 * torch.randn(b.shape, generator=gen, device="cuda"))
+    if kind != "crossed":
+        return (cfg, blk, tuple(s for s in lm.TP_SUBS if s in blk),
+                lambda p, x: lm.block_apply(p, cfg, x, pos)[0])
+    blk["gate_x"].fill_(LM_GATE_X)
+    img = torch.randn((DIST_EMU_BATCH, cfg.n_image_tokens, cfg.d_image),
+                      generator=gen, device="cuda").to(cfg.jdtype)
+
+    def crossed(p, x):
+        kv = lm.project_image_kv(p["xattn"], cfg, img)
+        return lm.block_apply(p, cfg, x, pos, img_kv=kv)[0]
+    return cfg, blk, ("attn", "xattn", "mlp"), crossed
+
+
+def _dist_tp_split() -> dict:
+    """(d): one layer of each of :data:`DIST_EMU_LAYERS` at published
+    width (seed-0 weights, :data:`DIST_EMU_BATCH` x :data:`DIST_EMU_SEQ`
+    tokens) at tp 16 as 16 rank slices (``TensorParallel(16, range(16))``:
+    the sharded step's column- and row-parallel Functions and all-to-all
+    re-cuts' layouts, the ranks' partials summed in rank order), forward
+    and backward, against the unsplit layer at the same head layout: the
+    output and every gradient (the published leaves' and the input's)
+    within :data:`DIST_EMU_BOUND` of each one's largest value; the times
+    of both."""
     from repro_torch.launch.tp import TensorParallel
     from repro_torch.launch.train import _leaf_paths
     from repro_torch.models import lm
     from repro_torch.optim import tree_leaves, tree_map
-    cfg = dataclasses.replace(get_config(DIST_ARCH), tp=DIST_TP)
-    check(cfg.n_params() == DIST_PARAMS and cfg.dtype == "bfloat16"
-          and cfg.qkv_bias, "distributed: the config is not the published "
-                            "qwen1.5-4b")
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    blk = lm.block_init(gen, cfg)
-    for name in "qkv":
-        b = blk["attn"][name]["b"]
-        b.copy_(0.02 * torch.randn(b.shape, generator=gen, device="cuda"))
-    blk = tree_map(lambda t: t.requires_grad_(), blk)
-    x = torch.randn((DIST_EMU_BATCH, DIST_EMU_SEQ, cfg.d_model),
-                    generator=gen, device="cuda").to(cfg.jdtype)
-    x.requires_grad_()
-    pos = torch.arange(DIST_EMU_SEQ, dtype=torch.int32, device="cuda")
-    leaves = tree_leaves(blk) + [x]
-    g = torch.randn(x.shape, generator=gen, device="cuda").to(cfg.jdtype)
     tp = TensorParallel(DIST_TP, range(DIST_TP))
-    out, ms = {}, {}
-    for name, split in (("unsplit", False), ("tp16", True)):
-        def call():
-            p = lm.tp_block_params(blk, cfg, tp) if split else blk
-            y, _ = lm.block_apply(p, cfg, x, pos)
-            return y, torch.autograd.grad(y, leaves, g)
-        out[name] = call()
-        ms[name] = _wall_ms(call, n=3)
-    (y0, g0), (y1, g1) = out["unsplit"], out["tp16"]
+    rows = {}
+    for arch, kind, dtype, n_params in DIST_EMU_LAYERS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        cfg, blk, subs, call_layer = _emu_layer(arch, kind, dtype, gen)
+        check(cfg.n_params() == n_params,
+              f"distributed: {arch} is not the published config")
+        blk = tree_map(lambda t: t.requires_grad_(), blk)
+        x = torch.randn((DIST_EMU_BATCH, DIST_EMU_SEQ, cfg.d_model),
+                        generator=gen, device="cuda").to(cfg.jdtype)
+        x.requires_grad_()
+        leaves = tree_leaves(blk) + [x]
+        g = torch.randn(x.shape, generator=gen, device="cuda").to(cfg.jdtype)
+        out, ms = {}, {}
+        for name, split in (("unsplit", False), ("tp16", True)):
+            def call():
+                p = (dict(blk, **{s: lm.tp_sub_params(blk[s], cfg, tp, s)
+                                  for s in subs}) if split else blk)
+                y = call_layer(p, x)
+                return y, torch.autograd.grad(y, leaves, g,
+                                              materialize_grads=True)
+            out[name] = call()
+            ms[name] = _wall_ms(call, n=2)
+        (y0, g0), (y1, g1) = out.pop("unsplit"), out.pop("tp16")
 
-    def rel(a, b):
-        a, b = a.detach().float(), b.detach().float()
-        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
-    errs = {"output": rel(y1, y0)}
-    keys = [f"grad/{k}" for k in _leaf_paths(blk)] + ["grad/x"]
-    errs.update({k: rel(a, b) for k, a, b in zip(keys, g1, g0)})
-    worst = max(errs, key=errs.get)
-    check(errs[worst] <= DIST_EMU_BOUND,
-          f"distributed: tp 16 split {worst} off by {errs[worst]:.4f} of its "
-          f"largest value (bound {DIST_EMU_BOUND})")
-    eff, eff_kv, _, _ = cfg.head_layout()
-    return {"arch": DIST_ARCH, "tp": DIST_TP, "heads": [cfg.n_heads, eff],
-            "kv_heads": [cfg.n_kv_heads, eff_kv], "d_ff": cfg.d_ff,
-            "batch": DIST_EMU_BATCH, "seq": DIST_EMU_SEQ,
+        def rel(a, b):
+            a, b = a.detach().float(), b.detach().float()
+            return float((a - b).abs().max() / b.abs().max().clamp_min(
+                1e-30))
+        errs = {"output": rel(y1, y0)}
+        keys = [f"grad/{k}" for k in _leaf_paths(blk)] + ["grad/x"]
+        errs.update({k: rel(a, b) for k, a, b in zip(keys, g1, g0)})
+        del y0, g0, y1, g1, blk, x, g
+        worst = max(errs, key=errs.get)
+        check(errs[worst] <= DIST_EMU_BOUND,
+              f"distributed: {arch} {kind} tp 16 split {worst} off by "
+              f"{errs[worst]:.4f} of its largest value (bound "
+              f"{DIST_EMU_BOUND})")
+        eff, eff_kv, _, _ = cfg.head_layout()
+        rows[f"{arch}/{kind}"] = {
+            "arch": arch, "layer": kind, "sub_blocks": list(subs),
+            "dtype": dtype, "tp": DIST_TP,
+            "heads": [cfg.n_heads, eff], "kv_heads": [cfg.n_kv_heads,
+                                                      eff_kv],
+            "d_ff": cfg.d_ff, "batch": DIST_EMU_BATCH, "seq": DIST_EMU_SEQ,
             "bound": DIST_EMU_BOUND, "worst": [worst, errs[worst]],
             "err_over_max": errs,
             **{f"{k}_fwd_bwd_ms_median": statistics.median(v)
                for k, v in ms.items()},
             "fwd_bwd_ms": ms}
+    return rows
 
 
 def _dist_replicas(params2, cfg2) -> dict:
@@ -4801,8 +4904,8 @@ print(json.dumps(rec))
 
 def start_dryrun() -> dict:
     """Phase ``dryrun``'s host work, started in subprocesses that run
-    together on the CPU (after every timed phase: they would load the host
-    that the eager steps' times depend on): the (1, 1) step of
+    together on the CPU (after every host-clock time is taken: they would
+    load the host that the eager steps' times depend on): the (1, 1) step of
     :data:`DRYRUN_STEP` counted on meta, and each of
     :data:`DRYRUN_CELLS` on the 'single' production mesh through
     ``python -m repro_torch.launch.dryrun``."""
@@ -5133,12 +5236,13 @@ def main(argv=None) -> int:
                                                 cfgs["model2"], smi)
     phase_lm(smi)
     phase_lm_families(smi)
-    lm_train = phase_lm_train(smi)
-    dryrun = start_dryrun()
+    dryrun = {}
     try:
+        lm_train = phase_lm_train(smi, dryrun)
         phase_dryrun(dryrun, sharded, smi)
     finally:
-        stop_dryrun(dryrun)
+        if dryrun:
+            stop_dryrun(dryrun)
     check(set(SERVE_KERNELS) <= {k["name"] for k in kernels},
           "a served kernel has no row")
     for k in kernels:

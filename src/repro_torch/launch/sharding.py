@@ -28,10 +28,14 @@ entry names mesh dims major to minor, as JAX's does); a
 is no GSPMD: a leaf is stored as its local shard, and code that computes on
 it gathers it first. :func:`gather_plan` says, for the sharded train step
 (``launch/train.py``), which mesh dims of each parameter leaf are gathered
-where its block uses it and which the block computes on: the attention,
-MLP, embedding and head of the dense, moe, audio and vlm families, and
-vlm's ``img_proj``, on their 'model' shards when all their weight leaves
-are 'model'-sharded, everything else whole.
+where its block uses it and which the block computes on: attention and
+the MLP, the MoE experts, vlm's cross-attention and ``img_proj``, the
+hybrid's Mamba2 layers and shared block, RWKV6's time and channel mix,
+the embedding and head, on their 'model' shards when all their weight
+leaves are 'model'-sharded (a weight the rules shard on another dim than
+the one a rank's part cuts, the MoE experts' and RWKV6's channel-mix
+``down``-like leaves, is re-cut by one all-to-all), everything else
+whole.
 """
 from __future__ import annotations
 
@@ -310,10 +314,14 @@ class LeafPlan:
     ranks' gradients (a reduce-scatter: the batch's parts, or 'model' ranks
     that each read part of the leaf), else it keeps the rank's slice (the
     ranks computed the same). ``use``: ``"whole"``; ``"shard"`` (the block
-    computes on the rank's 'model' shard); ``("heads", "q"|"kv", dim)``
-    (the rank's heads of the TP head layout, arranged from the whole leaf);
-    or ``("arranged", proj, leaf)`` (an attention leaf of a block that
-    computes whole, in a TP head layout that pads or repeats heads).
+    computes on the rank's 'model' shard); ``("recut", src, dst)`` (the
+    block computes on the rank's part of dim ``dst``, which 'model' shards
+    on ``src``: one all-to-all over 'model' after the gathers, its backward
+    the inverse); ``("heads", kind, dim)`` (the rank's part of the whole
+    leaf, ``lm.tp_heads``: heads of the TP head layout, RWKV6's or Mamba2's
+    heads, Mamba2's packed leaves); or ``("arranged", proj, leaf)`` (an
+    attention leaf of a block that computes whole, in a TP head layout that
+    pads or repeats heads).
     ``reduce``: the mesh dims over whose ranks the leaf's gradient is
     summed after the backward (the batch's parts where the leaf is
     replicated; 'model' where a replicated leaf is read in parts)."""
@@ -324,10 +332,10 @@ class LeafPlan:
 
 def check_head_layout(cfg, mesh) -> None:
     """Raise ``ValueError`` when the TP head layout's query or KV heads do
-    not split over the mesh's 'model' ranks (families of
-    ``lm.TP_FAMILIES``)."""
+    not split over the mesh's 'model' ranks (the families with attention;
+    RWKV6's and Mamba2's heads are padded to any 'model' size)."""
     tp = axis_sizes(mesh).get("model", 1)
-    if cfg.family not in lm.TP_FAMILIES or tp == 1:
+    if cfg.family == "ssm" or tp == 1:
         return
     eff, eff_kv, _, _ = cfg.head_layout()
     if eff % tp or eff_kv % tp:
@@ -341,21 +349,35 @@ def _mdims(leaf) -> tuple:
     return tuple(pl.dim if pl.is_shard() else None for pl in leaf.placements)
 
 
-def _tp_blocks(cfg, dims: dict, model: int) -> dict:
+#: the paths whose trees are blocks (their leading layer dims): the
+#: stacked layers and the hybrid's one shared block
+_BLOCKS = dict(lm.STACK_DIMS, shared_attn=0)
+
+
+def _cut(key: str, stack: int, dim: int, dims: dict, shapes: dict,
+         model: int, tp: int) -> bool:
+    """Whether the weight at ``key`` is 'model'-sharded so that a rank can
+    compute on its part along ``dim`` (of one layer's slice): sharded on
+    that dim, or on another and re-cut to it by an all-to-all (the dim a
+    multiple of the 'model' size)."""
+    d = dims[key][model]
+    if d is None:
+        return False
+    return d == stack + dim or shapes[key][stack + dim] % tp == 0
+
+
+def _tp_blocks(dims: dict, shapes: dict, model: int, tp: int) -> dict:
     """Per path, the sub-blocks that compute on 'model' shards: each one
-    whose weight leaves (``lm.TP_LEAVES``, ``lm.TP_WHOLE``) are all
-    'model'-sharded on the dim that a rank's part cuts (a leaf under the
-    rules' floor, or one whose dim does not divide, is whole, and so is its
-    block)."""
+    whose weight leaves (``lm.TP_LEAVES``' weights, ``lm.TP_WHOLE``) are all
+    'model'-sharded (:func:`_cut`; a leaf under the rules' floor, or one
+    whose dim does not divide, is whole, and so is its block)."""
     out = {}
-    if cfg.family not in lm.TP_FAMILIES:
-        return out
-    for top, stack in lm.STACK_DIMS.items():
+    for top, stack in _BLOCKS.items():
         subs = []
-        for sub in ("attn", "mlp"):
-            cut = [dims[f"{top}/{rest}"][model] == stack + dim
-                   for rest, (_, dim) in lm.TP_LEAVES.items()
-                   if rest.startswith(f"{sub}/") and rest.endswith("/w")
+        for sub in lm.TP_SUBS:
+            cut = [_cut(f"{top}/{rest}", stack, dim, dims, shapes, model, tp)
+                   for rest, (_, dim, weight) in lm.TP_LEAVES.items()
+                   if weight and rest.startswith(f"{sub}/")
                    and f"{top}/{rest}" in dims]
             if cut and all(cut):
                 subs.append(sub)
@@ -367,18 +389,21 @@ def _tp_blocks(cfg, dims: dict, model: int) -> dict:
     return out
 
 
-def _use(top: str, rest: str, blocks: dict, same: bool):
+def _use(cfg, top: str, rest: str, blocks: dict, same: bool, mdim, tp: int):
     """A leaf's :attr:`LeafPlan.use` (``rest``: its path under ``top``;
-    ``same``: the TP head layout is the published heads)."""
+    ``same``: the TP head layout is the published heads; ``mdim``: the dim
+    of one layer's slice that 'model' shards, or None)."""
     subs = blocks.get(top, ())
     if "" in subs:
         return "shard"
     sub, _, tail = rest.partition("/")
     role = lm.TP_LEAVES.get(rest)
     if role is not None and sub in subs:
-        kind, dim = role
-        if kind is None or (same and rest.endswith("/w")):
+        kind, dim, _ = role
+        if mdim == dim and lm.tp_aligned(cfg, tp, kind):
             return "shard"
+        if kind is None and mdim is not None:
+            return ("recut", mdim, dim)
         return ("heads", kind, dim)
     if not same and sub in ("attn", "xattn") and f"attn/{tail}" in (
             lm.TP_LEAVES):
@@ -396,20 +421,25 @@ def gather_plan(cfg, params, mesh, batch_dims) -> tuple:
     shard a leaf's last two dims) raises ``ValueError``."""
     names = list(mesh.mesh_dim_names)
     model = names.index("model") if "model" in names else None
-    dims = {}
+    tp = 1 if model is None else mesh.size(model)
+    dims, shapes = {}, {}
 
     def read(path, leaf):
         dims["/".join(path)] = _mdims(leaf)
+        shapes["/".join(path)] = tuple(leaf.shape)
     _tree_map(read, params)
-    blocks = ({} if model is None or mesh.size(model) == 1
-              else _tp_blocks(cfg, dims, model))
+    blocks = {} if tp == 1 else _tp_blocks(dims, shapes, model, tp)
     same = cfg.head_layout()[:2] == (cfg.n_heads, cfg.n_kv_heads)
     plans = {}
     for key, d in dims.items():
         top, rest = key.split("/", 1)
-        stack = lm.STACK_DIMS.get(top, 0)
-        use = _use(top, rest, blocks, same)
+        stack = _BLOCKS.get(top, 0)
+        mdim = None if model is None or d[model] is None else (
+            d[model] - stack)
+        use = _use(cfg, top, rest, blocks, same, mdim, tp)
         partial = isinstance(use, tuple) and use[0] == "heads"
+        local = use == "shard" or (isinstance(use, tuple)
+                                   and use[0] == "recut")
         gather, reduce = [], []
         for i in reversed(range(len(names))):
             summed = names[i] in batch_dims or (i == model and partial)
@@ -419,7 +449,7 @@ def gather_plan(cfg, params, mesh, batch_dims) -> tuple:
             elif d[i] < stack:
                 raise ValueError(f"{key}: mesh dim {names[i]!r} shards a "
                                  f"layer dim; the step gathers per layer")
-            elif not (i == model and use == "shard"):
+            elif not (i == model and local):
                 gather.append((i, d[i] - stack, summed))
         plans[key] = LeafPlan(tuple(gather), use, tuple(sorted(reduce)))
     return plans, blocks

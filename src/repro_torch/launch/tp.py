@@ -15,7 +15,10 @@ rank-local and replicated values:
   ranks' partial products, backward the gradient as each rank's copy;
 - :class:`_GatherOut` (a column-parallel output a replicated consumer
   reads): forward the ranks' columns joined, backward each rank's columns
-  of the gradient.
+  of the gradient;
+- :class:`_ReduceAll` (a sum over the ranks that each rank's own part
+  reads: Mamba2's gated norm over the whole ``d_inner``): forward the sum,
+  backward the sum of the ranks' gradients.
 
 A sum over ranks adds the process's ranks in rank order and then, with a
 process group, all-reduces over it; so one body serves NCCL ranks, gloo
@@ -25,11 +28,13 @@ ranks and the emulation (``chip_smoke.py``'s phase ``distributed``, and
 :class:`ParamShards` is what the sharded step hands the model
 (``lm.loss_fn(..., par=)``): each parameter leaf all-gathered where its
 block uses it (a stacked leaf one layer at a time) over the mesh dims that
-shard it, apart from 'model' where the block computes on the rank's shard;
-in the layout the block computes in (the rank's heads, columns, rows or
-vocabulary range on a leading rank axis of 1, the block's dict marked
-``"tp"``; an attention block that computes whole under a TP head layout
-that pads or repeats heads, in that layout, its dict marked
+shard it, apart from 'model' where the block computes on the rank's shard
+(or on its part of another dim, the shard re-cut by one all-to-all over
+'model' after the other gathers: the MoE experts' ``down``, RWKV6's
+channel-mix ``v``); in the layout the block computes in (the rank's heads,
+columns, rows or vocabulary range on a leading rank axis of 1, the block's
+dict marked ``"tp"``; an attention block that computes whole under a TP
+head layout that pads or repeats heads, in that layout, its dict marked
 ``"arranged"``). The gather's backward reduce-scatters the gradient onto
 the rank's shard, summing the ranks that computed on parts of it (the
 batch's parts, and 'model' ranks that read parts of a whole leaf), or
@@ -37,7 +42,10 @@ keeps the rank's slice where the ranks computed the same thing. No
 gathered tensor outlives its layer's forward: while the model runs, a
 tensor that autograd saves for the backward and that lies in a gathered
 (or arranged) tensor's storage is kept as the recipe that makes it again
-(saved-tensor hooks, ZeRO-3's re-gather). :class:`GatherStats` counts the
+(saved-tensor hooks, ZeRO-3's re-gather); a layer checkpointed under
+``cfg.remat`` saves nothing through them (the checkpoint's own hooks are
+the innermost), its gathers running again in its recompute instead.
+:class:`GatherStats` counts the
 bytes; with ``track_copies`` also those of the weights' copies (arranged,
 cast or sliced ones, :class:`_Copies`) that autograd keeps until the
 backward: the bf16 norm gains' float32 casts, say.
@@ -107,6 +115,20 @@ class TensorParallel:
         the gradient each rank's copy (:class:`_ReduceOut`)."""
         return _ReduceOut.apply(y, self)
 
+    def reduce_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The ranks' partials ``t`` ``(n, ...)`` summed over every rank,
+        the sum read by each rank's own part; the gradient the sum of the
+        ranks' (:class:`_ReduceAll`)."""
+        return _ReduceAll.apply(t, self)
+
+    def join(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' parts ``t`` ``(n, ...)`` joined along ``dim`` of a
+        part in rank order, over every rank: no gradient (a cache write)."""
+        out = torch.cat(list(t), dim=dim)
+        if self.group is not None:
+            out = _all_gather(out, self.group, self.tp, dim % out.ndim)
+        return out
+
     def gather_out(self, y: torch.Tensor) -> torch.Tensor:
         """The ranks' column blocks ``y`` ``(n, ..., c)`` joined along the
         last dim in rank order -> ``(..., tp·c)``; the gradient each rank's
@@ -151,6 +173,27 @@ class _ReduceOut(torch.autograd.Function):
         return grad.unsqueeze(0).expand(ctx.tp.n, *grad.shape), None
 
 
+class _ReduceAll(torch.autograd.Function):
+    """A sum over the ranks read by each rank's own computation: forward
+    the sum of the ranks' partials (an all-reduce over 'model'), backward
+    the gradients the ranks' parts sent it, summed (an all-reduce again;
+    in one process autograd has summed them already), as each rank's
+    copy."""
+
+    @staticmethod
+    def forward(ctx, t, tp):
+        ctx.tp = tp
+        return tp.reduce(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        tp = ctx.tp
+        if tp.group is not None:
+            grad = grad.contiguous()
+            dist.all_reduce(grad, group=tp.group)
+        return grad.unsqueeze(0).expand(tp.n, *grad.shape), None
+
+
 class _GatherOut(torch.autograd.Function):
     """Column-parallel output, gathered: forward the ranks' columns joined
     (an all-gather over 'model'), backward each rank's columns of the
@@ -186,6 +229,21 @@ def _all_gather(t: torch.Tensor, group, k: int, dim: int) -> torch.Tensor:
         dim, dim + 1)
 
 
+def _all_to_all(t: torch.Tensor, group, k: int, src: int,
+                dst: int) -> torch.Tensor:
+    """``t``, this rank's chunk of dim ``src`` over the ``k`` ranks of
+    ``group`` (whole along ``dst``), re-cut: whole along ``src`` (the
+    ranks' chunks in rank order), this rank's chunk of ``dst``. One
+    all-to-all; over one rank, a copy."""
+    if k == 1:
+        return torch.clone(t, memory_format=torch.contiguous_format)
+    send = t.unflatten(dst, (k, t.shape[dst] // k)).movedim(dst, 0
+                                                             ).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    return recv.movedim(0, src).flatten(src, src + 1)
+
+
 def _reduce_scatter(g: torch.Tensor, group, k: int, dim: int) -> torch.Tensor:
     """``g`` summed over the ``k`` ranks of ``group``; this rank's chunk of
     ``dim`` (over one rank, ``g``)."""
@@ -200,10 +258,12 @@ def _reduce_scatter(g: torch.Tensor, group, k: int, dim: int) -> torch.Tensor:
 
 def _gathered(local: torch.Tensor, steps: tuple, transform):
     """``local`` all-gathered per ``steps`` (each ``(group, size, coord,
-    dim, summed)``, minor mesh dims first), then ``transform`` ed."""
+    dim, summed, to)``, minor mesh dims first; ``to`` not None: an
+    all-to-all that re-cuts ``dim`` to ``to``), then ``transform`` ed."""
     t = local
-    for group, k, _, dim, _ in steps:
-        t = _all_gather(t, group, k, dim)
+    for group, k, _, dim, _, to in steps:
+        t = (_all_gather(t, group, k, dim) if to is None
+             else _all_to_all(t, group, k, dim, to))
     return t if transform is None else transform(t)
 
 
@@ -212,14 +272,17 @@ class _Gather(torch.autograd.Function):
     tensor. Backward: through ``transform`` (linear: its vector-Jacobian
     product read off a zero leaf of the gathered shape), then per step,
     major mesh dims first, a reduce-scatter where the step's ranks' gradients
-    sum and the rank's slice where they are copies."""
+    sum, the rank's slice where they are copies, and the inverse all-to-all
+    of a re-cut."""
 
     @staticmethod
     def forward(ctx, local, steps, transform):
         ctx.steps, ctx.transform = steps, transform
         ctx.shape = list(local.shape)
-        for _, k, _, dim, _ in steps:
+        for _, k, _, dim, _, to in steps:
             ctx.shape[dim] *= k
+            if to is not None:
+                ctx.shape[to] //= k
         return _gathered(local, steps, transform)
 
     @staticmethod
@@ -230,8 +293,10 @@ class _Gather(torch.autograd.Function):
                                    ).expand(ctx.shape).requires_grad_()
                 (grad,) = torch.autograd.grad(ctx.transform(zero), zero,
                                               grad)
-        for group, k, coord, dim, summed in reversed(ctx.steps):
-            if summed:
+        for group, k, coord, dim, summed, to in reversed(ctx.steps):
+            if to is not None:
+                grad = _all_to_all(grad, group, k, to, dim)
+            elif summed:
                 grad = _reduce_scatter(grad, group, k, dim)
             else:
                 size = grad.shape[dim] // k
@@ -444,10 +509,8 @@ class EmulatedTP:
             return {"w": self.tp.split(tree["w"], 0 if path == "embed"
                                        else 1), "tp": self.tp}
         out = dict(tree)
-        if "attn" in subs:
-            out["attn"] = lm.tp_attn_params(tree["attn"], self.cfg, self.tp)
-        if "mlp" in subs:
-            out["mlp"] = lm.tp_mlp_params(tree["mlp"], self.tp)
+        for sub in subs:
+            out[sub] = lm.tp_sub_params(tree[sub], self.cfg, self.tp, sub)
         return out
 
 
@@ -469,10 +532,18 @@ class ParamShards:
         self.cache = cache
         coord = mesh.get_coordinate()
 
-        def steps(dims):
-            return tuple((mesh.get_group(i), mesh.size(i), coord[i], dim,
-                          summed) for i, dim, summed in dims)
-        self._steps = {k: steps(p.gather) for k, p in plans.items()}
+        def steps(plan):
+            out = tuple((mesh.get_group(i), mesh.size(i), coord[i], dim,
+                         summed, None) for i, dim, summed in plan.gather)
+            if isinstance(plan.use, tuple) and plan.use[0] == "recut":
+                # the rank's 'model' cut moved from one dim to another by
+                # an all-to-all, after the other dims' gathers
+                i = mesh.mesh_dim_names.index("model")
+                _, src, dst = plan.use
+                out += ((mesh.get_group(i), mesh.size(i), coord[i], src,
+                         False, dst),)
+            return out
+        self._steps = {k: steps(p) for k, p in plans.items()}
         # the attention dicts whose leaves come arranged in the head layout
         self._arranged = {k.rsplit("/", 2)[0] for k, p in plans.items()
                           if p.use[0] == "arranged"}
@@ -521,7 +592,7 @@ class ParamShards:
         from repro_torch.models import lm
         if use == "whole":
             return None
-        if use == "shard":
+        if use == "shard" or use[0] == "recut":
             return lambda w: w.unsqueeze(0)
         if use[0] == "arranged":
             _, proj, leaf = use
@@ -647,7 +718,7 @@ def batch_parts(cfg, mesh, split: bool) -> tuple:
         for i in batch_dims:
             index = index * mesh.size(i) + coord[i]
         span = TokenSpan(tuple((mesh.get_group(i), mesh.size(i), coord[i], 0,
-                                True) for i in reversed(batch_dims)),
+                                True, None) for i in reversed(batch_dims)),
                          index, parts)
     else:
         lcfg = dataclasses.replace(cfg, dp_shards=max(1, groups // parts))

@@ -25,17 +25,19 @@ says where): each parameter leaf all-gathered where its block uses it, a
 stacked leaf one layer at a time (ZeRO-3: the gathered weights are
 gathered again for the backward, never kept), over the mesh dims that
 shard it except 'model' where the block computes on the rank's shards.
-On a mesh with 'model' > 1 the dense, moe, audio and vlm families'
-attention (the rank's heads), MLP (d_ff columns and rows), embedding and
-head and cross-entropy (the rank's vocabulary range) and vlm's
-``img_proj`` (columns) compute tensor-parallel where all of their weight
-leaves are 'model'-sharded; everything else computes whole on every rank:
-the ssm and hybrid families, the vlm cross-attention, the MoE experts and
-router, and every leaf under the rules' 1M-element floor (all of them at
-``reduced()``). MoE routing groups that split over the batch's parts are
-routed by the rank that holds them; a group that spans ranks is routed on
-every rank over the batch's gathered tokens, each rank keeping its own
-rows. The gathers' backward reduce-scatters the gradients onto the
+On a mesh with 'model' > 1 attention (the rank's heads), the MLP (d_ff
+columns and rows), the MoE experts (f), vlm's cross-attention (heads),
+the hybrid's Mamba2 layers and shared block, RWKV6's time mix (heads) and
+channel mix (d_ff), the embedding, head and cross-entropy (the rank's
+vocabulary range) and vlm's ``img_proj`` (columns) compute
+tensor-parallel where all of their weight leaves are 'model'-sharded;
+everything else computes whole on every rank: the MoE router, and every
+block with a leaf under the rules' 1M-element floor (all of them at
+``reduced()``). With ``cfg.remat`` each checkpointed layer's gathers run
+again in its recompute, which serves the backward: no re-gather. MoE
+routing groups that split over the batch's parts are routed by the rank
+that holds them; a group that spans ranks is routed on every rank over
+the batch's gathered tokens, each rank keeping its own rows. The gathers' backward reduce-scatters the gradients onto the
 shards (the sum over the batch's parts), a leaf replicated on a batch dim
 is all-reduced there, the sum becomes the mean over the global batch, and
 AdamW updates the shards, clipping by the global norm summed over the

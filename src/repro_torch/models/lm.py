@@ -54,19 +54,26 @@ at a time), on the rank's shards. A block dict marked ``"tp"`` (a
 its weights over 'model': attention on the ranks' heads of the TP head
 layout (q, k and v column-parallel, each rank's attention unchanged on its
 heads, o row-parallel; :func:`tp_heads` arranges a whole leaf into them),
-the MLP's gate and up column-parallel and down row-parallel, the embedding
-looked up on each rank's vocabulary range and the logits and cross-entropy
-kept vocabulary-sharded (the reference's iota compare, split over the
-ranks), vlm's ``img_proj`` column-parallel with its columns gathered. An
-attention dict marked ``"arranged"`` comes in the TP head layout already
-(the gather arranged it, :func:`arrange_leaf`, so that no arranged copy
-is kept for the backward).
+the MLP's gate and up column-parallel and down row-parallel, the MoE
+experts on the ranks' part of ``f`` (``models/moe.py``), vlm's
+cross-attention on the ranks' heads (q from the residual, k and v from the
+image, o row-parallel), RWKV6's time mix on the ranks' heads and its
+channel mix on their part of ``d_ff`` (``models/rwkv.py``), Mamba2 on the
+ranks' heads (``models/ssm.py``), the embedding looked up on each rank's
+vocabulary range and the logits and cross-entropy kept
+vocabulary-sharded (the reference's iota compare, split over the ranks),
+vlm's ``img_proj`` column-parallel with its columns gathered. RWKV6's and
+Mamba2's heads are padded at the end to a multiple of the 'model' size
+(:func:`pad_perm`; rwkv6-3b's 40 to 48 at tp 16): a pad head's weights
+are zero and its output exactly zero. An attention dict marked
+``"arranged"`` comes in the TP head layout already (the gather arranged
+it, :func:`arrange_leaf`, so that no arranged copy is kept for the
+backward).
 Where a block's weights are not all 'model'-sharded (under the rules'
-floor, and every leaf at ``reduced()``), and in the ssm and hybrid
-families, the vlm cross-attention and the MoE experts, the block computes
-whole on every rank; the reference's ``_shard_batch``
-changes where values sit, never what they are. :func:`tp_block_params`
-makes a whole block's TP form for a one-process emulation of the ranks.
+floor, and every leaf at ``reduced()``), the block computes whole on every
+rank; the reference's ``_shard_batch`` changes where values sit, never
+what they are. :func:`tp_block_params` makes a whole block's TP form for a
+one-process emulation of the ranks.
 
 ``prefill`` and ``decode_step`` take ``par`` too: the sharded prefill and
 decode step's forward-only ``ParamShards`` (``launch/serve.py``), each rank
@@ -76,10 +83,14 @@ sharded train step, the cache the rank's shards of it
 keys and values of the rank's KV heads, which its attention attends over
 (a block in TP form computes those heads; one computed whole takes them
 from its whole q, k and v and joins the heads over 'model' before o), the
-state-space states and conv rows gathered whole over 'model' for the step
-and the rank's part written back, vlm's image keys and values the rank's
-heads; where the batch does not split over the batch's mesh dims and the
-rows do, each rank holds its rows of the sequence, writes the new token
+state-space states the rank's heads where 'model' cuts them (a Mamba2 or
+RWKV6 block in TP form computes on them; else they are taken from the
+whole state and the ranks' new heads joined over 'model', :func:`_load`,
+:func:`_save`), the conv rows and token-shift rows gathered whole over
+'model' for the step and the rank's part written back, vlm's image keys
+and values the rank's heads; where the batch does not split over the
+batch's mesh dims and the rows do, each rank holds its rows of the
+sequence, writes the new token
 only where it holds its row, and the ranks' partial attentions are merged
 by log-sum-exp (``attention.decode_attention_split``). The logits are the
 rank's rows, whole over the vocabulary.
@@ -91,10 +102,12 @@ embedding's gradient, and the MoE dispatch's, go through P4
 (``kernels/gather_backward.py``), a fixed-order sum where autograd's
 backward of a row gather would scatter with atomics; attention's is the
 reference's recomputing backward (``attention._Flash``). So a training
-step on the card gives the same bits every run. ``cfg.remat`` (the
-reference's ``jax.checkpoint`` of each scanned layer) is not applied: it
-trades memory for recomputation and changes no value, and the port keeps
-every layer's activations for the backward.
+step on the card gives the same bits every run. ``cfg.remat`` (every
+published config's default) checkpoints the layers the reference's
+``jax.checkpoint`` does (:func:`_layer`, under grad mode only): each of
+those layers keeps its input for the backward and recomputes the rest,
+its gather included; the loss and gradients are bit for bit those
+without it.
 """
 from __future__ import annotations
 
@@ -102,6 +115,7 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.gather_backward import gather_rows
 from repro_torch.models import rwkv as rk
@@ -122,9 +136,9 @@ __all__ = ["FAMILIES", "init", "forward", "loss_fn", "init_cache",
            "cache_shapes",
            "prefill", "decode_step", "block_apply", "block_decode",
            "cross_attn", "project_image_kv", "kv_rows", "mamba_block_init",
-           "rwkv_block_init", "tp_heads", "tp_attn_params", "tp_mlp_params",
-           "tp_block_params", "arrange_leaf", "STACK_DIMS", "TP_FAMILIES",
-           "TP_LEAVES", "TP_WHOLE"]
+           "rwkv_block_init", "tp_heads", "tp_sub_params", "tp_block_params",
+           "pad_perm", "tp_aligned", "arrange_leaf", "STACK_DIMS",
+           "TP_LEAVES", "TP_SUBS", "TP_WHOLE"]
 
 Params = Any
 
@@ -336,23 +350,48 @@ def _eff_attn_params(p, cfg):
                       for proj in "qkvo"})
 
 
-#: the families whose attention and MLP blocks compute on 'model' shards
-#: (RWKV6's channel mix gates the whole d_model and Mamba2's ``in_proj``
-#: packs z, x, B, C and dt in one leaf: their shards do not cut by heads)
-TP_FAMILIES = ("dense", "moe", "audio", "vlm")
-#: the leaves that a block's TP form cuts (their paths under a block): the
-#: dim of one layer's slice that a rank's part cuts, and the heads it cuts
-#: ("q", "kv"; None for the MLP's columns or rows). A leaf not here (a
-#: norm's gain) is read whole
-TP_LEAVES = {"attn/q/w": ("q", 1), "attn/q/b": ("q", 0),
-             "attn/k/w": ("kv", 1), "attn/k/b": ("kv", 0),
-             "attn/v/w": ("kv", 1), "attn/v/b": ("kv", 0),
-             "attn/o/w": ("q", 0), "mlp/gate/w": (None, 1),
-             "mlp/up/w": (None, 1), "mlp/down/w": (None, 0)}
+#: the leaves that a block's TP form cuts (their paths under a block, by
+#: sub-block: attention, vlm's cross-attention, the MLP, the MoE experts,
+#: RWKV6's time and channel mix, Mamba2): ``(kind, dim, weight)``, the dim
+#: of one layer's slice that a rank's part cuts, how (``kind``: "q", "kv"
+#: the TP head layout's query or KV heads; "rwkv", "ssm" RWKV6's or
+#: Mamba2's heads, padded at the end to a multiple of the 'model' size;
+#: "ssm_in", "ssm_conv" Mamba2's packed ``[z | x | B | C | dt]`` and ``[x
+#: | B | C]``, the rank's heads of z, x and dt and the whole B and C; None
+#: equal chunks of columns or rows) and whether it is a weight that the
+#: rules shard (a block computes on 'model' shards only where all of its
+#: weights are 'model'-sharded; the others, under the rules' floor, are
+#: read whole and cut). A leaf not here (a norm's gain, RWKV6's ``mix``) is
+#: read whole
+_ATTN_LEAVES = {"q/w": ("q", 1, True), "q/b": ("q", 0, False),
+                "k/w": ("kv", 1, True), "k/b": ("kv", 0, False),
+                "v/w": ("kv", 1, True), "v/b": ("kv", 0, False),
+                "o/w": ("q", 0, True)}
+TP_LEAVES = {
+    **{f"attn/{k}": v for k, v in _ATTN_LEAVES.items()},
+    **{f"xattn/{k}": v for k, v in _ATTN_LEAVES.items()},
+    "mlp/gate/w": (None, 1, True), "mlp/up/w": (None, 1, True),
+    "mlp/down/w": (None, 0, True),
+    "moe/gate": (None, 2, True), "moe/up": (None, 2, True),
+    "moe/down": (None, 1, True),
+    **{f"time/{k}/w": ("rwkv", 1, True) for k in "rkvgw"},
+    "time/out/w": ("rwkv", 0, True), "time/u": ("rwkv", 0, False),
+    "time/ln_g": ("rwkv", 0, False),
+    "channel/k/w": (None, 1, True), "channel/v/w": (None, 0, True),
+    "mamba/in_proj/w": ("ssm_in", 1, True),
+    "mamba/conv_w": ("ssm_conv", 1, False),
+    "mamba/out_proj/w": ("ssm", 0, True), "mamba/A_log": ("ssm", 0, False),
+    "mamba/D": ("ssm", 0, False), "mamba/dt_bias": ("ssm", 0, False),
+    "mamba/norm": ("ssm", 0, False)}
+#: the sub-blocks that compute on 'model' shards, by the first key of
+#: their leaves' paths in :data:`TP_LEAVES`
+TP_SUBS = ("attn", "xattn", "mlp", "moe", "time", "channel", "mamba")
 #: the unstacked leaves that compute on a rank's part whole (:func:`_embed_tp`,
 #: :func:`_head`, :func:`_img_proj`): the dim it cuts, the vocabulary's or
 #: the columns'
 TP_WHOLE = {"embed/w": 0, "lm_head/w": 1, "img_proj/w": 1}
+#: Mamba2's layout (``ssm.mamba_init``'s defaults)
+_SSM_EXPAND, _SSM_HEAD = 2, 64
 
 
 def _kv_perm(cfg) -> tuple:
@@ -366,50 +405,113 @@ def _kv_perm(cfg) -> tuple:
     return tuple(range(hkv)) + (hkv,) * (eff_kv - hkv)
 
 
+def _part_heads(cfg, kind: str) -> int:
+    """The heads a state-space block's ``kind`` of leaf holds: RWKV6's
+    ``d_model / head_size``, Mamba2's ``2 d_model / 64``."""
+    if kind == "rwkv":
+        return cfg.d_model // cfg.head_size
+    return _SSM_EXPAND * cfg.d_model // _SSM_HEAD
+
+
+def pad_perm(heads: int, tp: int) -> tuple:
+    """``heads`` heads in a layout of a multiple of ``tp`` slots, padded at
+    the end (the index ``heads`` a zero slot): rank r takes the r-th of
+    ``tp`` equal runs. RWKV6's 40 heads at tp 16: 48 slots, 3 a rank."""
+    return tuple(range(heads)) + (heads,) * ((-heads) % tp)
+
+
+def tp_aligned(cfg, tp: int, kind) -> bool:
+    """Whether the rules' even 'model' cut of a ``kind`` of leaf (on the dim
+    a rank's part cuts) is each rank's part: the rank computes on its shard
+    as it is."""
+    if kind is None:
+        return True
+    if kind in ("q", "kv"):
+        return cfg.head_layout()[:2] == (cfg.n_heads, cfg.n_kv_heads)
+    if kind in ("rwkv", "ssm"):
+        return _part_heads(cfg, kind) % tp == 0
+    return tp == 1
+
+
+def _runs(t: torch.Tensor, perm: tuple, heads: int, dim: int, tp):
+    """``t`` (``heads`` heads flattened along ``dim``) as ``tp``'s ranks'
+    runs of ``perm``, each a list of one tensor a rank."""
+    per = len(perm) // tp.tp
+    t3 = t.unflatten(dim, (heads, t.shape[dim] // heads))
+    return [_take_heads(t3, perm[r * per:(r + 1) * per], dim
+                        ).flatten(dim, dim + 1) for r in tp.ranks]
+
+
+def _ssm_packed(t: torch.Tensor, cfg, tp, dim: int, kind: str):
+    """Mamba2's packed ``in_proj`` columns ``[z | x | B | C | dt]``
+    (``kind`` "ssm_in") or conv channels ``[x | B | C]`` ("ssm_conv")
+    along ``dim`` as each rank's ``[z_r | x_r | B | C | dt_r]`` (``[x_r |
+    B | C]``): its heads of z, x and dt, padded, and the whole B and C."""
+    h = _part_heads(cfg, "ssm")
+    d_inner, n = h * _SSM_HEAD, cfg.ssm_state
+    perm = pad_perm(h, tp.tp)
+    if kind == "ssm_in":
+        z, x, b, c, dt = t.split([d_inner, d_inner, n, n, h], dim)
+        parts = zip(_runs(z, perm, h, dim, tp), _runs(x, perm, h, dim, tp),
+                    _runs(dt, perm, h, dim, tp))
+        return torch.stack([torch.cat([zr, xr, b, c, dtr], dim=dim)
+                            for zr, xr, dtr in parts])
+    x, b, c = t.split([d_inner, n, n], dim)
+    return torch.stack([torch.cat([xr, b, c], dim=dim)
+                        for xr in _runs(x, perm, h, dim, tp)])
+
+
 def tp_heads(t: torch.Tensor, cfg, tp, kind: str, dim: int) -> torch.Tensor:
-    """A whole attention leaf ``t`` (heads of ``head_dim`` flattened along
-    ``dim``: dim 1 of the q/k/v weights, dim 0 of their biases and of o's
-    weights) as ``tp``'s ranks' heads of the TP head layout, on a new
-    leading axis: rank r the r-th of ``tp.tp`` equal runs of the layout's
-    query heads (``kind`` "q") or KV heads ("kv"), pad slots zero. Slices
+    """A whole leaf ``t`` (heads flattened along ``dim``: dim 1 of the
+    q/k/v weights, dim 0 of their biases and of o's weights; the
+    state-space blocks' per :data:`TP_LEAVES`) as ``tp``'s ranks' parts on
+    a new leading axis: rank r the r-th of ``tp.tp`` equal runs of the
+    layout's query heads (``kind`` "q"), KV heads ("kv"), or RWKV6's or
+    Mamba2's heads padded at the end (:func:`pad_perm`; "rwkv", "ssm"),
+    pad slots zero; Mamba2's packed leaves by :func:`_ssm_packed`. Slices
     and zero blocks (:func:`_take_heads`), so the gradient lands on the
     published leaf."""
-    perm = _head_perm(cfg) if kind == "q" else _kv_perm(cfg)
-    heads = cfg.n_heads if kind == "q" else cfg.n_kv_heads
-    per = len(perm) // tp.tp
-    t3 = t.unflatten(dim, (heads, cfg.head_dim))
-    return torch.stack([_take_heads(t3, perm[r * per:(r + 1) * per], dim
-                                    ).flatten(dim, dim + 1)
-                        for r in tp.ranks])
+    if kind in ("ssm_in", "ssm_conv"):
+        return _ssm_packed(t, cfg, tp, dim, kind)
+    if kind in ("q", "kv"):
+        perm = _head_perm(cfg) if kind == "q" else _kv_perm(cfg)
+        heads = cfg.n_heads if kind == "q" else cfg.n_kv_heads
+    else:
+        heads = _part_heads(cfg, kind)
+        perm = pad_perm(heads, tp.tp)
+    return torch.stack(_runs(t, perm, heads, dim, tp))
 
 
-def tp_attn_params(p, cfg, tp) -> dict:
-    """Whole attention params ``p`` in the TP form of ``tp``'s ranks
-    (marked ``"tp"``): q/k/v weights and biases and o's rows, each rank's
-    heads (:func:`tp_heads`)."""
-    out = {"ln": p["ln"], "tp": tp}
-    for path, (kind, dim) in TP_LEAVES.items():
-        sub, proj, leaf = path.split("/")
-        if sub == "attn" and leaf in p[proj]:
-            out.setdefault(proj, {})[leaf] = tp_heads(p[proj][leaf], cfg, tp,
-                                                      kind, dim)
+def tp_sub_params(p, cfg, tp, sub: str) -> dict:
+    """Whole sub-block params ``p`` (``sub`` one of :data:`TP_SUBS`) in the
+    TP form of ``tp``'s ranks (marked ``"tp"``): each leaf of
+    :data:`TP_LEAVES` under ``sub`` cut into the ranks' parts (equal chunks
+    where its kind is None, else :func:`tp_heads`), the others as they
+    are."""
+    out = dict(p, tp=tp)
+    for path, (kind, dim, _) in TP_LEAVES.items():
+        head, _, rest = path.partition("/")
+        if head != sub:
+            continue
+        *mid, leaf = rest.split("/")
+        src, dst = p, out
+        for m in mid:
+            src = src.get(m, {})
+            dst[m] = dst = dict(dst[m]) if m in dst else {}
+        if leaf in src:
+            t = src[leaf]
+            dst[leaf] = (tp.split(t, dim) if kind is None
+                         else tp_heads(t, cfg, tp, kind, dim))
     return out
 
 
-def tp_mlp_params(p, tp) -> dict:
-    """Whole MLP params ``p`` in the TP form of ``tp``'s ranks (marked
-    ``"tp"``): gate and up by columns, down by rows."""
-    out = {k: {"w": tp.split(v["w"], TP_LEAVES[f"mlp/{k}/w"][1])}
-           for k, v in p.items()}
-    return dict(out, tp=tp)
-
-
 def tp_block_params(p, cfg, tp) -> dict:
-    """A whole block ``p`` (attention and MLP) with both in the TP form of
-    ``tp``'s ranks: the one-process emulation of a tensor-parallel layer
-    (``tp.ranks`` all of them), through the sharded step's code."""
-    return dict(p, attn=tp_attn_params(p["attn"], cfg, tp),
-                mlp=tp_mlp_params(p["mlp"], tp))
+    """A whole block ``p`` with every sub-block of :data:`TP_SUBS` it holds
+    in the TP form of ``tp``'s ranks: the one-process emulation of a
+    tensor-parallel layer (``tp.ranks`` all of them), through the sharded
+    step's code."""
+    return dict(p, **{sub: tp_sub_params(p[sub], cfg, tp, sub)
+                      for sub in TP_SUBS if sub in p})
 
 
 def _qkv(p, cfg, x):
@@ -541,12 +643,32 @@ def self_attn_decode(p, cfg, x1, k_cache, v_cache, pos, rope=None,
     return _finish_attn(p, cfg, out), (k_cache, v_cache)
 
 
+def _cross_attn_tp(p, cfg, x, img_kv):
+    """Cross-attention in TP form: the replicated input copied in, q
+    column-parallel (the rank's heads of the TP head layout), attended
+    over the rank's image keys and values (:func:`project_image_kv`'s, or
+    a decode cache's shards: the rank's KV heads), o row-parallel."""
+    tp = p["tp"]
+    n, (b, s, _) = tp.n, x.shape
+    q = linear_col({"w": p["q"]["w"]}, tp.copy_in(x)
+                   ).reshape(n * b, s, -1, cfg.head_dim)
+    k, v = img_kv
+    zeros = lambda m: torch.zeros((m,), dtype=torch.int32, device=x.device)
+    out = chunked_attention(
+        q, k, v, q_positions=zeros(s), kv_positions=zeros(k.shape[1]),
+        causal=False, q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    return linear_row({"w": p["o"]["w"]}, out.reshape(n, b, s, -1), tp)
+
+
 def cross_attn(p, cfg, x, img_kv, par=None):
     """Non-causal attention to fixed image keys/values (already projected):
     img_kv = (k, v) each (B, S_img, Hkv_eff, D). Only the projections'
     weights are read, as the reference reads them. Sharded decode
     (``par``): image keys and values of the rank's heads, attended by its
-    heads of the whole q, the heads joined over 'model' before o."""
+    heads of the whole q, the heads joined over 'model' before o. ``p``
+    marked ``"tp"``: :func:`_cross_attn_tp`."""
+    if "tp" in p:
+        return _cross_attn_tp(p, cfg, x, img_kv)
     b, s, _ = x.shape
     q = linear({"w": _arranged(p, cfg, "q")}, x
                ).reshape(b, s, cfg.eff_heads, cfg.head_dim)
@@ -564,8 +686,15 @@ def cross_attn(p, cfg, x, img_kv, par=None):
 
 
 def project_image_kv(p_cross, cfg, image_embeds):
-    """Project image embeddings once into a cross layer's K/V."""
+    """Project image embeddings once into a cross layer's K/V; in TP form
+    (``p_cross`` marked ``"tp"``) column-parallel, the rank's KV heads
+    ``(n·B, S_img, heads, D)``."""
     b, si, _ = image_embeds.shape
+    if "tp" in p_cross:
+        tp = p_cross["tp"]
+        img = tp.copy_in(image_embeds)
+        return tuple(linear_col({"w": p_cross[name]["w"]}, img).reshape(
+            tp.n * b, si, -1, cfg.head_dim) for name in "kv")
     k = linear({"w": _arranged(p_cross, cfg, "k")}, image_embeds
                ).reshape(b, si, cfg.eff_kv_heads, cfg.head_dim)
     v = linear({"w": _arranged(p_cross, cfg, "v")}, image_embeds
@@ -805,6 +934,30 @@ def _layers(tree, n: int, par, path: str):
         yield _at(par, blk, path)
 
 
+def _remat(cfg) -> bool:
+    """Whether the scanned layers are checkpointed: ``cfg.remat`` in grad
+    mode (training; serving, ``prefill`` and ``decode_step`` never)."""
+    return bool(cfg.remat) and torch.is_grad_enabled()
+
+
+def _layer(fn, blk, par, path: str, remat: bool, *args):
+    """``fn(blk, *args)`` with ``blk`` (one layer's slices) gathered as its
+    block computes on it (:func:`_at`) inside the call. With ``remat``, the
+    reference's ``jax.checkpoint`` of a scanned layer: the call runs under
+    ``torch.utils.checkpoint`` (non-reentrant, no RNG state: no model draws
+    in its forward), which keeps the layer's inputs and recomputes the rest
+    in the backward, the gather included. Its saved-tensor hooks are the
+    innermost, so a sharded step's re-gather hooks (``launch/tp.py``) see
+    none of the layer's tensors: each of its leaves is gathered once in the
+    forward and once in the recompute, which serves the backward."""
+    def run(blk, *args):
+        return fn(_at(par, blk, path), *args)
+    if not remat:
+        return run(blk, *args)
+    return checkpoint(run, blk, *args, use_reentrant=False,
+                      preserve_rng_state=False)
+
+
 def _img_proj(p, x):
     """vlm's image projection; in TP form column-parallel, the ranks'
     columns gathered for the cross layers, which read the whole."""
@@ -843,12 +996,67 @@ def _whole(store, key: str, index, par=None) -> torch.Tensor:
     return t if _cache(par) is None else par.cache.whole(key, t)
 
 
+def _block_tp(par, path: str, sub: str):
+    """The ``TensorParallel`` of the sub-block ``sub`` of the layers at
+    ``path`` where it computes on 'model' shards, else None."""
+    if par is None or sub not in par.blocks.get(path, ()):
+        return None
+    return par.tp
+
+
+#: the decode cache's state-space states, whose heads are dim -3
+_STATES = ("state", "ssm", "ssm_trail")
+
+
+def _load(store, key: str, index, par, tp, cfg, kind: str):
+    """One layer's state-space state ``store[key][index]`` as its block
+    reads it: whole (:func:`_whole`); for a block in TP form (``tp``) the
+    rank's part, which its heads' cut holds where 'model' cuts the heads
+    (their count a multiple of its size) and else is taken from the whole:
+    the rank's heads (:func:`tp_heads`, ``(n·B, heads, ...)``) or, for
+    the conv rows, the rank's channels (``(n, B, CONV_K-1, C)``)."""
+    if tp is None:
+        return _whole(store, key, index, par)
+    if key in _STATES:
+        t = store[key][index]
+        if par.cache.dims.get(key) == -3:
+            return t
+        return tp_heads(t, cfg, tp, kind, 1).flatten(0, 1)
+    return tp_heads(_whole(store, key, index, par), cfg, tp, "ssm_conv", 2)
+
+
+def _save(store, key: str, index, t: torch.Tensor, par, tp, cfg,
+          kind: str) -> None:
+    """:func:`_load`'s converse: a block's new state ``t`` into
+    ``store[key][index]`` (:func:`_store`); in TP form the rank's heads
+    written where its shard holds them, else the ranks' parts joined over
+    'model' (the pad heads dropped; the conv rows' x channels joined, B
+    and C the rank's own) and the rank's shard of the whole written."""
+    if tp is None:
+        _store(store, key, index, t, par)
+        return
+    if key in _STATES:
+        t = t.unflatten(0, (tp.n, -1))
+        if par.cache.dims.get(key) == -3:
+            store[key][index].copy_(t[0])
+            return
+        t = tp.join(t, 1).narrow(1, 0, _part_heads(cfg, kind))
+    else:
+        d_inner = _part_heads(cfg, "ssm") * _SSM_HEAD
+        per = t.shape[-1] - 2 * cfg.ssm_state
+        t = torch.cat([tp.join(t[..., :per], -1)[..., :d_inner],
+                       t[0, ..., per:]], dim=-1)
+    _store(store, key, index, t, par)
+
+
 def _run(p, cfg, x, image_embeds=None, store=None, par=None):
     """The blocks over embedded inputs ``x`` (B, S, D): the final hidden
     state. With ``store`` (a cache with at least ``kv_rows(cfg, S)`` rows)
     each layer's keys and values are written into its first rows, vlm's
     image keys and values into ``img_k``/``img_v``, and the state-space
-    families' states into theirs."""
+    families' states into theirs. Under :func:`_remat` the reference's
+    checkpointed layers run through :func:`_layer`'s checkpoint: the dense,
+    moe and audio blocks, vlm's plain layers (not the crossed ones)."""
     if cfg.family == "hybrid":
         return _run_hybrid(p, cfg, x, store, par)
     if cfg.family == "ssm":
@@ -856,10 +1064,13 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
+    remat = _remat(cfg)
+
+    def block(blk, x):
+        return block_apply(blk, cfg, x, positions, rope=rope)
     if cfg.family in ("dense", "moe", "audio"):
-        for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
-                                        "blocks")):
-            x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
+        for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+            x, (k, v) = _layer(block, blk, par, "blocks", remat, x)
             if store is not None:
                 _store_rows(store, "k", i, k, par)
                 _store_rows(store, "v", i, v, par)
@@ -869,9 +1080,9 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
     groups = cfg.n_layers // cfg.cross_attn_interval
     for gi, (plain, crossed) in enumerate(zip(
             _unstack(p["plain"], groups), _unstack(p["crossed"], groups))):
-        for j, blk in enumerate(_layers(plain, cfg.cross_attn_interval - 1,
-                                        par, "plain")):
-            x, (k, v) = block_apply(blk, cfg, x, positions, rope=rope)
+        for j, blk in enumerate(_unstack(plain,
+                                         cfg.cross_attn_interval - 1)):
+            x, (k, v) = _layer(block, blk, par, "plain", remat, x)
             if store is not None:
                 _store_rows(store, "k_plain", (gi, j), k, par)
                 _store_rows(store, "v_plain", (gi, j), v, par)
@@ -888,42 +1099,56 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
 
 
 def _run_hybrid(p, cfg, x, store, par=None):
+    """The hybrid's layers; under :func:`_remat` each Mamba layer (the
+    groups' and the trail's) checkpointed, the shared block not, as the
+    reference checkpoints them."""
     s = x.shape[1]
     h = _pad_to(x, ssm.CHUNK)
     sp = h.shape[1]
     positions = torch.arange(sp, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
+    remat = _remat(cfg)
     n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
+
+    def mamba(blk, h):
+        return _mamba_layer(blk, cfg, h)
+
+    def save(keys, index, st, cv, path):
+        tp = _block_tp(par, path, "mamba")
+        _save(store, keys[0], index, st, par, tp, cfg, "ssm")
+        _save(store, keys[1], index, cv, par, tp, cfg, "ssm")
     for gi, group in enumerate(_unstack(p["mamba"], n_super)):
-        for j, blk in enumerate(_layers(group, cfg.attn_interval, par,
-                                        "mamba")):
-            h, st, cv = _mamba_layer(blk, cfg, h)
+        for j, blk in enumerate(_unstack(group, cfg.attn_interval)):
+            h, st, cv = _layer(mamba, blk, par, "mamba", remat, h)
             if store is not None:
-                _store(store, "ssm", (gi, j), st, par)
-                _store(store, "conv", (gi, j), cv, par)
+                save(("ssm", "conv"), (gi, j), st, cv, "mamba")
         h, (k, v) = block_apply(_at(par, p["shared_attn"], "shared_attn"),
                                 cfg, h, positions, rope=rope)
         if store is not None:
             _store_rows(store, "k", gi, k, par)
             _store_rows(store, "v", gi, v, par)
-    for t, blk in enumerate(_layers(p["mamba_trail"], trail, par,
-                                    "mamba_trail")):
-        h, st, cv = _mamba_layer(blk, cfg, h)
+    for t, blk in enumerate(_unstack(p["mamba_trail"], trail)):
+        h, st, cv = _layer(mamba, blk, par, "mamba_trail", remat, h)
         if store is not None:
-            _store(store, "ssm_trail", t, st, par)
-            _store(store, "conv_trail", t, cv, par)
+            save(("ssm_trail", "conv_trail"), t, st, cv, "mamba_trail")
     return h[:, :s]
 
 
 def _run_rwkv(p, cfg, x, store, par=None):
+    """RWKV6's blocks, each checkpointed under :func:`_remat`."""
     s = x.shape[1]
     h = _pad_to(x, rk.CHUNK)
-    for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
-                                    "blocks")):
-        h, st, lt, lc = _rwkv_layer(blk, cfg, h)
+    remat = _remat(cfg)
+
+    def block(blk, h):
+        return _rwkv_layer(blk, cfg, h)
+    tp = _block_tp(par, "blocks", "time")
+    for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
+        h, st, lt, lc = _layer(block, blk, par, "blocks", remat, h)
         if store is not None:
-            for key, v in (("state", st), ("last_t", lt), ("last_c", lc)):
-                _store(store, key, i, v, par)
+            _save(store, "state", i, st, par, tp, cfg, "rwkv")
+            _store(store, "last_t", i, lt, par)
+            _store(store, "last_c", i, lc, par)
     return h[:, :s]
 
 
@@ -1090,13 +1315,16 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
     x = _embed_in(p, cfg, ids1, embeds1, par)
     fam = cfg.family
     if fam == "ssm":
-        keys = ("state", "last_t", "last_c")
+        tp = _block_tp(par, "blocks", "time")
         for i, blk in enumerate(_layers(p["blocks"], cfg.n_layers, par,
                                         "blocks")):
-            x, *new = _rwkv_layer(blk, cfg, x, *(_whole(cache, k, i, par)
-                                                 for k in keys))
-            for key, t in zip(keys, new):
-                _store(cache, key, i, t, par)
+            x, st, lt, lc = _rwkv_layer(
+                blk, cfg, x, _load(cache, "state", i, par, tp, cfg, "rwkv"),
+                _whole(cache, "last_t", i, par),
+                _whole(cache, "last_c", i, par))
+            _save(cache, "state", i, st, par, tp, cfg, "rwkv")
+            _store(cache, "last_t", i, lt, par)
+            _store(cache, "last_c", i, lc, par)
         return _last_logits(p, cfg, x, par), cache
     # one conversion a step: index_copy_ wants an int64 index
     pos = torch.as_tensor(pos, device=x.device).to(torch.int64)
@@ -1110,23 +1338,23 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
     if fam == "hybrid":
         n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
 
-        def mamba(blk, keys, index, h):
-            h, st, cv = _mamba_layer(blk, cfg, h, *(_whole(cache, k, index,
-                                                           par)
-                                                    for k in keys))
-            _store(cache, keys[0], index, st, par)
-            _store(cache, keys[1], index, cv, par)
+        def mamba(blk, keys, index, h, path):
+            tp = _block_tp(par, path, "mamba")
+            h, st, cv = _mamba_layer(blk, cfg, h, *(
+                _load(cache, k, index, par, tp, cfg, "ssm") for k in keys))
+            _save(cache, keys[0], index, st, par, tp, cfg, "ssm")
+            _save(cache, keys[1], index, cv, par, tp, cfg, "ssm")
             return h
         for gi, group in enumerate(_unstack(p["mamba"], n_super)):
             for j, blk in enumerate(_layers(group, cfg.attn_interval, par,
                                             "mamba")):
-                x = mamba(blk, ("ssm", "conv"), (gi, j), x)
+                x = mamba(blk, ("ssm", "conv"), (gi, j), x, "mamba")
             x, _ = block_decode(_at(par, p["shared_attn"], "shared_attn"),
                                 cfg, x, cache["k"][gi], cache["v"][gi], pos,
                                 rope=rope, par=par)
         for t, blk in enumerate(_layers(p["mamba_trail"], trail, par,
                                         "mamba_trail")):
-            x = mamba(blk, ("ssm_trail", "conv_trail"), t, x)
+            x = mamba(blk, ("ssm_trail", "conv_trail"), t, x, "mamba_trail")
         return _last_logits(p, cfg, x, par), cache
     groups = cfg.n_layers // cfg.cross_attn_interval
     for gi, (plain, crossed) in enumerate(zip(

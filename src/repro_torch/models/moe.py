@@ -18,7 +18,11 @@ routing is the reference's exactly and capturable:
     extra row ``E·cap``, which is discarded: no data-dependent shape.
 
 The three expert products are batched GEMMs in the model's dtype, as the
-reference's einsums.
+reference's einsums. In TP form (the sharded step's, ``launch/tp.py``)
+they run on the rank's part of ``f``, as the reference pins the experts
+over 'model': ``gate`` and ``up`` column-parallel, ``down`` row-parallel,
+the routing replicated and the dispatched tokens copied in, the partial
+outputs summed over 'model' before the combine.
 
 The backward sums in a fixed order on the card: the dispatch's row
 gathers (the tokens into expert order, the gates into expert order, the
@@ -48,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.gather_backward import gather_rows
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import dense_init, upcast
 
 __all__ = ["moe_init", "moe_apply", "capacity"]
 
@@ -96,7 +100,7 @@ def _route_local(x: torch.Tensor, router_w: torch.Tensor, top_k: int,
     """x (t, d) -> (xe (E, cap, d), (token, gate, slot, keep) in expert
     order, top_idx (t, k), router logits (t, E))."""
     t, d = x.shape
-    logits = x.float() @ router_w
+    logits = upcast(x) @ router_w
     top_val, top_idx = _top_k(logits, top_k)
     gates = torch.softmax(top_val, dim=-1)
 
@@ -133,14 +137,34 @@ def _combine_local(y: torch.Tensor, meta, t: int, d: int) -> torch.Tensor:
                        ).index_add_(0, st, contrib)
 
 
+def _experts_tp(p, xe: torch.Tensor) -> torch.Tensor:
+    """The experts in TP form (``p`` marked ``"tp"``): the dispatched ``xe``
+    (E, cap, d), replicated, copied in; ``gate`` and ``up`` the rank's
+    columns of ``f`` ``(n, E, d, f/tp)``, ``down`` its rows ``(n, E, f/tp,
+    d)``; the ranks' partial outputs summed over 'model'."""
+    tp = p["tp"]
+    n, e = tp.n, xe.shape[0]
+
+    def bmm(a, w):
+        return torch.bmm(a.flatten(0, 1), w.flatten(0, 1)).unflatten(0,
+                                                                     (n, e))
+    xr = tp.copy_in(xe)
+    h = bmm(xr, p["gate"])
+    u = bmm(xr, p["up"])
+    return tp.reduce_out(bmm(F.silu(h) * u, p["down"]))
+
+
 def _moe_group(p, x: torch.Tensor, top_k: int, cap: int) -> torch.Tensor:
     """One routing group: x (t, d) routed, the experts applied, combined."""
     t, d = x.shape
     xe, meta, _, _ = _route_local(x, p["router"]["w"], top_k, cap,
-                                  p["gate"].shape[0])
-    h = torch.bmm(xe, p["gate"])
-    u = torch.bmm(xe, p["up"])
-    y = torch.bmm(F.silu(h) * u, p["down"])
+                                  p["router"]["w"].shape[1])
+    if "tp" in p:
+        y = _experts_tp(p, xe)
+    else:
+        h = torch.bmm(xe, p["gate"])
+        u = torch.bmm(xe, p["up"])
+        y = torch.bmm(F.silu(h) * u, p["down"])
     return _combine_local(y, meta, t, d)
 
 
@@ -150,7 +174,7 @@ def moe_apply(p, x: torch.Tensor, *, top_k: int,
     """x (T, d) flattened tokens -> (T, d). ``groups`` = the data-parallel
     shard count (local routing, with ``shard_axes`` set); 1 = one group."""
     t, d = x.shape
-    e = p["gate"].shape[0]
+    e = p["router"]["w"].shape[1]
     g = max(1, groups) if shard_axes else 1
     if t % g:
         raise ValueError(f"moe_apply: {t} tokens do not split into {g} "

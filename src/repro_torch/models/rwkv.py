@@ -26,7 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from repro_torch.models.layers import dense_init, linear, upcast
+from repro_torch.models.layers import (dense_init, linear, linear_col,
+                                       linear_row, upcast)
 
 __all__ = ["rwkv_init", "rwkv_time_mix", "rwkv_time_mix_step",
            "rwkv_channel_mix", "rwkv_channel_mix_step", "CHUNK"]
@@ -82,32 +83,57 @@ def _log_w(wr: torch.Tensor) -> torch.Tensor:
 
 def _group_norm(o: torch.Tensor, gamma: torch.Tensor, head_size: int,
                 eps: float = 1e-5) -> torch.Tensor:
-    b, s, d = o.shape
-    oh = upcast(o.reshape(b, s, d // head_size, head_size))
+    """o (..., d) normed per head of ``head_size``; ``gamma`` broadcast to
+    it. A zero head gives zero (its variance 0, ``rsqrt(eps)`` finite)."""
+    oh = upcast(o.unflatten(-1, (-1, head_size)))
     mu = oh.mean(dim=-1, keepdim=True)
     # jnp.var is the population variance
     var = oh.var(dim=-1, keepdim=True, correction=0)
     oh = (oh - mu) * torch.rsqrt(var + eps)
-    return oh.reshape(b, s, d) * upcast(gamma)
+    return oh.flatten(-2) * upcast(gamma)
 
 
 def _projections(pt, x, xx, head_size: int):
+    """r, k, v (float32), the gate g and the log decays; in TP form (``pt``
+    marked ``"tp"``) column-parallel, each the rank's heads ``(n·B, S,
+    heads, K)`` (g ``(n, B, S, heads·K)``)."""
     b, s, d = x.shape
-    h = d // head_size
-    r = linear(pt["r"], _mix(x, xx, pt["mix"][0]))
-    k = linear(pt["k"], _mix(x, xx, pt["mix"][1]))
-    v = linear(pt["v"], _mix(x, xx, pt["mix"][2]))
-    g = linear(pt["g"], _mix(x, xx, pt["mix"][3]))
-    wr = linear(pt["w"], _mix(x, xx, pt["mix"][4]))
-    shape = (b, s, h, head_size)
+    tp = pt.get("tp")
+    if tp is None:
+        proj = [linear(pt[name], _mix(x, xx, pt["mix"][i]))
+                for i, name in enumerate("rkvgw")]
+        shape = (b, s, d // head_size, head_size)
+    else:
+        proj = [linear_col(pt[name], tp.copy_in(_mix(x, xx, pt["mix"][i])))
+                for i, name in enumerate("rkvgw")]
+        shape = (tp.n * b, s, -1, head_size)
+    r, k, v, g, wr = proj
     return (upcast(r.reshape(shape)), upcast(k.reshape(shape)),
             upcast(v.reshape(shape)), g, _log_w(wr.reshape(shape)))
 
 
+def _u(pt, b: int) -> torch.Tensor:
+    """The bonus ``u`` broadcast to a chunk's (B, q, H, K) rows: (1, 1, H,
+    K); in TP form each rank's heads over its batch rows (n·B, 1, heads,
+    K)."""
+    u = pt["u"]
+    if "tp" not in pt:
+        return u[None, None]
+    n = u.shape[0]
+    return u[:, None, None].expand(n, b, 1, *u.shape[1:]).flatten(0, 1)
+
+
 def _finish(pt, o, g, x, head_size: int):
     b, s, d = x.shape
-    o = _group_norm(o.reshape(b, s, d), pt["ln_g"], head_size).to(x.dtype)
-    return linear(pt["out"], o * F.silu(g))
+    tp = pt.get("tp")
+    if tp is None:
+        o = _group_norm(o.reshape(b, s, d), pt["ln_g"], head_size)
+        return linear(pt["out"], o.to(x.dtype) * F.silu(g))
+    # the rank's heads: its gains (n, heads·K), out's rows, summed over
+    # 'model'; a padded head's r, k, v and g are zero, so its output is
+    o = _group_norm(o.reshape(g.shape), pt["ln_g"][:, None, None],
+                    head_size)
+    return linear_row(pt["out"], o.to(x.dtype) * F.silu(g), tp)
 
 
 class _CumSum(torch.autograd.Function):
@@ -139,10 +165,10 @@ class _CumSum(torch.autograd.Function):
         return acc
 
 
-def _chunk(s0, u, rb, kb, vb, lwb, lcum):
+def _chunk(s0, ub, rb, kb, vb, lwb, lcum):
     """One chunk of the reference's ``chunk_body`` (``lcum`` the decays'
-    inclusive sum within it): the state after it and the chunk's outputs
-    (B, q, H, V)."""
+    inclusive sum within it, ``ub`` the bonus as :func:`_u` broadcasts
+    it): the state after it and the chunk's outputs (B, q, H, V)."""
     q = rb.shape[1]
     p_prev = torch.exp(lcum - lwb)                    # P_{t-1} = P_t / w_t
     rt = rb * p_prev
@@ -154,7 +180,7 @@ def _chunk(s0, u, rb, kb, vb, lwb, lcum):
     idx = torch.arange(q, device=rb.device)
     mask = idx[:, None] > idx[None, :]
     a = a * mask
-    diag = torch.einsum("bqhk,bqhk->bqh", rb, u[None, None] * kb)
+    diag = torch.einsum("bqhk,bqhk->bqh", rb, ub * kb)
     o_intra = torch.einsum("bhqj,bjhv->bqhv", a, vb) + diag[..., None] * vb
     # state handoff
     decay_rest = torch.exp(lcum[:, -1:] - lcum)       # Π_{m>j} w_m
@@ -166,22 +192,25 @@ def _chunk(s0, u, rb, kb, vb, lwb, lcum):
 def rwkv_time_mix(pt, x: torch.Tensor, *, head_size: int, state=None,
                   last_x=None):
     """x (B,S,D), S % CHUNK == 0 (or S < CHUNK). Returns (out, state
-    (B,H,K,V) float32, last_x (B,1,D))."""
+    (B,H,K,V) float32, last_x (B,1,D)). In TP form (``pt`` marked ``"tp"``,
+    ``launch/tp.py``) the rank's heads: r, k, v, g and w column-parallel,
+    the state ``(n·B, heads, K, V)``, out row-parallel."""
     b, s, d = x.shape
-    h = d // head_size
     xx = _shift(x, last_x)
     r, k, v, g, lw = _projections(pt, x, xx, head_size)
+    bh, h = r.shape[0], r.shape[2]
     q = min(CHUNK, s)
     # each chunk's inclusive decay sums, every chunk at once
-    lcum = _CumSum.apply(lw.reshape(b * (s // q), q, h, head_size))
+    lcum = _CumSum.apply(lw.reshape(bh * (s // q), q, h, head_size))
     lcum = lcum.reshape(lw.shape)
     if state is None:
-        state = torch.zeros((b, h, head_size, head_size), dtype=lw.dtype,
+        state = torch.zeros((bh, h, head_size, head_size), dtype=lw.dtype,
                             device=x.device)
+    ub = _u(pt, b)
     outs = []
     for c in range(s // q):
         sl = slice(c * q, (c + 1) * q)
-        state, o = _chunk(state, pt["u"], r[:, sl], k[:, sl], v[:, sl],
+        state, o = _chunk(state, ub, r[:, sl], k[:, sl], v[:, sl],
                           lw[:, sl], lcum[:, sl])
         outs.append(o)
     o = torch.cat(outs, dim=1)
@@ -191,11 +220,12 @@ def rwkv_time_mix(pt, x: torch.Tensor, *, head_size: int, state=None,
 def rwkv_time_mix_step(pt, x1: torch.Tensor, state: torch.Tensor,
                        last_x: torch.Tensor, *, head_size: int):
     """Single-token decode. x1 (B,1,D) -> (out, new state, x1). The state
-    is not written: the caller stores the returned one."""
+    is not written: the caller stores the returned one. In TP form the
+    state is the rank's heads ``(n·B, heads, K, V)``."""
     xx = _shift(x1, last_x)
     r, k, v, g, lw = _projections(pt, x1, xx, head_size)
     r1, k1, v1, lw1 = r[:, 0], k[:, 0], v[:, 0], lw[:, 0]   # (B,H,K)
-    u = pt["u"][None]
+    u = _u(pt, x1.shape[0])[:, 0]
     o = torch.einsum("bhk,bhkv->bhv", r1,
                      state + (u * k1)[..., None] * v1[:, :, None, :])
     state = state * torch.exp(lw1)[..., None] \
@@ -204,7 +234,13 @@ def rwkv_time_mix_step(pt, x1: torch.Tensor, state: torch.Tensor,
 
 
 def rwkv_channel_mix(pc, x: torch.Tensor, *, last_x=None):
+    """``v(relu(k(mix(x)))²)``; in TP form (``pc`` marked ``"tp"``) k
+    column-parallel and v row-parallel on the rank's part of ``d_ff``."""
     xx = _shift(x, last_x)
+    if "tp" in pc:
+        tp = pc["tp"]
+        k = linear_col(pc["k"], tp.copy_in(_mix(x, xx, pc["mix"][0])))
+        return linear_row(pc["v"], torch.square(F.relu(k)), tp), x[:, -1:]
     k = linear(pc["k"], _mix(x, xx, pc["mix"][0]))
     kv = linear(pc["v"], torch.square(F.relu(k)))
     return kv, x[:, -1:]

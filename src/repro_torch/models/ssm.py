@@ -15,14 +15,24 @@ Decode is the O(1) recurrence. Decays are bounded (``dt <= DT_MAX``,
 The causal depthwise convolution is the reference's Python ``sum`` of
 ``CONV_K`` shifted products in the model's dtype, each product and each
 sum rounded to that dtype as its own op (``F.conv1d`` would accumulate in
-float32 and round once).
+float32 and round once). The scan computes in float32 where the reference
+does (``layers.upcast``: float64 weights compute in float64).
+
+In TP form (the sharded step's, ``launch/tp.py``; ``p`` marked ``"tp"``)
+a rank computes its heads: ``in_proj`` column-parallel on its heads' z, x
+and dt columns and the whole B and C (one group, computed on every rank),
+the conv on its channels, the scan on its heads, the gated RMSNorm's sum
+of squares summed over 'model', ``out_proj`` row-parallel. Heads that do
+not divide the 'model' size are padded at the end with zero heads
+(``models/lm.py``'s ``pad_perm``), whose output is exactly zero.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init, linear, rms_norm
+from repro_torch.models.layers import (dense_init, linear, linear_col,
+                                       linear_row, rms_norm, upcast)
 
 __all__ = ["mamba_init", "mamba_forward", "mamba_decode_step", "CHUNK",
            "CONV_K"]
@@ -58,36 +68,79 @@ def mamba_init(gen: torch.Generator, d_model: int, ssm_state: int,
     }
 
 
-def _split(p, x, d_model: int, ssm_state: int, expand: int, head_dim: int):
-    d_inner = expand * d_model
-    n_heads = d_inner // head_dim
-    zxbcdt = linear(p["in_proj"], x)
+def _split(p, x, ssm_state: int, head_dim: int):
+    """``in_proj`` of ``x`` cut into (z, x, B, C, dt, d_inner, heads):
+    whole (B, S, ...); in TP form (``p`` marked ``"tp"``) column-parallel,
+    the rank's heads of z, x and dt and the whole B and C ``(n, B, S,
+    ...)``."""
+    tp = p.get("tp")
+    if tp is None:
+        zxbcdt = linear(p["in_proj"], x)
+    else:
+        zxbcdt = linear_col(p["in_proj"], tp.copy_in(x))
+    n_heads = p["A_log"].shape[-1]
+    d_inner = n_heads * head_dim
     z, xin, b, c, dt = torch.split(
         zxbcdt, [d_inner, d_inner, ssm_state, ssm_state, n_heads], dim=-1)
     return z, xin, b, c, dt, d_inner, n_heads
 
 
 def _conv(p, u: torch.Tensor, state: torch.Tensor | None = None):
-    """Causal depthwise conv, window CONV_K. u (B,S,C). ``state`` (B,
-    CONV_K-1, C) holds the trailing context for decode."""
+    """Causal depthwise conv, window CONV_K. u (..., S, C): (B, S, C), or
+    in TP form the rank's channels (n, B, S, C) under its taps. ``state``
+    (..., CONV_K-1, C) holds the trailing context for decode."""
     if state is None:
-        pad = torch.zeros(u.shape[:1] + (CONV_K - 1,) + u.shape[2:],
+        pad = torch.zeros(u.shape[:-2] + (CONV_K - 1,) + u.shape[-1:],
                           dtype=u.dtype, device=u.device)
     else:
         pad = state.to(u.dtype)
-    up = torch.cat([pad, u], dim=1)
-    s = u.shape[1]
+    up = torch.cat([pad, u], dim=-2)
+    s = u.shape[-2]
+    w = p["conv_w"]
+    taps = ([w[i] for i in range(CONV_K)] if "tp" not in p
+            else [w[:, i, None, None] for i in range(CONV_K)])
     # the reference's sum(...): 0 + t0, then one rounded add per tap
-    y = sum(up[:, i:i + s] * p["conv_w"][i] for i in range(CONV_K))
-    new_state = up[:, -(CONV_K - 1):]
+    y = sum(up[..., i:i + s, :] * taps[i] for i in range(CONV_K))
+    new_state = up[..., -(CONV_K - 1):, :]
     return F.silu(y), new_state
 
 
-def _decays(p, dt_raw: torch.Tensor):
-    """-> (dt, log_a) both (..., H) float32, bounded."""
-    dt = DT_MAX * torch.sigmoid(dt_raw.float() + p["dt_bias"]) + 1e-4
-    a = -A_MAX * torch.sigmoid(p["A_log"]) - 1e-4
+def _decays(p, dt_raw: torch.Tensor, lead: int = 0):
+    """-> (dt, log_a) both (..., H) float32, bounded. In TP form
+    ``dt_raw`` is (n, ...) and the rank's ``dt_bias`` and ``A_log`` (n, H)
+    broadcast over its ``lead`` dims after the rank's."""
+    bias, a_log = p["dt_bias"], p["A_log"]
+    if "tp" in p:
+        bias, a_log = (t.reshape(t.shape[0], *([1] * lead), t.shape[1])
+                       for t in (bias, a_log))
+    dt = DT_MAX * torch.sigmoid(upcast(dt_raw) + bias) + 1e-4
+    a = -A_MAX * torch.sigmoid(a_log) - 1e-4
     return dt, dt * a
+
+
+def _rank_rows(p, t: torch.Tensor, b: int) -> torch.Tensor:
+    """A per-head vector ``p``-leaf ``t`` as the rows of the (n·B, H)
+    flattened batch: (1, H) whole; the rank's (n, H) repeated over its
+    ``b`` rows in TP form."""
+    if "tp" not in p:
+        return t[None]
+    return t[:, None].expand(t.shape[0], b, t.shape[1]).flatten(0, 1)
+
+
+def _gate_out(p, y, z, x_dtype, d_inner: int):
+    """The gated RMSNorm of ``y * silu(z)`` over the whole ``d_inner`` and
+    ``out_proj``. In TP form the rank's channels: their sum of squares
+    summed over 'model' (``TensorParallel.reduce_all``; a padded head's are
+    zero), the rank's gains, ``out_proj`` row-parallel."""
+    y = y.to(x_dtype)
+    if "tp" not in p:
+        return linear(p["out_proj"], rms_norm(y * F.silu(z), p["norm"]))
+    tp = p["tp"]
+    g = upcast(y * F.silu(z))
+    ss = tp.reduce_all((g * g).sum(dim=-1, keepdim=True))
+    g = g * torch.rsqrt(ss / d_inner + 1e-5)
+    g = (g * upcast(p["norm"])[:, None, None]).to(x_dtype)
+    return linear_row(p["out_proj"], g, tp)
 
 
 def _chunk(s0, xc, bc, cc, dtc, lac):
@@ -117,20 +170,23 @@ def _chunk(s0, xc, bc, cc, dtc, lac):
 def mamba_forward(p, x: torch.Tensor, *, ssm_state: int, expand: int = 2,
                   head_dim: int = 64, state=None, conv_state=None):
     """x (B, S, D) with S % CHUNK == 0 (pad upstream) or S < CHUNK.
-    Returns (y (B,S,D), final_state (B,H,P,N) float32, conv_state)."""
+    Returns (y (B,S,D), final_state (B,H,P,N) float32, conv_state). In TP
+    form (``p`` marked ``"tp"``, ``launch/tp.py``) the rank's heads: the
+    state ``(n·B, heads, P, N)``, the conv state its channels ``(n, B,
+    CONV_K-1, C)``."""
     bsz, s, d_model = x.shape
-    z, xin, b, c, dt_raw, d_inner, h = _split(p, x, d_model, ssm_state,
-                                              expand, head_dim)
+    z, xin, b, c, dt_raw, d_inner, h = _split(p, x, ssm_state, head_dim)
     u, conv_state = _conv(p, torch.cat([xin, b, c], dim=-1), conv_state)
     xin, b, c = torch.split(u, [d_inner, ssm_state, ssm_state], dim=-1)
     q = min(CHUNK, s)
-    xh = xin.reshape(bsz, s, h, head_dim).float()
-    bh = b.float()
-    ch = c.float()
-    dt, log_a = _decays(p, dt_raw)                     # (B,S,H)
+    xh = upcast(xin.reshape(-1, s, h, head_dim))
+    bh = upcast(b.reshape(-1, s, ssm_state))
+    ch = upcast(c.reshape(-1, s, ssm_state))
+    dt, log_a = _decays(p, dt_raw, 2)                  # (B,S,H)
+    dt, log_a = dt.reshape(-1, s, h), log_a.reshape(-1, s, h)
     if state is None:
-        state = torch.zeros((bsz, h, head_dim, ssm_state),
-                            dtype=torch.float32, device=x.device)
+        state = torch.zeros((xh.shape[0], h, head_dim, ssm_state),
+                            dtype=xh.dtype, device=x.device)
     ys = []
     for i in range(s // q):
         sl = slice(i * q, (i + 1) * q)
@@ -138,29 +194,32 @@ def mamba_forward(p, x: torch.Tensor, *, ssm_state: int, expand: int = 2,
                           log_a[:, sl])
         ys.append(y)
     y = torch.cat(ys, dim=1)
-    y = y + p["D"][None, None, :, None] * xh
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    return linear(p["out_proj"], y), state, conv_state
+    y = y + _rank_rows(p, p["D"], bsz)[:, None, :, None] * xh
+    y = y.reshape(z.shape)
+    return (_gate_out(p, y, z, x.dtype, expand * d_model), state,
+            conv_state)
 
 
 def mamba_decode_step(p, x1: torch.Tensor, state: torch.Tensor,
                       conv_state: torch.Tensor, *, ssm_state: int,
                       expand: int = 2, head_dim: int = 64):
     """Single-token recurrent step. x1 (B, 1, D) -> (y, new state, new conv
-    state). Nothing is written: the caller stores the returned states."""
+    state). Nothing is written: the caller stores the returned states. In
+    TP form the states are the rank's, as :func:`mamba_forward` gives
+    them."""
     bsz, _, d_model = x1.shape
-    z, xin, b, c, dt_raw, d_inner, h = _split(p, x1, d_model, ssm_state,
-                                              expand, head_dim)
+    z, xin, b, c, dt_raw, d_inner, h = _split(p, x1, ssm_state, head_dim)
     u, conv_state = _conv(p, torch.cat([xin, b, c], dim=-1), conv_state)
     xin, b, c = torch.split(u, [d_inner, ssm_state, ssm_state], dim=-1)
-    xh = xin[:, 0].reshape(bsz, h, head_dim).float()
-    bv = b[:, 0].float()                               # (B,N)
-    cv = c[:, 0].float()
-    dt, log_a = _decays(p, dt_raw[:, 0])               # (B,H)
+    xh = upcast(xin[..., 0, :].reshape(-1, h, head_dim))
+    bv = upcast(b[..., 0, :].reshape(-1, ssm_state))   # (B,N)
+    cv = upcast(c[..., 0, :].reshape(-1, ssm_state))
+    dt, log_a = _decays(p, dt_raw[..., 0, :], 1)       # (B,H)
+    dt, log_a = dt.reshape(-1, h), log_a.reshape(-1, h)
     state = state * torch.exp(log_a)[..., None, None] \
         + torch.einsum("bh,bhp,bn->bhpn", dt, xh, bv)
-    y = torch.einsum("bhpn,bn->bhp", state, cv) + p["D"][None, :, None] * xh
-    y = y.reshape(bsz, 1, d_inner).to(x1.dtype)
-    y = rms_norm(y * F.silu(z), p["norm"])
-    return linear(p["out_proj"], y), state, conv_state
+    y = torch.einsum("bhpn,bn->bhp", state, cv) \
+        + _rank_rows(p, p["D"], bsz)[:, :, None] * xh
+    y = y.reshape(z.shape)
+    return (_gate_out(p, y, z, x1.dtype, expand * d_model), state,
+            conv_state)

@@ -804,7 +804,12 @@ def test_lm_train_phase_runs_the_published_configs(smoke):
     assert (smoke.LM_TRAIN_BATCH, smoke.LM_TRAIN_SEQ) == (
         2, SHAPES["train_4k"].seq_len)
     assert cfg.opt_moment_dtype == "float32"
-    assert smoke.LM_TRAIN_COMPARE == 7 and smoke.LM_TRAIN_STEPS == 20
+    assert smoke.LM_TRAIN_COMPARE == 4 and smoke.LM_TRAIN_STEPS == 4
+    # (a) runs the published remat; its steps without remat are fewer
+    # than the run's, whose losses they are held to
+    assert cfg.remat
+    assert smoke.LM_TRAIN_NOREMAT <= smoke.LM_TRAIN_STEPS
+    assert smoke.LM_TRAIN_COMPARE <= smoke.LM_TRAIN_STEPS
     for arch, over, moments, n_params in smoke.LM_TRAIN_WIDE:
         full = get_config(arch)
         cut = dataclasses.replace(full, **over)
@@ -928,6 +933,36 @@ def test_distributed_tp_split_is_the_published_layer_at_tp_16(smoke):
     assert set(smoke.DIST_WHOLE_GATHER_MS) == {
         "sharded_step_ms", "unsharded_captured_step_ms",
         "unsharded_eager_step_ms"}
+
+
+def test_distributed_tp_split_layers_are_published(smoke):
+    """(d)'s layers: each config published (its ``n_params()``), a layer
+    of each new tensor-parallel block at tp 16: llama4-scout's experts'
+    f (8192) in 512-row runs, 48 query and 16 KV heads; llama-3.2-vision's
+    8 KV heads repeated to 16; zamba2-7b's 112 Mamba2 heads, 7 a rank;
+    rwkv6-3b's 40 heads padded to 48; the state-space and crossed layers
+    in float32, the others bf16 as published."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    kinds = set()
+    for arch, kind, dtype, n_params in smoke.DIST_EMU_LAYERS:
+        cfg = dataclasses.replace(get_config(arch), tp=smoke.DIST_TP)
+        assert cfg.n_params() == n_params
+        assert dtype == ("float32" if kind in ("mamba", "rwkv", "crossed")
+                         else cfg.dtype == "bfloat16" and "bfloat16")
+        kinds.add((cfg.family, kind))
+        eff, eff_kv, _, _ = cfg.head_layout()
+        if kind in ("block", "crossed", "shared"):
+            assert eff % smoke.DIST_TP == 0 and eff_kv % smoke.DIST_TP == 0
+    assert kinds == {("dense", "block"), ("moe", "block"),
+                     ("vlm", "crossed"), ("hybrid", "mamba"),
+                     ("hybrid", "shared"), ("ssm", "rwkv")}
+    scout = get_config("llama4-scout-17b-a16e")
+    assert scout.d_ff % smoke.DIST_TP == 0
+    assert 3 * scout.n_experts * scout.d_model * scout.d_ff * 2 > 4e9
+    assert lm._part_heads(get_config("zamba2-7b"), "ssm") == 7 * 16
+    assert len(lm.pad_perm(lm._part_heads(get_config("rwkv6-3b"), "rwkv"),
+                           smoke.DIST_TP)) == 48
 
 
 def test_replica_path_counts_are_the_served_paths(smoke):

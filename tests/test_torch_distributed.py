@@ -34,7 +34,12 @@ Bounds, and why:
   ``reduced()``, ``batch_axes=("data",)``, ``tp=2``, as it is, widened,
   with compression and widened until attention shards on 'model' too; and
   grok-1 ``reduced()`` with 4 MoE routing groups and with 1, which spans
-  the 4 data parts), at full learning rate from the first step
+  the 4 data parts; and, on ranks of their own in
+  ``tests/test_torch_distributed_tp.py`` and ``_ssm.py``
+  (:data:`RANK_SETS`), the ``tp`` case with ``remat``, the MoE experts,
+  vlm's cross-attention, the hybrid's Mamba2 layers and shared block and
+  RWKV6 widened until they compute on 'model' shards, their float32 bounds
+  :data:`F32_BOUNDS`), at full learning rate from the first step
   (``warmup_steps=0``, so that the parameters move): the losses within
   1e-6 relative of the reference's step (the global mean taken as the
   mean of 4 parts' means) and the gradient norms within 1e-5 relative
@@ -112,11 +117,34 @@ ARCH, MOE_ARCH = "deepseek-7b", "grok-1-314b"
 WIDE = {"vocab_size": 16384, "d_ff": 8192}
 TP_WIDE = {"d_model": 1024, "d_head": 128, "n_heads": 5, "n_kv_heads": 5,
            "vocab_size": 2048, "d_ff": 512, "n_layers": 3}
+#: widened until the MoE experts (E, d, f) shard: gate and up on f over
+#: 'model', down on d (re-cut to f by an all-to-all)
+MOE_TP = {"dp_shards": 4, "d_model": 256, "d_ff": 1024}
+#: widened until vlm's attention and cross-attention shard, 5 MHA heads
+#: padded to 6 (a rank's shard, 400 of 800 columns, inside a head)
+VLM_TP = {"d_model": 768, "d_head": 160, "n_heads": 5, "n_kv_heads": 5,
+          "d_ff": 256, "vocab_size": 2048, "d_image": 768}
+#: widened until the grouped Mamba2 layers (12 heads, 6 a rank) and the
+#: shared block shard (the trailing layer, under the floor, stays whole;
+#: the shared attention's 5 heads padded to 6, a rank's shard inside a
+#: head), with the published ``remat``
+HYBRID_TP = {"d_model": 384, "d_ff": 2816, "n_heads": 5, "n_kv_heads": 5,
+             "d_head": 640, "remat": True}
+#: widened until RWKV6's block shards: 17 heads of 64 padded to 18, so a
+#: rank's shard (544 of 1088 columns) falls inside a head; the channel
+#: mix's v re-cut from d to d_ff; with the published ``remat``
+SSM_TP = {"d_model": 1088, "n_heads": 17, "n_kv_heads": 17,
+          "head_size": 64, "d_ff": 1024, "n_layers": 1, "remat": True}
 CASES = {"reduced": (ARCH, {}, False), "wide": (ARCH, WIDE, False),
          "compressed": (ARCH, WIDE, True),
          "moe": (MOE_ARCH, {"dp_shards": 4}, False),
          "tp": (ARCH, TP_WIDE, False),
-         "moe_span": (MOE_ARCH, {"dp_shards": 1}, False)}
+         "moe_span": (MOE_ARCH, {"dp_shards": 1}, False),
+         "tp_remat": (ARCH, dict(TP_WIDE, remat=True), False),
+         "moe_tp": (MOE_ARCH, MOE_TP, False),
+         "vlm_tp": ("llama-3.2-vision-11b", VLM_TP, False),
+         "hybrid_tp": ("zamba2-7b", HYBRID_TP, False),
+         "ssm_tp": ("rwkv6-3b", SSM_TP, False)}
 BATCH, SEQ, STEPS = 8, 32, 2
 #: no warmup, so that each step moves every parameter by about the
 #: learning rate (AdamWConfig's warmup would move them by 3e-6 and 6e-6)
@@ -159,7 +187,39 @@ RANK_TIMEOUT = 240
 SERVE_CASES = {"dense": (ARCH, {}, 4), "moe": (MOE_ARCH, {"dp_shards": 4}, 4),
                "ssm": ("rwkv6-3b", {}, 4), "hybrid": ("zamba2-7b", {}, 4),
                "vlm": ("llama-3.2-vision-11b", {}, 4),
-               "tp": (ARCH, TP_WIDE, 4), "seq": (ARCH, {}, 1)}
+               "tp": (ARCH, TP_WIDE, 4), "seq": (ARCH, {}, 1),
+               "moe_tp": (MOE_ARCH, MOE_TP, 4),
+               "vlm_tp": ("llama-3.2-vision-11b", VLM_TP, 4),
+               "hybrid_tp": ("zamba2-7b", HYBRID_TP, 4),
+               "ssm_tp": ("rwkv6-3b", SSM_TP, 4)}
+#: the train and serve cases whose gloo ranks another file runs, by the
+#: name :func:`_worker` takes: ``tests/test_torch_distributed_tp.py``
+#: ("tp": remat, the MoE experts, vlm's cross-attention) and
+#: ``tests/test_torch_distributed_ssm.py`` ("ssm": the hybrid's Mamba2
+#: layers and shared block, RWKV6), so that each file's ranks stay well
+#: inside :data:`RANK_TIMEOUT`; this file's ranks ("base") run the others
+RANK_SETS = {"tp": (("tp_remat", "moe_tp", "vlm_tp"), ("moe_tp", "vlm_tp")),
+             "ssm": (("hybrid_tp", "ssm_tp"), ("hybrid_tp", "ssm_tp"))}
+BASE_CASES = tuple(c for c in CASES if all(
+    c not in cases for cases, _ in RANK_SETS.values()))
+BASE_SERVE_CASES = tuple(c for c in SERVE_CASES if all(
+    c not in serve for _, serve in RANK_SETS.values()))
+RANK_SETS["base"] = (BASE_CASES, BASE_SERVE_CASES)
+#: the float32 bounds of a case where they are not (1e-4, :data:`DP_BOUND`,
+#: 1e-4): the parameters' (x max|p|, x how far the steps moved the leaf)
+#: and the moments' (x their leaf's max). The widened cases that compute
+#: attention or RWKV6 or Mamba2 tensor-parallel carry the ``tp`` case's
+#: float32 noise at their widths (measured worst: ``tp_remat`` 7.6% of the
+#: step, ``vlm_tp`` 6.5%, ``hybrid_tp`` 7.7%; 1.6e-4 x max|p|). RWKV6's
+#: decays amplify it (its float32 gradient is at its conditioning's limit:
+#: ``tests/test_torch_lm_train.py``): ``ssm_tp`` measured 27.7% of the
+#: step (an embedding element), 5.6e-4 x max|p|, moments 2.1e-4 x their
+#: max; in float64 6e-9 and 2e-8, within the defaults
+F32_BOUNDS = {"tp": (TP_P_BOUND, TP_DP_BOUND, 1e-4),
+              "tp_remat": (TP_P_BOUND, TP_DP_BOUND, 1e-4),
+              "vlm_tp": (TP_P_BOUND, TP_DP_BOUND, 1e-4),
+              "hybrid_tp": (TP_P_BOUND, TP_DP_BOUND, 1e-4),
+              "ssm_tp": (1.2e-3, 0.6, 5e-4)}
 SERVE_PROMPT, SERVE_CAPACITY, SERVE_STEPS = 20, 40, 2
 SERVE_BOUND = 1e-4
 
@@ -170,9 +230,14 @@ def _sharded_cfg(get_config, case: str):
                                batch_axes=("data",), tp=2, **over)
 
 
+def _f32_bounds(case: str) -> tuple:
+    """``case``'s float32 bounds (:data:`F32_BOUNDS`)."""
+    return F32_BOUNDS.get(case, (1e-4, DP_BOUND, 1e-4))
+
+
 def _cuts(case: str) -> bool:
     """Whether ``case``'s widths put some leaf above the rules' floor."""
-    return "vocab_size" in CASES[case][1]
+    return bool(set(CASES[case][1]) - {"dp_shards", "remat"})
 
 
 # ---------------------------------------------------------------------------
@@ -225,7 +290,9 @@ def _served_rows(model, clouds, mesh):
             torch.stack(servable.run_batch(clouds[:3]))], servable
 
 
-def _worker(rank: int, world: int, out_dir: str) -> None:
+def _worker(rank: int, world: int, out_dir: str, which: str = "base") -> None:
+    """Rank ``rank``'s program: ``which``'s cases (:data:`RANK_SETS`), and
+    for "base" the collectives."""
     import torch.distributed as dist
     import repro_torch
     from repro_torch.launch import make_replica_mesh, make_test_mesh
@@ -237,6 +304,16 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
                             rank=rank, world_size=world)
     res = {}
     try:
+        if which != "base":
+            mesh = make_test_mesh((4, 2), device_type="cpu")
+            mesh4 = make_test_mesh((2, 2), device_type="cpu")
+            cases, serve = RANK_SETS[which]
+            for case in cases:
+                res[case] = _sharded_run(case, mesh, mesh4, rank, out)
+            for case in serve:
+                res[f"serve_{case}"] = _serve_run(case, mesh)
+            dist.barrier()
+            return
         x = torch.from_numpy(_psum_input())
         res["psum"] = compressed_psum(x[rank:rank + 1])
         ws, xm = map(torch.from_numpy, _pipe_inputs())
@@ -257,10 +334,10 @@ def _worker(rank: int, world: int, out_dir: str) -> None:
         # the storage-sharded step on a (4, 2) mesh
         mesh = make_test_mesh((4, 2), device_type="cpu")
         mesh4 = make_test_mesh((2, 2), device_type="cpu")
-        for case in CASES:
+        for case in BASE_CASES:
             res[case] = _sharded_run(case, mesh, mesh4, rank, out)
 
-        for case in SERVE_CASES:
+        for case in BASE_SERVE_CASES:
             res[f"serve_{case}"] = _serve_run(case, mesh)
 
         # a (1, 1) mesh of rank 0: every collective an identity
@@ -413,12 +490,13 @@ def _float64(state: dict) -> dict:
         t.requires_grad) if t.is_floating_point() else t, state)
 
 
-def _compare(state, shardings, plain, p0, bound: float, same=None) -> dict:
+def _compare(state, shardings, plain, p0, bound: float, same=None,
+             m_bound: float = 1e-4) -> dict:
     """Every local shard of ``state`` (after the steps) against its slice
     of the unsharded ``plain``'s leaf: the largest error, the leaf's largest
     value, how far the steps moved it from ``p0``, and the elements
     ``off``: a parameter's beyond ``bound`` x that distance, a moment's
-    beyond 1e-4 x its leaf's largest value; with ``same`` (another
+    beyond ``m_bound`` x its leaf's largest value; with ``same`` (another
     unsharded step), a parameter's ``off_same`` beyond ``bound`` x that
     distance from ``same``'s."""
     shardings, plain, p0 = map(_flatten, (shardings, plain, p0))
@@ -437,7 +515,7 @@ def _compare(state, shardings, plain, p0, bound: float, same=None) -> dict:
                 gap = (got.to_local() - s.shard(same[key].detach())).abs()
                 e["off_same"] = int((gap > bound * moved).sum())
         else:
-            e["off"] = int((diff > 1e-4 * scale).sum())
+            e["off"] = int((diff > m_bound * scale).sum())
         res[key] = e
     return res
 
@@ -451,7 +529,9 @@ def _float64_run(case: str, init: dict, mesh, batch: dict) -> dict:
     from repro_torch.launch import make_train_step
     from repro_torch.launch.sharding import (named_shardings, shard_tree,
                                              state_pspecs)
-    cfg = _sharded_cfg(get_config, case)
+    # the inputs' dtype too (vlm's image embeddings)
+    cfg = dataclasses.replace(_sharded_cfg(get_config, case),
+                              dtype="float64")
     comp = CASES[case][2]
     opt = AdamWConfig(**OPT)
 
@@ -524,10 +604,11 @@ def _sharded_run(case: str, mesh, mesh4, rank: int,
         same = _emulated_steps(cfg, opt, comp, blocks, train_state_from_numpy(
             init, cfg, device="cpu"), batch)
         res["vs_unsharded_f64"] = _float64_run(case, init, mesh, batch)
+    _, dp_bound, m_bound = _f32_bounds(case)
     res["vs_unsharded"] = _compare(
         state, shardings, plain,
-        train_state_from_numpy(init, cfg, device="cpu"),
-        TP_DP_BOUND if case == "tp" else DP_BOUND, same)
+        train_state_from_numpy(init, cfg, device="cpu"), dp_bound, same,
+        m_bound)
     full = tree_map(lambda d: d.full_tensor(), state)
     # saved on 8 ranks, restored onto a (2, 2) mesh of the first 4
     ckpt = str(out / f"ckpt_{case}")
@@ -708,16 +789,25 @@ def jx():
 def ranks(jx, tmp_path_factory):
     """Every rank's results (``rank{r}.pt``), the reference's collectives
     (``ref.npz``) and the reference's train state and 2 steps."""
+    return run_ranks(jx, tmp_path_factory.mktemp("gloo"), "base")
+
+
+def run_ranks(jx, out: pathlib.Path, which: str) -> dict:
+    """The ``ranks`` fixtures' body: the 8 gloo ranks of ``which``'s cases
+    (:func:`_worker`) and meanwhile, for "base", the reference's
+    collectives; the reference's train state and 2 steps per case."""
     jax = jx["jax"]
-    out = tmp_path_factory.mktemp("gloo")
-    ref_proc = subprocess.Popen(
-        [sys.executable, "-c", _REF_COLLECTIVES, str(out / "ref.npz")],
-        cwd=ROOT, env=dict(_free_env(), XLA_FLAGS=(
-            "--xla_force_host_platform_device_count=8")),
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    cases = RANK_SETS[which][0]
+    ref_proc = None
+    if which == "base":
+        ref_proc = subprocess.Popen(
+            [sys.executable, "-c", _REF_COLLECTIVES, str(out / "ref.npz")],
+            cwd=ROOT, env=dict(_free_env(), XLA_FLAGS=(
+                "--xla_force_host_platform_device_count=8")),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     opt = jx["AdamWConfig"](**OPT)
     init = {}
-    for case in CASES:
+    for case in cases:
         rcfg = _sharded_cfg(jx["get_config"], case)
         init[case] = jax.device_get(jax.jit(
             lambda k: jx["train"].init_train_state(
@@ -726,7 +816,8 @@ def ranks(jx, tmp_path_factory):
         np.savez(out / f"init_{case}.npz", **{
             k: np.asarray(v) for k, v in _flatten(init[case]).items()})
     procs = [subprocess.Popen(
-        [sys.executable, __file__, str(r), str(WORLD), str(out)], cwd=ROOT,
+        [sys.executable, __file__, str(r), str(WORLD), str(out), which],
+        cwd=ROOT,
         env=_free_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(WORLD)]
     # the reference's steps meanwhile: its sharded step is, under GSPMD,
@@ -735,7 +826,7 @@ def ranks(jx, tmp_path_factory):
     ref_losses, ref_norms = {}, {}
     one = jax.make_mesh((1, 1), ("data", "model"), axis_types=(
         jax.sharding.AxisType.Auto,) * 2)
-    for case in CASES:
+    for case in cases:
         rcfg = _sharded_cfg(jx["get_config"], case)
         batch = jx["dummy_inputs"](rcfg, "train", batch=BATCH, seq=SEQ)
         ref_step = jax.jit(jx["train"].make_train_step(
@@ -750,12 +841,15 @@ def ranks(jx, tmp_path_factory):
     logs = [p.communicate(timeout=RANK_TIMEOUT)[0] for p in procs]
     for r, (p, log) in enumerate(zip(procs, logs)):
         assert p.returncode == 0, f"rank {r}:\n{log[-4000:]}"
-    _, err = ref_proc.communicate(timeout=RANK_TIMEOUT)
-    assert ref_proc.returncode == 0, err[-4000:]
     res = [torch.load(out / f"rank{r}.pt", weights_only=False)
            for r in range(WORLD)]
-    return {"rank": res, "ref": dict(np.load(out / "ref.npz")),
-            "init": init, "ref_losses": ref_losses, "ref_norms": ref_norms}
+    got = {"rank": res, "init": init, "ref_losses": ref_losses,
+           "ref_norms": ref_norms}
+    if ref_proc is not None:
+        _, err = ref_proc.communicate(timeout=RANK_TIMEOUT)
+        assert ref_proc.returncode == 0, err[-4000:]
+        got["ref"] = dict(np.load(out / "ref.npz"))
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -795,7 +889,7 @@ def test_overlapped_tp_matmul_matches_the_reference(ranks):
 # the storage-sharded train step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BASE_CASES)
 def test_sharded_step_losses_match_the_references(ranks, case):
     ref = np.asarray(ranks["ref_losses"][case])
     for r in ranks["rank"]:
@@ -803,7 +897,7 @@ def test_sharded_step_losses_match_the_references(ranks, case):
                                    rtol=1e-6)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BASE_CASES)
 def test_sharded_step_grad_norms_match_the_references(ranks, case):
     ref = np.asarray(ranks["ref_norms"][case])
     for r in ranks["rank"]:
@@ -849,12 +943,12 @@ def _within(ranks, case: str, prefixes: tuple, flip_err=None,
         assert e["err"] <= bound * e["scale"], (key, e)
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BASE_CASES)
 def test_sharded_step_parameters_match_the_unsharded_step(ranks, case):
     """Every rank's shard of every parameter after the steps, against its
-    slice of the port's unsharded step's: within 1e-4 x max|p| (``tp``:
-    :data:`TP_P_BOUND`) and within :data:`DP_BOUND` (``tp``:
-    :data:`TP_DP_BOUND`) of how far the steps moved the leaf (a flipped
+    slice of the port's unsharded step's: within 1e-4 x max|p| and within
+    :data:`DP_BOUND` of how far the steps moved the leaf (the widened cases:
+    :data:`F32_BOUNDS`) (a flipped
     element under compression moves by up to a step more or less). Where
     blocks compute tensor-parallel, also within that bound of the
     unsharded step in the sharded step's tensor-parallel arithmetic, and,
@@ -863,7 +957,7 @@ def test_sharded_step_parameters_match_the_unsharded_step(ranks, case):
     unsharded step."""
     for key, e in _vs_unsharded(ranks, case, ("params/",)):
         assert e["moved"] > 0, key
-    bound = TP_P_BOUND if case == "tp" else 1e-4
+    bound = _f32_bounds(case)[0]
     _within(ranks, case, ("params/",), bound=bound)
     if _computes_tp(ranks, case):
         _within(ranks, case, ("params/",), bound=bound, off="off_same")
@@ -873,13 +967,15 @@ def test_sharded_step_parameters_match_the_unsharded_step(ranks, case):
         _within(ranks, case, ("params/",), field="vs_unsharded_f64")
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BASE_CASES)
 def test_sharded_step_moments_match_the_unsharded_step(ranks, case):
     """Every rank's shard of AdamW's m and v, which carry the gradient's
-    scale, within 1e-4 of their leaf's largest value, in float32 and, where
-    blocks compute tensor-parallel, in float64; under compression a
-    flipped element is off by at most 2 int8 steps of the gradient."""
-    _within(ranks, case, ("opt/m/", "opt/v/"), flip_err=2 / 127)
+    scale, within 1e-4 of their leaf's largest value, in float32
+    (:data:`F32_BOUNDS`) and, where blocks compute tensor-parallel, in
+    float64; under compression a flipped element is off by at most 2 int8
+    steps of the gradient."""
+    _within(ranks, case, ("opt/m/", "opt/v/"), flip_err=2 / 127,
+            bound=_f32_bounds(case)[2])
     if _computes_tp(ranks, case):
         _within(ranks, case, ("opt/m/", "opt/v/"), flip_err=2 / 127,
                 field="vs_unsharded_f64")
@@ -922,7 +1018,7 @@ def test_sharded_step_gathers_at_most_two_layers(ranks):
                 assert 0 < g["peak_alive_bytes"] <= 2 * layer + unstacked
                 assert g["gathered_bytes"] >= 2 * r[case]["layers"] * layer
         assert 2 < r["tp"]["layers"]
-        for case in CASES:
+        for case in BASE_CASES:
             assert all(g["kept_copy_bytes"] == 0 for g in r[case]["gathers"])
         assert all(g == {"gathered_bytes": 0, "peak_alive_bytes": 0,
                          "kept_copy_bytes": 0}
@@ -947,7 +1043,7 @@ def test_tp_blocks_compute_on_model_shards(ranks):
                                         "embed": ("",), "lm_head": ("",)}
 
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BASE_CASES)
 def test_sharded_state_shards_are_the_reference_specs_cut(ranks, jx, case):
     """Each rank's local shard of every state leaf has the shape the
     reference's ``state_pspecs`` on a (4, 2) mesh cut; at ``reduced()``
@@ -990,7 +1086,7 @@ def test_one_rank_mesh_is_the_unsharded_program(ranks):
 # elastic restore and replica fan-out
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("case", BASE_CASES)
 def test_restore_recuts_an_8_rank_checkpoint_for_4(ranks, case):
     for r in ranks["rank"][:4]:
         got = r[case]["restore"]
@@ -1057,7 +1153,7 @@ def test_moe_local_routing_matches_the_reference(jx):
 # the sharded prefill and decode step
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("case", SERVE_CASES)
+@pytest.mark.parametrize("case", BASE_SERVE_CASES)
 def test_sharded_prefill_and_decode_match_the_unsharded_port(ranks, case):
     for r, res in enumerate(ranks["rank"]):
         got = res[f"serve_{case}"]
@@ -1168,4 +1264,4 @@ def test_sharded_prefill_and_decode_on_one_rank_are_the_unsharded_ones(nccl):
 
 
 if __name__ == "__main__":
-    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
+    _worker(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], *sys.argv[4:])

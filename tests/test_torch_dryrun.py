@@ -54,8 +54,9 @@ TINY = {"train": ("tiny_train", "train", 64, 16),
 #: per-rank operations over ``model_flops``, as counted on this tree for
 #: :func:`test_reduced_cell_counts`' configs, by (family, step kind).
 #: Above 1: the products that the analytic count leaves out (the masked
-#: halves of the attention chunks, which it counts causal, and the flash
-#: backward's recomputed scores). Below 1: the prefill's head at the last
+#: halves of the attention chunks, which it counts causal, the flash
+#: backward's recomputed scores, and a train step's recomputed forward of
+#: each checkpointed layer: ``prod_cfg`` sets ``cfg.remat``). Below 1: the prefill's head at the last
 #: position only (``model_flops`` counts it at every token); RWKV's untied
 #: embedding table, which ``model_flops`` counts in N and the port reads by
 #: a gather; the state-space scans' state math, which ``model_flops`` adds
@@ -63,10 +64,10 @@ TINY = {"train": ("tiny_train", "train", 64, 16),
 #: are exact; the band leaves room for a change of chunking, and a step
 #: that skips one of its layers (2 in dense and ssm, 5 in hybrid: 11-50%
 #: fewer) or half its backward falls outside it.
-FLOPS_RATIO = {("dense", "train"): 1.126, ("dense", "prefill"): 0.832,
-               ("dense", "decode"): 1.000, ("ssm", "train"): 0.777,
+FLOPS_RATIO = {("dense", "train"): 1.356, ("dense", "prefill"): 0.832,
+               ("dense", "decode"): 1.000, ("ssm", "train"): 0.933,
                ("ssm", "prefill"): 0.575, ("ssm", "decode"): 0.740,
-               ("hybrid", "train"): 1.024, ("hybrid", "prefill"): 0.924,
+               ("hybrid", "train"): 1.176, ("hybrid", "prefill"): 0.924,
                ("hybrid", "decode"): 0.881}
 #: how far, relatively, a cell's ratio may lie from :data:`FLOPS_RATIO`'s
 FLOPS_BAND = 0.05

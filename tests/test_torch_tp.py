@@ -12,6 +12,12 @@ reorders sums (measured: 7e-7). The unsplit layer is the port's own, which
 the layout pads them to 32) and 40 query heads over 8 KV heads
 (llama4-scout's: the layout repeats each KV head twice and pads the query
 heads to 48).
+
+The blocks that compute on 'model' shards since then (the MoE experts,
+vlm's cross-attention, the hybrid's shared block, RWKV6, Mamba2) run at tp
+2 and 4 in float64 against the unsplit block, each in a widened config
+where a rank's shard falls inside a head, within 1e-9 of each result's
+largest value; RWKV6's and Mamba2's padded heads give exactly zero.
 """
 import dataclasses
 
@@ -229,3 +235,135 @@ def test_emulated_tp_loss_matches_the_unsplit_loss(arch):
     assert abs(got - want) <= 1e-6 * abs(want)
     for a, b in zip(got_grads, want_grads):
         assert float((a - b).abs().max()) <= BOUND * float(b.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the blocks that compute on 'model' shards since the MoE experts
+# ---------------------------------------------------------------------------
+
+#: per block: (config, overrides of ``reduced()``, the params' block path,
+#: the sub-blocks split): each widened so that a rank's 'model' shard falls
+#: inside a head at tp 2 and 4 (the MoE experts have none: their f cut in
+#: 2 and 4): vlm's cross-attention with 6 query heads over 2 KV heads (the
+#: layout repeats the KV heads at tp 4), the hybrid's shared block with 5
+#: MHA heads (padded to 6 and 8), RWKV6 with 17 heads of 64 (padded to 18
+#: and 20), Mamba2 with 5 heads of 64 (padded to 6 and 8)
+BLOCKS = {
+    "moe_experts": ("llama4-scout-17b-a16e", {"d_ff": 96}, "blocks",
+                    ("moe",)),
+    "cross_attn": ("llama-3.2-vision-11b", {"n_heads": 6, "n_kv_heads": 2},
+                   "crossed", ("xattn",)),
+    "shared_block": ("zamba2-7b", {"n_heads": 5, "n_kv_heads": 5,
+                                   "d_head": 16}, "shared_attn",
+                     ("attn", "mlp")),
+    "rwkv6": ("rwkv6-3b", {"d_model": 17 * 64, "head_size": 64,
+                           "n_heads": 17, "n_kv_heads": 17, "d_ff": 256},
+              "blocks", ("time", "channel")),
+    "mamba2": ("zamba2-7b", {"d_model": 160, "n_heads": 5, "n_kv_heads": 5,
+                             "d_head": 32}, "mamba", ("mamba",)),
+}
+F64_BOUND = 1e-9
+
+
+def _apply(name: str, blk, cfg, x, img):
+    """The block's output on ``x`` (``img``: vlm's image embeddings)."""
+    if name == "moe_experts":
+        return lm._ffn(blk, cfg, x)
+    if name == "cross_attn":
+        return lm.cross_attn(blk["xattn"], cfg, x,
+                             lm.project_image_kv(blk["xattn"], cfg, img))
+    if name == "shared_block":
+        pos = torch.arange(x.shape[1], dtype=torch.int32)
+        return lm.block_apply(blk, cfg, x, pos)[0]
+    if name == "rwkv6":
+        return lm._rwkv_layer(blk, cfg, x)[0]
+    return lm._mamba_layer(blk, cfg, x)[0]
+
+
+def _f64_block(name: str, tp: int):
+    """One layer of ``name``'s widened config at ``cfg.tp`` = ``tp``, its
+    leaves seeded float64 (each at its leaf's spread), an input and vlm's
+    image embeddings."""
+    arch, over, top, _ = BLOCKS[name]
+    cfg = dataclasses.replace(get_config(arch).reduced(), tp=tp,
+                              dtype="float64", **over)
+    tree = lm.init(0, cfg, device="cpu")[top]
+    for _ in range(lm.STACK_DIMS.get(top, 0)):
+        tree = tree_map(lambda t: t[0], tree)
+    rng = np.random.default_rng(1)
+
+    def draw(t):
+        spread = float(t.float().std()) if t.numel() > 1 else 0.0
+        return torch.from_numpy(rng.normal(size=tuple(t.shape))
+                                * (spread or 0.1)).requires_grad_()
+    blk = tree_map(draw, tree)
+    x = torch.from_numpy(rng.normal(size=(2, 32, cfg.d_model))
+                         ).requires_grad_()
+    img = torch.from_numpy(rng.normal(size=(2, cfg.n_image_tokens or 1,
+                                            cfg.d_image or 1)))
+    return cfg, blk, x, img
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("name", BLOCKS)
+def test_block_rank_slices_sum_to_the_unsplit_block_in_float64(name, tp):
+    """The block's TP form of ``tp`` ranks emulated in one process
+    (``lm.tp_sub_params``, the ranks' parts summed in rank order) against
+    the unsplit block at the same head layout, forward and every gradient,
+    in float64: within 1e-9 of each result's largest value (the split only
+    reorders sums; measured at most 4e-15)."""
+    cfg, blk, x, img = _f64_block(name, tp)
+    leaves = tree_leaves(blk) + [x]
+    want = _apply(name, blk, cfg, x, img)
+    g = torch.from_numpy(np.random.default_rng(2).normal(
+        size=tuple(want.shape)))
+    want_grads = torch.autograd.grad(want, leaves, g, allow_unused=True,
+                                     materialize_grads=True)
+    par = TensorParallel(tp, range(tp))
+    split = dict(blk, **{sub: lm.tp_sub_params(blk[sub], cfg, par, sub)
+                         for sub in BLOCKS[name][3]})
+    got = _apply(name, split, cfg, x, img)
+    got_grads = torch.autograd.grad(got, leaves, g, allow_unused=True,
+                                    materialize_grads=True)
+    got, want = got.detach(), want.detach()
+    assert float((got - want).abs().max()) <= F64_BOUND * float(
+        want.abs().max())
+    for a, b in zip(got_grads, want_grads):
+        assert float((a - b).abs().max()) <= F64_BOUND * float(
+            b.abs().max())
+
+
+@pytest.mark.parametrize("name,leaf", [("rwkv6", ("time", "out", "w")),
+                                       ("mamba2", ("mamba", "out_proj",
+                                                   "w"))])
+def test_padded_heads_give_exactly_zero(name, leaf):
+    """At tp 4, RWKV6's 17 heads and Mamba2's 5 are padded at the end (to
+    20 and 8): a pad head's output before the row-parallel projection is
+    exactly zero (zero r, k, v and gate; ``_group_norm`` of a zero head is
+    zero and ``_log_w`` of a zero row finite; a zero head's Mamba2 output
+    and its square in the gated norm's sum are zero), so any values in the
+    projection's pad rows leave the block's output bit for bit."""
+    from repro_torch.models import rwkv
+    zero = torch.zeros(2, 3, 4 * 16, dtype=torch.float64)
+    assert torch.equal(rwkv._group_norm(zero, torch.ones(64), 16), zero)
+    assert torch.isfinite(rwkv._log_w(zero)).all()
+    cfg, blk, x, img = _f64_block(name, 4)
+    par = TensorParallel(4, range(4))
+    sub = leaf[0]
+    split = dict(blk, **{s: lm.tp_sub_params(blk[s], cfg, par, s)
+                         for s in BLOCKS[name][3]})
+    want = _apply(name, split, cfg, x, img).detach()
+    heads = lm._part_heads(cfg, "rwkv" if name == "rwkv6" else "ssm")
+    perm = lm.pad_perm(heads, 4)
+    per = len(perm) // 4
+    w = split[sub][leaf[1]][leaf[2]].detach().clone()
+    size = w.shape[1] // per
+    pads = 0
+    for r in range(4):
+        for j, h in enumerate(perm[r * per:(r + 1) * per]):
+            if h == heads:
+                w[r, j * size:(j + 1) * size] = 7.0
+                pads += 1
+    assert pads == len(perm) - heads > 0
+    split[sub] = dict(split[sub], **{leaf[1]: {leaf[2]: w}})
+    assert torch.equal(_apply(name, split, cfg, x, img).detach(), want)
