@@ -141,8 +141,10 @@ and batch size. Phases, each printing one JSON line:
    mean loss below the first 20's, each checkpoint restored bit for bit;
    K7 and P4 at 2 launches a replayed step (``torch.profiler`` over one
    replay; the counters see the two warm-ups and the capture); 5 captured
-   steps bit for bit the eager ones; P4 bit for bit against its plain
-   version at the step's two SA-2 gathers. Printed: the captured step's
+   steps bit for bit the eager ones; P4 at the step's two SA-2 gathers
+   (``_p4_case``): the card's sort ``torch.equal`` to ``segments()``, the
+   fused launch, the segment sum and the entry point bit for bit against
+   the plain version. Printed: the captured step's
    median time, busy share and launches beside the eager step's, the eager
    step with autograd's scatter-add backward in P4's place, and the eager
    forward/backward/optimizer split (``torch.profiler``).
@@ -261,8 +263,12 @@ and batch size. Phases, each printing one JSON line:
    launches and peak memory beside the bound (``lm_train_flops``: 6 x
    parameters x tokens of bf16 GEMMs at 989 TFLOP/s, attention's products
    over the chunk pairs the causal mask leaves apart: those of bf16
-   operands at 989, those of a float32 operand at 67 TFLOP/s); P4 at the embedding's gradient against
-   its plain version, with its times beside ``index_add_`` and its bound.
+   operands at 989, those of a float32 operand at 67 TFLOP/s); P4's
+   radix sort launched in (a)'s run and in its replay; P4 (``_p4_case``)
+   at the embedding's gradient and at llama4-scout's MoE dispatch gather (2 x 1024 tokens of 5120): sort
+   ``torch.equal`` to ``segments()``, sums bit for bit the plain version,
+   times (entry, kernel, sort, ``index_add`` and their device times)
+   beside the bound.
 
 14. dryrun (last; its subprocesses start after every timed phase, so
    that no time is taken while they load the CPU): the dry run (``repro_torch.launch.dryrun``, no
@@ -281,8 +287,10 @@ distributed phase's replica run; ``train_launches``: K7's in the train
 phase's run, ``train_launches_per_replay`` its launches in one replayed
 step; P4's row, whose ``launches`` are its counter in the train phase's
 run, ``lm_train_launches`` and ``lm_train_launches_per_replay`` its
-counts in the lm_train phase's full-width run, ``lm_embedding`` its times
-there), the ``nvidia-smi`` name and power
+counts in the lm_train phase's full-width run, ``lm_embedding`` and
+``lm_moe_dispatch`` its times there; the
+row of P4's radix sort, its ``launches`` the sort's kernels in that run),
+the ``nvidia-smi`` name and power
 limit, and as the last line ``{"ok": true, "device": {...}}``. Any failure
 raises, so the exit code is not 0 and the last line is never printed. It
 needs a CUDA card and the repository's ``src/`` beside it.
@@ -290,6 +298,7 @@ needs a CUDA card and the repository's ``src/`` beside it.
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -1073,7 +1082,7 @@ MLP_COUNTERS = ("fused_mlp", "fused_mlp_layer", "fused_mlp_mtiled",
 #: The port's kernels by the names ``torch.profiler`` gives them.
 PORT_KERNELS = ("fused_mlp_", "wstat_", "combine_", "aggregate_diff",
                 "reram_matmul", "fps_", "greedy_kernel", "coordinate_kernel",
-                "gather_rows_backward_kernel")
+                "gather_rows_backward_kernel", "segments_")
 
 #: Kernels a captured ``batched_forward`` under the 'pointer' schedule must
 #: replay: FPS, P1, P2 and the gather.
@@ -2775,6 +2784,16 @@ def _p4_count(rows) -> int:
                if "gather_rows_backward_kernel" in r["kernel"])
 
 
+#: P4's radix-sort counters (``launch_counts()``): its passes' two kernels
+#: and the boundary pass
+SEGMENTS_COUNTERS = ("segments_count", "segments_scatter", "segments_bounds")
+
+
+def _segments_count(rows) -> int:
+    """Launches of P4's radix sort (its passes and the boundary pass)."""
+    return sum(r["count"] for r in rows if "segments_" in r["kernel"])
+
+
 def _train_split(trainer, out: dict, args: dict) -> dict:
     """Where an eager training step's time goes, on the trained model and
     the first batch: the forward (``loss_fn``), the backward
@@ -2813,7 +2832,6 @@ def _p4_inputs(trainer, args: dict) -> list:
     geometry of the trainer's first batch (centres ``(B, 128)`` and
     neighbours ``(B, 128, 16)`` into SA-1's 512 rows), and upstream
     gradients of SA-1's output width drawn from the seed."""
-    from repro_torch.kernels.gather_backward import segments
     from repro_torch.models import pointnet2 as pn
     cfg = trainer.train_config(args["points"])
     clouds, _ = _first_batch(args)
@@ -2825,9 +2843,8 @@ def _p4_inputs(trainer, args: dict) -> list:
         flat = idx.reshape(idx.shape[0], -1)
         g = torch.from_numpy(rng.normal(size=(flat.numel(), c)).astype(
             np.float32)).cuda()
-        perm, starts = segments(flat, n_rows)
-        cases.append({"name": name, "idx": flat, "grad": g, "perm": perm,
-                      "starts": starts, "n_rows": n_rows})
+        cases.append({"name": name, "idx": flat, "grad": g,
+                      "n_rows": n_rows})
     return cases
 
 
@@ -2839,56 +2856,194 @@ def _p4_bound(b: int, p: int, n_rows: int, c: int):
     return 4 * b * p * c + 8 * b * p + 4 * b * n_rows * c, b * p * c
 
 
+#: The torch ops P4's entry may run on the card: allocations and views
+P4_ENTRY_OPS = {"empty", "view", "_unsafe_view", "_reshape_alias", "alias",
+                "as_strided", "detach"}
+
+
+def _aten_ops(fn) -> list:
+    """The aten ops ``fn()`` dispatches, by name (no device involved: a
+    dispatch mode sees each op as it is called)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    with Log() as log:
+        fn()
+    return log.ops
+
+
+#: P4's kernels, as the card names them
+P4_KERNELS = ("gather_rows_backward_kernel",
+              "gather_rows_backward_kernel_fused", "segments_count_kernel",
+              "segments_scatter_kernel", "segments_bounds_kernel")
+
+
+def _captured_nodes(fn) -> list:
+    """The nodes of a CUDA graph capture of one call of ``fn``, in the
+    order of ``cudaGraphDebugDotPrint``'s dump: a kernel of
+    :data:`P4_KERNELS` by its name, any other node by its dump's first
+    words. Unlike a profiler session, which late in the script may record
+    nothing, the capture holds every launch of the call."""
+    import re
+    import tempfile
+    import warnings
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    torch.cuda.synchronize()
+    with torch.cuda.graph(graph):
+        fn()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "capture.dot")
+        with warnings.catch_warnings():  # its DEBUG notes, one a call
+            warnings.simplefilter("ignore")
+            graph.debug_dump(path)
+        dot = pathlib.Path(path).read_text()
+    graph.reset()
+    names = "|".join(sorted(P4_KERNELS, key=len, reverse=True))
+    nodes = []
+    for block in re.split(r'\n\s*"[^"\n]+"\s*\[', dot)[1:]:
+        m = re.search(names, block)
+        nodes.append(m.group(0) if m else " ".join(block.split())[:80])
+    return nodes
+
+
+def _call_device_ms(fn, recorded=None, calls: int = 5):
+    """Device time of one call of ``fn``: ``torch.profiler``'s total over
+    ``calls`` calls, divided by the calls it recorded, ``recorded(rows)``
+    (default: the most launches of one kernel, for a ``fn`` that launches
+    each of its kernels once). A session may lose launches
+    (:data:`PROFILE_SETTLE_S`), the more so as calls of microseconds take
+    a fraction of a millisecond, and late in the script some recorded
+    none: each session follows a call of ``fn`` outside it, and while the
+    sessions miss calls another starts, past the third only while none
+    recorded any (:data:`CALL_PROFILE_SETTLES_S`); the one that recorded
+    the most counts. -> (ms or None where none recorded, its rows, its
+    recorded calls)."""
+    best, n = [], 0
+    for i, settle in enumerate(CALL_PROFILE_SETTLES_S):
+        if n >= calls or (n and i >= 3):
+            break
+        fn()
+        rows = _device_rows(fn, calls=calls, settle=settle)
+        got = (recorded(rows) if recorded
+               else max((r["count"] for r in rows), default=0))
+        if got > n:
+            best, n = rows, got
+    return (sum(r["device_ms"] for r in best) / n if n else None), best, n
+
+
+def _p4_case(idx, g, n_rows: int, what: str) -> dict:
+    """P4 on one gather's operands on the card (``idx`` int64 ``(L, P)``,
+    ``g`` float32 ``(L * P, C)``): the radix sort ``torch.equal`` to
+    ``segments()``, and bit for bit against the plain version the entry
+    point, the kernel that sums (the fused launch, whose sort is in shared
+    memory, where :func:`fused_fits`; else the segment sum on the sort's
+    output) and the segment sum alone; then the times (CUDA events) of the
+    entry, the kernel, the radix sort where the entry runs it, the plain
+    version and ``segments()``, and ``torch.index_add`` (the scatter-add
+    P4 replaces, in no fixed order), and the device times
+    (``torch.profiler``) of the entry, the kernel and ``index_add``,
+    beside the bound. The entry must run no torch op but allocations and
+    views (:data:`P4_ENTRY_OPS`: no ``torch.sort``, ``searchsorted`` or
+    ``arange``), a CUDA graph capture of it must hold its segment sum and
+    no node but P4's kernels (:func:`_captured_nodes`), and its profile,
+    where a session recorded it, no kernel but P4's."""
+    from repro_torch.kernels import gather_backward as gb
+    b, p = idx.shape
+    c = g.shape[1]
+    grad3 = g.view(b, p, c)
+    perm, starts = gb.segments(idx, n_rows)
+    want = gb.gather_rows_backward_plain(g, perm, starts)
+    got = gb.gather_rows_backward(grad3, idx, n_rows).reshape(-1, c)
+    summed = gb.gather_rows_backward_cuda(g, perm, starts)
+    sp, ss = gb.segments_cuda(idx, n_rows)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    check(torch.equal(got, want), f"P4 {what}: the entry point differs from "
+                                  f"the plain version by {err}")
+    check(torch.equal(summed, want), f"P4 {what}: the segment sum differs "
+                                     f"from the plain version")
+    check(torch.equal(sp, perm) and torch.equal(ss, starts),
+          f"P4 {what}: the card's sort differs from segments()")
+    fused = gb.fused_fits(b, p, n_rows)
+    row = {"shape": [b, p, n_rows, c], "max_abs_err": err,
+           "max_segment": int((starts[1:] - starts[:-1]).max()),
+           "path": "fused" if fused else "radix"}
+    if fused:
+        kernel = functools.partial(gb.gather_rows_backward_fused_cuda, g,
+                                   idx, n_rows)
+        check(torch.equal(kernel(), want), f"P4 {what}: the fused launch "
+                                           f"differs from the plain version")
+    else:
+        kernel = functools.partial(gb.gather_rows_backward_cuda, g, perm,
+                                   starts)
+        row["sort_ms"] = cuda_ms(lambda: gb.segments_cuda(idx, n_rows))
+        row["sort_bytes"] = 16 * b * p + 8 * (b * n_rows + 1)
+    zeros = torch.zeros((b * n_rows, c), device=g.device)
+    keys = (idx + n_rows * torch.arange(b, device=idx.device)[:, None]
+            ).reshape(-1)
+
+    def entry():
+        return gb.gather_rows_backward(grad3, idx, n_rows)
+
+    def index_add():
+        return torch.index_add(zeros, 0, keys, g)
+    # the card's path runs no torch op but allocations and views (so no
+    # torch.sort, searchsorted or arange), and a capture of it holds its
+    # segment sum and no node but P4's kernels
+    ops = sorted(set(_aten_ops(entry)))
+    check(set(ops) <= P4_ENTRY_OPS, f"P4 {what}: the entry ran {ops}")
+    nodes = _captured_nodes(entry)
+    check(any(n.startswith("gather_rows_backward_kernel") for n in nodes)
+          and all(n in P4_KERNELS for n in nodes),
+          f"P4 {what}: a capture of the entry holds {nodes}")
+    device_ms, rows, calls = _call_device_ms(entry, _p4_count)
+    names = [r["kernel"] for r in rows]
+    check(all(any(k in n for k in P4_KERNELS) for n in names),
+          f"P4 {what}: the entry launched {names}")
+    row.update({
+        "entry_ops": ops, "captured_nodes": nodes, "device_ms": device_ms,
+        "profiled_calls": calls,
+        "entry_kernels": {r["kernel"]: r["count"] / calls for r in rows},
+        "ms": cuda_ms(entry), "kernel_ms": cuda_ms(kernel),
+        "sum_ms": cuda_ms(functools.partial(gb.gather_rows_backward_cuda, g,
+                                            perm, starts)),
+        # the call that made ``want`` was the plain version's warm-up
+        "plain_ms": cuda_ms(lambda: gb.gather_rows_backward_plain(
+            g, perm, starts), iters=1, warmup=0),
+        "plain_sort_ms": cuda_ms(lambda: gb.segments(idx, n_rows)),
+        "library_ms": cuda_ms(index_add),
+        "kernel_device_ms": _call_device_ms(kernel, _p4_count)[0],
+        "library_device_ms": _call_device_ms(index_add)[0]})
+    nbytes, ops = _p4_bound(b, p, n_rows, c)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, ops, FP32_OPS_PER_S)
+    row["bytes"], row["ops"] = nbytes, ops
+    return row
+
+
 def _p4_row(cases, train_launches: int, per_replay: int,
             eager_per_step: int) -> dict:
-    """P4 at the training path's two SA-2 gathers: the kernel bit for bit
-    against its plain version on the same operands, and the entry point's
-    time (stable sort, segment search and kernel), the kernel's alone,
-    the plain version's and ``torch.index_add`` (the scatter-add P4
-    replaces, in no fixed order) beside the bound."""
-    from repro_torch.kernels.gather_backward import (
-        gather_rows_backward, gather_rows_backward_cuda,
-        gather_rows_backward_plain)
+    """P4 at the training path's two SA-2 gathers (:func:`_p4_case` each:
+    the fused launch, sort and sum in one), summed over the two into the
+    kernel row."""
     tot = {"ms": 0.0, "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-           "device_ms": 0.0, "bytes": 0, "ops": 0}
+           "device_ms": 0.0, "kernel_device_ms": 0.0,
+           "library_device_ms": 0.0, "bytes": 0, "ops": 0}
     err, per = 0.0, {}
     for case in cases:
-        g, perm, starts, idx = (case["grad"], case["perm"], case["starts"],
-                                case["idx"])
-        got = gather_rows_backward_cuda(g, perm, starts)
-        want = gather_rows_backward_plain(g, perm, starts)
-        torch.cuda.synchronize()
-        e = float((got - want).abs().max())
-        check(torch.equal(got, want), f"P4 {case['name']}: kernel differs "
-                                      f"from its plain version by {e}")
-        err = max(err, e)
-        b, p = idx.shape
-        n_rows = case["n_rows"]
-        c = g.shape[1]
-        grad3 = g.view(b, p, c)
-        keys = (idx + n_rows * torch.arange(b, device=idx.device)[:, None]
-                ).reshape(-1)
-        zeros = torch.zeros((b * n_rows, c), device=g.device)
-        row = {"shape": [b, p, n_rows, c],
-               "ms": cuda_ms(lambda: gather_rows_backward(grad3, idx,
-                                                          n_rows)),
-               "kernel_ms": cuda_ms(lambda: gather_rows_backward_cuda(
-                   g, perm, starts)),
-               "plain_ms": cuda_ms(lambda: gather_rows_backward_plain(
-                   g, perm, starts), iters=3, warmup=1),
-               "library_ms": cuda_ms(lambda: torch.index_add(zeros, 0, keys,
-                                                             g)),
-               "device_ms": _device_ms(lambda: gather_rows_backward(
-                   grad3, idx, n_rows)),
-               "max_segment": int((starts[1:] - starts[:-1]).max())}
-        nbytes, ops = _p4_bound(b, p, n_rows, c)
-        row["bound_ms"], row["bound_by"] = bound(nbytes, ops, FP32_OPS_PER_S)
+        row = _p4_case(case["idx"], case["grad"], case["n_rows"],
+                       f"SA-2 {case['name']}")
         per[case["name"]] = row
-        for key in ("ms", "kernel_ms", "plain_ms", "library_ms",
-                    "device_ms"):
-            tot[key] += row[key]
-        tot["bytes"] += nbytes
-        tot["ops"] += ops
+        err = max(err, row["max_abs_err"])
+        for key in tot:       # None: a profile that recorded nothing
+            tot[key] = (None if tot[key] is None or row[key] is None
+                        else tot[key] + row[key])
     bms, bby = bound(tot["bytes"], tot["ops"], FP32_OPS_PER_S)
     return {
         "name": "P4 gather_rows_backward", "route": "cuda",
@@ -2905,6 +3060,8 @@ def _p4_row(cases, train_launches: int, per_replay: int,
         "work": "the backward of the two SA-2 feature gathers of a model0 "
                 "training step, batch 16 (1024 points)",
         "kernel_ms": tot["kernel_ms"], "device_ms": tot["device_ms"],
+        "kernel_device_ms": tot["kernel_device_ms"],
+        "library_device_ms": tot["library_device_ms"],
         "launches_per_replay": per_replay,
         "eager_launches_per_step": eager_per_step, "per_gather": per}
 
@@ -3905,6 +4062,7 @@ def _lm_train_full(smi: str) -> dict:
             counts = launch_counts()
         runs.append({"hist": hist, "leaves": train.state_leaves(state),
                      "p4": counts["gather_rows_backward"],
+                     "sort": sum(counts[k] for k in SEGMENTS_COUNTERS),
                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "ms": [1e3 * (b - a) for a, b in
                             zip(stamps, stamps[1:])],
@@ -3953,6 +4111,10 @@ def _lm_train_full(smi: str) -> dict:
     p4 = _p4_count(replay)
     check(p4 == per_step, f"lm_train: a replayed step launched P4 {p4} "
                           f"times, expected {per_step}")
+    sort = _segments_count(replay)
+    check(sort > 0 and a["sort"] == (warm + 1) * sort,
+          f"lm_train: P4's radix sort launched {sort} kernels a replayed "
+          f"step and {a['sort']} in the run (eager warm-ups and capture)")
     check(cfg.remat, "lm_train: the published config does not set remat")
     torch.cuda.reset_peak_memory_stats()
     k = LM_TRAIN_NOREMAT
@@ -3975,9 +4137,11 @@ def _lm_train_full(smi: str) -> dict:
                          "device_busy_share":
                              device / statistics.median(cap_ms),
                          "launches": sum(r["count"] for r in replay),
-                         "p4_launches": p4, "top_kernels": replay[:12]},
+                         "p4_launches": p4, "sort_launches": sort,
+                         "top_kernels": replay[:12]},
             "eager": _host_stats(e_ms[warm:]),
             "p4_launches_in_run": a["p4"],
+            "sort_launches_in_run": a["sort"],
             "max_memory_allocated_gb": a["peak_gb"],
             "remat": {"max_memory_allocated_gb": a["peak_gb"],
                       "captured_step_ms_median": statistics.median(cap_ms),
@@ -4190,46 +4354,63 @@ def _lm_train_wide(smi: str) -> dict:
     return out
 
 
-def _p4_lm_row(smi: str) -> dict:
-    """P4 at the full-width run's embedding gradient: (2 x 4096, 1024)
-    float32 rows of the step's ``TokenStream`` batch into qwen's 151936
-    vocabulary rows, bit for bit against its plain version; the entry
-    point's time (sort, search, kernel), the kernel's alone, the plain
-    version's and ``index_add_`` (the scatter-add of ``index_select``'s
-    backward, in no fixed order) beside the bound."""
+#: llama4-scout's dispatch gather in phase ``lm_train``'s (d): 2 x 1024
+#: tokens, top-1, into the 2048 token rows of 5120 channels
+P4_MOE_ARCH = "llama4-scout-17b-a16e"
+
+
+def _p4_lm_cases() -> dict:
+    """P4's LM operands: the full-width run's embedding gradient ((2 x
+    4096, 1024) float32 rows of the step's ``TokenStream`` batch into
+    qwen's 151936 vocabulary rows) and llama4-scout's MoE dispatch gather
+    at (d)'s 2 x 1024 tokens (top-1: each token row once, in expert order,
+    a permutation)."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels.gather_backward import (
-        gather_rows_backward, gather_rows_backward_cuda,
-        gather_rows_backward_plain, segments)
-    cfg = get_config(LM_ARCH)
+    cfg, moe = get_config(LM_ARCH), get_config(P4_MOE_ARCH)
+    rng = np.random.default_rng(SEED)
     ids = _token_batch(cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ)["ids"]
     flat = ids.reshape(1, -1).long()
-    rng = np.random.default_rng(SEED)
-    g = torch.from_numpy(rng.normal(size=(flat.numel(), cfg.d_model)).astype(
-        np.float32)).cuda()
-    perm, starts = segments(flat, cfg.vocab_size)
-    got = gather_rows_backward_cuda(g, perm, starts)
-    want = gather_rows_backward_plain(g, perm, starts)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    check(torch.equal(got, want), f"P4 lm embedding: kernel differs from "
-                                  f"its plain version by {err}")
-    zeros = torch.zeros((cfg.vocab_size, cfg.d_model), device="cuda")
+    tokens = LM_TRAIN_BATCH * LM_TRAIN_WIDE_SEQ * moe.experts_per_token
+    perm = torch.from_numpy(rng.permutation(tokens)).cuda()[None]
+
+    def grad(n, c):
+        return torch.from_numpy(rng.normal(size=(n, c)).astype(
+            np.float32)).cuda()
+    g = grad(flat.numel(), cfg.d_model)
+    return {"embedding": (flat, g, cfg.vocab_size),
+            "moe_dispatch": (perm, grad(tokens, moe.d_model), tokens)}
+
+
+def _p4_lm_row(smi: str) -> dict:
+    """P4 at the LM's gathers (:func:`_p4_lm_cases`, each through
+    :func:`_p4_case`), and the radix sort's kernel row at the embedding:
+    ``segments_cuda`` against ``segments()`` beside its bound (the indices
+    read, perm and starts written) and ``torch.sort`` (the stable sort
+    alone, no starts); its launches are set by the caller."""
+    from repro_torch.kernels import gather_backward as gb
+    cases = _p4_lm_cases()
+    res = {name: _p4_case(*case, name) for name, case in cases.items()}
+    emb = res["embedding"]
+    flat, _, n_rows = cases["embedding"]
     keys = flat.reshape(-1)
-    nbytes, ops = _p4_bound(1, flat.shape[1], cfg.vocab_size, cfg.d_model)
-    bms, bby = bound(nbytes, ops, FP32_OPS_PER_S)
-    return {"shape": [1, flat.shape[1], cfg.vocab_size, cfg.d_model],
-            "max_abs_err": err,
-            "ms": cuda_ms(lambda: gather_rows_backward(g[None], flat,
-                                                       cfg.vocab_size)),
-            "kernel_ms": cuda_ms(lambda: gather_rows_backward_cuda(
-                g, perm, starts)),
-            "plain_ms": cuda_ms(lambda: gather_rows_backward_plain(
-                g, perm, starts), iters=2, warmup=1),
-            "library_ms": cuda_ms(lambda: torch.index_add(zeros, 0, keys,
-                                                          g)),
-            "bound_ms": bms, "bound_by": bby,
-            "max_segment": int((starts[1:] - starts[:-1]).max())}
+    nbytes = emb["sort_bytes"]
+    sms, sby = bound(nbytes, 0, FP32_OPS_PER_S)
+    res["sort_row"] = {
+        "name": "P4 segments (radix sort)", "route": "cuda",
+        "source": "src/repro_torch/csrc/gather_backward.cu",
+        "replaces": "no pallas_call: P4's own sort (the order of "
+                    "src/repro/models/lm.py:411's scatter-add gradient)",
+        "launches": None, "max_abs_err": 0.0, "ms": emb["sort_ms"],
+        "plain_ms": emb["plain_sort_ms"], "bound_ms": sms, "bound_by": sby,
+        "library_ms": cuda_ms(lambda: torch.sort(keys, stable=True)),
+        "library_call": "torch.sort(keys, stable=True) (perm only)",
+        "work": f"perm and starts of qwen's embedding gradient: "
+                f"{flat.numel()} ids into {n_rows} rows",
+        "device_ms": _call_device_ms(
+            lambda: gb.segments_cuda(flat, n_rows),
+            lambda rows: sum(r["count"] for r in rows
+                             if "segments_bounds" in r["kernel"]))[0]}
+    return res
 
 
 def phase_lm_train(smi: str, dryrun: dict | None = None) -> dict:
@@ -4259,6 +4440,7 @@ def phase_lm_train(smi: str, dryrun: dict | None = None) -> dict:
     full = res["full"]
     return {"p4_launches": full["p4_launches_in_run"],
             "p4_launches_per_replay": full["captured"]["p4_launches"],
+            "sort_launches": full["sort_launches_in_run"],
             "p4_embedding": res["p4_embedding"]}
 
 
@@ -5105,6 +5287,18 @@ def phase_profile(name: str, model, host, clouds_np, smi) -> None:
 #: activities or CUDA alone, ``acc_events`` or not, one replay or five, back
 #: to back or 0.2 s apart; with a 5 ms pause first, in none of 600)
 PROFILE_SETTLE_S = 0.02
+#: ``TEARDOWN_CUPTI`` for the script's profiler sessions (where the caller
+#: has not set it): "0" keeps CUPTI set up from one session to the next.
+#: Torn down after each session (the profiler's default), CUPTI lost every
+#: launch of the settled sessions of ``--profiler-loss`` (400 of 400; the
+#: unsettled ones between them, none), and late in the script whole
+#: sessions of P4's entry recorded nothing; kept, the settled sessions
+#: lost none
+CUPTI_TEARDOWN = "0"
+#: settle of :func:`_call_device_ms`'s sessions, one after the other (late
+#: in the script a session may record none of its launches, three in a row
+#: now and then)
+CALL_PROFILE_SETTLES_S = (PROFILE_SETTLE_S, 0.2, 0.2, 1.0, 1.0)
 
 
 def _device_rows(fn, calls: int = 1,
@@ -5184,11 +5378,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    os.environ.setdefault("TEARDOWN_CUPTI", CUPTI_TEARDOWN)
     if argv == ["--profiler-loss"]:
         emit({"profiler_loss": profiler_loss()})
         return 0
     if argv:
-        print("usage: chip_smoke.py [--profiler-loss]", file=sys.stderr)
+        print("usage: chip_smoke.py [--profiler-loss]",
+              file=sys.stderr)
         return 2
     import repro_torch
     from repro_torch.models.pointnet2 import init_params
@@ -5261,7 +5457,13 @@ def main(argv=None) -> int:
             k["lm_train_launches"] = lm_train["p4_launches"]
             k["lm_train_launches_per_replay"] = \
                 lm_train["p4_launches_per_replay"]
-            k["lm_embedding"] = lm_train["p4_embedding"]
+            for name, row in lm_train["p4_embedding"].items():
+                if name != "sort_row":
+                    k[f"lm_{name}"] = row
+    kernels.append({**lm_train["p4_embedding"]["sort_row"],
+                    "launches": lm_train["sort_launches"]})
+    check(kernels[-1]["launches"] > 0,
+          f"{kernels[-1]['name']} never launched on the path")
     emit({"kernels": kernels})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": info["kind"],

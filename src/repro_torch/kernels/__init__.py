@@ -24,7 +24,9 @@
                   loop in one launch (``fps_batched``; ``ops.fps`` is one
                   cloud)
 - ``gather_backward``: P4, a row gather's backward as a fixed-order
-                  segment sum (``csrc/gather_backward.cu``), and
+                  segment sum (``csrc/gather_backward.cu``: a counting
+                  sort and the sum in one launch, or a radix sort, a
+                  boundary pass and the sum, all on the card), and
                   ``gather_rows`` over it (PointNet++'s feature gathers,
                   the LM's embedding and MoE dispatch): training on the
                   card is reproducible
@@ -78,7 +80,9 @@ def launch_counts() -> dict[str, int]:
     and its pre-pass (``reram_combine``), K7's (``fps_update`` the
     single steps, ``fps`` the whole loops), P1's and P2's
     (``plan_greedy``, ``plan_coordinate``) and P4's
-    (``gather_rows_backward``)."""
+    (``gather_rows_backward`` one a backward; its radix sort's passes,
+    ``segments_count`` and ``segments_scatter``, and boundary passes,
+    ``segments_bounds``)."""
     f = fused_mlp.LAUNCHES
     return {"fused_mlp": f["mlp"], "fused_mlp_layer": f["layer"],
             "fused_mlp_mtiled": f["mtiled"],
@@ -95,8 +99,7 @@ def launch_counts() -> dict[str, int]:
             "fps": _fps_update.LAUNCHES["fps"],
             "plan_greedy": plan_order.LAUNCHES["plan_greedy"],
             "plan_coordinate": plan_order.LAUNCHES["plan_coordinate"],
-            "gather_rows_backward":
-                gather_backward.LAUNCHES["gather_rows_backward"]}
+            **gather_backward.LAUNCHES}
 
 
 def reset_launch_counts() -> None:

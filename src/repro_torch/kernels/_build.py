@@ -125,8 +125,12 @@ def runs_plain(*tensors) -> bool:
 
 
 def stream_of(t) -> int:
-    """PyTorch's current CUDA stream on ``t``'s device, as a handle."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current CUDA stream on ``t``'s device, as a handle, read
+    directly (``torch.cuda.current_stream(...).cuda_stream`` builds a
+    ``Stream`` object first, a large part of a small launch's host time)."""
+    index = t.device.index
+    return torch._C._cuda_getCurrentRawStream(
+        torch.cuda.current_device() if index is None else index)
 
 
 def sm_count(t) -> int:

@@ -15,25 +15,36 @@ equals autograd's bit for bit, and on the card it is the same every run.
 
 The algorithm: a stable sort of the flat keys ``l * n_rows + idx[l, p]``
 gives the positions grouped by output row and, within a row, in increasing
-``p`` (:func:`segments`); a search of the sorted keys gives each row's
-segment. Then one sum per (row, channel) over its segment, in order: the
-kernel on the card (one thread an output), the plain version
-(:func:`gather_rows_backward_plain`, one vectorized step per segment
-depth) on the CPU. No replaced ``pallas_call``: the port's own kernel,
-as P1 and P2 are. See the source note for its bound.
+``p``, and each row's segment of them (:func:`segments`: ``perm`` and
+``starts``). Then one sum per (row, channel) over its segment, in order.
+On the card both stages are hand-written (the source note says what bounds
+each): where a batch row's rows and positions fit in shared memory
+(:func:`fused_fits`: PointNet++'s SA gathers, the MoE dispatch) one launch
+sorts and sums (:func:`gather_rows_backward_fused_cuda`); elsewhere (the
+LM embedding) a stable radix sort and a boundary pass on the card
+(:func:`segments_cuda`), then the segment sum
+(:func:`gather_rows_backward_cuda`), which keeps 16 gradient-row loads in
+flight a warp. No ``torch.sort``, ``searchsorted`` or ``arange`` runs on
+the card's path. On the CPU, :func:`segments` (torch's stable sort and a
+search) and :func:`gather_rows_backward_plain` (one vectorized step per
+segment depth) are the plain versions. No replaced ``pallas_call``: the
+port's own kernel, as P1 and P2 are.
 
-On CPU tensors :func:`gather_rows_backward` runs the plain version; on
-CUDA tensors it launches the kernel (or raises); on ``meta`` tensors
+On CPU tensors :func:`gather_rows_backward` runs the plain versions; on
+CUDA tensors it launches the kernels (or raises); on ``meta`` tensors
 (shapes only: the dry run, ``launch/dryrun.py``) it gives an empty tensor
 of the result's shape and dtype, as the plain version would, which reads
-the segments' depth on the host. ``LAUNCHES`` counts the
-kernel's launches: :func:`gather_rows_backward_cuda` adds one after a
-launch that returned no error, and nowhere else.
+the segments' depth on the host. ``LAUNCHES`` counts the kernels'
+launches, each where a launch returned no error and nowhere else:
+``gather_rows_backward`` one per sum (fused or not: one per backward),
+and the radix sort's ``segments_count`` and ``segments_scatter`` (one each
+a pass) and ``segments_bounds``. Scratch memory depends on the shapes alone and no
+call reads the card back, so a backward captures into a CUDA graph.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-import math
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -41,12 +52,27 @@ from torch.autograd.function import once_differentiable
 from . import _build
 from .record import launch_site
 
-__all__ = ["LAUNCHES", "gather_rows", "gather_rows_backward",
-           "gather_rows_backward_cuda", "gather_rows_backward_plain",
-           "segments"]
+__all__ = ["FUSED_MAX_POSITIONS", "FUSED_MAX_ROWS", "LAUNCHES", "fused_fits",
+           "gather_rows", "gather_rows_backward",
+           "gather_rows_backward_cuda", "gather_rows_backward_fused_cuda",
+           "gather_rows_backward_plain", "segments", "segments_cuda"]
 
 #: Kernel launches (plain-version calls never count).
-LAUNCHES = {"gather_rows_backward": 0}
+LAUNCHES = {"gather_rows_backward": 0, "segments_count": 0,
+            "segments_scatter": 0, "segments_bounds": 0}
+
+#: The fused path's limits (``kFusedMaxRows``, ``kFusedMaxPositions`` in
+#: the source): a batch row of at most this many rows and positions is
+#: sorted in shared memory and summed in the same launch.
+FUSED_MAX_ROWS = 4096
+FUSED_MAX_POSITIONS = 4096
+
+
+def fused_fits(batch: int, positions: int, n_rows: int) -> bool:
+    """Whether ``batch`` batch rows of ``positions`` indices into
+    ``n_rows`` rows take the fused launch (else the radix sort)."""
+    return (batch >= 1 and 1 <= n_rows <= FUSED_MAX_ROWS
+            and 0 <= positions <= FUSED_MAX_POSITIONS)
 
 
 def segments(idx: torch.Tensor, n_rows: int):
@@ -55,8 +81,7 @@ def segments(idx: torch.Tensor, n_rows: int):
     positions ordered by output row ``l * n_rows + idx[l, p]`` and, within
     a row, by position; and ``starts`` ``(L * n_rows + 1,)`` int64, output
     row ``r``'s positions being ``perm[starts[r]:starts[r + 1]]``. Torch
-    ops only, no host read (a ``bincount`` on the card reads its maximum
-    back), so the backward can be captured."""
+    ops only, no host read: the plain version of :func:`segments_cuda`."""
     lead = idx.shape[0]
     rows = torch.arange(lead, dtype=torch.int64, device=idx.device)
     keys = (idx.long() + rows[:, None] * n_rows).reshape(-1)
@@ -83,15 +108,85 @@ def gather_rows_backward_plain(grad, perm, starts):
     return out
 
 
+#: The C entries, typed: (name, restype, argument types). ``int``
+#: entries return the launch's ``cudaError_t``; the plan's two functions
+#: give the radix sort's passes and int32 scratch words for ``n`` keys
+#: below ``k``.
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ENTRIES = {
+    "gather_rows_backward": (_I, [_P] * 4 + [_I] * 3 + [_P]),
+    "gather_rows_backward_fused": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+    "gather_rows_segments": (_I, [_P] * 4 + [_I] * 3 + [_L, _P]),
+    "gather_rows_radix_passes": (_I, [_I, _I]),
+    "gather_rows_radix_words": (_L, [_I, _I]),
+}
+
+
 @functools.cache
-def _launch():
-    """The kernel's C entry, typed (:func:`_build.bind`)."""
-    return _build.bind(_build.library("gather_backward"),
-                       "gather_rows_backward", 4, 3)
+def _entries() -> dict:
+    """The library's C entries, typed as :data:`_ENTRIES` says (pointers
+    and the stream ``c_void_p``, or ctypes passes them as 32-bit ints)."""
+    lib = _build.library("gather_backward")
+    out = {}
+    for name, (res, args) in _ENTRIES.items():
+        fn = getattr(lib, name)
+        fn.restype, fn.argtypes = res, args
+        out[name] = fn
+    return out
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+
+
+def _check_idx(idx: torch.Tensor) -> None:
+    if idx.dtype != torch.int64 or idx.ndim != 2:
+        raise TypeError(f"idx must be int64 (L, P); got {idx.dtype} "
+                        f"{tuple(idx.shape)}")
+    if not idx.is_contiguous():
+        raise ValueError("idx must be contiguous")
+
+
+def segments_cuda(idx: torch.Tensor, n_rows: int):
+    """:func:`segments` on the card, ``torch.equal`` to it, at any size:
+    the radix sort (two launches a pass) and the boundary pass. ``idx``
+    int64 ``(L, P)``, contiguous."""
+    _check_idx(idx)
+    lead, positions = idx.shape
+    n, k = lead * positions, lead * n_rows
+    if n >= 2 ** 31 or k >= 2 ** 31:
+        raise ValueError("segments_cuda sorts 32-bit keys; the tensors are "
+                         "too large")
+    if n and n_rows < 1:
+        raise ValueError("indices into no rows")
+    perm = torch.empty(n, dtype=torch.int64, device=idx.device)
+    starts = torch.empty(k + 1, dtype=torch.int64, device=idx.device)
+    fns, stream = _entries(), _build.stream_of(idx)
+    with torch.cuda.device(idx.device):
+        passes = fns["gather_rows_radix_passes"](n, k) if n else 0
+        words = fns["gather_rows_radix_words"](n, k)
+        scratch = torch.empty(words, dtype=torch.int32, device=idx.device)
+        _raise_on(fns["gather_rows_segments"](
+            idx.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+            scratch.data_ptr(), lead, positions, n_rows, words, stream),
+            "segments radix sort")
+    LAUNCHES["segments_count"] += passes
+    LAUNCHES["segments_scatter"] += passes
+    LAUNCHES["segments_bounds"] += 1
+    return perm, starts
+
+
+def _check_grad(grad: torch.Tensor) -> None:
+    if grad.dtype != torch.float32:
+        raise TypeError(f"the gradient must be float32; got {grad.dtype}")
+    if grad.ndim != 2 or not grad.is_contiguous():
+        raise ValueError(f"the gradient must be a contiguous (P, C) "
+                         f"tensor; got {tuple(grad.shape)}")
 
 
 def gather_rows_backward_cuda(grad, perm, starts):
-    """Launch the kernel on CUDA tensors: ``grad`` float32 ``(P, C)``,
+    """Launch the segment sum on CUDA tensors: ``grad`` float32 ``(P, C)``,
     ``perm`` int64 ``(P,)``, ``starts`` int64 ``(R + 1,)``, all contiguous
     -> float32 ``(R, C)``. A launch adds one to ``LAUNCHES``; an empty
     output launches nothing."""
@@ -115,12 +210,49 @@ def gather_rows_backward_cuda(grad, perm, starts):
     if out.numel() == 0:
         return out
     with torch.cuda.device(grad.device):
-        err = _launch()(grad.data_ptr(), perm.data_ptr(), starts.data_ptr(),
-                        out.data_ptr(), rows, c, positions,
-                        _build.stream_of(grad))
-    if err:
-        raise RuntimeError(f"gather_rows_backward kernel launch failed: "
-                           f"CUDA error {err}")
+        err = _entries()["gather_rows_backward"](
+            grad.data_ptr(), perm.data_ptr(), starts.data_ptr(),
+            out.data_ptr(), rows, c, positions, _build.stream_of(grad))
+    _raise_on(err, "gather_rows_backward")
+    LAUNCHES["gather_rows_backward"] += 1
+    return out
+
+
+def gather_rows_backward_fused_cuda(grad, idx, n_rows: int):
+    """The fused launch on CUDA tensors: ``grad`` float32 ``(L * P, C)``
+    and ``idx`` int64 ``(L, P)``, contiguous, with :func:`fused_fits` ->
+    float32 ``(L * n_rows, C)``, sorted and summed in one launch. A launch
+    adds one to ``LAUNCHES["gather_rows_backward"]``; an empty output
+    launches nothing."""
+    _check_grad(grad)
+    _check_idx(idx)
+    lead, positions = idx.shape
+    if grad.shape[0] != lead * positions:
+        raise ValueError(f"shape mismatch: grad {tuple(grad.shape)}, idx "
+                         f"{tuple(idx.shape)}")
+    return _fused(grad, idx, lead, positions, n_rows,
+                  (lead * n_rows, grad.shape[1]))
+
+
+def _fused(grad, idx, lead: int, positions: int, n_rows: int, shape):
+    """The fused launch on checked operands (float32 ``grad`` of ``lead *
+    positions`` rows, int64 ``idx``, both contiguous), into a new tensor
+    of ``shape`` (``lead * n_rows`` rows of ``C``, any leading dims)."""
+    c = shape[-1]
+    if not fused_fits(lead, positions, n_rows):
+        raise ValueError(f"{lead} x {positions} indices into {n_rows} rows "
+                         f"do not fit the fused launch")
+    if max(n_rows, positions) * lead * c >= 2 ** 31:
+        raise ValueError("gather_rows_backward_fused_cuda indexes with "
+                         "32-bit ints; the tensors are too large")
+    out = torch.empty(shape, dtype=torch.float32, device=grad.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(grad.device):
+        err = _entries()["gather_rows_backward_fused"](
+            grad.data_ptr(), idx.data_ptr(), out.data_ptr(), lead,
+            positions, n_rows, c, _build.stream_of(grad))
+    _raise_on(err, "gather_rows_backward_fused")
     LAUNCHES["gather_rows_backward"] += 1
     return out
 
@@ -138,14 +270,23 @@ def gather_rows_backward(grad, idx, n_rows: int):
     if grad.device.type == "meta":
         # the meta rule: the result's shape and dtype (no launch, no data)
         return grad.new_empty((*lead, n_rows, c))
-    flat_idx = idx.reshape(math.prod(lead), -1)
-    perm, starts = segments(flat_idx, n_rows)
-    g = grad.reshape(-1, c).contiguous()
-    if _build.runs_plain(g, perm, starts):
-        out = gather_rows_backward_plain(g, perm, starts)
-    else:
-        out = gather_rows_backward_cuda(g, perm, starts)
-    return out.reshape(*lead, n_rows, c)
+    batch = lead.numel()
+    if _build.runs_plain(grad, idx):
+        flat_idx = idx.reshape(batch, -1).long()
+        perm, starts = segments(flat_idx, n_rows)
+        out = gather_rows_backward_plain(grad.reshape(-1, c), perm, starts)
+        return out.reshape(*lead, n_rows, c)
+    positions = grad.shape[-2]
+    if grad.dtype != torch.float32:
+        raise TypeError(f"the gradient must be float32; got {grad.dtype}")
+    grad, idx = grad.contiguous(), idx.long().contiguous()
+    if fused_fits(batch, positions, n_rows):
+        # no views: the launch reads the operands' storage and writes
+        # the output in its final shape (host time is most of its call)
+        return _fused(grad, idx, batch, positions, n_rows, (*lead, n_rows, c))
+    perm, starts = segments_cuda(idx.view(batch, positions), n_rows)
+    out = gather_rows_backward_cuda(grad.view(-1, c), perm, starts)
+    return out.view(*lead, n_rows, c)
 
 
 class _GatherRows(torch.autograd.Function):

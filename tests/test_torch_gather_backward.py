@@ -24,8 +24,9 @@ from repro_torch.kernels import (gather_backward, launch_counts,   # noqa: E402
                                  reset_launch_counts)
 from repro_torch.kernels import _build, record                     # noqa: E402
 from repro_torch.kernels.gather_backward import (                   # noqa: E402
-    gather_rows_backward, gather_rows_backward_cuda,
-    gather_rows_backward_plain, segments)
+    FUSED_MAX_POSITIONS, FUSED_MAX_ROWS, fused_fits, gather_rows_backward,
+    gather_rows_backward_cuda, gather_rows_backward_fused_cuda,
+    gather_rows_backward_plain, segments, segments_cuda)
 from repro_torch.models.pointnet2 import gather_rows               # noqa: E402
 
 #: (x shape, idx shape, indices drawn below): duplicated indices (a few
@@ -150,19 +151,156 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take():
                              torch.zeros((2, 4), dtype=torch.int64), 7)
 
 
-def test_binding_matches_the_c_signature(monkeypatch):
-    """The ctypes binding declares the pointers, ints and stream that
-    ``gather_rows_backward`` in ``csrc/gather_backward.cu`` takes (a
-    mismatch would show only on the card)."""
-    class Lib:
-        gather_rows_backward = type("Fn", (), {})()
-    monkeypatch.setattr(_build, "library", lambda name: Lib)
-    fn = gather_backward._launch.__wrapped__()
+def _c_signatures() -> dict:
+    """``extern "C"`` functions of ``csrc/gather_backward.cu``: name ->
+    argument kinds (``ptr``, ``int``, ``long``) and return kind."""
     src = (_build.CSRC / "gather_backward.cu").read_text()
-    sig = re.search(r"\bint gather_rows_backward\(([^)]*)\)", src)
-    args = [a.strip() for a in sig.group(1).split(",")]
-    kinds = ["ptr" if "*" in a else "int" for a in args]
+    body = src[src.index('extern "C" {'):]
+    sigs = {}
+    for ret, name, args in re.findall(r"^(int|long long) (\w+)\(([^)]*)\)",
+                                      body, flags=re.M):
+        kinds = [("ptr" if "*" in a else "long" if "long long" in a
+                  else "int") for a in (x.strip() for x in args.split(","))]
+        sigs[name] = (kinds, "long" if ret == "long long" else "int")
+    return sigs
+
+
+def test_binding_matches_the_c_signature(monkeypatch):
+    """The ctypes bindings declare the pointers, ints, 64-bit ints and
+    stream that each C entry of ``csrc/gather_backward.cu`` takes, and its
+    return type (a mismatch would show only on the card)."""
     import ctypes
-    assert [("ptr" if t is ctypes.c_void_p else "int")
-            for t in fn.argtypes] == kinds
-    assert kinds == ["ptr"] * 4 + ["int"] * 3 + ["ptr"]
+
+    class Fn:
+        pass
+
+    class Lib:
+        def __getattr__(self, name):
+            fn = Fn()
+            setattr(self, name, fn)
+            return fn
+    monkeypatch.setattr(_build, "library", lambda name: Lib())
+    fns = gather_backward._entries.__wrapped__()
+    kind = {ctypes.c_void_p: "ptr", ctypes.c_int: "int",
+            ctypes.c_longlong: "long"}
+    sigs = _c_signatures()
+    assert set(fns) == set(sigs)
+    for name, fn in fns.items():
+        assert ([kind[t] for t in fn.argtypes], kind[fn.restype]) == \
+            sigs[name], name
+    assert sigs["gather_rows_backward"][0] == ["ptr"] * 4 + ["int"] * 3 + \
+        ["ptr"]
+
+
+def test_fused_limits_are_the_sources():
+    """The module's path limits are the kernel's own constants."""
+    src = (_build.CSRC / "gather_backward.cu").read_text()
+    for const, value in (("kFusedMaxRows", FUSED_MAX_ROWS),
+                         ("kFusedMaxPositions", FUSED_MAX_POSITIONS)):
+        assert re.search(rf"constexpr int {const} = {value};", src), const
+
+
+@pytest.mark.parametrize("batch,positions,n_rows,fits", [
+    (16, 2048, 512, True), (16, 128, 512, True),      # SA-2's gathers
+    (1, 2048, 2048, True), (1, 2048, 2560, True),     # MoE dispatch
+    (1, 8192, 151936, False),                         # the LM embedding
+    (1, FUSED_MAX_POSITIONS, FUSED_MAX_ROWS, True),
+    (1, FUSED_MAX_POSITIONS + 1, 8, False),
+    (3, 5, FUSED_MAX_ROWS + 1, False),
+    (2, 0, 1, True), (0, 5, 8, False), (2, 5, 0, False)])
+def test_fused_fits_takes_the_small_gathers(batch, positions, n_rows, fits):
+    assert fused_fits(batch, positions, n_rows) is fits
+
+
+def _numpy_segments(idx, n_rows):
+    """An independent stable order: NumPy's stable argsort of the flat
+    keys, and each row's first sorted position by a linear count."""
+    lead = idx.shape[0]
+    keys = (idx + n_rows * np.arange(lead)[:, None]).reshape(-1)
+    perm = np.argsort(keys, kind="stable")
+    counts = np.bincount(keys, minlength=lead * n_rows)
+    starts = np.concatenate([[0], np.cumsum(counts)])
+    return perm, starts
+
+
+#: (L, P, n_rows, index draw): the cases the kernel's paths and their
+#: boundaries meet. "one" puts every position on one row; "low" draws from
+#: a few rows (many duplicates); "all" from every row.
+SEGMENT_CASES = {
+    "one-key-every-position": (3, 300, 40, "one"),
+    "no-positions": (4, 0, 9, "all"),
+    "one-row": (5, 17, 1, "all"),
+    "many-batch-rows": (257, 12, 6, "all"),
+    "rows-below-the-fused-limit": (2, 700, FUSED_MAX_ROWS - 1, "all"),
+    "rows-at-the-fused-limit": (2, 700, FUSED_MAX_ROWS, "all"),
+    "rows-past-the-fused-limit": (2, 700, FUSED_MAX_ROWS + 1, "all"),
+    "positions-past-the-fused-limit": (1, FUSED_MAX_POSITIONS + 1, 300,
+                                       "low"),
+    "embedding-like": (1, 2000, 30000, "zipf"),
+}
+
+
+def _segment_idx(case, seed=0):
+    lead, positions, n_rows, draw = SEGMENT_CASES[case]
+    rng = np.random.default_rng(seed)
+    if draw == "one":
+        return np.full((lead, positions), n_rows // 2), n_rows
+    if draw == "low":
+        return rng.integers(0, 7, (lead, positions)), n_rows
+    if draw == "zipf":
+        z = rng.zipf(1.3, (lead, positions)) - 1
+        return np.minimum(z, n_rows - 1), n_rows
+    return rng.integers(0, n_rows, (lead, positions)), n_rows
+
+
+@pytest.mark.parametrize("case", sorted(SEGMENT_CASES))
+def test_segments_are_a_stable_counting_sort(case):
+    """``segments()``, the plain version the card's sorts are held to,
+    against NumPy's stable sort at the paths' boundaries."""
+    idx, n_rows = _segment_idx(case)
+    perm, starts = segments(torch.from_numpy(idx), n_rows)
+    want_perm, want_starts = _numpy_segments(idx, n_rows)
+    assert perm.dtype == starts.dtype == torch.int64
+    assert np.array_equal(perm.numpy(), want_perm)
+    assert np.array_equal(starts.numpy(), want_starts)
+
+
+@pytest.mark.parametrize("case", ["one-key-every-position", "no-positions",
+                                  "one-row", "many-batch-rows",
+                                  "rows-past-the-fused-limit"])
+def test_backward_at_the_path_boundaries_equals_the_reference(case):
+    """The gradient at the sort's boundary cases, bit for bit the JAX
+    package's ``take_along_axis`` gradient (C = 3)."""
+    idx, n_rows = _segment_idx(case)
+    lead, positions = idx.shape
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(lead, n_rows, 3)).astype(np.float32)
+    g = rng.normal(size=(lead, positions, 3)).astype(np.float32)
+    got = gather_rows_backward(torch.from_numpy(g), torch.from_numpy(idx),
+                               n_rows)
+
+    def take(f):
+        return jnp.take_along_axis(f, jnp.asarray(idx)[..., None], axis=-2)
+    _, vjp = jax.vjp(take, jnp.asarray(x))
+    want, = vjp(jnp.asarray(g))
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_card_wrappers_refuse_what_the_kernels_do_not_take():
+    """The sort's and the fused launch's checks, made before any launch."""
+    idx = torch.zeros((2, 5), dtype=torch.int64)
+    with pytest.raises(TypeError, match="int64"):
+        segments_cuda(idx.int(), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        segments_cuda(torch.zeros((5, 2), dtype=torch.int64).t(), 4)
+    with pytest.raises(ValueError, match="no rows"):
+        segments_cuda(idx, 0)
+    with pytest.raises(ValueError, match="too large"):
+        segments_cuda(idx, 2 ** 30)
+    g = torch.zeros((10, 3))
+    with pytest.raises(TypeError, match="float32"):
+        gather_rows_backward_fused_cuda(g.double(), idx, 4)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        gather_rows_backward_fused_cuda(g[:9], idx, 4)
+    with pytest.raises(ValueError, match="do not fit"):
+        gather_rows_backward_fused_cuda(g, idx, FUSED_MAX_ROWS + 1)
