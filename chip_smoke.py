@@ -47,9 +47,12 @@ and batch size. Phases, each printing one JSON line:
    cluster tier's top, 16 blocks) under the chosen plan and the streamed
    tier pinned, and 300000 (streamed); and its single step at the same
    widths; P1 and P2 (phase ``kernel_vs_plain_plan``) against their plain
-   versions on the CPU and the NumPy planner: P1 at 8 x 128, 1 x 128 and
-   1 x 2048 points, P2 at the main path's 8 x (128 x 16 -> 512) walk, both
-   also through model1's geometry of clustered, grid and duplicated clouds;
+   versions on the CPU and the NumPy planner: P1 at 8 x 128 and 1 x 128
+   points (one warp a cloud) and 8 x 1024 and 1 x 2048 (a block a cloud),
+   P2 at the main path's 8 x (128 x 16 -> 512) walk, both also through
+   model1's geometry of clustered, grid and duplicated clouds, and P2 at
+   a walk past shared memory (2 x (1024 x 32 -> 4096), in its
+   device-memory workspace);
 4. end to end: each model and backend with the 'pointer' schedule; launch
    counters reset just before each run and read just after, and held to
    the counts the path must launch (FPS: one launch per SA layer and
@@ -99,8 +102,14 @@ and batch size. Phases, each printing one JSON line:
    relaxation left out (``chain_us_per_step``: the chain of dependent
    reductions alone, through ``fps_chain_run``, a measurement entry of
    ``csrc/fps.cu`` only this script binds), and past one block the
-   cluster tier against the streamed tier at the same clouds; no PyTorch
-   call computes FPS, the greedy order or the walk: no library time;
+   cluster tier against the streamed tier at the same clouds; P1 at each
+   shape of phase ``kernel_vs_plain_plan`` with its time a step and, on
+   one warp, the same chain with the distance arithmetic left out
+   (``chain_us_per_step``, through ``plan_greedy_chain``, a measurement
+   entry of ``csrc/plan.cu`` only this script binds); P1's and P2's host
+   time a call beside their device time, and P2's past shared memory; no
+   PyTorch call computes FPS, the greedy order or the walk: no library
+   time;
    ``batched_forward`` and ``forward`` end to end, on the host clock,
    eager and captured, and ``batched_forward`` planning on the host;
 6. profile: one model1, one model2 and one model2 'reram'
@@ -932,9 +941,15 @@ def _cloud_kinds(seed: int) -> dict:
 def _oracle_plan(cfg, pts_last: np.ndarray, nbrs) -> list:
     """The NumPy planner's completed orders of one cloud: the greedy chain
     over the last layer's float32 points, then the recursive walk."""
+    from repro_torch.core.schedule import greedy_nn_order
+    return _oracle_walk(cfg, greedy_nn_order(pts_last), nbrs)
+
+
+def _oracle_walk(cfg, last: np.ndarray, nbrs) -> list:
+    """The NumPy planner's completed orders of one cloud: the recursive
+    walk from the last layer's order ``last``."""
     from repro_torch.core import schedule as sched
     from repro_torch.core.workload import PointNetWorkload
-    last = sched.greedy_nn_order(pts_last)
     sizes = [cfg.n_points] + [nb.shape[0] for nb in nbrs]
     wl = PointNetWorkload(config=cfg, points=[np.zeros((n, 3))
                                               for n in sizes],
@@ -945,12 +960,32 @@ def _oracle_plan(cfg, pts_last: np.ndarray, nbrs) -> list:
             for k, nb in enumerate(nbrs, start=1)]
 
 
+def _walk_past_shared_memory():
+    """Receptive fields of 2 clouds, layers of 4096 and 1024 points at K =
+    32 (layer 2's fields 32768 entries: P2's span passes shared memory),
+    random from the seed, a random last order, and the configuration the
+    NumPy planner walks them by."""
+    from repro_torch.core.workload import PointNetConfig, SALayerSpec
+    rng = np.random.default_rng(SEED + 7)
+    sizes, ks, below = (4096, 1024), (32, 32), (8192, 4096)
+    nbrs = [rng.integers(0, hi, size=(2, n, k))
+            for n, k, hi in zip(sizes, ks, below)]
+    last = np.stack([rng.permutation(sizes[-1])
+                     for _ in range(2)]).astype(np.int32)
+    cfg = PointNetConfig(name="walk", n_points=below[0], layers=tuple(
+        SALayerSpec(n_centers=n, n_neighbors=k, in_features=4, mlp=(4, 4))
+        for n, k in zip(sizes, ks)))
+    return cfg, nbrs, last
+
+
 def phase_plan_vs_plain(models, clouds_np) -> dict:
     """P1 and P2 on the card, bit for bit, against their plain versions run
     on the CPU and against the NumPy planner: P1 at the main path's 8 x 128
-    and 1 x 128 last layers and at 2048 points; P2 at the main path's 8 x
-    (128 x 16 -> 512) walk; both on clustered, grid and duplicated clouds
-    through model1's geometry."""
+    and 1 x 128 last layers (one warp a cloud) and at 8 x 1024 and 1 x 2048
+    points (a block a cloud); P2 at the main path's 8 x (128 x 16 -> 512)
+    walk; both on clustered, grid and duplicated clouds through model1's
+    geometry; P2 also at a walk past shared memory
+    (:func:`_walk_past_shared_memory`), in its device-memory workspace."""
     from repro_torch.core.schedule import device_build_plan, greedy_nn_order
     from repro_torch.kernels import plan_order
     from repro_torch.models import pointnet2 as pn
@@ -994,22 +1029,53 @@ def phase_plan_vs_plain(models, clouds_np) -> dict:
         if name == "main":
             cases["p1"] = pts[-1].contiguous()
             cases["p2"] = (list(nbr[1:]), last)
-    # the forward's one cloud, and the most points one block holds
-    big = torch.from_numpy(np.random.default_rng(SEED + 6).normal(
-        size=(1, 2048, 3)).astype(np.float32)).cuda()
+    # the forward's one cloud; past one warp, a batch of 1024-point clouds
+    # and the most points one block holds
+    rng = np.random.default_rng(SEED + 6)
+    big = torch.from_numpy(rng.normal(size=(1, 2048, 3)).astype(
+        np.float32)).cuda()
+    wide = torch.from_numpy(rng.normal(size=(BATCH, 1024, 3)).astype(
+        np.float32)).cuda()
     for name, pts in (("forward", cases["p1"][:1].contiguous()),
-                      ("n2048", big)):
+                      ("n1024", wide), ("n2048", big)):
         got = plan_order.plan_greedy_cuda(pts)
         torch.cuda.synchronize()
         want = plan_order.plan_greedy_plain(pts.cpu())
         errors["P1"] = max(errors["P1"], err(got, want))
         check(torch.equal(got.cpu(), want), f"P1 {name} bitwise")
-        check(np.array_equal(got[0].cpu().numpy(),
-                             greedy_nn_order(pts[0].cpu().numpy())),
-              f"P1 {name} vs the NumPy planner")
+        for b in range(pts.shape[0]):
+            check(np.array_equal(got[b].cpu().numpy(),
+                                 greedy_nn_order(pts[b].cpu().numpy())),
+                  f"P1 {name} cloud {b} vs the NumPy planner")
         p1[name] = list(pts.shape)
     cases["p1_forward"] = cases["p1"][:1].contiguous()
+    cases["p1_1024"] = wide
     cases["p1_2048"] = big
+    # past shared memory
+    walk_cfg, host_nbrs, host_last = _walk_past_shared_memory()
+    sizes = [nb.shape[1] for nb in host_nbrs]
+    ks = [nb.shape[2] for nb in host_nbrs]
+    check(plan_order.coordinate_workspace(sizes, ks) > 0,
+          "the P2 walk past shared memory fits in it")
+    nbrs = [torch.from_numpy(nb).cuda() for nb in host_nbrs]
+    last = torch.from_numpy(host_last).cuda()
+    orders, inverses = plan_order.plan_coordinate_cuda(nbrs, last)
+    torch.cuda.synchronize()
+    cpu_o, cpu_i = plan_order.plan_coordinate_plain(
+        [nb.cpu() for nb in nbrs], last.cpu())
+    errors["P2"] = max([errors["P2"]] + [
+        err(a, b) for a, b in zip(orders + inverses, cpu_o + cpu_i)])
+    check(all(torch.equal(a.cpu(), b) for a, b in
+              zip(orders + inverses, cpu_o + cpu_i)),
+          "P2 past shared memory bitwise")
+    for b in range(last.shape[0]):
+        want = _oracle_walk(walk_cfg, host_last[b],
+                            [nb[b] for nb in host_nbrs])
+        check(all(np.array_equal(o[b].cpu().numpy(), w)
+                  for o, w in zip(orders, want)),
+              f"P2 past shared memory cloud {b} vs the NumPy planner")
+    p2["past_shared_memory"] = [list(nb.shape) for nb in nbrs]
+    cases["p2_device_memory"] = (nbrs, last)
     cases["errors"] = errors
     emit({"phase": "kernel_vs_plain_plan", "tolerance": "bitwise",
           "against": ["plain version on the CPU", "NumPy planner"],
@@ -1649,38 +1715,108 @@ def _p2_bound(nbrs, last):
     return nbytes, 0
 
 
+def _host_ms(fn, n: int = 40, rounds: int = 5) -> float:
+    """Host-clock time of one call of ``fn``: the least, over ``rounds``
+    rounds, of the mean of ``n`` calls with no synchronize between them,
+    after one of warm-up. The host's share of a call whose device work is
+    shorter (the calls queue on the card); the least round leaves out the
+    host's own stalls, which move a mean by tens of percent."""
+    fn()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n)
+        torch.cuda.synchronize()
+    return 1e3 * best
+
+
+def _bind_greedy_chain(lib) -> None:
+    """Type ``plan_greedy_chain``: 2 pointers, batch, n, start, threads and
+    points a thread as int, the stream (``plan_greedy``'s signature)."""
+    from repro_torch.kernels import _build
+    _build.bind(lib, "plan_greedy_chain", 2, 5)
+
+
+def greedy_chain(pts):
+    """``plan_greedy_chain`` of ``csrc/plan.cu``: P1's one-warp chain at
+    ``greedy_launch``'s block with the distance arithmetic left out, so a
+    step is the reductions and the center's broadcast alone. Its orders
+    mean nothing; no launch counter moves. The library does not bind it:
+    it is this script's measurement. None where the chain does not run on
+    one warp."""
+    from repro_torch.kernels import _build, plan_order
+    b, n, _ = pts.shape
+    threads, per = plan_order.greedy_launch(n)
+    if threads != 32:
+        return None
+    lib = _build.library("plan")
+    _bind_greedy_chain(lib)
+    out = torch.empty((b, n), dtype=torch.int32, device=pts.device)
+    err = lib.plan_greedy_chain(pts.data_ptr(), out.data_ptr(), b, n, 0,
+                                threads, per, _build.stream_of(pts))
+    check(err == 0, f"plan_greedy_chain at {b} x {n}: CUDA error {err}")
+    return out
+
+
 def _plan_rows(plan_cases, counts_main) -> list:
     """P1 and P2 at the main path's shapes (the plan of one batch-8
-    ``batched_forward``), beside their bounds and launches; P1 also at the
-    forward's one cloud and at 2048 points, per step."""
+    ``batched_forward``), beside their bounds and launches: the wrapper's
+    CUDA-event time (back-to-back calls: the host's time where it is the
+    longer), its host-clock time and the public entry's, the profiler's
+    device time; P1 also at the other shapes of phase
+    ``kernel_vs_plain_plan``, per step, and on one warp with its chain
+    floor (:func:`greedy_chain`, a step's device time); P2 also at its walk
+    past shared memory."""
     from repro_torch.kernels import plan_order
+    shapes = {}
+    for label, key in (("8x128", "p1"), ("1x128 (forward)", "p1_forward"),
+                       ("8x1024", "p1_1024"), ("1x2048", "p1_2048")):
+        x = plan_cases[key]
+        b, n, _ = x.shape
+        dev = _device_ms(lambda: plan_order.plan_greedy_cuda(x))
+        chain = (None if greedy_chain(x) is None
+                 else _device_ms(lambda: greedy_chain(x)))
+        shapes[label] = {
+            "launch": list(plan_order.greedy_launch(n)),
+            "ms": cuda_ms(lambda: plan_order.plan_greedy_cuda(x)),
+            "host_ms": _host_ms(lambda: plan_order.plan_greedy_cuda(x)),
+            "entry_host_ms": _host_ms(lambda: plan_order.plan_greedy(x)),
+            "device_ms": dev, "us_per_step": 1e3 * dev / (n - 1),
+            "chain_us_per_step": None if chain is None
+            else 1e3 * chain / (n - 1),
+            "bound_ms": bound(*_p1_bound(b, n), FP32_OPS_PER_S)[0]}
     pts = plan_cases["p1"]
     b, n, _ = pts.shape
-    p1 = {"ms": cuda_ms(lambda: plan_order.plan_greedy_cuda(pts)),
-          "plain_ms": cuda_ms(lambda: plan_order.plan_greedy_plain(pts),
-                              iters=3, warmup=1),
-          "device_ms": _device_ms(lambda: plan_order.plan_greedy_cuda(pts))}
+    p1 = shapes["8x128"]
+    p1["plain_ms"] = cuda_ms(lambda: plan_order.plan_greedy_plain(pts),
+                             iters=3, warmup=1)
     p1["bound_ms"], p1["bound_by"] = bound(*_p1_bound(b, n), FP32_OPS_PER_S)
-    p1["us_per_step"] = 1e3 * p1["device_ms"] / (n - 1)
-    extra = {}
-    for label, key in (("1x128 (forward)", "p1_forward"),
-                       ("1x2048", "p1_2048")):
-        x = plan_cases[key]
-        dev = _device_ms(lambda: plan_order.plan_greedy_cuda(x))
-        extra[label] = {"ms": cuda_ms(lambda: plan_order.plan_greedy_cuda(x),
-                                      iters=5, warmup=1),
-                        "device_ms": dev,
-                        "us_per_step": 1e3 * dev / (x.shape[1] - 1),
-                        "bound_ms": bound(*_p1_bound(1, x.shape[1]),
-                                          FP32_OPS_PER_S)[0]}
     nbrs, last = plan_cases["p2"]
-    p2 = {"ms": cuda_ms(lambda: plan_order.plan_coordinate_cuda(nbrs, last)),
+
+    def run():
+        return plan_order.plan_coordinate_cuda(nbrs, last)
+    p2 = {"ms": cuda_ms(run), "host_ms": _host_ms(run),
+          "entry_host_ms": _host_ms(
+              lambda: plan_order.plan_coordinate(nbrs, last)),
+          "device_ms": _device_ms(run),
           "plain_ms": cuda_ms(lambda: plan_order.plan_coordinate_plain(
-              nbrs, last), iters=5, warmup=1),
-          "device_ms": _device_ms(
-              lambda: plan_order.plan_coordinate_cuda(nbrs, last))}
+              nbrs, last), iters=5, warmup=1)}
     p2["bound_ms"], p2["bound_by"] = bound(*_p2_bound(nbrs, last),
                                            FP32_OPS_PER_S)
+    wide_nbrs, wide_last = plan_cases["p2_device_memory"]
+
+    def run_wide():
+        return plan_order.plan_coordinate_cuda(wide_nbrs, wide_last)
+    past = {"shape": [list(nb.shape) for nb in wide_nbrs],
+            "workspace_ints_a_cloud": plan_order.coordinate_workspace(
+                [nb.shape[1] for nb in wide_nbrs],
+                [nb.shape[2] for nb in wide_nbrs]),
+            "ms": cuda_ms(run_wide), "device_ms": _device_ms(run_wide),
+            "bound_ms": bound(*_p2_bound(wide_nbrs, wide_last),
+                              FP32_OPS_PER_S)[0]}
     return [
         {"name": "P1 plan_greedy", "route": "cuda",
          "source": "src/repro_torch/csrc/plan.cu",
@@ -1695,8 +1831,12 @@ def _plan_rows(plan_cases, counts_main) -> list:
                          "nearest-neighbour chain)",
          "work": f"the greedy order of one batch-8 batched_forward "
                  f"({b} x {n} points)",
-         "device_ms": p1["device_ms"], "us_per_step": p1["us_per_step"],
-         "other_shapes": extra},
+         "device_ms": p1["device_ms"], "host_ms": p1["host_ms"],
+         "entry_host_ms": p1["entry_host_ms"],
+         "us_per_step": p1["us_per_step"],
+         "chain_us_per_step": p1["chain_us_per_step"],
+         "other_shapes": {k: v for k, v in shapes.items()
+                          if k != "8x128"}},
         {"name": "P2 plan_coordinate", "route": "cuda",
          "source": "src/repro_torch/csrc/plan.cu",
          "replaces": "src/repro/core/schedule.py:689 (device_coordinate, a "
@@ -1710,7 +1850,9 @@ def _plan_rows(plan_cases, counts_main) -> list:
          "work": f"the coordination walk of one batch-8 batched_forward "
                  f"({last.shape[0]} x ({list(nbrs[-1].shape[1:])} -> "
                  f"{nbrs[0].shape[1]}))",
-         "device_ms": p2["device_ms"]}]
+         "device_ms": p2["device_ms"], "host_ms": p2["host_ms"],
+         "entry_host_ms": p2["entry_host_ms"],
+         "past_shared_memory": past}]
 
 
 def _wall_ms(fn, n: int = 5) -> list:
@@ -1818,8 +1960,13 @@ def phase_times(cases, cases2, fps_cases, plan_cases, counts_of, models,
           "K4_K5_per_layer": {k["name"]: k["per_layer"] for k in kernels
                               if k["name"][:2] in ("K4", "K5")},
           "launch_floor": floor,
-          "P1": next({x: k[x] for x in ("us_per_step", "other_shapes")}
+          "P1": next({x: k[x] for x in ("host_ms", "entry_host_ms",
+                                        "us_per_step", "chain_us_per_step",
+                                        "other_shapes")}
                      for k in kernels if k["name"] == "P1 plan_greedy"),
+          "P2": next({x: k[x] for x in ("host_ms", "entry_host_ms",
+                                        "past_shared_memory")}
+                     for k in kernels if k["name"] == "P2 plan_coordinate"),
           "end_to_end": e2e})
     return kernels
 

@@ -8,36 +8,75 @@
 // - P2, plan_coordinate: device_coordinate, a recursive lax.scan/lax.cond
 //   walk of the receptive fields, and _device_complete/_device_inverse.
 //
-// P1 design. The loop is n - 1 dependent argmins, the shape of K7's FPS
-// loop (fps.cu), so it takes K7's design: one block per cloud, its points
-// in registers (thread t holds the points t + T j), one barrier a step.
-// Row `cur` of the distance matrix is computed in the step it is needed,
-// as ((x - x_c)^2 + (y - y_c)^2) + (z - z_c)^2 with every operation
-// rounded on its own (__fsub_rn, __fmul_rn, __fadd_rn: no FMA), the same
-// float32 values as the reference's matrix; the matrix is never built.
-// The argmin runs on integer keys: a removed point's key is that of +inf,
-// a NaN distance's key 0 (np.argmin and jnp.argmin return the first NaN),
-// any other distance (>= +0.0) its bits + 1. A warp's winner is the least
-// key, then the least index holding it (two REDUX); warps post theirs to a
-// double-buffered slot array, and after the one barrier every warp reduces
-// the slots itself (two more REDUX), so ties go to the first index as in
-// the reference. Bound: the chain of n - 1 reductions, not the bytes (the
-// points in, the order out) nor the 8 float operations a point and step.
+// P1 design. The loop is n - 1 dependent argmins, so what bounds it is the
+// chain of reductions, not the bytes (the points in, the order out) nor
+// the 8 float operations a point and step. Row `cur` of the distance
+// matrix is computed in the step it is needed, as ((x - x_c)^2 + (y -
+// y_c)^2) + (z - z_c)^2 with every operation rounded on its own (__fsub_rn,
+// __fmul_rn, __fadd_rn: no FMA), the same float32 values as the
+// reference's matrix; the matrix is never built. The argmin runs on
+// integer keys: a removed point's key is that of +inf, a NaN distance's key
+// 0 (np.argmin and jnp.argmin return the first NaN), any other distance
+// (>= +0.0) its bits + 1. A thread's candidate is the first least key of
+// its points, taken as a tree; a warp's winner the least key, then the
+// least index holding it (two REDUX). Ties go to the first index, as in
+// the reference. Two shapes of the chain:
+// - up to 256 points (the main path's 128, the forward's 1 x 128) one warp
+//   runs a cloud, lane l holding the points l + 32 j in registers: a step
+//   is the distances, the thread's tree, the two REDUX and one broadcast
+//   shared load of the next center. No barrier, no slot array, no second
+//   round of reductions (greedy_kernel_warp);
+// - past that, up to 2048 points, one block of up to 256 threads (thread t
+//   holds the points t + T j): warps post their winners to a
+//   double-buffered slot array, and after one barrier every warp reduces
+//   the slots itself (two more REDUX) (greedy_kernel).
+// plan_greedy_chain, a measurement only, runs the one-warp chain with the
+// distance arithmetic left out: the floor that design works against
+// (chip_smoke.py's chain_us_per_step).
 //
 // P2 design. The recursion is not carried over: a serial walk whose every
 // step is a branch would leave the card idle. The walk splits into one
-// pass per layer, from the last down. Layer L's partial order is the
+// level per layer, from the last down. Layer L's partial order is the
 // first-occurrence order of the last-layer order; layer k-1's is the
 // first-occurrence order of the stream neighbors_k[o_k[s / K]][s % K],
 // o_k layer k's partial order (a point runs at its first visit; a visited
 // point, or one met again in its own row, is skipped and never walks its
 // members again); the orphans follow in ascending order. One block per
-// cloud runs every layer: an atomicMin over stream positions gives each
-// point its first position (shared memory), a block scan over the stream
-// compacts the first occurrences into the order, a second scan over the
-// points places the orphans, and a last pass writes the inverse. Bound:
-// the stream (128 x 16 entries a cloud at the main path) read three times
-// from L1/L2 and a few barriers; microseconds.
+// cloud runs every level, all of it in shared memory:
+// - every receptive field the walk reads is loaded once, at the start, in
+//   index order, as int32 (the loads do not depend on any order, so they
+//   are all in flight together; the top layer's first 4 per thread are
+//   held in registers over the top level and stored after it);
+// - a level's first positions come by an atomicMin over the stream, whose
+//   entries are two shared loads (the upper level's order, then the
+//   field; the row and column stepped without a division): no pass reads
+//   device memory;
+// - each point that occurs then marks its first position in a stream-long
+//   array, and __syncthreads_count counts them (the walk's length). At the
+//   top level, where the last order names each point once (P1's order
+//   does; the atomicMin finds a repeat, __syncthreads_or tells the block),
+//   the last order is the level's order and this and the next step are
+//   skipped;
+// - the order is one compaction of the range [0, S + n): position s < S
+//   is flagged where it is marked, position S + p where p never occurs.
+//   Each warp owns a contiguous span, counts its flags by ballots and
+//   popcounts, posts the count, and after one barrier places its points
+//   (one cross-warp scan by a REDUX add). A position is one conflict-free
+//   shared load. The orphans land after the walk by construction; each
+//   point's inverse is placed with it, in shared memory too;
+// - each level's order stays in shared memory for the next one (double
+//   buffered, as are the first positions, which are reset for the next
+//   level while this one runs), and goes out to device memory with its
+//   inverse in coalesced stores while the next level starts: four
+//   barriers a level (two at a top level without repeats), 512 threads.
+// A walk whose arrays do not fit in shared memory runs the same code with
+// a part of them in a device-memory workspace the caller hands in, one a
+// cloud: shared memory keeps the longest prefix of the levels' arrays, the
+// marks and the fields that fits, so past about 50K field entries the
+// fields go first, then the marks, then past about 11K points a layer the
+// levels' too. Slower; any size.
+// Bound: the receptive fields and the outputs (bytes), a few microseconds
+// of barriers and one round trip to device memory.
 //
 // Indices are clamped into range as a memory guard only: the model never
 // passes others.
@@ -50,8 +89,11 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kGreedyThreads = 256;
-constexpr int kCoordThreads = 1024;
+constexpr int kCoordThreads = 512;
+constexpr int kCoordWarps = kCoordThreads / 32;
+constexpr int kCoordPrefetch = 4;       // top-layer fields a thread holds
 constexpr int kMaxLayers = 8;
+constexpr int kMaxSmem = 232448;        // bytes a block may have
 constexpr uint32_t kNone = 0xffffffffu;
 // The argmin key of +inf: a removed point's, above every finite distance.
 constexpr uint32_t kKeyInf = 0x7f800001u;
@@ -71,8 +113,101 @@ __device__ __forceinline__ uint32_t min_key(float d) {
   return d != d ? 0u : __float_as_uint(d) + 1u;
 }
 
-// P1: one block per cloud, PER points a thread. Shared memory: the cloud's
-// points as float4 (the next center's coordinates), then the slots
+// A thread's candidate over its PER points (p = base + stride j): the
+// least key, then the first point holding it, as a tree (a point is
+// replaced only by a later one with a strictly smaller key). Removed
+// points (bit j of `removed`) key as +inf; every key is computed and then
+// selected, with no branch. CHAIN keys a point by its x bits against the
+// center's, no distance arithmetic.
+template <int PER, bool CHAIN>
+__device__ __forceinline__ void candidate(const float* px, const float* py,
+                                          const float* pz, float4 c,
+                                          uint32_t removed, int base,
+                                          int stride, uint32_t& bk,
+                                          uint32_t& bi) {
+  uint32_t k[PER], id[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const uint32_t key =
+        CHAIN ? (__float_as_uint(px[j]) ^ __float_as_uint(c.x)) >> 1
+              : min_key(sq_dist(px[j], py[j], pz[j], c.x, c.y, c.z));
+    k[j] = (removed >> j) & 1u ? kKeyInf : key;
+    id[j] = static_cast<uint32_t>(base + stride * j);
+  }
+#pragma unroll
+  for (int w = 1; w < PER; w <<= 1) {
+#pragma unroll
+    for (int j = 0; j + w < PER; j += 2 * w) {
+      const bool later = k[j + w] < k[j];
+      k[j] = later ? k[j + w] : k[j];
+      id[j] = later ? id[j + w] : id[j];
+    }
+  }
+  bk = k[0];
+  bi = id[0];
+}
+
+// The cloud's points into registers (p = base + stride j) and into
+// shared memory as float4 (the next center's coordinates). Returns the
+// bits j of the slots past n: they count as removed from the start. A
+// removed point keys as +inf, as a point at +inf does, and every point of
+// the cloud has a lower index, so a slot past n never wins.
+template <int PER>
+__device__ __forceinline__ uint32_t load_points(const float* pc, float4* pts,
+                                                int base, int stride, int n,
+                                                float* px, float* py,
+                                                float* pz) {
+  uint32_t past = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    const int p = base + stride * j;
+    px[j] = py[j] = pz[j] = 0.f;
+    if (p < n) {
+      px[j] = pc[3 * p];
+      py[j] = pc[3 * p + 1];
+      pz[j] = pc[3 * p + 2];
+      pts[p] = make_float4(px[j], py[j], pz[j], 0.f);
+    } else {
+      past |= 1u << j;
+    }
+  }
+  return past;
+}
+
+// P1, one warp per cloud (n <= 32 PER): lane l holds the points l + 32 j.
+// Shared memory: the cloud's points as float4.
+template <int PER, bool CHAIN>
+__global__ void __launch_bounds__(32)
+greedy_kernel_warp(const float* __restrict__ points, int* __restrict__ order,
+                   int n, int start) {
+  extern __shared__ float4 smem_greedy[];
+  float4* pts = smem_greedy;
+  const int lane = threadIdx.x;
+  const long long cloud = blockIdx.x;
+  const float* pc = points + cloud * 3 * n;
+  int* oc = order + cloud * n;
+
+  float px[PER], py[PER], pz[PER];
+  // bit j: this lane's point lane + 32 j is scheduled (or past n)
+  uint32_t removed = load_points<PER>(pc, pts, lane, 32, n, px, py, pz);
+  if ((start & 31) == lane) removed |= 1u << (start >> 5);
+  if (lane == 0) oc[0] = start;
+  __syncwarp();
+  float4 c = pts[start];
+  for (int i = 1; i < n; ++i) {
+    uint32_t bk, bi;
+    candidate<PER, CHAIN>(px, py, pz, c, removed, lane, 32, bk, bi);
+    const uint32_t wk = __reduce_min_sync(kFull, bk);
+    const int cur =
+        static_cast<int>(__reduce_min_sync(kFull, bk == wk ? bi : kNone));
+    if (lane == 0) oc[i] = cur;
+    if ((cur & 31) == lane) removed |= 1u << (cur >> 5);
+    c = pts[cur];
+  }
+}
+
+// P1, one block per cloud, PER points a thread (thread t holds the points
+// t + T j). Shared memory: the cloud's points as float4, then the slots
 // uint2 {key, index} [2][32].
 template <int PER>
 __global__ void __launch_bounds__(kGreedyThreads)
@@ -89,39 +224,16 @@ greedy_kernel(const float* __restrict__ points, int* __restrict__ order,
   int* oc = order + cloud * n;
 
   float px[PER], py[PER], pz[PER];
-#pragma unroll
-  for (int j = 0; j < PER; ++j) {
-    const int p = tid + T * j;
-    px[j] = py[j] = pz[j] = 0.f;
-    if (p < n) {
-      px[j] = pc[3 * p];
-      py[j] = pc[3 * p + 1];
-      pz[j] = pc[3 * p + 2];
-      pts[p] = make_float4(px[j], py[j], pz[j], 0.f);
-    }
-  }
-  // bit j: this thread's point tid + T j is scheduled
-  uint32_t removed = start % T == tid ? 1u << (start / T) : 0u;
+  // bit j: this thread's point tid + T j is scheduled (or past n)
+  uint32_t removed = load_points<PER>(pc, pts, tid, T, n, px, py, pz);
+  if (start % T == tid) removed |= 1u << (start / T);
   if (tid == 0) oc[0] = start;
   __syncthreads();
   float4 c = pts[start];
   int buf = 0;
   for (int i = 1; i < n; ++i) {
-    uint32_t bk = kNone, bi = kNone;
-#pragma unroll
-    for (int j = 0; j < PER; ++j) {
-      const int p = tid + T * j;
-      if (p < n) {
-        const uint32_t key =
-            (removed >> j) & 1u
-                ? kKeyInf
-                : min_key(sq_dist(px[j], py[j], pz[j], c.x, c.y, c.z));
-        if (key < bk) {                 // p grows with j: the first minimum
-          bk = key;
-          bi = static_cast<uint32_t>(p);
-        }
-      }
-    }
+    uint32_t bk, bi;
+    candidate<PER, false>(px, py, pz, c, removed, tid, T, bk, bi);
     const uint32_t wk = __reduce_min_sync(kFull, bk);
     const uint32_t wi = __reduce_min_sync(kFull, bk == wk ? bi : kNone);
     if (lane == 0) slots[buf * 32 + warp] = make_uint2(wk, wi);
@@ -138,122 +250,296 @@ greedy_kernel(const float* __restrict__ points, int* __restrict__ order,
   }
 }
 
-// The layers P2 walks: per layer (index l for layer l + 1) its receptive
-// fields into the layer below (int64, row stride nbr_rs, cloud stride
-// nbr_bs, unit stride along K), its point count, K, and its outputs (int32
-// (batch, n)).
-struct Layers {
-  const long long* nbr[kMaxLayers];
-  int* order[kMaxLayers];
-  int* inv[kMaxLayers];
-  long long nbr_bs[kMaxLayers];
-  long long nbr_rs[kMaxLayers];
-  int n[kMaxLayers];
-  int k[kMaxLayers];
-};
-
-// The stream one level walks: the last-layer order itself, or the rows of
-// the upper layer's receptive fields in its partial order.
-struct Stream {
-  const int* last;
-  const long long* nbr;
-  const int* up;
-  long long rs;
-  int k, n_target;
-
-  __device__ __forceinline__ int at(int s) const {
-    const long long v =
-        last != nullptr ? last[s]
-                        : nbr[static_cast<long long>(up[s / k]) * rs + s % k];
-    return static_cast<int>(min(max(v, 0LL),
-                                static_cast<long long>(n_target - 1)));
-  }
-};
-
-// Exclusive scan of v over the block; *total gets the sum. `sums` holds 32
-// ints of shared memory; every thread of the block must call it.
-__device__ int block_scan(int v, int* sums, int* total) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  constexpr int n_warps = kCoordThreads / 32;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < n_warps ? sums[lane] : 0;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += y;
+template <bool CHAIN>
+int launch_greedy(const void* points, void* order, int batch, int n,
+                  int start, int threads, int per, void* stream) {
+  if (batch < 1 || n < 1 || n > kGreedyThreads * 8 || start < 0 ||
+      start >= n || threads < 32 || threads > kGreedyThreads ||
+      threads % 32 != 0 || threads * per < n || (CHAIN && threads != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const auto* p = static_cast<const float*>(points);
+  auto* o = static_cast<int*>(order);
+  const size_t pts = static_cast<size_t>(n) * sizeof(float4);
+  if (threads == 32) {
+    switch (per) {
+      case 1: greedy_kernel_warp<1, CHAIN><<<batch, 32, pts, st>>>(p, o, n,
+                                                                  start);
+        break;
+      case 2: greedy_kernel_warp<2, CHAIN><<<batch, 32, pts, st>>>(p, o, n,
+                                                                  start);
+        break;
+      case 4: greedy_kernel_warp<4, CHAIN><<<batch, 32, pts, st>>>(p, o, n,
+                                                                  start);
+        break;
+      case 8: greedy_kernel_warp<8, CHAIN><<<batch, 32, pts, st>>>(p, o, n,
+                                                                  start);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
     }
-    sums[lane] = w;
+    return static_cast<int>(cudaGetLastError());
   }
-  __syncthreads();
-  const int base = warp > 0 ? sums[warp - 1] : 0;
-  *total = sums[n_warps - 1];
-  __syncthreads();                       // sums is rewritten by the next scan
-  return base + x - v;
+  if constexpr (!CHAIN) {
+    const size_t smem = pts + 2 * 32 * sizeof(uint2);
+    switch (per) {
+      case 1: greedy_kernel<1><<<batch, threads, smem, st>>>(p, o, n, start);
+        break;
+      case 2: greedy_kernel<2><<<batch, threads, smem, st>>>(p, o, n, start);
+        break;
+      case 4: greedy_kernel<4><<<batch, threads, smem, st>>>(p, o, n, start);
+        break;
+      case 8: greedy_kernel<8><<<batch, threads, smem, st>>>(p, o, n, start);
+        break;
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
-// One level: the completed order of the n points of the target layer by
-// their first position in the stream of length S, and its inverse.
-// Returns the walk's partial length (points that occur).
-__device__ int walk_level(const Stream& st, int S, int n, int* first,
-                          int* sums, int* order, int* inv) {
-  const int tid = threadIdx.x;
-  for (int p = tid; p < n; p += kCoordThreads) first[p] = INT_MAX;
-  __syncthreads();
-  for (int s = tid; s < S; s += kCoordThreads) atomicMin(&first[st.at(s)], s);
-  __syncthreads();
-  // the first occurrences, in stream order: thread t scans [s0, s1)
-  const int cs = (S + kCoordThreads - 1) / kCoordThreads;
-  const int s0 = min(tid * cs, S), s1 = min(s0 + cs, S);
-  int cnt = 0;
-  for (int s = s0; s < s1; ++s) cnt += first[st.at(s)] == s;
-  int walked;
-  int at = block_scan(cnt, sums, &walked);
-  for (int s = s0; s < s1; ++s) {
-    const int p = st.at(s);
-    if (first[p] == s) order[at++] = p;
+// The layers P2 walks: per layer (index l for layer l + 1) its receptive
+// fields into the layer below (int64, cloud stride nbr_bs, row stride
+// nbr_rs, unit stride along K), its point count and K; where its order
+// and inverse start in the output (`at`; the inverses `inv` further on);
+// and where its fields start in the walk's span (`field`, ints; layer
+// 1's are never read).
+struct Layers {
+  const long long* nbr[kMaxLayers];
+  long long nbr_bs[kMaxLayers];
+  long long nbr_rs[kMaxLayers];
+  long long at[kMaxLayers];
+  long long inv;
+  int n[kMaxLayers];
+  int k[kMaxLayers];
+  int field[kMaxLayers];
+};
+
+__device__ __forceinline__ int clamp_index(long long v, int n) {
+  return static_cast<int>(min(max(v, 0LL), static_cast<long long>(n - 1)));
+}
+
+// One level's order, from its first positions `fst` and `mark` (mark[s]
+// the point whose first position is s, else -1): the range [0, S + n)
+// compacted in position order, s < S flagged where mark[s] holds a point,
+// S + p where p never occurs. Warp w takes its own span (a multiple of 32
+// positions), counts its flags by ballots, posts the count; after one
+// barrier each warp places its points at the counts before it (a REDUX
+// add) plus the flags before each: the order into ord, each point's place
+// into inv (both shared). Every position is one conflict-free shared load.
+__device__ void compact_level(const int* mark, int S, int n, const int* fst,
+                              int* sums, int* ord, int* inv) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int range = S + n;
+  const int span =
+      (range + 32 * kCoordWarps - 1) / (32 * kCoordWarps) * 32;
+  const int c0 = min(warp * span, range), c1 = min(c0 + span, range);
+  const int iters = (c1 - c0 + 31) >> 5;
+  int count = 0;
+#pragma unroll 4
+  for (int it = 0; it < iters; ++it) {
+    const int s = c0 + 32 * it + lane;
+    const bool f = s < c1 && (s < S ? mark[s] >= 0 : fst[s - S] == INT_MAX);
+    count += __popc(__ballot_sync(kFull, f));
   }
-  // the orphans, ascending, after them
-  const int cp = (n + kCoordThreads - 1) / kCoordThreads;
-  const int p0 = min(tid * cp, n), p1 = min(p0 + cp, n);
-  int orphans = 0;
-  for (int p = p0; p < p1; ++p) orphans += first[p] == INT_MAX;
-  int unused;
-  at = walked + block_scan(orphans, sums, &unused);
-  for (int p = p0; p < p1; ++p)
-    if (first[p] == INT_MAX) order[at++] = p;
-  __syncthreads();                       // the order, visible to the block
-  for (int r = tid; r < n; r += kCoordThreads) inv[order[r]] = r;
-  return walked;
+  if (lane == 0) sums[warp] = count;
+  __syncthreads();
+  int at = __reduce_add_sync(kFull, lane < warp ? sums[lane] : 0);
+  const unsigned before = (1u << lane) - 1u;
+#pragma unroll 4
+  for (int it = 0; it < iters; ++it) {
+    const int s = c0 + 32 * it + lane;
+    int p = -1;
+    if (s < c1) p = s < S ? mark[s] : (fst[s - S] == INT_MAX ? s - S : -1);
+    const unsigned ballot = __ballot_sync(kFull, p >= 0);
+    if (p >= 0) {
+      const int r = at + __popc(ballot & before);
+      ord[r] = p;
+      inv[p] = r;
+    }
+    at += __popc(ballot);
+  }
+}
+
+// The top layer's fields held in registers, into shared memory.
+__device__ __forceinline__ void store_prefetch(const long long* pre,
+                                               int n_pre, int* f,
+                                               int below) {
+#pragma unroll
+  for (int m = 0; m < kCoordPrefetch; ++m) {
+    const int e = threadIdx.x + m * kCoordThreads;
+    if (e < n_pre) f[e] = clamp_index(pre[m], below);
+  }
+}
+
+// A level's order and inverse out of shared memory, coalesced.
+__device__ __forceinline__ void write_level(const int* ord, const int* inv,
+                                            int n, int* og, int* ig) {
+  for (int i = threadIdx.x; i < n; i += kCoordThreads) {
+    og[i] = ord[i];
+    ig[i] = inv[i];
+  }
 }
 
 // P2: one block per cloud walks every layer, the last first. Shared
-// memory: 32 ints of scan sums, then one int a point of the widest layer.
+// memory (ints): the scan's counts [32], then the walk's three parts: the
+// levels' arrays (the first positions [2][widest], the orders
+// [2][widest], the inverse [widest]), the marks [longest stream], and the
+// receptive fields of layers L..2 as int32. The first IN_SHARED parts lie
+// there, the others in the cloud's workspace, work + span x cloud.
+//
+// A level walks the stream s = r K + j, r < walked, of the field at row
+// up[r] (the upper level's order), column j; at the top level (K = 1) the
+// last order itself. Each level: (A) the first positions by an atomicMin
+// over the stream, the marks reset, the level above written out; (B) each
+// point that occurs marks its first position, counted by
+// __syncthreads_count (the walk's length); (C) compact_level. Four
+// barriers a level; at the top level, when no point repeats, (B) and (C)
+// give way to the last order itself.
+template <int IN_SHARED>
 __global__ void __launch_bounds__(kCoordThreads)
-coordinate_kernel(const int* __restrict__ last, Layers ly, int layers) {
+coordinate_kernel(const int* __restrict__ last, int* __restrict__ out,
+                  Layers ly, int layers, int widest, int longest,
+                  int* __restrict__ work, long long span) {
   extern __shared__ int smem_coord[];
   int* sums = smem_coord;
-  int* first = smem_coord + 32;
+  int* own = IN_SHARED == 3 ? nullptr : work + span * blockIdx.x;
+  int* first = IN_SHARED >= 1 ? sums + 32 : own;
+  int* ord = first + 2 * widest;
+  int* inv = ord + 2 * widest;
+  int* mark = IN_SHARED == 1 ? own : inv + widest;
+  int* fields = IN_SHARED == 2 ? own : mark + longest;
+  const int tid = threadIdx.x;
   const long long b = blockIdx.x;
   const int top = layers - 1;
   const int n_top = ly.n[top];
-  const Stream st = {last + b * n_top, nullptr, nullptr, 0, 1, n_top};
-  int walked = walk_level(st, n_top, n_top, first, sums,
-                          ly.order[top] + b * n_top, ly.inv[top] + b * n_top);
-  for (int l = top; l >= 1; --l) {       // layer l + 1 walks into layer l
-    const int n = ly.n[l - 1];
-    const Stream down = {nullptr, ly.nbr[l] + b * ly.nbr_bs[l],
-                         ly.order[l] + b * ly.n[l], ly.nbr_rs[l], ly.k[l], n};
-    walked = walk_level(down, walked * ly.k[l], n, first, sums,
-                        ly.order[l - 1] + b * n, ly.inv[l - 1] + b * n);
+  const int v_last = tid < n_top ? last[b * n_top + tid] : 0;
+
+  // the top layer's first fields, held in registers over the top level
+  long long pre[kCoordPrefetch];
+  const int k_top = ly.k[top];
+  const int n_pre =
+      top >= 1 ? min(n_top * k_top, kCoordPrefetch * kCoordThreads) : 0;
+  if (top >= 1) {
+    const long long* nb = ly.nbr[top] + b * ly.nbr_bs[top];
+#pragma unroll
+    for (int m = 0; m < kCoordPrefetch; ++m) {
+      const int e = tid + m * kCoordThreads;
+      if (e < n_pre) {
+        const int i = e / k_top;
+        pre[m] = nb[i * ly.nbr_rs[top] + (e - i * k_top)];
+      }
+    }
   }
+  // the other fields, into their part of the walk
+  for (int l = top; l >= 1; --l) {
+    const int k = ly.k[l], below = ly.n[l - 1];
+    const long long* nb = ly.nbr[l] + b * ly.nbr_bs[l];
+    int* f = fields + ly.field[l];
+    const int count = ly.n[l] * k;
+#pragma unroll 4
+    for (int e = tid + (l == top ? n_pre : 0); e < count;
+         e += kCoordThreads) {
+      const int i = e / k;
+      f[e] = clamp_index(nb[i * ly.nbr_rs[l] + (e - i * k)], below);
+    }
+  }
+  // the top level's stream, the last order, where its upper order would be
+  int* up = ord + ((top + 1) & 1) * widest;
+  for (int s = tid; s < n_top; s += kCoordThreads) {
+    up[s] = clamp_index(s == tid ? v_last : last[b * n_top + s], n_top);
+    first[(top & 1) * widest + s] = INT_MAX;
+  }
+  __syncthreads();
+  int walked = n_top;
+  for (int t = top; t >= 0; --t) {
+    const int n = ly.n[t];
+    int* fst = first + (t & 1) * widest;
+    int* mine = ord + (t & 1) * widest;
+    // (A) s = tid + T m, as row r and column j, stepped without division
+    const int above = min(t + 1, top);
+    const int k = t == top ? 1 : ly.k[above];
+    const int* f = t == top ? up : fields + ly.field[above];
+    const int S = walked * k;
+    const int dr = kCoordThreads / k, dj = kCoordThreads - dr * k;
+    int r = tid / k, j = tid - r * k;
+    bool repeat = false;                 // at the top: a point met twice
+#pragma unroll 4
+    for (int s = tid; s < S; s += kCoordThreads) {
+      const int p = t == top ? f[s] : f[up[r] * k + j];
+      if (t == top)
+        repeat |= atomicMin(&fst[p], s) != INT_MAX;
+      else
+        atomicMin(&fst[p], s);         // no return: a reduction
+      mark[s] = -1;
+      r += dr;
+      j += dj;
+      if (j >= k) {
+        j -= k;
+        ++r;
+      }
+    }
+    if (t > 0) {
+      int* next = first + ((t - 1) & 1) * widest;
+      for (int p = tid; p < ly.n[t - 1]; p += kCoordThreads) next[p] = INT_MAX;
+    }
+    if (t < top) {
+      int* og = out + ly.at[t + 1] + b * ly.n[t + 1];
+      write_level(up, inv, ly.n[t + 1], og, og + ly.inv);
+    }
+    if (__syncthreads_or(repeat) == 0 && t == top) {
+      // the last order names each point once: it is the top level's
+      // order, whole, and no mark or compaction is needed
+      for (int s = tid; s < n_top; s += kCoordThreads) inv[up[s]] = s;
+      if (top >= 1) store_prefetch(pre, n_pre, fields + ly.field[top],
+                                   ly.n[top - 1]);
+      __syncthreads();
+      continue;
+    }
+    // (B) the marks; the points that occur are the next level's rows
+    int occurs = 0;
+    for (int base = 0; base < n; base += kCoordThreads) {
+      const int p = base + tid;
+      const int v = p < n ? fst[p] : INT_MAX;
+      if (v != INT_MAX) mark[v] = p;
+      occurs += __syncthreads_count(v != INT_MAX);
+    }
+    // (C)
+    compact_level(mark, S, n, fst, sums, mine, inv);
+    if (t == top && top >= 1)
+      store_prefetch(pre, n_pre, fields + ly.field[top], ly.n[top - 1]);
+    walked = occurs;
+    up = mine;
+    __syncthreads();
+  }
+  int* og = out + ly.at[0] + b * ly.n[0];
+  write_level(up, inv, ly.n[0], og, og + ly.inv);
+}
+
+// One P2 launch's arguments, and the launch at `smem` ints of shared
+// memory.
+struct Launch {
+  const int* last;
+  int* out;
+  const Layers* ly;
+  int layers, widest, longest;
+  int* work;
+  int span, batch;
+  cudaStream_t stream;
+};
+
+template <int IN_SHARED>
+int launch_coordinate(const Launch& a, long long smem) {
+  smem *= static_cast<long long>(sizeof(int));
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        coordinate_kernel<IN_SHARED>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  coordinate_kernel<IN_SHARED><<<a.batch, kCoordThreads,
+                                 static_cast<size_t>(smem), a.stream>>>(
+      a.last, a.out, *a.ly, a.layers, a.widest, a.longest, a.work, a.span);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -261,72 +547,82 @@ coordinate_kernel(const int* __restrict__ last, Layers ly, int layers) {
 extern "C" {
 
 // P1: order (batch, n) int32, the greedy chain of each cloud of points
-// (batch, n, 3) float32 from index `start`; `threads` a block (a multiple
-// of 32, at most 256), `per` points a thread (1, 2, 4 or 8; threads * per
-// >= n). Returns the cudaError_t of the launch (0 on success).
+// (batch, n, 3) float32 from index `start`; `threads` a block: 32 runs one
+// warp a cloud (n <= 256), a larger multiple of 32 up to 256 the block
+// design; `per` points a thread (1, 2, 4 or 8; threads * per >= n).
+// Returns the cudaError_t of the launch (0 on success).
 int plan_greedy(const void* points, void* order, int batch, int n, int start,
                 int threads, int per, void* stream) {
-  if (batch < 1 || n < 1 || n > kGreedyThreads * 8 || start < 0 ||
-      start >= n || threads < 32 || threads > kGreedyThreads ||
-      threads % 32 != 0 || threads * per < n)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(n) * sizeof(float4) +
-                      2 * 32 * sizeof(uint2);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* p = static_cast<const float*>(points);
-  auto* o = static_cast<int*>(order);
-  switch (per) {
-    case 1: greedy_kernel<1><<<batch, threads, smem, st>>>(p, o, n, start);
-      break;
-    case 2: greedy_kernel<2><<<batch, threads, smem, st>>>(p, o, n, start);
-      break;
-    case 4: greedy_kernel<4><<<batch, threads, smem, st>>>(p, o, n, start);
-      break;
-    case 8: greedy_kernel<8><<<batch, threads, smem, st>>>(p, o, n, start);
-      break;
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_greedy<false>(points, order, batch, n, start, threads, per,
+                              stream);
 }
 
-// P2: for each of `layers` layers l (layer l + 1), order[l] and inv[l]
-// (batch, n_l) int32, the completed coordinated order and its inverse,
-// from `last` (batch, n_top) int32 and the receptive fields nbr[l] (int64;
-// layer 1's is never read). dims holds 4 x layers int64: the point counts,
-// K, and the neighbor tensors' cloud and row strides. Returns the
-// cudaError_t of the launch.
-int plan_coordinate(const void* last, const void* const* nbr,
-                    void* const* order, void* const* inv,
-                    const long long* dims, int batch, int layers,
+// A measurement, not part of the library's interface: plan_greedy's
+// one-warp launch (threads 32) with the distance arithmetic left out, so a
+// step is the chain of reductions and the center's broadcast alone. Its
+// orders mean nothing. chip_smoke.py binds it for chain_us_per_step.
+int plan_greedy_chain(const void* points, void* order, int batch, int n,
+                      int start, int threads, int per, void* stream) {
+  return launch_greedy<true>(points, order, batch, n, start, threads, per,
+                             stream);
+}
+
+// P2: for each of `layers` layers l (layer l + 1), the completed
+// coordinated order and its inverse, (batch, n_l) int32 each, into `out`:
+// every layer's order, layer 1 first, then every layer's inverse. From
+// `last` (batch, n_top) int32 and the receptive fields. `args` holds 5 x
+// layers int64: the neighbor tensors' addresses (int64; layer 1's is never
+// read), the point counts, K, and the neighbor tensors' cloud and row
+// strides. The walk's three parts are 5 widest, the longest stream and
+// the fields of layers 2..L, int32; `span`, the ints a cloud of them that
+// lie in `work` (batch spans), names which: 0 (work may be null), none;
+// the fields'; the marks' and the fields'; or all three parts'. Any other
+// span is refused. Returns the cudaError_t of the launch.
+int plan_coordinate(const void* last, void* out, const long long* args,
+                    void* work, int batch, int layers, int span,
                     void* stream) {
   if (batch < 1 || layers < 1 || layers > kMaxLayers)
     return static_cast<int>(cudaErrorInvalidValue);
   Layers ly = {};
-  int widest = 0;
+  long long widest = 0, fields = 0, at = 0;
   for (int l = 0; l < layers; ++l) {
-    ly.nbr[l] = static_cast<const long long*>(nbr[l]);
-    ly.order[l] = static_cast<int*>(order[l]);
-    ly.inv[l] = static_cast<int*>(inv[l]);
-    if (dims[l] < 1 || dims[l] > INT_MAX || dims[layers + l] < 1 ||
-        dims[l] * dims[layers + l] > INT_MAX)
+    const long long n = args[layers + l], k = args[2 * layers + l];
+    if (n < 1 || n > INT_MAX || k < 1 || n * k > INT_MAX)
       return static_cast<int>(cudaErrorInvalidValue);
-    ly.n[l] = static_cast<int>(dims[l]);
-    ly.k[l] = static_cast<int>(dims[layers + l]);
-    ly.nbr_bs[l] = dims[2 * layers + l];
-    ly.nbr_rs[l] = dims[3 * layers + l];
-    widest = ly.n[l] > widest ? ly.n[l] : widest;
+    ly.nbr[l] = reinterpret_cast<const long long*>(
+        static_cast<uintptr_t>(args[l]));
+    ly.n[l] = static_cast<int>(n);
+    ly.k[l] = static_cast<int>(k);
+    ly.nbr_bs[l] = args[3 * layers + l];
+    ly.nbr_rs[l] = args[4 * layers + l];
+    ly.at[l] = at;
+    at += batch * n;
+    if (l >= 1) {
+      ly.field[l] = static_cast<int>(fields);
+      fields += n * k;
+    }
+    widest = n > widest ? n : widest;
   }
-  const size_t smem = (32 + static_cast<size_t>(widest)) * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        coordinate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  ly.inv = at;
+  // the longest stream a level walks: the last order, or all the rows of
+  // a layer's fields
+  long long longest = ly.n[layers - 1];
+  for (int l = 1; l < layers; ++l) {
+    const long long walk = static_cast<long long>(ly.n[l]) * ly.k[l];
+    longest = walk > longest ? walk : longest;
   }
-  coordinate_kernel<<<batch, kCoordThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(last), ly, layers);
-  return static_cast<int>(cudaGetLastError());
+  const long long levels = 5 * widest, all = levels + longest + fields;
+  if (all > INT_MAX || (span != 0 && work == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Launch a = {static_cast<const int*>(last), static_cast<int*>(out),
+                    &ly, layers, static_cast<int>(widest),
+                    static_cast<int>(longest), static_cast<int*>(work), span,
+                    batch, static_cast<cudaStream_t>(stream)};
+  if (span == 0) return launch_coordinate<3>(a, 32 + all);
+  if (span == fields) return launch_coordinate<2>(a, 32 + levels + longest);
+  if (span == longest + fields) return launch_coordinate<1>(a, 32 + levels);
+  if (span == all) return launch_coordinate<0>(a, 32);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

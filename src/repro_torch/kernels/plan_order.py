@@ -9,12 +9,14 @@ is one hand-written kernel launch for a whole batch of clouds:
 
 - :func:`plan_greedy` (P1): points ``(B, n, 3)`` float32 -> int32
   ``(B, n)``, the greedy nearest-neighbour chain from row ``start``; one
-  block per cloud, the points in registers, the ``n x n`` distance matrix
-  never built;
+  warp per cloud up to :data:`GREEDY_WARP_POINTS` points, one block past
+  that, the points in registers, the ``n x n`` distance matrix never
+  built;
 - :func:`plan_coordinate` (P2): the last layer's order ``(B, n_L)`` and
   the receptive fields ``neighbors[k-1]`` ``(B, n_k, K_k)`` of layers
   k = 1..L -> per layer the completed int32 order ``(B, n_k)`` and its
-  inverse; one block per cloud walks every layer.
+  inverse; one block per cloud walks every layer in shared memory (in a
+  device-memory workspace where the walk does not fit there).
 
 The coordination walk is computed level by level, without recursion:
 layer L's partial order is the first-occurrence order of the last-layer
@@ -32,6 +34,7 @@ launches, one per call of a wrapper that reached its kernel.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -41,7 +44,8 @@ from . import _build
 from .record import launch_site
 
 __all__ = ["GREEDY_MAX_POINTS", "GREEDY_PER_THREAD", "GREEDY_THREADS",
-           "LAUNCHES", "device_complete", "device_inverse",
+           "GREEDY_WARP_POINTS", "LAUNCHES", "coordinate_smem_bytes",
+           "coordinate_workspace", "device_complete", "device_inverse",
            "greedy_launch", "plan_coordinate", "plan_coordinate_cuda",
            "plan_coordinate_plain", "plan_greedy", "plan_greedy_cuda",
            "plan_greedy_plain"]
@@ -54,15 +58,19 @@ LAUNCHES = {"plan_greedy": 0, "plan_coordinate": 0}
 GREEDY_MAX_POINTS = 2048
 
 #: P1's threads a block at most, and the points a thread may hold (the
-#: kernel's instantiations, ``GREEDY_PER`` in ``csrc/plan.cu``).
+#: kernels' instantiations in ``csrc/plan.cu``).
 GREEDY_THREADS = 256
 GREEDY_PER_THREAD = (1, 2, 4, 8)
+
+#: The most points one warp runs a cloud of (32 lanes x 8 points): the
+#: one-warp chain, with no barrier; past it a block of up to
+#: :data:`GREEDY_THREADS` threads.
+GREEDY_WARP_POINTS = 32 * GREEDY_PER_THREAD[-1]
 
 #: The most layers one P2 launch walks.
 COORD_MAX_LAYERS = 8
 
-#: Shared memory a block may have on the H100, in bytes (P2 keeps one int
-#: per point of the widest layer there).
+#: Shared memory a block may have on the H100, in bytes.
 _MAX_SMEM_BYTES = 232448
 
 
@@ -70,14 +78,21 @@ def _bind(lib):
     """Type P1's and P2's entries in ``lib`` (:func:`_lib`'s library, or a
     stand-in in the tests)."""
     _build.bind(lib, "plan_greedy", 2, 5)
-    f = lib.plan_coordinate
-    f.restype = ctypes.c_int
-    # the last order; host arrays of the layers' neighbor, order and
-    # inverse pointers and of their sizes, K and neighbor strides; batch,
-    # layers, stream
-    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
+    # the last order, the output, a host array of the layers' neighbor
+    # addresses, sizes, K and strides, the workspace; batch, layers, the
+    # workspace's int32 a cloud
+    _build.bind(lib, "plan_coordinate", 4, 3)
     return lib
+
+
+def _on_device(t):
+    """``torch.cuda.device`` of ``t``'s card where another card is
+    current, else a context that does nothing (``torch.cuda.device`` itself
+    is a large part of a P1 or P2 launch's host time)."""
+    index = t.device.index
+    if index is None or index == torch._C._cuda_getDevice():
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
 
 
 @functools.cache
@@ -89,14 +104,17 @@ def _lib():
 # P1: the greedy order
 # ---------------------------------------------------------------------------
 
+@functools.cache
 def greedy_launch(n: int) -> tuple[int, int]:
     """P1's block for clouds of ``n`` points: ``(threads, points a
-    thread)``, the fewest threads (a multiple of 32, at most
-    :data:`GREEDY_THREADS`) and then the fewest points a thread."""
+    thread)``. One warp (32 threads) up to :data:`GREEDY_WARP_POINTS`
+    points; past that the fewest threads (a multiple of 32, at most
+    :data:`GREEDY_THREADS`); then the fewest points a thread."""
     if not 1 <= n <= GREEDY_MAX_POINTS:
         raise ValueError(f"plan_greedy takes 1 to {GREEDY_MAX_POINTS} "
                          f"points a cloud; got {n}")
-    threads = min(GREEDY_THREADS, -(-n // 32) * 32)
+    threads = (32 if n <= GREEDY_WARP_POINTS
+               else min(GREEDY_THREADS, -(-n // 32) * 32))
     per = next(p for p in GREEDY_PER_THREAD if threads * p >= n)
     return threads, per
 
@@ -147,7 +165,7 @@ def plan_greedy_cuda(points, start: int = 0):
     if out.numel() == 0:
         return out
     threads, per = greedy_launch(n)
-    with torch.cuda.device(points.device):
+    with _on_device(points):
         err = _lib().plan_greedy(points.data_ptr(), out.data_ptr(), batch, n,
                                  int(start), threads, per,
                                  _build.stream_of(points))
@@ -251,6 +269,36 @@ def plan_coordinate_plain(neighbors, last_order):
     return orders, [device_inverse(o) for o in orders]
 
 
+def _coordinate_parts(sizes, ks) -> list:
+    """P2's three parts of a cloud's walk, in int32
+    (``csrc/plan.cu::plan_coordinate``): the levels' arrays (two
+    first-position and two order buffers and an inverse of the widest
+    layer), the marks of the longest stream (the last order, or a layer's
+    fields), and the receptive fields of layers 2..L."""
+    fields = [n * k for n, k in zip(sizes[1:], ks[1:])]
+    return [5 * max(sizes), max([sizes[-1], *fields]), sum(fields)]
+
+
+def coordinate_smem_bytes(sizes, ks) -> int:
+    """The shared memory P2 takes for layers of ``sizes`` points and
+    ``ks`` neighbours where all of the walk fits there, in bytes: the
+    scan's counts and the walk's three parts."""
+    return 4 * (32 + sum(_coordinate_parts(sizes, ks)))
+
+
+def coordinate_workspace(sizes, ks) -> int:
+    """The int32 a cloud's walk keeps in device memory: shared memory
+    keeps the longest prefix of the levels' arrays, the marks and the
+    fields that fits, and a workspace, one a cloud, the rest."""
+    parts = _coordinate_parts(sizes, ks)
+    room = _MAX_SMEM_BYTES // 4 - 32
+    for i, part in enumerate(parts):
+        if part > room:
+            return sum(parts[i:])
+        room -= part
+    return 0
+
+
 def plan_coordinate_cuda(neighbors, last_order):
     """Launch P2: int64 (or int32) ``neighbors[k-1]`` ``(B, n_k, K)`` with
     unit stride along K, int32 ``last_order`` ``(B, n_L)``, on one CUDA
@@ -258,51 +306,44 @@ def plan_coordinate_cuda(neighbors, last_order):
     layer."""
     L = len(neighbors)
     batch = last_order.shape[0]
-    dev = last_order.device
     if not 1 <= L <= COORD_MAX_LAYERS:
         raise ValueError(f"plan_coordinate walks 1 to {COORD_MAX_LAYERS} "
                          f"layers; got {L}")
-    sizes = [int(nb.shape[1]) for nb in neighbors]
+    nbrs = [nb if nb.dtype == torch.int64 and nb.stride(2) == 1
+            else nb.to(torch.int64).contiguous() for nb in neighbors]
+    _, sizes, ks = zip(*[nb.shape for nb in nbrs])
+    strides = [nb.stride() for nb in nbrs]
     if min(sizes) < 1:
         raise ValueError(f"plan_coordinate wants layers of 1 point or more; "
                          f"got {sizes}")
-    if 4 * max(sizes) + 256 > _MAX_SMEM_BYTES:
-        raise ValueError(f"plan_coordinate keeps a layer's points in shared "
-                         f"memory; {max(sizes)} points do not fit")
-    nbrs = []
-    for nb in neighbors:
-        if nb.dtype != torch.int64:
-            nb = nb.to(torch.int64)
-        if nb.stride(2) != 1:
-            nb = nb.contiguous()
-        nbrs.append(nb)
-    if max(n * nb.shape[2] for n, nb in zip(sizes, nbrs)) >= 2 ** 31:
+    span = coordinate_workspace(sizes, ks)
+    if max(n * k for n, k in zip(sizes, ks)) >= 2 ** 31 or \
+            sum(_coordinate_parts(sizes, ks)) >= 2 ** 31:
         raise ValueError("a layer's stream is too long for 32-bit positions")
-    last = last_order.to(torch.int32).contiguous()
-    flat = torch.empty(2 * batch * sum(sizes), dtype=torch.int32, device=dev)
-    orders, inverses, at = [], [], 0
-    for n in sizes:
-        orders.append(flat[at:at + batch * n].view(batch, n))
-        at += batch * n
-    for n in sizes:
-        inverses.append(flat[at:at + batch * n].view(batch, n))
-        at += batch * n
-    ptrs = (ctypes.c_void_p * L)(*[nb.data_ptr() for nb in nbrs])
-    outs = (ctypes.c_void_p * L)(*[o.data_ptr() for o in orders])
-    invs = (ctypes.c_void_p * L)(*[i.data_ptr() for i in inverses])
-    ints = (ctypes.c_longlong * (4 * L))(
-        *sizes, *[nb.shape[2] for nb in nbrs],
-        *[nb.stride(0) for nb in nbrs], *[nb.stride(1) for nb in nbrs])
-    with torch.cuda.device(dev):
+    last = last_order
+    if last.dtype != torch.int32 or not last.is_contiguous():
+        last = last.to(torch.int32).contiguous()
+    flat = torch.empty(2 * batch * sum(sizes), dtype=torch.int32,
+                       device=last.device)
+    work = None if span == 0 else torch.empty(
+        batch * span, dtype=torch.int32, device=last.device)
+    args = (ctypes.c_longlong * (5 * L))(
+        *[nb.data_ptr() for nb in nbrs], *sizes, *ks,
+        *[st[0] for st in strides], *[st[1] for st in strides])
+    with _on_device(last):
         err = _lib().plan_coordinate(
-            last.data_ptr(), ctypes.addressof(ptrs), ctypes.addressof(outs),
-            ctypes.addressof(invs), ctypes.addressof(ints), batch, L,
+            last.data_ptr(), flat.data_ptr(), args,
+            None if work is None else work.data_ptr(), batch, L, span,
             _build.stream_of(last))
     if err:
         raise RuntimeError(f"plan_coordinate launch failed: CUDA error "
                            f"{err}")
     LAUNCHES["plan_coordinate"] += 1
-    return orders, inverses
+    parts, at = [], 0
+    for n in sizes + sizes:
+        parts.append(flat.as_strided((batch, n), (n, 1), at))
+        at += batch * n
+    return parts[:L], parts[L:]
 
 
 @launch_site("plan_coordinate", output=lambda r: r[0][0])

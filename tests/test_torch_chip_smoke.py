@@ -387,6 +387,22 @@ def test_oracle_plan_is_the_device_twins_plan(smoke):
                                           want[k - 1])
 
 
+def test_walk_past_shared_memory_is_the_planners_walk(smoke):
+    """The plan phase's walk past shared memory takes P2's device-memory
+    workspace, and the NumPy planner it is held to gives, on the CPU, the
+    plain version's orders."""
+    from repro_torch.kernels import plan_order
+    cfg, nbrs, last = smoke._walk_past_shared_memory()
+    assert plan_order.coordinate_workspace(
+        [nb.shape[1] for nb in nbrs], [nb.shape[2] for nb in nbrs]) > 0
+    orders, _ = plan_order.plan_coordinate_plain(
+        [torch.from_numpy(nb) for nb in nbrs], torch.from_numpy(last))
+    for b in range(last.shape[0]):
+        want = smoke._oracle_walk(cfg, last[b], [nb[b] for nb in nbrs])
+        for o, w in zip(orders, want):
+            np.testing.assert_array_equal(o[b].numpy(), w)
+
+
 def test_served_path_counts_are_the_batched_half(smoke):
     """One served step is one ``batched_forward`` at its batch bucket: the
     batch-1 and batch-8 steps together count what the 'reram-fused' path

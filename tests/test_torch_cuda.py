@@ -567,6 +567,32 @@ def test_plan_greedy_kernel_bitwise(cuda, kind, batch, n, start):
             got[b].cpu().numpy(), tsched.greedy_nn_order(pts[b], start))
 
 
+@pytest.mark.parametrize("kind,batch,n,start", [
+    ("normal", 2, 32, 31), ("normal", 2, 33, 32), ("normal", 2, 256, 255),
+    ("normal", 2, 257, 256), ("normal", 1, 2048, 2047),
+    ("dup", 2, 256, 9), ("nan", 2, 256, 0), ("dup", 2, 1000, 9),
+    ("nan", 2, 1000, 0), ("normal", 3, 200, 199), ("normal", 2, 1000, 999)])
+def test_plan_greedy_one_warp_and_block_boundaries(cuda, kind, batch, n,
+                                                   start):
+    """P1 at the edges of its two designs, bit for bit against the plain
+    version and the NumPy planner: one warp a cloud up to 256 points (32
+    and 33 points, one and two a lane; 256, eight a lane), a block past it
+    (257, 1000, 2048); duplicated and NaN clouds on both; ``start`` the
+    last point a lane or warp holds (lane 31's last register on one warp;
+    on the block at 1000 points, 999 = the last warp's thread 231, its
+    fourth point)."""
+    threads, _ = plan_order.greedy_launch(n)
+    assert (threads == 32) == (n <= plan_order.GREEDY_WARP_POINTS)
+    pts = _cloud_batch(kind, batch, n, seed=n)
+    got = plan_order.plan_greedy_cuda(torch.from_numpy(pts).to(cuda), start)
+    want = plan_order.plan_greedy_plain(torch.from_numpy(pts), start)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    for b in range(batch):
+        np.testing.assert_array_equal(
+            got[b].cpu().numpy(), tsched.greedy_nn_order(pts[b], start))
+
+
 def _walk_inputs(seed, sizes, ks, batch):
     rng = np.random.default_rng(seed)
     below = [2 * sizes[0]] + list(sizes[:-1])
@@ -589,6 +615,117 @@ def test_plan_coordinate_kernel_bitwise(cuda, sizes, ks, batch):
     torch.cuda.synchronize()
     for g, w in zip(got_o + got_i, want_o + want_i):
         assert torch.equal(g.cpu(), w)
+
+
+def _walk_case(case, batch, rng):
+    """Receptive fields ``(B, n_k, K)`` per layer (layer 1's into a layer
+    0 of twice its points) and last orders for the walk's edges."""
+    def fields(n, k, hi):
+        return rng.integers(0, hi, size=(batch, n, k))
+    if case == "k1":                  # one neighbour a row at every layer
+        nbrs = [fields(40, 1, 80), fields(20, 1, 40), fields(10, 1, 20)]
+    elif case == "repeats":           # every row meets a point 3 times
+        nbrs = [fields(64, 8, 128), fields(16, 8, 64)]
+        for nb in nbrs:
+            nb[..., 1] = nb[..., 0]
+            nb[..., -1] = nb[..., 0]
+    elif case == "one_point":         # layer 2's rows all name point 7:
+        nbrs = [fields(50, 4, 100),   # the other 49 of layer 1 orphans
+                np.full((batch, 12, 5), 7)]
+    elif case in ("half", "repeated_last"):  # each walk reaches half
+        nbrs = [fields(64, 8, 128), fields(32, 8, 32), fields(8, 4, 16)]
+    else:                             # "unwalked": layer 3 walks 5 of
+        l2 = fields(20, 6, 30)        # layer 2's 20 rows; the other rows
+        l2[:, 5:] = rng.integers(30, 60, size=(batch, 15, 6))  # name
+        nbrs = [fields(60, 4, 120), l2, fields(7, 3, 5)]   # 30..59 only
+    last = np.stack([rng.permutation(nbrs[-1].shape[1])
+                     for _ in range(batch)]).astype(np.int32)
+    if case == "repeated_last":       # the last order names a point twice
+        last[:, -1] = last[:, 0]      # (and leaves one out: an orphan)
+    return [nb.astype(np.int64) for nb in nbrs], last
+
+
+def _planner_orders(nbrs, last):
+    """The NumPy planner's completed orders of one cloud: the recursive
+    walk (``coordinate_layers``) completed with ``complete_order``."""
+    from repro_torch.core.workload import PointNetWorkload
+    sizes = [nb.shape[0] for nb in nbrs]
+    cfg = PointNetConfig(name="walk", n_points=2 * sizes[0], layers=tuple(
+        SALayerSpec(n_centers=n, n_neighbors=nb.shape[1], in_features=4,
+                    mlp=(4, 4)) for n, nb in zip(sizes, nbrs)))
+    wl = PointNetWorkload(
+        config=cfg, points=[np.zeros((2 * sizes[0], 3))]
+        + [np.zeros((n, 3)) for n in sizes],
+        centers=[None] * (len(sizes) + 1), neighbors=[None] + list(nbrs))
+    plan = tsched.coordinate_layers(wl, last)
+    return [tsched.complete_order(plan.order_of(k), n, k)
+            for k, n in enumerate(sizes, start=1)]
+
+
+@pytest.mark.parametrize("case", ["k1", "repeats", "one_point", "half",
+                                  "unwalked", "repeated_last"])
+@pytest.mark.parametrize("in_shared", [3, 2, 1, 0])
+def test_plan_coordinate_kernel_walk_edges(cuda, monkeypatch, in_shared,
+                                           case):
+    """P2 at the walk's edges, bit for bit against the plain version and
+    the NumPy planner: K = 1; rows that repeat a point; a level where
+    every point but one is an orphan; walks that reach half of the layer
+    below (walked < n_k); rows of a layer that the walk above never
+    reaches, naming points nothing else does (they must stay orphans); a
+    last order that names a point twice (the top level's general path:
+    the others take its shortcut for a last order without repeats). Each
+    with the first ``in_shared`` of the walk's three parts (levels, marks,
+    fields) in shared memory and the rest in the device-memory workspace
+    (shared memory made to look smaller)."""
+    nbrs, last = _walk_case(case, 3, np.random.default_rng(7))
+    sizes = [nb.shape[1] for nb in nbrs]
+    ks = [nb.shape[2] for nb in nbrs]
+    parts = plan_order._coordinate_parts(sizes, ks)
+    monkeypatch.setattr(plan_order, "_MAX_SMEM_BYTES",
+                        4 * (32 + sum(parts[:in_shared])))
+    assert plan_order.coordinate_workspace(sizes, ks) == \
+        sum(parts[in_shared:])
+    t_nbrs = [torch.from_numpy(nb) for nb in nbrs]
+    got_o, got_i = plan_order.plan_coordinate_cuda(
+        [nb.to(cuda) for nb in t_nbrs], torch.from_numpy(last).to(cuda))
+    want_o, want_i = plan_order.plan_coordinate_plain(
+        t_nbrs, torch.from_numpy(last))
+    torch.cuda.synchronize()
+    for g, w in zip(got_o + got_i, want_o + want_i):
+        assert torch.equal(g.cpu(), w)
+    for b in range(last.shape[0]):
+        want = _planner_orders([nb[b] for nb in nbrs], last[b])
+        for g, w in zip(got_o, want):
+            np.testing.assert_array_equal(g[b].cpu().numpy(), w)
+        if case == "one_point":
+            assert got_o[0][b, 0] == 7
+            np.testing.assert_array_equal(
+                got_o[0][b, 1:].cpu().numpy(),
+                np.delete(np.arange(50), 7))
+        if case == "unwalked":
+            assert (got_o[0][b, -30:].cpu().numpy() == np.arange(30, 60)
+                    ).all()
+
+
+@pytest.mark.parametrize("sizes,ks,batch", [
+    ((4096, 1024), (32, 32), 2), ((2048, 1024), (8, 64), 2),
+    ((16384, 4096), (8, 16), 1)])
+def test_plan_coordinate_kernel_past_shared_memory(cuda, sizes, ks, batch):
+    """Walks that do not fit in shared memory, bit for bit against the
+    plain version and the NumPy planner: fields of 32768 entries (the
+    fields in the device-memory workspace), of 65536 (the marks too), and
+    a layer of 16384 points (all of the walk there)."""
+    assert plan_order.coordinate_workspace(sizes, ks) > 0
+    nbrs, last = _walk_inputs(2, sizes, ks, batch)
+    got_o, got_i = plan_order.plan_coordinate_cuda(
+        [nb.to(cuda) for nb in nbrs], last.to(cuda))
+    want_o, want_i = plan_order.plan_coordinate_plain(nbrs, last)
+    torch.cuda.synchronize()
+    for g, w in zip(got_o + got_i, want_o + want_i):
+        assert torch.equal(g.cpu(), w)
+    want = _planner_orders([nb[0].numpy() for nb in nbrs], last[0].numpy())
+    for g, w in zip(got_o, want):
+        np.testing.assert_array_equal(g[0].cpu().numpy(), w)
 
 
 def test_plan_coordinate_kernel_on_the_main_path_geometry(cuda):

@@ -104,12 +104,15 @@ def _min_key(d: np.ndarray) -> np.ndarray:
     return np.where(np.isnan(d), 0, bits + 1)
 
 
-@pytest.mark.parametrize("threads,per", [(32, 1), (64, 2), (256, 8)])
+@pytest.mark.parametrize("threads,per", [(32, 1), (64, 2), (256, 8),
+                                         (32, 8)])
 def test_p1_key_reduction_is_np_argmin(threads, per):
     """NumPy emulation of one P1 step: each thread's first least key over
-    its points (tid + T j), each warp's least key then least index (two
-    REDUX), the slots reduced the same way; removed points keyed as
-    +inf. Equal to ``np.argmin`` of the reference's masked row."""
+    its points (tid + T j; the kernels take it as a tree, which keeps the
+    first), each warp's least key then least index (two REDUX), the slots
+    reduced the same way (one warp, the one-warp kernel: its own two REDUX
+    are the step's); removed points keyed as +inf. Equal to ``np.argmin``
+    of the reference's masked row."""
     rng = np.random.default_rng(threads)
     n = threads * per - 3
     for trial in range(30):
@@ -138,11 +141,71 @@ def test_greedy_launch_shapes():
         assert threads % 32 == 0 and threads <= plan_order.GREEDY_THREADS
         assert per in plan_order.GREEDY_PER_THREAD
         assert threads * per >= n
-    assert plan_order.greedy_launch(128) == (128, 1)
+    assert plan_order.greedy_launch(128) == (32, 4)
     assert plan_order.greedy_launch(2048) == (256, 8)
     for n in (0, 2049):
         with pytest.raises(ValueError, match="points a cloud"):
             plan_order.greedy_launch(n)
+
+
+@pytest.mark.parametrize("n,want", [
+    (1, (32, 1)), (32, (32, 1)), (33, (32, 2)), (64, (32, 2)),
+    (65, (32, 4)), (128, (32, 4)), (129, (32, 8)), (256, (32, 8)),
+    (257, (256, 2)), (300, (256, 2)), (512, (256, 2)), (513, (256, 4)),
+    (1024, (256, 4)), (1025, (256, 8))])
+def test_greedy_launch_one_warp_up_to_256_points(n, want):
+    """One warp a cloud (no barrier) up to ``GREEDY_WARP_POINTS`` points,
+    at the fewest points a lane; past it a block of 256 threads, again at
+    the fewest points a thread."""
+    assert plan_order.GREEDY_WARP_POINTS == 256
+    assert plan_order.greedy_launch(n) == want
+
+
+def test_p2_walks_in_shared_memory_where_it_fits_else_in_device_memory():
+    """P2 keeps the walk in shared memory: its levels' arrays (two
+    first-position and two order buffers and an inverse of the widest
+    layer), the marks of the longest stream, and the walked receptive
+    fields (layers 2..L, int32). The main path's walk and the largest
+    shared-memory walk of the card tests fit; past that, shared memory
+    keeps the longest prefix of those parts that fits and a device-memory
+    workspace the rest, one a cloud; a walk whose positions pass 32 bits
+    is refused before anything is allocated or launched."""
+    assert plan_order.coordinate_smem_bytes((512, 128), (16, 16)) == \
+        4 * (32 + 5 * 512 + 128 * 16 + 128 * 16)
+    assert plan_order.coordinate_smem_bytes(
+        (4096, 1024, 256), (32, 16, 8)) == \
+        4 * (32 + 5 * 4096 + 1024 * 16 + 1024 * 16 + 256 * 8)
+    # one layer: the last order is the only stream
+    assert plan_order.coordinate_smem_bytes((9,), (2,)) == 4 * (32 + 45 + 9)
+    # layer 1's fields are never read: its K does not count
+    assert plan_order.coordinate_smem_bytes((9,), (1000,)) == \
+        plan_order.coordinate_smem_bytes((9,), (1,))
+    for sizes, ks in (((512, 128), (16, 16)), ((4096, 1024, 256),
+                                               (32, 16, 8)), ((9,), (2,))):
+        assert plan_order.coordinate_smem_bytes(sizes, ks) <= \
+            plan_order._MAX_SMEM_BYTES
+        assert plan_order.coordinate_workspace(sizes, ks) == 0
+    # fields of 32768 entries: the fields alone go to device memory
+    assert plan_order.coordinate_workspace((4096, 1024), (32, 32)) == \
+        1024 * 32
+    # fields of 65536: the marks too (5 x 2048 + 65536 fit, + 65536 not)
+    assert plan_order.coordinate_workspace((2048, 1024), (8, 64)) == \
+        2 * 1024 * 64
+    # a layer of 16384 points: its levels pass shared memory, all goes
+    assert plan_order.coordinate_workspace((16384, 4096), (8, 16)) == \
+        5 * 16384 + 2 * 4096 * 16
+    # a single layer past shared memory: its marks, nothing else
+    assert plan_order.coordinate_workspace((10000,), (4,)) == 10000
+    reset_launch_counts()
+    # two layers of fields, each under 2**31 entries, 2**32 together
+    # (views of one row: nothing of that size is allocated)
+    k = 2 ** 15 - 1
+    nbrs = [torch.zeros(1, dtype=torch.int64).expand(1, 2 ** 16, 1)] + [
+        torch.zeros(k, dtype=torch.int64).expand(1, 2 ** 16, k)] * 2
+    with pytest.raises(ValueError, match="32-bit positions"):
+        plan_order.plan_coordinate_cuda(nbrs, torch.zeros(
+            (1, 2 ** 16), dtype=torch.int32))
+    assert launch_counts()["plan_coordinate"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -175,9 +238,14 @@ def test_device_morton_equals_oracle_and_jax(kind, flat_axes):
 def _walk_first_occurrence(neighbors, last_order, threads=None):
     """NumPy emulation of P2: level by level, each layer's order the first
     occurrences of its stream in stream order, then its orphans ascending.
-    With ``threads``, as ``csrc/plan.cu`` computes it: first positions by
-    a running minimum, then chunked exclusive scans (thread t over a
-    contiguous chunk) of the first-occurrence flags and of the orphans."""
+    With ``threads``, as ``csrc/plan.cu`` computes it in a block of that
+    many threads (``ceil(threads / 32)`` warps): first positions by a
+    running minimum over the stream, then one compaction of the range
+    [0, S + n) (position s < S flags the stream entry s at its first
+    position, S + p the orphan p), each warp over its own contiguous span
+    (a multiple of 32 positions), the warps' flag counts scanned, each
+    flag placed at its warp's offset plus the flags before it; the inverse
+    written as each point is placed."""
     L = len(neighbors)
     sizes = [nb.shape[0] for nb in neighbors]
     orders = [None] * L
@@ -191,29 +259,28 @@ def _walk_first_occurrence(neighbors, last_order, threads=None):
         for s, p in enumerate(stream):
             first[p] = min(first[p], s)
         is_first = first[stream] == np.arange(stream.size)
+        orphan = first == np.iinfo(np.int64).max
         if threads is None:
-            walk = stream[is_first]
-            orphans = np.flatnonzero(first == np.iinfo(np.int64).max)
-            order = np.concatenate([walk, orphans])
+            order = np.concatenate([stream[is_first], np.flatnonzero(orphan)])
         else:
-            order = np.empty(n, np.int64)
-            cs = -(-stream.size // threads)
-            cnt = [int(is_first[t * cs:(t + 1) * cs].sum())
-                   for t in range(threads)]
-            at = np.concatenate([[0], np.cumsum(cnt)[:-1]])
-            for t in range(threads):
-                sel = stream[t * cs:(t + 1) * cs][is_first[t * cs:
-                                                           (t + 1) * cs]]
-                order[at[t]:at[t] + sel.size] = sel
-            total = int(sum(cnt))
-            cp = -(-n // threads)
-            orph = first == np.iinfo(np.int64).max
-            cnt2 = [int(orph[t * cp:(t + 1) * cp].sum())
-                    for t in range(threads)]
-            at2 = total + np.concatenate([[0], np.cumsum(cnt2)[:-1]])
-            for t in range(threads):
-                sel = np.flatnonzero(orph[t * cp:(t + 1) * cp]) + t * cp
-                order[at2[t]:at2[t] + sel.size] = sel
+            warps = -(-threads // 32)
+            flags = np.concatenate([is_first, orphan])
+            points = np.concatenate([stream, np.arange(n)])
+            r = flags.size
+            span = -(-r // (32 * warps)) * 32
+            bounds = [(min(w * span, r), min(w * span + span, r))
+                      for w in range(warps)]
+            counts = [int(flags[a:b].sum()) for a, b in bounds]
+            at = np.concatenate([[0], np.cumsum(counts)[:-1]])
+            order = np.full(n, -1, np.int64)
+            inverse = np.full(n, -1, np.int64)
+            for (a, b), base in zip(bounds, at):
+                for pos in range(a, b):
+                    if flags[pos]:
+                        order[base] = points[pos]
+                        inverse[points[pos]] = base
+                        base += 1
+            assert np.array_equal(inverse[order], np.arange(n))
         walked = int(is_first.sum())
         orders[level] = order
     return orders
@@ -252,7 +319,7 @@ STRUCTURES = {
 
 
 @pytest.mark.parametrize("name", sorted(STRUCTURES))
-@pytest.mark.parametrize("threads", [None, 1, 4, 1024])
+@pytest.mark.parametrize("threads", [None, 1, 4, 64, 512, 1024])
 def test_p2_first_occurrence_walk_equals_the_recursion(name, threads):
     """P2's decomposition, emulated in NumPy, against
     ``coordinate_layers``'s recursion (port and reference) completed with
@@ -407,6 +474,8 @@ def test_plan_bindings_match_the_c_signatures():
     """P1's and P2's ctypes types follow ``csrc/plan.cu``'s C signatures
     (a mismatch shows only on the card)."""
     import ctypes
+    import importlib.util
+    import pathlib
     import re
     import types
     from repro_torch.kernels import _build
@@ -414,9 +483,20 @@ def test_plan_bindings_match_the_c_signatures():
     want = {"ptr": ctypes.c_void_p, "i64": ctypes.c_longlong,
             "int": ctypes.c_int}
     lib = types.SimpleNamespace(plan_greedy=types.SimpleNamespace(),
-                                plan_coordinate=types.SimpleNamespace())
+                                plan_coordinate=types.SimpleNamespace(),
+                                plan_greedy_chain=types.SimpleNamespace())
     plan_order._bind(lib)
-    for fn in ("plan_greedy", "plan_coordinate"):
+    # the chain floor's entry, which only chip_smoke.py binds
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    smoke._bind_greedy_chain(lib)
+    entries = re.findall(r"^int (\w+)\(", src[src.index('extern "C"'):],
+                         flags=re.M)
+    assert sorted(entries) == ["plan_coordinate", "plan_greedy",
+                               "plan_greedy_chain"]
+    for fn in entries:
         sig = re.search(rf"\bint {fn}\(([^)]*)\)", src)
         kinds = ["ptr" if "*" in a else "i64" if "long long" in a else "int"
                  for a in sig.group(1).split(",")]
