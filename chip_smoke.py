@@ -229,7 +229,11 @@ and batch size. Phases, each printing one JSON line:
    as 16 rank
    slices through the sharded step's tensor-parallel Functions
    (``launch/tp.py``), forward and backward, against the unsplit layer:
-   the output and every gradient within ``DIST_EMU_BOUND``. (e) (a)'s
+   the output and every gradient within ``DIST_EMU_BOUND``; and the split
+   layer again with the reference's boundary cut over 'model'
+   (``lm._layer(..., cut=)``, checkpointed: its input held as the 16 ranks'
+   d_model slices, joined inside), bit for bit the uncut split layer, the
+   checkpoint's input bytes a rank printed beside the whole's. (e) (a)'s
    qwen1.5-4b at tp 1 through the sharded prefill and decode step
    (``make_prefill`` / ``make_serve_step(..., mesh=)``, the weights placed
    by ``param_pspecs``, the cache by ``cache_pspecs``): the prefill of 4 x
@@ -5078,6 +5082,21 @@ def _dist_tp_split() -> dict:
             out[name] = call()
             ms[name] = _wall_ms(call, n=2)
         (y0, g0), (y1, g1) = out.pop("unsplit"), out.pop("tp16")
+        boundary = _dist_boundary_cut(call_layer, blk, subs, cfg, tp, x,
+                                      leaves, g, y1, g1)
+        # the model cuts the scanned layers' inputs; vlm's crossed layers
+        # and the hybrid's shared block read the whole (here the
+        # Functions alone are checked on them)
+        boundary["model_cuts"] = kind not in ("crossed", "shared")
+        print(f"distributed (d) {arch}/{kind}: checkpointed input bytes a "
+              f"rank {boundary['whole_input_bytes']} whole, "
+              f"{boundary['cut_input_bytes_per_rank']} cut over 'model' "
+              f"(tp {DIST_TP}; a site the model cuts: "
+              f"{boundary['model_cuts']}); cut layer bit for bit the "
+              f"uncut: {boundary['bitwise']}", flush=True)
+        check(boundary["bitwise"],
+              f"distributed: {arch} {kind} tp 16 with its boundary cut "
+              f"differs from the uncut split layer")
 
         def rel(a, b):
             a, b = a.detach().float(), b.detach().float()
@@ -5100,11 +5119,43 @@ def _dist_tp_split() -> dict:
                                                       eff_kv],
             "d_ff": cfg.d_ff, "batch": DIST_EMU_BATCH, "seq": DIST_EMU_SEQ,
             "bound": DIST_EMU_BOUND, "worst": [worst, errs[worst]],
-            "err_over_max": errs,
+            "err_over_max": errs, "boundary_cut": boundary,
             **{f"{k}_fwd_bwd_ms_median": statistics.median(v)
                for k, v in ms.items()},
             "fwd_bwd_ms": ms}
     return rows
+
+
+def _dist_boundary_cut(call_layer, blk, subs, cfg, tp, x, leaves, g, y1,
+                       g1) -> dict:
+    """(d)'s layer split 16 ways with the reference's boundary cut over
+    'model' (``lm._layer(..., cut=tp)``, checkpointed as ``cfg.remat``
+    runs it: the input held as the 16 ranks' d_model slices, joined whole
+    inside the checkpoint): the output ``y1`` and gradients ``g1`` of the
+    same split layer uncut bit for bit, and the bytes the checkpoint keeps
+    as its input, a rank's slice against the whole input the uncut layer
+    keeps."""
+    from repro_torch.models import lm
+    kept, real = [], lm.checkpoint
+
+    def keep(fn, p, h, **kw):
+        kept.append(h)
+        return real(fn, p, h, **kw)
+    p = dict(blk, **{s: lm.tp_sub_params(blk[s], cfg, tp, s) for s in subs})
+    lm.checkpoint = keep
+    try:
+        y = lm._layer(lambda q, h: (call_layer(q, h),), p, None, "", True, x,
+                      tp)[0]
+        grads = torch.autograd.grad(y, leaves, g, materialize_grads=True)
+    finally:
+        lm.checkpoint = real
+    (h,) = kept
+    bitwise = torch.equal(y, y1) and all(
+        torch.equal(a, b) for a, b in zip(grads, g1))
+    return {"bitwise": bitwise, "kept_shape": list(h.shape),
+            "cut_input_bytes_per_rank": h.untyped_storage().nbytes()
+            // tp.n,
+            "whole_input_bytes": x.untyped_storage().nbytes()}
 
 
 def _dist_replicas(params2, cfg2) -> dict:

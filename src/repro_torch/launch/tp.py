@@ -16,6 +16,11 @@ rank-local and replicated values:
 - :class:`_GatherOut` (a column-parallel output a replicated consumer
   reads): forward the ranks' columns joined, backward each rank's columns
   of the gradient;
+- :class:`_Cut` (its converse: a replicated block-boundary activation held
+  as the ranks' slices of d_model, the reference's ``_shard_batch`` cut
+  over 'model', which :class:`_GatherOut` joins where a block reads it):
+  forward each rank's slice, in a storage of its own, backward the ranks'
+  slices of the gradient joined;
 - :class:`_ReduceAll` (a sum over the ranks that each rank's own part
   reads: Mamba2's gated norm over the whole ``d_inner``): forward the sum,
   backward the sum of the ranks' gradients.
@@ -135,6 +140,14 @@ class TensorParallel:
         columns (:class:`_GatherOut`)."""
         return _GatherOut.apply(y, self)
 
+    def cut(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated ``x`` ``(..., D)`` held as this process's ranks'
+        slices of its last dim ``(n, ..., D/tp)`` (:meth:`split`'s layout,
+        a copy: no view keeps the whole alive); the gradient the ranks'
+        slices joined over 'model' (:class:`_Cut`). :meth:`gather_out`
+        joins it again."""
+        return _Cut.apply(x, self)
+
     def split(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """A whole ``t`` cut in ``tp`` equal chunks along ``dim``: this
         process's ranks' chunks on a new leading axis."""
@@ -210,6 +223,25 @@ class _GatherOut(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.tp.split(grad, grad.ndim - 1), None
+
+
+class _Cut(torch.autograd.Function):
+    """:class:`_GatherOut`'s converse, a replicated value cut: forward each
+    rank's slice of the last dim, backward the ranks' slices of the
+    gradient joined (an all-gather over 'model'). Exact where the gradient
+    that reaches the whole is the same on every rank (a block-boundary
+    activation: the residual path is replicated, and :class:`_CopyIn`
+    sums the ranks' gradients), so each rank's slice of it is its part of
+    that one gradient; nothing is summed either way."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.split(x, x.ndim - 1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.tp.join(grad, -1), None
 
 
 # ---------------------------------------------------------------------------
@@ -495,8 +527,11 @@ class EmulatedTP:
     """A 'model' axis of ``tp`` ranks emulated in one process over whole
     parameters (``lm.loss_fn(..., par=)``): the sub-blocks that ``blocks``
     names (``launch.sharding.gather_plan``'s) in the TP form of all ``tp``
-    ranks, through the sharded step's code, every other leaf as it is. The
-    unsharded step in the sharded step's tensor-parallel arithmetic."""
+    ranks, through the sharded step's code, every other leaf as it is; the
+    block-boundary activations cut over the ``tp`` ranks where the sharded
+    step cuts them (``lm._boundary_tp``), as every rank's slice ``(tp, B,
+    S, D/tp)``. The unsharded step in the sharded step's tensor-parallel
+    arithmetic."""
 
     def __init__(self, cfg, blocks: dict, tp: int):
         self.cfg, self.blocks = cfg, blocks

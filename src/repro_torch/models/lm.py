@@ -71,9 +71,25 @@ it, :func:`arrange_leaf`, so that no arranged copy is kept for the
 backward).
 Where a block's weights are not all 'model'-sharded (under the rules'
 floor, and every leaf at ``reduced()``), the block computes whole on every
-rank; the reference's ``_shard_batch`` changes where values sit, never
-what they are. :func:`tp_block_params` makes a whole block's TP form for a
+rank. :func:`tp_block_params` makes a whole block's TP form for a
 one-process emulation of the ranks.
+
+The reference's ``_shard_batch`` cut of the block-boundary activations
+over 'model' (Megatron sequence-parallel style) is the port's too, under
+the reference's condition (:func:`_boundary_tp`: ``cfg.batch_axes`` set,
+``par`` a 'model' axis of more than one rank, ``d_model`` a multiple of
+its size): the input of each layer the reference scans (the dense, moe
+and audio blocks, vlm's plain layers, the hybrid's Mamba2 layers, RWKV6's
+blocks; the first one's the embedding's output, padded to the chunk in
+the state-space families) is held as the rank's d_model slice
+(``TensorParallel.cut``, in a storage of its own) and joined whole inside
+:func:`_layer` before the block (``gather_out``). So a layer checkpointed
+under ``cfg.remat`` keeps the slice as its input, and its recompute joins
+again. ``decode_step`` cuts the embedding's output and joins it for its
+first block. vlm's crossed layers, the hybrid's shared block, the head
+and every cache write read the whole. Neither direction sums anything, so
+no value changes; in the one-process emulation (``launch.tp.EmulatedTP``)
+the boundary is every rank's slice, ``(tp, B, S, D/tp)``.
 
 ``prefill`` and ``decode_step`` take ``par`` too: the sharded prefill and
 decode step's forward-only ``ParamShards`` (``launch/serve.py``), each rank
@@ -940,21 +956,41 @@ def _remat(cfg) -> bool:
     return bool(cfg.remat) and torch.is_grad_enabled()
 
 
-def _layer(fn, blk, par, path: str, remat: bool, *args):
-    """``fn(blk, *args)`` with ``blk`` (one layer's slices) gathered as its
-    block computes on it (:func:`_at`) inside the call. With ``remat``, the
-    reference's ``jax.checkpoint`` of a scanned layer: the call runs under
-    ``torch.utils.checkpoint`` (non-reentrant, no RNG state: no model draws
-    in its forward), which keeps the layer's inputs and recomputes the rest
-    in the backward, the gather included. Its saved-tensor hooks are the
-    innermost, so a sharded step's re-gather hooks (``launch/tp.py``) see
-    none of the layer's tensors: each of its leaves is gathered once in the
-    forward and once in the recompute, which serves the backward."""
-    def run(blk, *args):
-        return fn(_at(par, blk, path), *args)
+def _boundary_tp(cfg, par):
+    """The 'model' axis (``par.tp``, a ``TensorParallel``) over which the
+    reference's ``_shard_batch`` cuts the block-boundary activations'
+    d_model: where ``cfg.batch_axes`` is set (the launch layer pinned the
+    batch), the axis has more than one rank and divides ``d_model``; else
+    None (the boundaries stay whole)."""
+    tp = None if par is None else par.tp
+    if tp is None or tp.tp < 2 or not cfg.batch_axes or cfg.d_model % tp.tp:
+        return None
+    return tp
+
+
+def _layer(fn, blk, par, path: str, remat: bool, x, cut=None):
+    """``fn(blk, x)`` with ``blk`` (one layer's slices) gathered as its
+    block computes on it (:func:`_at`) inside the call. With ``cut``
+    (:func:`_boundary_tp`'s axis), the reference's boundary cut: ``x``
+    enters as the ranks' d_model slices (``cut.cut``) and is joined whole
+    inside the call, before the block (``cut.gather_out``). With ``remat``,
+    the reference's ``jax.checkpoint`` of a scanned layer: the call runs
+    under ``torch.utils.checkpoint`` (non-reentrant, no RNG state: no model
+    draws in its forward), which keeps the layer's inputs (the slices,
+    where cut) and recomputes the rest in the backward, the gather and the
+    join included. Its saved-tensor hooks are the innermost, so a sharded
+    step's re-gather hooks (``launch/tp.py``) see none of the layer's
+    tensors: each of its leaves is gathered once in the forward and once in
+    the recompute, which serves the backward."""
+    def run(blk, x):
+        if cut is not None:
+            x = cut.gather_out(x)
+        return fn(_at(par, blk, path), x)
+    if cut is not None:
+        x = cut.cut(x)
     if not remat:
-        return run(blk, *args)
-    return checkpoint(run, blk, *args, use_reentrant=False,
+        return run(blk, x)
+    return checkpoint(run, blk, x, use_reentrant=False,
                       preserve_rng_state=False)
 
 
@@ -1064,13 +1100,13 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
     s = x.shape[1]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
-    remat = _remat(cfg)
+    remat, cut = _remat(cfg), _boundary_tp(cfg, par)
 
     def block(blk, x):
         return block_apply(blk, cfg, x, positions, rope=rope)
     if cfg.family in ("dense", "moe", "audio"):
         for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
-            x, (k, v) = _layer(block, blk, par, "blocks", remat, x)
+            x, (k, v) = _layer(block, blk, par, "blocks", remat, x, cut)
             if store is not None:
                 _store_rows(store, "k", i, k, par)
                 _store_rows(store, "v", i, v, par)
@@ -1082,7 +1118,7 @@ def _run(p, cfg, x, image_embeds=None, store=None, par=None):
             _unstack(p["plain"], groups), _unstack(p["crossed"], groups))):
         for j, blk in enumerate(_unstack(plain,
                                          cfg.cross_attn_interval - 1)):
-            x, (k, v) = _layer(block, blk, par, "plain", remat, x)
+            x, (k, v) = _layer(block, blk, par, "plain", remat, x, cut)
             if store is not None:
                 _store_rows(store, "k_plain", (gi, j), k, par)
                 _store_rows(store, "v_plain", (gi, j), v, par)
@@ -1107,7 +1143,7 @@ def _run_hybrid(p, cfg, x, store, par=None):
     sp = h.shape[1]
     positions = torch.arange(sp, dtype=torch.int32, device=x.device)
     rope = _rope(cfg, positions, cfg.jdtype)
-    remat = _remat(cfg)
+    remat, cut = _remat(cfg), _boundary_tp(cfg, par)
     n_super, trail = divmod(cfg.n_layers, cfg.attn_interval)
 
     def mamba(blk, h):
@@ -1119,7 +1155,7 @@ def _run_hybrid(p, cfg, x, store, par=None):
         _save(store, keys[1], index, cv, par, tp, cfg, "ssm")
     for gi, group in enumerate(_unstack(p["mamba"], n_super)):
         for j, blk in enumerate(_unstack(group, cfg.attn_interval)):
-            h, st, cv = _layer(mamba, blk, par, "mamba", remat, h)
+            h, st, cv = _layer(mamba, blk, par, "mamba", remat, h, cut)
             if store is not None:
                 save(("ssm", "conv"), (gi, j), st, cv, "mamba")
         h, (k, v) = block_apply(_at(par, p["shared_attn"], "shared_attn"),
@@ -1128,7 +1164,7 @@ def _run_hybrid(p, cfg, x, store, par=None):
             _store_rows(store, "k", gi, k, par)
             _store_rows(store, "v", gi, v, par)
     for t, blk in enumerate(_unstack(p["mamba_trail"], trail)):
-        h, st, cv = _layer(mamba, blk, par, "mamba_trail", remat, h)
+        h, st, cv = _layer(mamba, blk, par, "mamba_trail", remat, h, cut)
         if store is not None:
             save(("ssm_trail", "conv_trail"), t, st, cv, "mamba_trail")
     return h[:, :s]
@@ -1138,13 +1174,13 @@ def _run_rwkv(p, cfg, x, store, par=None):
     """RWKV6's blocks, each checkpointed under :func:`_remat`."""
     s = x.shape[1]
     h = _pad_to(x, rk.CHUNK)
-    remat = _remat(cfg)
+    remat, cut = _remat(cfg), _boundary_tp(cfg, par)
 
     def block(blk, h):
         return _rwkv_layer(blk, cfg, h)
     tp = _block_tp(par, "blocks", "time")
     for i, blk in enumerate(_unstack(p["blocks"], cfg.n_layers)):
-        h, st, lt, lc = _layer(block, blk, par, "blocks", remat, h)
+        h, st, lt, lc = _layer(block, blk, par, "blocks", remat, h, cut)
         if store is not None:
             _save(store, "state", i, st, par, tp, cfg, "rwkv")
             _store(store, "last_t", i, lt, par)
@@ -1313,6 +1349,10 @@ def decode_step(p, cfg, cache, ids1=None, pos=None, *, embeds1=None,
     ``ParamShards``, ``cache`` the rank's shards (module docstring)."""
     _check(cfg)
     x = _embed_in(p, cfg, ids1, embeds1, par)
+    cut = _boundary_tp(cfg, par)
+    if cut is not None:
+        # the reference's boundary at the embedding, whole for the block
+        x = cut.gather_out(cut.cut(x))
     fam = cfg.family
     if fam == "ssm":
         tp = _block_tp(par, "blocks", "time")

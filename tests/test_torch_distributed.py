@@ -82,6 +82,7 @@ Bounds, and why:
   (measured: at most 1.3e-6 in the attention families, 2.0e-5 in rwkv6's
   token-shift rows); each shard's shape the ``cache_pspecs`` cut.
 """
+import contextlib
 import dataclasses
 import math
 import os
@@ -441,6 +442,25 @@ def _routes(fn) -> list:
     return routes
 
 
+@contextlib.contextmanager
+def _kept_inputs(into: list):
+    """Appends to ``into``, per layer that ``cfg.remat`` checkpoints
+    (``lm.checkpoint``'s calls), the activation it keeps as its input: its
+    shape and the bytes of its storage (a view would count the whole it
+    views)."""
+    from repro_torch.models import lm
+    real = lm.checkpoint
+
+    def kept(fn, blk, x, **kw):
+        into.append((tuple(x.shape), x.untyped_storage().nbytes()))
+        return real(fn, blk, x, **kw)
+    lm.checkpoint = kept
+    try:
+        yield
+    finally:
+        lm.checkpoint = real
+
+
 def _gathered_bytes(cfg, params, plans: dict, mesh) -> tuple:
     """``(one layer's, the unstacked leaves')`` bytes that the gathers hand
     the model: each gathered leaf's local slice times the sizes of the mesh
@@ -577,10 +597,11 @@ def _sharded_run(case: str, mesh, mesh4, rank: int,
         cfg, state["params"], plans, mesh)
     res["layers"] = cfg.n_layers
     res["losses"], res["grad_norms"], res["gathers"] = [], [], []
-    routes = []
+    routes, res["kept_inputs"] = [], []
     for i in range(STEPS):
         got = []
-        seen = _routes(lambda: got.append(step(state, batch)[1]))
+        with _kept_inputs(res["kept_inputs"] if i == 0 else []):
+            seen = _routes(lambda: got.append(step(state, batch)[1]))
         routes = routes or seen
         metrics = got[0]
         res["losses"].append(float(metrics["loss"]))
@@ -888,6 +909,31 @@ def test_overlapped_tp_matmul_matches_the_reference(ranks):
 # ---------------------------------------------------------------------------
 # the storage-sharded train step
 # ---------------------------------------------------------------------------
+
+def check_kept_inputs(ranks, case: str) -> None:
+    """``case``'s checkpointed layers (``cfg.remat``), in the first sharded
+    step on every rank: each keeps as its input the rank's slice of the
+    block-boundary activation over 'model' (the reference's
+    ``_shard_batch`` cut), ``(1, B_local, S, D/2)`` in a storage of its
+    own, ``B_local·S·(D/2)·itemsize`` bytes: half the whole that the step
+    kept before the cut. S is the sequence padded to the state-space
+    families' chunk."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.tp import EmulatedTP
+    from repro_torch.models import lm, rwkv, ssm
+    cfg = _sharded_cfg(get_config, case)
+    assert cfg.remat
+    chunk = {"hybrid": ssm.CHUNK, "ssm": rwkv.CHUNK}.get(cfg.family, 1)
+    b, s, d = BATCH // 4, -(-SEQ // chunk) * chunk, cfg.d_model
+    whole = b * s * d * torch.empty((), dtype=cfg.jdtype).element_size()
+    assert lm._boundary_tp(cfg, EmulatedTP(cfg, {}, 2)) is not None
+    for r in ranks["rank"]:
+        kept = r[case]["kept_inputs"]
+        assert len(kept) == cfg.n_layers
+        for shape, nbytes in kept:
+            assert shape == (1, b, s, d // 2)
+            assert 2 * nbytes == whole
+
 
 @pytest.mark.parametrize("case", BASE_CASES)
 def test_sharded_step_losses_match_the_references(ranks, case):

@@ -11,7 +11,9 @@ rank), both with the published ``remat``.
 Its own 8 gloo ranks (:func:`ranks`, ``python tests/test_torch_distributed.py
 RANK 8 DIR ssm``), so that each file's ranks stay well inside
 ``RANK_TIMEOUT``; the checks are that file's, case by case, with its
-bounds (``F32_BOUNDS``), and which blocks compute on 'model' shards.
+bounds (``F32_BOUNDS``), which blocks compute on 'model' shards, and
+that each checkpointed layer keeps as its input the rank's d_model slice
+of the block-boundary activation.
 """
 import pytest
 
@@ -79,3 +81,11 @@ def test_tp_blocks_compute_on_model_shards(ranks):
         for case in CASES:
             assert all(g["kept_copy_bytes"] == 0
                        for g in r[case]["gathers"]), case
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_checkpointed_layers_keep_the_ranks_d_model_slice(ranks, case):
+    """Each checkpointed Mamba2 layer (the groups' and the trail's) and
+    RWKV6 block keeps the rank's half of its padded input's d_model
+    (``td.check_kept_inputs``)."""
+    td.check_kept_inputs(ranks, case)

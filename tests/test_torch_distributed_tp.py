@@ -12,8 +12,11 @@ RANK 8 DIR tp``), so that each file's ranks stay well inside
 bounds (``F32_BOUNDS``), and the checks of what these cases add: which
 blocks compute on 'model' shards, that a checkpointed step gathers each
 gathered leaf exactly twice (its forward and its recompute, which serves
-the backward: no re-gather), and that no weight's copy is kept for the
-backward (but vlm's gates' ``tanh``, 4 bytes a cross layer).
+the backward: no re-gather), that each checkpointed layer keeps as its
+input the rank's d_model slice of the block-boundary activation (the
+reference's ``_shard_batch`` cut over 'model'), and that no weight's copy
+is kept for the backward (but vlm's gates' ``tanh``, 4 bytes a cross
+layer).
 """
 import pytest
 
@@ -101,3 +104,14 @@ def test_checkpointed_step_gathers_each_leaf_twice(ranks):
             kept = 2 * 4 if case == "vlm_tp" else 0
             assert all(g["kept_copy_bytes"] == kept
                        for g in r[case]["gathers"]), case
+
+
+def test_checkpointed_layers_keep_the_ranks_d_model_slice(ranks):
+    """``tp_remat``: each checkpointed layer keeps the rank's half of its
+    input's d_model, ``B_local·S·(D/2)·itemsize`` bytes
+    (``td.check_kept_inputs``); the cases without ``remat`` checkpoint
+    nothing."""
+    td.check_kept_inputs(ranks, "tp_remat")
+    for r in ranks["rank"]:
+        assert r["moe_tp"]["kept_inputs"] == []
+        assert r["vlm_tp"]["kept_inputs"] == []

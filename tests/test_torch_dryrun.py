@@ -25,7 +25,14 @@
   and reduce-scatter bytes the hand count from ``gather_plan`` (each
   gathered leaf all-gathered over 'data' in each layer's forward and again
   for its backward, its gradient reduce-scattered once) and
-  ``step.gather_stats``'s gathered bytes; no default group left behind;
+  ``step.gather_stats``'s gathered bytes, plus the block-boundary
+  activations' all-gathers over 'model' (:func:`_boundary_bytes`); no
+  default group left behind;
+- the boundary cut over 'model' (the reference's ``_shard_batch``): a
+  train cell with its batch pinned against the same cell unpinned, the
+  peak lower by each checkpointed layer's half of its input, the
+  all-gathers higher by three whole boundaries a layer, the operations
+  equal;
 - the meta count's operations equal ``FlopCounterMode``'s on the CPU for
   the same sharded step (the card's equality is ``chip_smoke.py``'s);
 - ``run_cell`` writes the reference's record (``fits_hbm`` for
@@ -393,8 +400,39 @@ def test_gathers_are_the_hand_count_from_gather_plan():
         scattered += local
     assert gathered > 0
     by_op = rec["collectives"]["bytes_by_op"]
-    assert by_op["all-gather"] == gathered == rec["gathers"]["gathered_bytes"]
+    assert gathered == rec["gathers"]["gathered_bytes"]
+    assert by_op["all-gather"] == gathered + 3 * _boundary_bytes(cfg)
     assert by_op["reduce-scatter"] == scattered
+
+
+def _boundary_bytes(cfg) -> int:
+    """A train cell's block-boundary activations, whole, over its layers:
+    ``n_layers`` x the rank's batch x the sequence x d_model."""
+    _, _, seq, batch = TINY["train"]
+    item = torch.empty((), dtype=cfg.jdtype).element_size()
+    return cfg.n_layers * batch // MESH[0] * seq * cfg.d_model * item
+
+
+def test_the_boundary_cut_lowers_the_peak_by_the_boundaries_bytes():
+    """The reference's ``_shard_batch`` cut over 'model' holds where the
+    launch layer pins the batch (``batch_axes``): each checkpointed layer
+    then keeps the rank's half of its input (peak lower by half the
+    boundaries' bytes), and the step all-gathers each boundary three times
+    (the join in the forward and in the recompute, the cut's backward);
+    the operations are the unpinned cell's."""
+    arch = "qwen1.5-0.5b-reduced"
+    cut, whole = _cell(arch, "train"), _cell(arch, "train",
+                                             {"batch_axes": ()})
+    cfg = _cfg(arch, "train")
+    assert cfg.batch_axes and cfg.remat
+    assert not _cfg(arch, "train", {"batch_axes": ()}).batch_axes
+    assert cut["cost"]["flops_per_device"] == \
+        whole["cost"]["flops_per_device"]
+    assert whole["memory"]["peak_memory_in_bytes"] - \
+        cut["memory"]["peak_memory_in_bytes"] == _boundary_bytes(cfg) // 2
+    gathers = cut["collectives"]["bytes_by_op"]["all-gather"]
+    assert gathers - whole["collectives"]["bytes_by_op"]["all-gather"] == \
+        3 * _boundary_bytes(cfg)
 
 
 def test_meta_count_is_the_cpu_count():
